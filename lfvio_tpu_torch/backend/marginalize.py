@@ -1,0 +1,144 @@
+"""Square-root (QR) marginalization producing the window prior.
+
+Port of the QR paths of ``lfvio_tpu.backend.marginalize``
+(MarginalizationInfo::marginalize, marginalization_factor.cpp:174-297):
+the stacked whitened Jacobian rows are column-ordered
+[dropped | kept | residual]; the rows of the R factor below the dropped
+block are the marginal square-root prior on the kept variables. No H = JᵀJ
+is formed, so f32 suffices, and a rank-deficient dropped block (the gauge
+directions) needs no pivot.
+
+R's row signs depend on the QR implementation; every use of the prior goes
+through JᵀJ, Jᵀr and |r|², which do not.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .factors import prior_residual
+from .solver import linearize_imu_rows, linearize_proj_rows
+from .state import PriorFactor, SolverConfig, WindowState, pose_dim, pose_off, sb_off
+
+
+def _drop_keep_old(n_frames: int):
+    """Static column indices for MARGIN_OLD: drop pose0 (6) + speedbias0 (9)."""
+    D = pose_dim(n_frames)
+    drop = np.r_[pose_off(0):pose_off(0) + 6, sb_off(0, n_frames):sb_off(0, n_frames) + 9]
+    keep = np.setdiff1d(np.arange(D), drop)
+    return drop, keep
+
+
+def _scatter_prior(Jk, rk, keep, D):
+    J = torch.zeros((D, D), dtype=Jk.dtype, device=Jk.device)
+    r0 = torch.zeros((D,), dtype=Jk.dtype, device=Jk.device)
+    k = torch.as_tensor(keep, device=Jk.device)
+    J[k[:, None], k[None, :]] = Jk
+    r0[k] = rk
+    return J, r0
+
+
+def _zero_last_slot(J, n_frames):
+    """The refreshed newest slot carries no prior information."""
+    W = n_frames - 1
+    J[:, pose_off(W):pose_off(W) + 6] = 0.0
+    J[:, sb_off(W, n_frames):sb_off(W, n_frames) + 9] = 0.0
+    return J
+
+
+def _slide_perm(n_frames: int, D: int, src_of):
+    """Column permutation for a window slide: new slot k takes old slot
+    src_of(k)'s pose and speed-bias columns; ex + td unchanged."""
+    perm = []
+    for k in range(n_frames):
+        perm.extend(range(pose_off(src_of(k)), pose_off(src_of(k)) + 6))
+    for k in range(n_frames):
+        s = sb_off(src_of(k), n_frames)
+        perm.extend(range(s, s + 9))
+    perm.extend(range(15 * n_frames, D))
+    return perm
+
+
+def marginalize_old_qr(state: WindowState, grid, pre0, sqrt_info_imu0, imu0_valid,
+                       prior: PriorFactor, gravity, cfg: SolverConfig):
+    """MARGIN_OLD: old prior + IMU(0,1) + projection factors anchored at
+    frame 0; drops {pose0, speedbias0, anchored inverse depths}; returns the
+    new PriorFactor re-indexed for the slid window."""
+    n_frames = state.p.shape[0]
+    dtype, dev = state.p.dtype, state.p.device
+    F, W1 = grid.valid.shape
+    D = pose_dim(n_frames)
+
+    grid0 = grid.replace(used=grid.used & (grid.anchor == 0))
+    imu_valid = torch.zeros_like(imu0_valid)
+    imu_valid[0] = imu0_valid[0]
+    res_w, Jfull, J_lam, _, _ = linearize_proj_rows(state, grid0, cfg)
+    imu_res, Jimu, _ = linearize_imu_rows(state, pre0, sqrt_info_imu0, imu_valid, gravity)
+    rp = prior_residual(state, prior)
+    Jp = torch.where(prior.valid, prior.J, torch.zeros_like(prior.J))
+
+    R1 = F * W1 * 2
+    # Depth columns: row (f, j, a) touches depth column f only.
+    dep_rows = (J_lam[..., None] * torch.eye(F, dtype=dtype, device=dev)[:, None, None, :]).reshape(R1, F)
+    A_pose = torch.cat([Jfull.reshape(R1, D), Jimu, Jp], dim=0)
+    A_dep = torch.cat(
+        [dep_rows, torch.zeros((Jimu.shape[0] + D, F), dtype=dtype, device=dev)], dim=0
+    )
+    r = torch.cat([res_w.reshape(R1), imu_res.reshape(-1), rp])
+    drop, keep = _drop_keep_old(n_frames)
+    A = torch.cat(
+        [A_pose[:, torch.as_tensor(drop, device=dev)], A_dep,
+         A_pose[:, torch.as_tensor(keep, device=dev)], r[:, None]], dim=1
+    )
+    m, K = len(drop) + F, len(keep)
+    Rfac = torch.linalg.qr(A, mode="r")[1]
+    Jk = Rfac[m:m + K, m:m + K]
+    rk = Rfac[m:m + K, m + K]
+    ok = torch.isfinite(Jk).all() & torch.isfinite(rk).all()
+    J, r0 = _scatter_prior(torch.where(ok, Jk, 0.0), torch.where(ok, rk, 0.0), keep, D)
+    # Slide old: new slot k = old slot k+1; the last slot's columns are the
+    # (eliminated, zero) frame-0 ones, zeroed explicitly.
+    J = _zero_last_slot(J[:, _slide_perm(n_frames, D, lambda k: (k + 1) % n_frames)], n_frames)
+
+    def roll(a):
+        return torch.cat([a[1:], a[-1:]], dim=0)
+
+    x0 = state.replace(p=roll(state.p), q=roll(state.q), v=roll(state.v),
+                       ba=roll(state.ba), bg=roll(state.bg))
+    return PriorFactor.from_state(J, r0, x0, ok)
+
+
+def marginalize_second_new_qr(state: WindowState, prior: PriorFactor, cfg: SolverConfig):
+    """MARGIN_SECOND_NEW: the prior is the only participating factor
+    (estimator.cpp:949-1005); drop pose[W-1] and re-index for the merge of
+    the second-newest frame. ``valid`` stays False for an empty prior."""
+    n_frames = prior.x0_p.shape[0]
+    D = prior.J.shape[0]
+    dev = prior.J.device
+    rp = prior_residual(state, prior)
+    J0 = torch.where(prior.valid, prior.J, torch.zeros_like(prior.J))
+    drop = np.arange(pose_off(n_frames - 2), pose_off(n_frames - 2) + 6)
+    keep = np.setdiff1d(np.arange(D), drop)
+    K = len(keep)
+    A = torch.cat(
+        [J0[:, torch.as_tensor(drop, device=dev)],
+         J0[:, torch.as_tensor(keep, device=dev)], rp[:, None]], dim=1
+    )
+    Rfac = torch.linalg.qr(A, mode="r")[1]
+    Jk = Rfac[6:6 + K, 6:6 + K]
+    rk = Rfac[6:6 + K, 6 + K]
+    ok = prior.valid & torch.isfinite(Jk).all() & torch.isfinite(rk).all()
+    J, r0 = _scatter_prior(torch.where(ok, Jk, 0.0), torch.where(ok, rk, 0.0), keep, D)
+    # Slide: slots 0..W-2 unchanged; slot W-1 takes slot W's columns.
+    W = n_frames - 1
+    J = _zero_last_slot(J[:, _slide_perm(n_frames, D, lambda k: k if k < W - 1 else W)], n_frames)
+
+    def merge(a):
+        a = a.clone()
+        a[W - 1] = a[W]
+        return a
+
+    x0 = state.replace(p=merge(state.p), q=merge(state.q), v=merge(state.v),
+                       ba=merge(state.ba), bg=merge(state.bg))
+    return PriorFactor.from_state(J, r0, x0, ok)

@@ -1,0 +1,331 @@
+"""Sliding-window bundle adjustment: dense Schur + Levenberg-Marquardt.
+
+Port of ``lfvio_tpu.backend.solver`` (the reference's Ceres DENSE_SCHUR
+solve, estimator.cpp:810-825) for a mono rig:
+
+  1. Per-factor Jacobians by forward-mode autodiff on the tangent
+     perturbation (``torch.func.jacfwd``), vmapped over every observation of
+     the [F, W+1] grid and over the W IMU intervals.
+  2. Dense normal equations in the full local layout: H_pp [D, D],
+     H_pl [D, F] and the diagonal H_ll [F].
+  3. Schur elimination of the inverse depths, one Cholesky of the reduced
+     D×D system (``cholesky_ex``: a non-PD system gives a non-finite step,
+     which LM rejects, as jnp.linalg.cholesky's NaN does).
+  4. LM with accept/reject, linearization reuse after a rejected step and
+     the relative cost-plateau exit, at most ``max_iterations`` iterations
+     (a Python loop in place of the JAX scan/cond).
+"""
+
+from __future__ import annotations
+
+from functools import partial
+
+import torch
+from torch.func import jacfwd, vmap
+
+from ..geom import quat_mul, quat_normalize, so3_exp, tangent_basis
+from ..imu import Preintegration, imu_residual
+from .factors import (
+    anchor_values,
+    cauchy_corrector,
+    imu_residuals_window,
+    prior_residual,
+    projection_residual,
+    projection_residuals_grid,
+    residual_mask,
+)
+from .state import FeatureGrid, PriorFactor, SolverConfig, WindowState, pose_dim
+
+
+def apply_delta(state: WindowState, dx, dlam, cfg: SolverConfig):
+    """Retract the full tangent step onto the state (right-multiplicative
+    quaternion update, cf. PoseLocalParameterization::Plus)."""
+    n = state.p.shape[0]
+    pose = dx[: 6 * n].reshape(n, 6)
+    sb = dx[6 * n : 15 * n].reshape(n, 9)
+    dex = dx[15 * n : 15 * n + 6]
+    if cfg.estimate_extrinsic:
+        tic = state.tic + dex[0:3]
+        qic = quat_normalize(quat_mul(state.qic, so3_exp(dex[3:6])))
+    else:
+        tic, qic = state.tic, state.qic
+    return WindowState(
+        p=state.p + pose[:, 0:3],
+        q=quat_normalize(quat_mul(state.q, so3_exp(pose[:, 3:6]))),
+        v=state.v + sb[:, 0:3],
+        ba=state.ba + sb[:, 3:6],
+        bg=state.bg + sb[:, 6:9],
+        tic=tic,
+        qic=qic,
+        td=state.td + dx[-1] if cfg.estimate_td else state.td,
+        inv_depth=state.inv_depth + dlam,
+    )
+
+
+def _proj_local_residual(d, p_i, q_i, p_j, q_j, tic, qic, inv_dep, td,
+                         pts_i, pts_j, vel_i, vel_j, td_obs_i, td_obs_j, tb,
+                         sqrt_info):
+    """One projection residual as a function of the 26-dim perturbation
+    [δpose_i(6), δpose_j(6), δex_i(6), δex_j(6), δλ(1), δtd(1)]. The anchor-
+    and observation-side extrinsics are perturbed separately; their blocks
+    land in the same columns and add (the total derivative)."""
+    r = projection_residual(
+        p_i + d[0:3], quat_mul(q_i, so3_exp(d[3:6])),
+        p_j + d[6:9], quat_mul(q_j, so3_exp(d[9:12])),
+        tic + d[12:15], quat_mul(qic, so3_exp(d[15:18])),
+        tic + d[18:21], quat_mul(qic, so3_exp(d[21:24])),
+        inv_dep + d[24], td + d[25],
+        pts_i, pts_j, vel_i, vel_j, td_obs_i, td_obs_j, tb, sqrt_info,
+    )
+    return r, r
+
+
+def _imu_local_residual(d, dp, dq, dv, jac, sum_dt, lba, lbg, si,
+                        p0, q0, v0, ba0, bg0, p1, q1, v1, ba1, bg1, gravity):
+    """One whitened IMU residual as a function of the 30-dim perturbation
+    [δpose_i(6), δsb_i(9), δpose_j(6), δsb_j(9)]."""
+    pre = Preintegration(dp, dq, dv, jac, None, sum_dt, lba, lbg)
+    r = imu_residual(
+        pre,
+        p0 + d[0:3], quat_mul(q0, so3_exp(d[3:6])), v0 + d[6:9],
+        ba0 + d[9:12], bg0 + d[12:15],
+        p1 + d[15:18], quat_mul(q1, so3_exp(d[18:21])), v1 + d[21:24],
+        ba1 + d[24:27], bg1 + d[27:30], gravity,
+    )
+    r = si @ r
+    return r, r
+
+
+def linearize_projection(state: WindowState, grid: FeatureGrid, cfg: SolverConfig):
+    """Residuals and per-factor Jacobians over the whole grid.
+    Returns (res [F,W1,2], J26 [F,W1,2,26], valid [F,W1], w [F,W1,1])."""
+    F, W1 = grid.valid.shape
+    dtype = state.p.dtype
+    p_i, q_i, pts_i, vel_i, td_obs_i = anchor_values(state, grid)
+
+    def per_obs(x, k):  # [F, ...] anchor-side or [W1, ...] frame-side -> [F*W1, ...]
+        x = x[:, None] if k == "f" else x[None]
+        return x.expand(F, W1, *x.shape[2:]).reshape(F * W1, *x.shape[2:])
+
+    args = (
+        per_obs(p_i, "f"), per_obs(q_i, "f"), per_obs(state.p, "w"),
+        per_obs(state.q, "w"), per_obs(state.inv_depth, "f"),
+        per_obs(pts_i, "f"), grid.bearing.reshape(F * W1, 3),
+        per_obs(vel_i, "f"), grid.velocity.reshape(F * W1, 3),
+        per_obs(td_obs_i, "f"), grid.td_obs.reshape(F * W1),
+        tangent_basis(grid.bearing).reshape(F * W1, 2, 3),
+    )
+
+    def fn(d, p_i, q_i, p_j, q_j, lam, pts_i, pts_j, vel_i, vel_j, tdo_i, tdo_j, tb):
+        return _proj_local_residual(
+            d, p_i, q_i, p_j, q_j, state.tic, state.qic, lam, state.td,
+            pts_i, pts_j, vel_i, vel_j, tdo_i, tdo_j, tb, cfg.proj_sqrt_info,
+        )
+
+    zero26 = torch.zeros(26, dtype=dtype, device=state.p.device)
+    J26, res = vmap(jacfwd(fn, has_aux=True), in_dims=(None,) + (0,) * len(args))(
+        zero26, *args
+    )
+    res = res.reshape(F, W1, 2)
+    J26 = J26.reshape(F, W1, 2, 26)
+    valid = residual_mask(grid)
+    res = torch.where(valid[..., None], res, 0.0)
+    J26 = torch.where(valid[..., None, None], J26, 0.0)
+    return res, J26, valid, cauchy_corrector(res, cfg.cauchy_c)
+
+
+def linearize_proj_rows(state: WindowState, grid: FeatureGrid, cfg: SolverConfig):
+    """Whitened, robust-weighted projection rows in the full local layout.
+
+    Returns (res_w [F,W1,2], Jfull [F,W1,2,D], J_lam [F,W1,2], valid [F,W1],
+    cost)."""
+    F, W1 = grid.valid.shape
+    dtype = state.p.dtype
+    res, J26, valid, w = linearize_projection(state, grid, cfg)
+    sq = torch.sum(res * res, dim=-1)
+    c2 = cfg.cauchy_c**2
+    cost = 0.5 * torch.sum(torch.where(valid, c2 * torch.log1p(sq / c2), 0.0))
+    res_w = res * w
+    J26 = J26 * w[..., None]
+
+    J_pi, J_pj = J26[..., 0:6], J26[..., 6:12]
+    J_ex = J26[..., 12:18] + J26[..., 18:24]
+    J_lam, J_td = J26[..., 24], J26[..., 25]
+    if not cfg.estimate_extrinsic:
+        J_ex = torch.zeros_like(J_ex)
+    if not cfg.estimate_td:
+        J_td = torch.zeros_like(J_td)
+
+    onehot = torch.nn.functional.one_hot(grid.anchor, W1).to(dtype)  # [F, W1]
+    eyeW = torch.eye(W1, dtype=dtype, device=state.p.device)
+    Jpose = torch.einsum("fjac,jk->fjakc", J_pj, eyeW) + torch.einsum(
+        "fjac,fk->fjakc", J_pi, onehot
+    )
+    Jfull = torch.cat(
+        [
+            Jpose.reshape(F, W1, 2, 6 * W1),
+            torch.zeros((F, W1, 2, 9 * W1), dtype=dtype, device=state.p.device),
+            J_ex,
+            J_td[..., None],
+        ],
+        dim=-1,
+    )
+    return res_w, Jfull, J_lam, valid, cost
+
+
+def linearize_imu_rows(state: WindowState, pre: Preintegration, sqrt_info_imu,
+                       imu_valid, gravity):
+    """Whitened IMU rows in the full local layout.
+    Returns (imu_res [W,15], Jimu [W*15, D], cost)."""
+    W1 = state.p.shape[0]
+    W = W1 - 1
+    D = pose_dim(W1)
+    dtype, dev = state.p.dtype, state.p.device
+    zero30 = torch.zeros(30, dtype=dtype, device=dev)
+    fn = partial(_imu_local_residual, gravity=gravity)
+    args = (
+        pre.delta_p, pre.delta_q, pre.delta_v, pre.jacobian, pre.sum_dt,
+        pre.linearized_ba, pre.linearized_bg, sqrt_info_imu,
+        state.p[:-1], state.q[:-1], state.v[:-1], state.ba[:-1], state.bg[:-1],
+        state.p[1:], state.q[1:], state.v[1:], state.ba[1:], state.bg[1:],
+    )
+    J30, imu_res = vmap(jacfwd(fn, has_aux=True), in_dims=(None,) + (0,) * len(args))(
+        zero30, *args
+    )
+    imu_res = torch.where(imu_valid[:, None], imu_res, 0.0)
+    J30 = torch.where(imu_valid[:, None, None], J30, 0.0)
+    cost = 0.5 * torch.sum(imu_res * imu_res)
+
+    eyeW = torch.eye(W1, dtype=dtype, device=dev)
+    eye_i, eye_j = eyeW[:W], eyeW[1:]  # interval w -> frames w, w+1
+    Jp = torch.einsum("wrc,wk->wrkc", J30[..., 0:6], eye_i) + torch.einsum(
+        "wrc,wk->wrkc", J30[..., 15:21], eye_j
+    )
+    Jsb = torch.einsum("wrc,wk->wrkc", J30[..., 6:15], eye_i) + torch.einsum(
+        "wrc,wk->wrkc", J30[..., 21:30], eye_j
+    )
+    Jimu = torch.cat(
+        [
+            Jp.reshape(W, 15, 6 * W1),
+            Jsb.reshape(W, 15, 9 * W1),
+            torch.zeros((W, 15, 7), dtype=dtype, device=dev),
+        ],
+        dim=-1,
+    ).reshape(W * 15, D)
+    return imu_res, Jimu, cost
+
+
+def assemble_normal_equations(state, grid, pre, sqrt_info_imu, imu_valid,
+                              prior, gravity, cfg):
+    """(H_pp, H_pl, H_ll, b_p, b_l, cost) at the current linearization."""
+    F, W1 = grid.valid.shape
+    D = pose_dim(W1)
+    res_w, Jfull, J_lam, _, cost_proj = linearize_proj_rows(state, grid, cfg)
+    Jmat = Jfull.reshape(F * W1 * 2, D)
+    rvec = res_w.reshape(-1)
+    H_pp = Jmat.T @ Jmat
+    b_p = Jmat.T @ rvec
+    H_pl = torch.einsum("fjad,fja->df", Jfull, J_lam)
+    H_ll = torch.einsum("fja,fja->f", J_lam, J_lam)
+    b_l = torch.einsum("fja,fja->f", J_lam, res_w)
+
+    imu_res, Jimu, cost_imu = linearize_imu_rows(
+        state, pre, sqrt_info_imu, imu_valid, gravity
+    )
+    H_pp = H_pp + Jimu.T @ Jimu
+    b_p = b_p + Jimu.T @ imu_res.reshape(-1)
+
+    rp = prior_residual(state, prior)
+    Jp = torch.where(prior.valid, prior.J, torch.zeros_like(prior.J))
+    H_pp = H_pp + Jp.T @ Jp
+    b_p = b_p + Jp.T @ rp
+    cost = cost_proj + cost_imu + 0.5 * torch.sum(rp * rp)
+    return H_pp, H_pl, H_ll, b_p, b_l, cost
+
+
+def total_cost(state, grid, pre, sqrt_info_imu, imu_valid, prior, gravity, cfg):
+    """Robust total cost at a state (no Jacobians) — LM accept/reject."""
+    res, valid = projection_residuals_grid(state, grid, cfg.proj_sqrt_info)
+    sq = torch.sum(res * res, dim=-1)
+    c2 = cfg.cauchy_c**2
+    cost_proj = 0.5 * torch.sum(torch.where(valid, c2 * torch.log1p(sq / c2), 0.0))
+    imu_res = imu_residuals_window(state, pre, sqrt_info_imu, gravity, imu_valid)
+    rp = prior_residual(state, prior)
+    return cost_proj + 0.5 * torch.sum(imu_res * imu_res) + 0.5 * torch.sum(rp * rp)
+
+
+def _schur_solve(H_pp, H_pl, H_ll, b_p, b_l, lam, used):
+    """Solve the damped system by eliminating the diagonal depth block.
+    Returns (dx [D], dlam [F]); non-finite when the system is not PD."""
+    D = H_pp.shape[0]
+    info_ok = used & (H_ll > 1e-12)  # depth slots without information stay put
+    H_ll_safe = torch.where(info_ok, H_ll, 1.0)
+    b_l_safe = torch.where(info_ok, b_l, 0.0)
+    H_pl_safe = torch.where(info_ok[None, :], H_pl, 0.0)
+
+    inv_Hll = 1.0 / (H_ll_safe * (1.0 + lam))
+    H_red = H_pp - (H_pl_safe * inv_Hll[None, :]) @ H_pl_safe.T
+    b_red = b_p - H_pl_safe @ (inv_Hll * b_l_safe)
+    diag = torch.clamp(torch.diagonal(H_pp), 1e-6, 1e32)
+    eye = torch.eye(D, dtype=H_pp.dtype, device=H_pp.device)
+    L, info = torch.linalg.cholesky_ex(H_red + lam * torch.diag(diag) + 1e-10 * eye)
+    # Gauss-Newton convention: step = -H^-1 b (b = Jᵀr).
+    dx = -torch.cholesky_solve(b_red[:, None], L)[:, 0]
+    dx = torch.where(info == 0, dx, torch.nan)
+    dlam = -inv_Hll * (b_l_safe + H_pl_safe.T @ dx)
+    return dx, dlam
+
+
+def lm_loop(state, lin_fn, solve_fn, cost_fn, cfg: SolverConfig):
+    """Levenberg-Marquardt accept/reject loop: the linearization is reused
+    after a rejected step (re-solved with more damping), and an accepted
+    step improving the cost by less than cfg.cost_tol (relative) stops the
+    iteration. Returns (state, init_cost, final_cost, cost_hist)."""
+
+    def finite_or_inf(c):
+        return torch.where(torch.isfinite(c), c, torch.inf)
+
+    init_cost = finite_or_inf(cost_fn(state))
+    cost = init_cost
+    lam = float(cfg.init_lambda)
+    lin, need_lin = None, True
+    hist = []
+    for _ in range(cfg.max_iterations):
+        if need_lin:
+            lin = lin_fn(state)
+        dx, dlam = solve_fn(lin, lam)
+        accept = conv = False
+        if bool(torch.isfinite(dx).all() & torch.isfinite(dlam).all()):
+            s_new = apply_delta(state, dx, dlam, cfg)
+            new_cost = finite_or_inf(cost_fn(s_new))
+            accept = bool(new_cost < cost)
+            if accept:
+                rel_impr = (cost - new_cost) / torch.clamp(cost, min=1e-30)
+                conv = bool(rel_impr < cfg.cost_tol)
+                state, cost = s_new, new_cost
+        lam = min(max(lam * (0.4 if accept else 8.0), 1e-9), 1e6)
+        need_lin = accept
+        hist.append(cost)
+        if conv:
+            break
+    return state, init_cost, cost, hist
+
+
+def lm_solve(state: WindowState, grid: FeatureGrid, pre: Preintegration,
+             sqrt_info_imu, imu_valid, prior: PriorFactor, gravity,
+             cfg: SolverConfig):
+    """LM over the window, ≤ cfg.max_iterations iterations (reference:
+    ceres with max 8 iterations, estimator.cpp:810-825)."""
+
+    def lin_fn(s):
+        return assemble_normal_equations(
+            s, grid, pre, sqrt_info_imu, imu_valid, prior, gravity, cfg
+        )[:5]
+
+    def solve_fn(lin, lam):
+        return _schur_solve(*lin, lam, grid.used)
+
+    def cost_fn(s):
+        return total_cost(s, grid, pre, sqrt_info_imu, imu_valid, prior, gravity, cfg)
+
+    return lm_loop(state, lin_fn, solve_fn, cost_fn, cfg)
