@@ -2,9 +2,10 @@
 
 Port of ``lfvio_tpu.frontend.klt`` (cv::calcOpticalFlowPyrLK with a 41x41
 window over 3 pyramid levels, reference feature_tracker.cpp:127). The same
-per-level step runs as a hand-written CUDA kernel (``klt_cuda.py``,
-``csrc/lk_level.cu``); the FrontEnd takes this module's ``track_level``
-only for tensors on the CPU, and the tests and ``chip_smoke.py`` call it
+function runs as a hand-written CUDA kernel (``klt_cuda.py``,
+``csrc/lk_pyramid.cu``: the whole ``pyramidal_lk`` in one launch, or one
+level step as a one-pass launch); the FrontEnd reaches this module only
+for tensors on the CPU, and the tests and ``chip_smoke.py`` call it
 directly as the reference the kernel is held against.
 
 Per level, for all N features at once: template and search patches are cut

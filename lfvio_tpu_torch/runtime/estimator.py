@@ -2,7 +2,7 @@
 
 Port of ``lfvio_tpu.runtime.estimator`` in its lag-1 configuration (the
 reference Estimator, estimator.cpp): the INITIAL → NON_LINEAR state
-machine, measurement handling, the numpy bootstrap (``lfvio_tpu.vinit``),
+machine, measurement handling, the numpy bootstrap (``..vinit``, the port's own copy),
 the per-frame solve, failure detection, marginalization and the window
 slide.
 
@@ -22,9 +22,6 @@ import dataclasses
 import numpy as np
 import torch
 
-from lfvio_tpu.vinit import global_sfm, pnp_bearing_gn, solve_relative_rt, visual_imu_alignment
-from lfvio_tpu.vinit.alignment import AlignFrame
-
 from ..backend import (
     FeatureGrid,
     PriorFactor,
@@ -37,8 +34,11 @@ from ..backend import (
     yaw_gauge_fix,
 )
 from ..backend.state import WINDOW
+from ..device import resolve_device
 from ..geom import host as hg
 from ..imu import ImuNoise, preintegrate, whiten_covariance
+from ..vinit import global_sfm, pnp_bearing_gn, solve_relative_rt, visual_imu_alignment
+from ..vinit.alignment import AlignFrame
 from .feature_manager import HostFeatureManager
 
 
@@ -55,7 +55,7 @@ class EstimatorConfig:
     tic: np.ndarray = dataclasses.field(default_factory=lambda: np.zeros(3))
     ric: np.ndarray = dataclasses.field(default_factory=lambda: np.eye(3))
     solver_dtype: torch.dtype = torch.float32
-    device: str = "cpu"
+    device: torch.device | str | None = None  # None: the CUDA card
 
 
 class Estimator:
@@ -65,7 +65,7 @@ class Estimator:
         self.cfg = cfg
         self.WIN = WINDOW
         self.NF = WINDOW + 1
-        self.device = torch.device(cfg.device)
+        self.device = resolve_device(cfg.device)
         # td and the extrinsics stay fixed in this configuration.
         self.scfg = SolverConfig(estimate_td=False, estimate_extrinsic=False)
         self.gravity = None  # set by the bootstrap

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..cam import ScaramuzzaCamera
+from ..device import resolve_device
 
 
 def fit_inverse_poly(poly, max_rho=210.0, n_coeffs=20, n_samples=400):
@@ -118,9 +119,10 @@ class SyntheticWorld:
     traj_amp: float = 0.8
     traj_freq: float = 0.25
     dtype: torch.dtype = torch.float32  # rendering precision
-    device: str = "cpu"
+    device: torch.device | str | None = None  # None: the CUDA card
 
     def __post_init__(self):
+        self.device = resolve_device(self.device)
         rng = np.random.default_rng(self.seed)
         n_waves = 24
         t = lambda a: torch.as_tensor(np.asarray(a), dtype=self.dtype, device=self.device)

@@ -2,9 +2,9 @@
 
 Port of ``lfvio_tpu.runtime.tracker.FrontEnd`` (the reference's
 feature_tracker readImage pipeline + feature_tracker_node publishing):
-CLAHE → pyramid → pyramidal LK (the CUDA kernel on a CUDA device, the plain
-version on the CPU) → border/annulus/RANSAC rejection → masked Shi-Tomasi
-refill → bearing lift. Images, pyramids and the slot chain live on
+CLAHE → pyramid → pyramidal LK (one launch of the fused CUDA kernel on a
+CUDA device, the plain version on the CPU) → border/annulus/RANSAC rejection
+→ masked Shi-Tomasi refill → bearing lift. Images, pyramids and the slot chain live on
 ``device``; id and track-count bookkeeping stays on the host (numpy).
 """
 
@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..frontend import (
     annulus_mask,
     clahe,
@@ -43,9 +44,9 @@ class FrontEnd:
         equalize: bool = True,
         dtype=torch.float32,
         seed: int = 0,
-        device="cpu",
+        device=None,  # None: the CUDA card
     ):
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.dtype = dtype
         self.camera = camera.to(device=self.device, dtype=dtype)
         self.H, self.W = image_size
@@ -144,6 +145,7 @@ class FrontEnd:
         detection, bearing lift. Returns (pyr, status, new_src, pos_next,
         bear_next, valid_next)."""
         pyr = self._preprocess(img)
+        # The frame's LK: one fused kernel launch on a CUDA device.
         pts_next, ok = klt_cuda.pyramidal_lk(
             pyr_prev, pyr, pos, valid, N_LEVELS, refine_win=REFINE_WIN
         )

@@ -230,16 +230,61 @@ def test_plain_lk_parity(lk_case, refine_win):
 
 def test_lk_level_wrapper_takes_plain_version_on_cpu(lk_case):
     """On CPU tensors the kernel wrapper runs klt.track_level (and counts
-    no launch); the CUDA level loop equals the plain one there."""
+    no launch); the level loop over it equals the plain one there."""
     pyr0, pyr1, pts, valid = lk_case
     before = klt_cuda.lk_level.launches
-    a = klt_cuda.pyramidal_lk([t(x) for x in pyr0], [t(x) for x in pyr1],
-                              t(pts), torch.as_tensor(valid), 3, refine_win=15)
+    a = tmod["klt"].lk_pyramid(klt_cuda.lk_level, [t(x) for x in pyr0], [t(x) for x in pyr1],
+                               t(pts), torch.as_tensor(valid), 3, 15)
     b = tmod["klt"].pyramidal_lk([t(x) for x in pyr0], [t(x) for x in pyr1],
                                  t(pts), torch.as_tensor(valid), 3, refine_win=15)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     assert klt_cuda.lk_level.launches == before
 
+
+@pytest.mark.parametrize("dtype", [torch.float32, F64])
+def test_lk_pyramid_wrapper_takes_plain_version_on_cpu(lk_case, dtype):
+    """On CPU tensors the fused kernel's wrapper, which the FrontEnd calls,
+    is klt.pyramidal_lk exactly, in either dtype, and counts no launch."""
+    pyr0, pyr1, pts, valid = lk_case
+    c = lambda x: torch.as_tensor(np.array(x), dtype=dtype)
+    args = ([c(x) for x in pyr0], [c(x) for x in pyr1], c(pts), torch.as_tensor(valid), 3)
+    before = klt_cuda.lk_pyramid.launches
+    a = klt_cuda.pyramidal_lk(*args, refine_win=15)
+    b = tmod["klt"].pyramidal_lk(*args, refine_win=15)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert a[1].sum() >= 35
+    assert klt_cuda.lk_pyramid.launches == before
+
+
+def _bad_lk_arguments(pyr0, pyr1, pts, valid):
+    """Arguments the fused kernel's wrapper refuses, by name."""
+    return {
+        "dtype differs between pyramids": ([x.double() for x in pyr0], pyr1, pts, valid, 3),
+        "pts dtype": (pyr0, pyr1, pts.double(), valid, 3),
+        "pts shape": (pyr0, pyr1, pts[:, :1], valid, 3),
+        "valid dtype": (pyr0, pyr1, pts, valid.to(torch.uint8), 3),
+        "valid length": (pyr0, pyr1, pts, valid[:-1], 3),
+        "level shapes differ": (pyr0, pyr1[:3] + [pyr1[3][:, :-1].contiguous()], pts, valid, 3),
+        "levels do not halve": (pyr0[:1] + [pyr0[1][:-1]] + pyr0[2:],
+                                pyr1[:1] + [pyr1[1][:-1]] + pyr1[2:], pts, valid, 3),
+        "non-contiguous level": ([pyr0[0].t().contiguous().t()] + pyr0[1:], pyr1, pts, valid, 3),
+        "too few levels": (pyr0[:3], pyr1[:3], pts, valid, 3),
+        "3-D level": ([pyr0[0][None]] + pyr0[1:], pyr1, pts, valid, 3),
+    }
+
+
+@pytest.mark.parametrize("case", [
+    "dtype differs between pyramids", "pts dtype", "pts shape", "valid dtype", "valid length",
+    "level shapes differ", "levels do not halve", "non-contiguous level", "too few levels",
+    "3-D level"])
+def test_lk_pyramid_wrapper_argument_checks(lk_case, case):
+    """The wrapper's checks that need no card raise on CPU tensors too."""
+    pyr0, pyr1, pts, valid = lk_case
+    c = lambda x: torch.as_tensor(np.array(x), dtype=torch.float32)
+    bad = _bad_lk_arguments([c(x) for x in pyr0], [c(x) for x in pyr1], c(pts),
+                            torch.as_tensor(valid))[case]
+    with pytest.raises(ValueError, match="lk_pyramid"):
+        klt_cuda.pyramidal_lk(*bad, refine_win=15)
 
 
 def test_camera_from_yaml_parity(tmp_path):

@@ -44,7 +44,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 @pytest.fixture(scope="module")
 def worlds():
     return (JWorld(camera=j_pal_camera(dtype=jnp.float64)),
-            tsyn.SyntheticWorld(camera=tsyn.make_synthetic_pal_camera(dtype=F64), dtype=F64))
+            tsyn.SyntheticWorld(camera=tsyn.make_synthetic_pal_camera(dtype=F64), dtype=F64,
+                                device="cpu"))
 
 
 def test_synthetic_world_parity(worlds):
@@ -72,7 +73,7 @@ def test_frontend_matches_jax_over_sequence(worlds):
     kw = dict(max_cnt=120, min_dist=15, n_slots=160, equalize=False,
               annulus=(jw.width / 2, jw.height / 2, SYN_MAX_R, SYN_MIN_R))
     jfe = JFrontEnd(jw.camera, (jw.height, jw.width), dtype=jnp.float64, **kw)
-    tfe = FrontEnd(tw.camera, (jw.height, jw.width), dtype=F64, **kw)
+    tfe = FrontEnd(tw.camera, (jw.height, jw.width), dtype=F64, device="cpu", **kw)
     key = jax.random.PRNGKey(0)  # FrontEnd(seed=0)'s chain (tracker.py:226)
     n_pub = []
     for k in range(7):
@@ -118,7 +119,7 @@ def test_estimator_pipeline_matches_jax(worlds):
     pts = make_landmarks()
     jest = JEstimator(JConfig(n_feature_slots=64, solver_dtype=jnp.float64))
     run_bearing_stream(jest, jw, pts, duration=1.5, frame_rate=20.0)
-    test = Estimator(EstimatorConfig(n_feature_slots=64, solver_dtype=F64))
+    test = Estimator(EstimatorConfig(n_feature_slots=64, solver_dtype=F64, device="cpu"))
     pipe = _port_bearing_stream(test, jw, pts, duration=1.5, frame_rate=20.0)
     assert test.solver_flag == test.NON_LINEAR == jest.solver_flag
     assert len(test.times) == len(jest.times) > 15
@@ -131,7 +132,7 @@ def test_restart_on_stream_gap(worlds):
     """A frame more than 1 s after the last one restarts the front end and
     the estimator (feature_tracker_node.cpp:38-48), and the stream goes on."""
     jw, _ = worlds
-    est = Estimator(EstimatorConfig(n_feature_slots=64, solver_dtype=F64))
+    est = Estimator(EstimatorConfig(n_feature_slots=64, solver_dtype=F64, device="cpu"))
     fe = BearingFrontEnd(jw, make_landmarks(), None, None)
     pipe = VioPipeline(fe, est)
     ts = np.arange(0, 2.0, 0.005)
@@ -174,9 +175,9 @@ def test_port_imports_and_runs_without_jax():
                                              WindowState, lm_solve)
         from lfvio_tpu_torch.imu import ImuNoise, preintegrate, whiten_covariance
         w = synthetic.SyntheticWorld(camera=synthetic.make_synthetic_pal_camera(256, 192),
-                                     width=256, height=192)
+                                     width=256, height=192, device="cpu")
         fe = FrontEnd(w.camera, (192, 256), max_cnt=40, min_dist=10, n_slots=48,
-                      annulus=(128, 96, 95, 32))
+                      annulus=(128, 96, 95, 32), device="cpu")
         outs = [fe.process_arrays(w.render(k / 15), k / 15) for k in range(3)]
         assert outs[0] is None and outs[2][4].sum() > 10
         rng = np.random.default_rng(0)
@@ -208,15 +209,62 @@ def test_port_imports_and_runs_without_jax():
     assert res.returncode == 0 and res.stdout.strip().endswith("ok"), res.stderr[-3000:]
 
 
+def test_port_imports_nothing_of_the_jax_package():
+    """In a fresh process, importing the port, every submodule of it and
+    chip_smoke (as a module) loads neither JAX nor the JAX package."""
+    code = textwrap.dedent("""
+        import importlib, pkgutil, sys
+        import lfvio_tpu_torch
+        names = [m.name for m in pkgutil.walk_packages(lfvio_tpu_torch.__path__,
+                                                       "lfvio_tpu_torch.")]
+        assert "lfvio_tpu_torch.vinit.sfm" in names and len(names) > 30, names
+        for name in names:
+            importlib.import_module(name)
+        import chip_smoke
+        bad = [m for m in sys.modules
+               if m.split(".")[0] in ("jax", "jaxlib", "lfvio_tpu")]
+        assert not bad, bad
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0 and res.stdout.strip().endswith("ok"), res.stderr[-3000:]
+
+
+def _build_frontend(**kw):
+    cam = tsyn.make_synthetic_pal_camera(256, 192)
+    return FrontEnd(cam, (192, 256), annulus=(128, 96, 95, 32), n_slots=48, **kw)
+
+
+@pytest.mark.parametrize("build", [
+    _build_frontend,
+    lambda **kw: Estimator(EstimatorConfig(n_feature_slots=64, **kw)),
+    lambda **kw: tsyn.SyntheticWorld(camera=tsyn.make_synthetic_pal_camera(256, 192),
+                                     width=256, height=192, **kw),
+], ids=["FrontEnd", "Estimator", "SyntheticWorld"])
+def test_entry_points_default_to_the_card(build):
+    """Built without a device an entry point lands on the CUDA card, and
+    raises where there is none (no quiet step down to the CPU); built with
+    device="cpu" it runs on the CPU."""
+    assert build(device="cpu").device == torch.device("cpu")
+    if torch.cuda.is_available():
+        assert build().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
+
+
 @pytest.mark.slow
 def test_port_e2e_vio_ate():
     """tests/test_e2e.py::test_e2e_vio_ate for the port on the CPU: f32
     tracker, f64 solver, 7 s; initialization succeeds and ATE < 0.25 m."""
-    world = tsyn.SyntheticWorld(camera=tsyn.make_synthetic_pal_camera(dtype=F64), dtype=F64)
+    world = tsyn.SyntheticWorld(camera=tsyn.make_synthetic_pal_camera(dtype=F64), dtype=F64,
+                                device="cpu")
     fe = FrontEnd(world.camera, (world.height, world.width), max_cnt=120, min_dist=15,
-                  n_slots=160, equalize=False, dtype=torch.float32,
+                  n_slots=160, equalize=False, dtype=torch.float32, device="cpu",
                   annulus=(world.width / 2, world.height / 2, SYN_MAX_R, SYN_MIN_R))
-    est = Estimator(EstimatorConfig(n_feature_slots=256, solver_dtype=F64))
+    est = Estimator(EstimatorConfig(n_feature_slots=256, solver_dtype=F64, device="cpu"))
     times, traj_p, _ = VioPipeline(fe, est).run(
         world.generate(7.0, 15.0, 200.0), lambda tt: world.render(tt))
     assert est.solver_flag == est.NON_LINEAR
