@@ -18,15 +18,27 @@ lines; any failure ends the run with a non-zero exit code:
      level loop over that step, border and corner points at 1280x960 and
      512x384, a shift that loses tracks, a bit-identical repeat, and
      CUDA-event times in turns with the roofline bound of this run's work;
-  4. the main path at full width: VioPipeline(FrontEnd, Estimator) fed the
-     bench.py configuration (1280x960, CLAHE, 256 slots, max_cnt 200,
-     15 Hz frames, 200 Hz IMU, window 10, publish 10 Hz) over a 6 s
-     synthetic stream, on the card; frames/s over the post-warm-up 40%;
+  4. the main path at full width, synchronous (solve lag 1, depth 1):
+     VioPipeline(FrontEnd, Estimator) fed the bench.py configuration
+     (1280x960, CLAHE, 256 slots, max_cnt 200, 15 Hz frames, 200 Hz IMU,
+     window 10, publish 10 Hz) over a 6 s synthetic stream, on the card;
+     frames/s over the post-warm-up 40%;
      exactly one fused LK launch per tracked frame; then a few frames of the
      same FrontEnd with the level loop on the host over the one-level
      wrapper (five launches per frame);
   5. the accuracy gate of tests/test_e2e.py::test_e2e_vio_ate on the card
-     (512x384, f32 tracker, f64 solver, 7 s): ATE < 0.25 m.
+     (512x384, f32 tracker, f64 solver, 7 s): ATE < 0.25 m;
+  6. bench.py's configuration as bench.py runs it: the stream of phase 4 at
+     solve lag 2 with the device state chain and depth 3; one fused LK
+     launch per tracked frame, as many poses as solves, ATE < 0.5 m;
+     frames/s beside phase 4's;
+  7. the estimator's capabilities on the card, bearing-level (a stub front
+     end serves analytic bearings; 64 slots, f64 solver): td recovery,
+     online extrinsic rotation, relocalization, window 20, solve lag 3, the
+     solver's wall budget (the bounds of tests/test_capabilities.py);
+  8. a rendered dual-PAL rig: DualFrontEnd of two 512x384 trackers with one
+     id space, n_cams = 2, 6 s: both cameras in the window, ATE < 0.25 m,
+     two fused LK launches per tracked frame.
 
 Prints one JSON line with each kernel's numbers, then the card's line, and
 last {"ok": true, "device": {...}}. Imports neither JAX nor the JAX package.
@@ -257,6 +269,13 @@ def phase_kernel_vs_plain(dev):
         bcase = lk_case(dev, h, w, N, shift, n_border=64)
         errs.append(compare_lk(f"border {w}x{h}", fused(bcase), plain(bcase), N - 4, True))
 
+    # The dual-PAL rig's shape: 512x384 and 128 slots per tracker, half the
+    # blocks of the launches above. Interior points, then border points.
+    for n_border in (0, 32):
+        dcase = lk_case(dev, 384, 512, 128, shift, n_border=n_border, seed=2)
+        errs.append(compare_lk(f"dual-PAL shape 512x384, N=128, {n_border} at the borders",
+                               fused(dcase), plain(dcase), 124, True))
+
     # Lost tracks: 5.6 px of flow at level 3 leaves the search patch for a
     # part of the features, and border points leave the image.
     lcase = lk_case(dev, H, W, N, (44.8, -41.6), n_border=32, smooth=True)
@@ -335,10 +354,10 @@ def phase_kernel_vs_plain(dev):
         f"iteration, so the iterations alone set a floor of "
         f"{chain * per_it:.4f} ms")
     common = dict(plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None)
-    return {"lk_pyramid": dict(max_abs_err=max(errs[:4]), ms=fused_ms, ms_l2_cold=fused_cold,
+    return {"lk_pyramid": dict(max_abs_err=max(errs[:6]), ms=fused_ms, ms_l2_cold=fused_cold,
                                ms_launched_alone=fused_alone, ms_zero_iterations=fused_setup,
                                **common),
-            "lk_level": dict(max_abs_err=max(lerr, *errs[4:]), ms=levels_ms,
+            "lk_level": dict(max_abs_err=max(lerr, *errs[6:]), ms=levels_ms,
                              ms_launched_alone=levels_alone, **common)}
 
 
@@ -482,13 +501,14 @@ def full_scale_rig(dev):
     frames = {e[1]: world.render_u8(e[1]) for e in stream if e[0] == "frame"}
     torch.cuda.synchronize()
 
-    def make():
+    def make(solve_lag=1, depth=1):
         fe = FrontEnd(cam, (H, W), max_cnt=200, min_dist=20, n_slots=256,
                       annulus=(W / 2.0, H / 2.0, 500.0 * 0.95, 160.0), equalize=True,
                       dtype=torch.float32, device=dev)
         est = Estimator(EstimatorConfig(n_feature_slots=256, solver_dtype=torch.float32,
-                                        max_imu_per_interval=64, device=dev))
-        return fe, est, VioPipeline(fe, est, freq=10.0)
+                                        max_imu_per_interval=64, solve_lag=solve_lag,
+                                        device_chain=True, device=dev))
+        return fe, est, VioPipeline(fe, est, freq=10.0, depth=depth)
 
     return world, stream, frames, make
 
@@ -510,16 +530,16 @@ def trajectory_ate(world, est):
     return ate_rmse(times, np.asarray(est.traj_p), times, gt)
 
 
-def phase_full_scale(dev, plain_calls, profile=False):
-    """bench.py's configuration through the port's pipeline on the card.
-    ``profile`` times the stages (the timers synchronize the card, so the
-    frames/s of such a run are not the cell's)."""
+def run_full_scale(tag, rig, plain_calls, solve_lag, depth, profile=False):
+    """The full-scale stream through a fresh pipeline at (solve_lag, depth):
+    warm-up on the first 60%, frames/s over the rest, the launch counts of
+    the run (set to 0 just before it), the trajectory checks. Returns
+    (fe, est, stages, launches, frames/s, ATE)."""
     import torch
     from lfvio_tpu_torch.frontend import klt_cuda
 
-    world, stream, frames, make = full_scale_rig(dev)
-    log(f"[4] stream: {len(stream)} events, {len(frames)} frames rendered on the card")
-    fe, est, pipe = make()
+    world, stream, frames, make = rig
+    fe, est, pipe = make(solve_lag, depth)
     stages = add_stage_timers(fe, est) if profile else None
 
     tracked = count_calls(fe, "_step_impl")
@@ -542,23 +562,49 @@ def phase_full_scale(dev, plain_calls, profile=False):
     fps = n_timed / (t2 - t1)
     times = np.asarray(est.times)
     traj = np.asarray(est.traj_p)
-    log(f"[4] warm-up {t1 - t0:.2f} s; timed {n_timed} frames in {t2 - t1:.3f} s = "
+    log(f"{tag} solve lag {solve_lag}, depth {depth}: warm-up {t1 - t0:.2f} s; timed {n_timed} "
+        f"frames in {t2 - t1:.3f} s = "
         f"{fps:.3f} frames/s; solves {len(times)}; tracked frames {tracked['n']}; fused LK "
         f"launches {launches}; one-level launches {klt_cuda.lk_level.launches}; plain LK calls "
         f"{plain_calls['n']}; level images padded {padded['n']}")
     if est.solver_flag != est.NON_LINEAR:
         raise AssertionError("full-scale run did not initialize")
-    if not (len(traj) and np.isfinite(traj).all()):
-        raise AssertionError("non-finite or empty trajectory")
+    if not (len(traj) and np.isfinite(traj).all()) or est.pending_count():
+        raise AssertionError("non-finite or empty trajectory, or a solve left pending")
     if (launches == 0 or launches != tracked["n"] or klt_cuda.lk_level.launches != 0
             or plain_calls["n"] != 0 or padded["n"] != 0):
         raise AssertionError("the main path's LK is not one fused launch per tracked frame")
     ate, n = trajectory_ate(world, est)
-    log(f"[4] ATE {ate:.4f} m over {n} poses")
-    level_launches = phase_five_launch_path(fe, frames, stages)
+    log(f"{tag} ATE {ate:.4f} m over {n} poses; first solve at t = {times[0]:.4f} s")
+    if n != len(times):
+        raise AssertionError("not as many trajectory poses as solves")
+    return fe, est, stages, launches, fps, ate
+
+
+def phase_full_scale(rig, plain_calls, profile=False):
+    """bench.py's configuration through the port's synchronous pipeline
+    (solve lag 1, depth 1) on the card. ``profile`` times the stages (the
+    timers synchronize the card, so the frames/s of such a run are not the
+    cell's)."""
+    log(f"[4] stream: {len(rig[1])} events, {len(rig[2])} frames rendered on the card")
+    fe, est, stages, launches, fps, ate = run_full_scale("[4]", rig, plain_calls, 1, 1, profile)
+    level_launches = phase_five_launch_path(fe, rig[2], stages)
     if stages is not None:
         log_stage_timers(stages)
-    return launches, level_launches, fps, ate
+    return launches, level_launches, fps, ate, float(est.times[0])
+
+
+def phase_bench_configuration(rig, plain_calls, fps_lag1, ate_lag1, t_first_lag1):
+    """bench.py's configuration as bench.py runs it (bench.py:116-119):
+    solve lag 2 with the device state chain, depth 3."""
+    _, est, _, launches, fps, ate = run_full_scale("[6]", rig, plain_calls, 2, 3)
+    log(f"[6] frames/s at lag 2 / depth 3: {fps:.3f}, beside phase 4's lag 1 / depth 1: "
+        f"{fps_lag1:.3f} (ratio {fps / fps_lag1:.3f}); ATE {ate:.4f} m beside {ate_lag1:.4f} m")
+    if not ate < 0.5:
+        raise AssertionError("lag-2 / depth-3 ATE is not below 0.5 m")
+    if abs(float(est.times[0]) - t_first_lag1) > 1e-9:
+        raise AssertionError("lag 2 / depth 3 initialized on another frame than lag 1 / depth 1")
+    return launches, fps, ate
 
 
 def phase_five_launch_path(fe, frames, stages):
@@ -618,7 +664,7 @@ def phase_e2e_gate(dev):
     est = Estimator(EstimatorConfig(n_feature_slots=256, solver_dtype=torch.float64,
                                     device=dev))
     t0 = time.perf_counter()
-    times, _, _ = VioPipeline(fe, est).run(
+    times, _, _ = VioPipeline(fe, est, depth=1).run(
         world.generate(7.0, 15.0, 200.0), lambda tt: world.render(tt))
     ate, _ = trajectory_ate(world, est)
     log(f"[5] e2e gate: {len(times)} solves in {time.perf_counter() - t0:.1f} s, "
@@ -626,6 +672,225 @@ def phase_e2e_gate(dev):
     if est.solver_flag != est.NON_LINEAR or len(times) <= 35 or not ate < 0.25:
         raise AssertionError("e2e accuracy gate failed")
     return ate
+
+
+# ------------------------------------------------ bearing-level harness
+def make_landmarks(n=48, seed=3, radius=5.5, half_height=2.5):
+    """Points on the synthetic room's cylinder wall + floor/ceiling rings."""
+    rng = np.random.default_rng(seed)
+    ang = rng.uniform(0, 2 * np.pi, n)
+    z = rng.uniform(-half_height, half_height, n)
+    r = np.where(rng.random(n) < 0.8, radius, rng.uniform(2.0, radius, n))
+    return np.stack([r * np.cos(ang), r * np.sin(ang), z], -1)
+
+
+def cam_bearings(world, t, pts_w, ric, tic):
+    """Unit bearings of world points in the camera at capture time t."""
+    from lfvio_tpu_torch.geom import host as hg
+
+    p, q = world.pose(t)
+    x_cam = ((pts_w - p) @ hg.quat_to_mat(q) - tic) @ ric
+    return x_cam / np.linalg.norm(x_cam, axis=-1, keepdims=True)
+
+
+class BearingFrontEnd:
+    """Stub front end: 'tracks' by projecting known landmarks. Frames are
+    stamped at t and observed at t + td_true (a planted camera delay)."""
+
+    def __init__(self, world, pts_w, ric=None, tic=None, td_true=0.0, vel_eps=5e-4):
+        self.world, self.pts_w, self.td_true, self.vel_eps = world, pts_w, td_true, vel_eps
+        self.ric = np.eye(3) if ric is None else np.asarray(ric, np.float64)
+        self.tic = np.zeros(3) if tic is None else np.asarray(tic, np.float64)
+        self.n_resets = 0
+
+    def process_arrays(self, img, t, publish=True):
+        if not publish:
+            return None
+        t_obs = float(t) + self.td_true
+        b = cam_bearings(self.world, t_obs, self.pts_w, self.ric, self.tic)
+        b2 = cam_bearings(self.world, t_obs + self.vel_eps, self.pts_w, self.ric, self.tic)
+        n = len(self.pts_w)
+        return np.arange(n), b, (b2 - b) / self.vel_eps, np.zeros(n), np.ones(n, bool)
+
+    def reset(self):
+        self.n_resets += 1
+
+
+def run_bearing_stream(pipe, world, duration, frame_rate=20.0, imu_rate=200.0, t0=0.0):
+    """Exact IMU and frame events over [t0, t0 + duration] through a pipeline:
+    the real measurement-alignment path (live-td pairing, boundary
+    interpolation)."""
+    per_frame = int(round(imu_rate / frame_rate))
+    k0 = int(round(t0 * imu_rate)) + (1 if t0 > 0 else 0)
+    ks = np.arange(k0, int(round((t0 + duration) * imu_rate)) + 1)
+    acc, om = world.imu_batch(ks / imu_rate)
+    for i, k in enumerate(ks):
+        if k % per_frame == 0:
+            pipe.feed_frame(float(k / imu_rate), k / imu_rate)
+        pipe.feed_imu(float(k / imu_rate), acc[i], om[i])
+    pipe.flush()
+    return pipe
+
+
+def phase_capabilities(dev):
+    """The bounds of tests/test_capabilities.py on the card."""
+    import torch
+    from lfvio_tpu_torch.geom import host as hg
+    from lfvio_tpu_torch.runtime import Estimator, EstimatorConfig, VioPipeline
+    from lfvio_tpu_torch.runtime.synthetic import SyntheticWorld, make_synthetic_pal_camera
+
+    cam = make_synthetic_pal_camera(dtype=torch.float64)
+    pts = make_landmarks()
+    mk_world = lambda **kw: SyntheticWorld(camera=cam, dtype=torch.float64, device=dev, **kw)
+    mk_est = lambda **kw: Estimator(EstimatorConfig(
+        n_feature_slots=64, solver_dtype=torch.float64, device=dev, **kw))
+    out = {}
+
+    def stream(name, est, world, duration, check, **fe_kw):
+        t0 = time.perf_counter()
+        frame_rate = fe_kw.pop("frame_rate", 20.0)
+        pipe = VioPipeline(BearingFrontEnd(world, pts, **fe_kw), est)
+        run_bearing_stream(pipe, world, duration, frame_rate)
+        if est.solver_flag != est.NON_LINEAR:
+            raise AssertionError(f"{name}: did not initialize")
+        msg = check(est, pipe, world)
+        log(f"[7] {name}: {msg}; {len(est.times)} solves in {time.perf_counter() - t0:.1f} s")
+
+    def ate_of(est, world):
+        ate, n = trajectory_ate(world, est)
+        if not (n >= 30 and ate < 0.25):
+            raise AssertionError(f"ATE {ate} over {n} poses")
+        return f"ATE {ate:.4f} m over {n} poses (< 0.25)"
+
+    def check_td(est, pipe, world):
+        if not abs(est.td - 0.005) < 5e-4:
+            raise AssertionError(f"td {est.td}")
+        out["td"] = est.td
+        return f"td {est.td:.6f} s against the planted 0.005 (within 5e-4)"
+
+    stream("td recovery", mk_est(estimate_td=True), mk_world(traj_freq=0.8), 3.0, check_td,
+           td_true=0.005)
+
+    ric_true = hg.ypr_deg_to_R([25.0, 8.0, -12.0])
+
+    def check_ex(est, pipe, world):
+        R_est = hg.quat_to_mat(est.qic)
+        ang = np.degrees(np.arccos(np.clip((np.trace(R_est.T @ ric_true) - 1) / 2, -1, 1)))
+        if not (est.extrinsic_calibrated and ang < 3.0):
+            raise AssertionError(f"extrinsic rotation error {ang} deg")
+        out["ex_deg"] = ang
+        return f"online extrinsic rotation error {ang:.3f} deg (< 3)"
+
+    stream("extrinsic rotation", mk_est(estimate_extrinsic=True, calib_extrinsic_rotation=True),
+           mk_world(traj_freq=1.5), 3.5, check_ex, ric=ric_true, frame_rate=10.0)
+
+    def check_relo(est, pipe, world):
+        solves = {}
+        est._dispatch_solve = timed_call(est._dispatch_solve, solves, "ms")
+        t_loop = float(est.headers[est.WIN - 2])
+        rng = np.random.default_rng(7)
+        b = cam_bearings(world, t_loop, pts, np.eye(3), np.zeros(3))
+        b = b + 4e-3 * rng.standard_normal(b.shape)
+        b /= np.linalg.norm(b, axis=-1, keepdims=True)
+        p_true, q_true = world.pose(t_loop)
+        if not est.set_relo_frame(t_loop, np.arange(len(pts)), b, p_true, q_true):
+            raise AssertionError("set_relo_frame refused the match")
+        pnp_err = float(np.linalg.norm(est.relo_relative_t))
+        run_bearing_stream(pipe, world, 0.4, t0=2.0)
+        refined = float(np.linalg.norm(est.relo_relative_t))
+        if not (refined < pnp_err and refined < 0.1 and est._relo_active is None):
+            raise AssertionError(f"relo: refined {refined} against PnP {pnp_err}")
+        ms = solves["ms"]
+        out["relo_solve_ms"], out["plain_solve_ms"] = ms[0], float(np.median(ms[1:]))
+        return (f"relocalization refined error {refined:.4f} m < PnP seed's {pnp_err:.4f} m; the "
+                f"solve with the relo block {ms[0]:.1f} ms beside {out['plain_solve_ms']:.1f} ms "
+                f"(median of the {len(ms) - 1} plain solves after it)")
+
+    stream("relocalization", mk_est(), mk_world(), 2.0, check_relo)
+    stream("window 20", mk_est(window=20), mk_world(), 2.6, lambda e, p, w: ate_of(e, w))
+
+    seqs = []
+
+    def check_lag3(est, pipe, world):
+        stacked = [s for s in seqs if len(s) >= 2]
+        if not stacked:
+            raise AssertionError("no solve finalized across two slides")
+        return ate_of(est, world) + f"; {len(stacked)} write-backs across stacked slides"
+
+    est3 = mk_est(solve_lag=3, min_parallax=30.0 / 160.0)
+    orig = est3._write_back_lagged
+    est3._write_back_lagged = lambda pend, host: (seqs.append(tuple(pend["slides"])),
+                                                  orig(pend, host))[1]
+    stream("solve lag 3", est3, mk_world(traj_freq=0.5), 2.2, check_lag3)
+
+    def check_budget(est, pipe, world):
+        est.marg_old = False
+        if not (est._iter_time and est._iter_time > 0 and est._iterations_allowed() == 1):
+            raise AssertionError(f"budget: _iter_time {est._iter_time}")
+        out["iter_time"] = est._iter_time
+        return (f"max_solver_time 1e-7: _iter_time {est._iter_time:.5f} s per LM iteration, "
+                f"_iterations_allowed() 1; a budget of 0.04 s would allow "
+                f"{int(np.clip(0.04 / est._iter_time, 1, 8))}")
+
+    stream("wall budget", mk_est(max_solver_time=1e-7), mk_world(), 1.5, check_budget)
+    return out
+
+
+def phase_dual_pal(dev, plain_calls):
+    """tests/test_multicam.py::test_dual_pal_rendered_image_pipeline on the
+    card: two rendered PAL streams (up and down cameras) through a
+    DualFrontEnd and the n_cams = 2 estimator."""
+    import torch
+    from lfvio_tpu_torch.frontend import klt_cuda
+    from lfvio_tpu_torch.runtime import Estimator, EstimatorConfig, FrontEnd, VioPipeline
+    from lfvio_tpu_torch.runtime.synthetic import (
+        SYN_MAX_R, SYN_MIN_R, SyntheticWorld, make_synthetic_pal_camera)
+    from lfvio_tpu_torch.runtime.tracker import DualFrontEnd
+
+    tics = np.array([[0.0, 0.0, 0.05], [0.0, 0.0, -0.05]])
+    rics = np.stack([np.eye(3), np.diag([1.0, -1.0, -1.0])])
+    world = SyntheticWorld(camera=make_synthetic_pal_camera(dtype=torch.float64),
+                           dtype=torch.float64, device=dev)
+    H, W = world.height, world.width
+    kw = dict(max_cnt=90, min_dist=15, n_slots=128, equalize=False, dtype=torch.float32,
+              annulus=(W / 2, H / 2, SYN_MAX_R, SYN_MIN_R), device=dev)
+    fes = [FrontEnd(world.camera, (H, W), seed=c, **kw) for c in range(2)]
+    fe = DualFrontEnd(*fes)
+    est = Estimator(EstimatorConfig(n_feature_slots=256, n_cams=2, tic=tics, ric=rics,
+                                    solver_dtype=torch.float64, device=dev))
+    solves = {}
+    est._dispatch_solve = timed_call(est._dispatch_solve, solves, "ms")
+    tracked = [count_calls(f, "_step_impl") for f in fes]
+    klt_cuda.lk_pyramid.launches = klt_cuda.lk_level.launches = 0
+    plain_calls["n"] = 0
+    stream = world.generate(6.0, 15.0, 200.0)
+    n_frames = sum(1 for e in stream if e[0] == "frame")
+    t0 = time.perf_counter()
+    times, _, _ = VioPipeline(fe, est).run(
+        stream, lambda tt: tuple(world.render_rig(tt, rics[c], tics[c]) for c in range(2)))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = klt_cuda.lk_pyramid.launches
+    ate, n = trajectory_ate(world, est)
+    cams = est.fm.cam[est.fm.valid]
+    ms = [m for m in solves["ms"] if m > 0.01]
+    log(f"[8] dual-PAL: {n_frames} frame pairs in {dt:.1f} s = {n_frames / dt:.3f} frames/s "
+        f"(rendering and a synchronize around each solve included); {len(times)} solves, median "
+        f"{float(np.median(ms[1:])):.1f} ms with n_cams = 2 (D = 178); tracked frames "
+        f"{tracked[0]['n']} + {tracked[1]['n']}; fused LK launches {launches}; plain LK calls "
+        f"{plain_calls['n']}; observations in the window from camera 0: {int((cams == 0).sum())}, "
+        f"camera 1: {int((cams == 1).sum())}; ATE {ate:.4f} m over {n} poses (< 0.25)")
+    if est.solver_flag != est.NON_LINEAR or len(times) <= 30:
+        raise AssertionError("dual-PAL run did not initialize")
+    if not ((cams == 0).any() and (cams == 1).any()):
+        raise AssertionError("the window does not hold both cameras")
+    if (launches != tracked[0]["n"] + tracked[1]["n"] or launches != 2 * tracked[0]["n"]
+            or launches == 0 or plain_calls["n"] != 0 or klt_cuda.lk_level.launches != 0):
+        raise AssertionError("dual-PAL: not two fused LK launches per tracked frame")
+    if not (np.isfinite(ate) and ate < 0.25):
+        raise AssertionError("dual-PAL accuracy gate failed")
+    return dict(launches=launches, fps=n_frames / dt, ate=ate,
+                solve_ms=float(np.median(ms[1:])))
 
 
 def main(argv):
@@ -656,15 +921,25 @@ def main(argv):
     log(f"[2] built {lib.name} from {', '.join(sorted(set(SOURCES.values())))} in "
         f"{time.perf_counter() - t0:.2f} s")
 
+    t_run = time.perf_counter()
     kernels = phase_kernel_vs_plain(dev)
     plain_calls = count_plain_lk()
-    launches, level_launches, fps, ate_full = phase_full_scale(dev, plain_calls, profile)
+    rig = full_scale_rig(dev)
+    launches, level_launches, fps, ate_full, t_first = phase_full_scale(rig, plain_calls, profile)
     phase_e2e_gate(dev)
+    launches6, fps6, ate6 = phase_bench_configuration(rig, plain_calls, fps, ate_full, t_first)
+    del rig
+    caps = phase_capabilities(dev)
+    dual = phase_dual_pal(dev, plain_calls)
+    log(f"[9] launches of lk_pyramid on the main paths: {launches} (phase 4), {launches6} "
+        f"(phase 6), {dual['launches']} (phase 8); whole run "
+        f"{time.perf_counter() - t_run + 0.0:.1f} s after the build")
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES,
          "launches": n, **kernels[name]}
-        for name, n in (("lk_pyramid", launches), ("lk_level", level_launches))]}))
+        for name, n in (("lk_pyramid", launches + launches6 + dual["launches"]),
+                        ("lk_level", level_launches))]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,4 +8,5 @@ from .factors import (
 from .solver import assemble_normal_equations, lm_solve, apply_delta
 from .marginalize import marginalize_old_qr, marginalize_second_new_qr
 from .gauge import yaw_gauge_fix
+from .relo import lm_solve_relo
 from .triangulate import triangulate_grid

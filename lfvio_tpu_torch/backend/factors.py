@@ -1,6 +1,6 @@
 """Residual functions of the sliding-window bundle adjustment.
 
-Port of ``lfvio_tpu.backend.factors`` for a mono rig:
+Port of ``lfvio_tpu.backend.factors``:
 
   * unit-sphere projection factor with time-offset correction
     (projection_td_factor.cpp:36-77): the 2-D tangent-plane component of the
@@ -19,7 +19,7 @@ import torch
 
 from ..geom import quat_box_minus, quat_conj, quat_rotate, tangent_basis
 from ..imu import imu_residual
-from .state import FeatureGrid, PriorFactor, WindowState
+from .state import FeatureGrid, PriorFactor, WindowState, ex_2d
 
 
 def projection_residual(p_i, q_i, p_j, q_j, tic_i, qic_i, tic_j, qic_j,
@@ -28,7 +28,8 @@ def projection_residual(p_i, q_i, p_j, q_j, tic_i, qic_i, tic_j, qic_j,
     """Unit-sphere + td projection residual [..., 2]. td_obs carries the
     measurement-time constant, so the correction is pts − (td − td_obs)·vel.
     (tic_i, qic_i) is the anchor observation's extrinsic and (tic_j, qic_j)
-    the observing one's (the same camera on a mono rig)."""
+    the observing one's: the same camera on a mono rig; on a multi-camera rig
+    (dual-PAL) one landmark may be seen from different cameras."""
     pts_i_td = pts_i - (td - td_obs_i)[..., None] * vel_i
     pts_j_td = pts_j - (td - td_obs_j)[..., None] * vel_j
     safe_dep = torch.where(torch.abs(inv_dep) < 1e-8, 1e-8, inv_dep)
@@ -52,6 +53,17 @@ def anchor_values(state: WindowState, grid: FeatureGrid):
             grid.td_obs[f, a])
 
 
+def obs_extrinsics(state: WindowState, grid: FeatureGrid):
+    """Per-observation camera extrinsics, selected by ``grid.cam``: the
+    anchor observation's (tic_i [F, 3], qic_i [F, 4]) and every
+    observation's (tic_j [F, W+1, 3], qic_j [F, W+1, 4])."""
+    tics, qics = ex_2d(state.tic, state.qic)
+    cam = grid.cam_index()
+    tic_j, qic_j = tics[cam], qics[cam]
+    f = torch.arange(grid.anchor.shape[0], device=grid.anchor.device)
+    return tic_j[f, grid.anchor], qic_j[f, grid.anchor], tic_j, qic_j
+
+
 def residual_mask(grid: FeatureGrid):
     """[F, W+1] rows that carry a projection residual: valid, used, and not
     the anchor observation itself."""
@@ -64,9 +76,10 @@ def projection_residuals_grid(state: WindowState, grid: FeatureGrid, sqrt_info):
     """All projection residuals over the grid. Returns (residuals
     [F, W+1, 2] zeroed where invalid, valid mask [F, W+1])."""
     p_i, q_i, pts_i, vel_i, td_obs_i = anchor_values(state, grid)
+    tic_i, qic_i, tic_j, qic_j = obs_extrinsics(state, grid)
     res = projection_residual(
         p_i[:, None], q_i[:, None], state.p[None], state.q[None],
-        state.tic, state.qic, state.tic, state.qic,
+        tic_i[:, None], qic_i[:, None], tic_j, qic_j,
         state.inv_depth[:, None], state.td,
         pts_i[:, None], grid.bearing, vel_i[:, None], grid.velocity,
         td_obs_i[:, None], grid.td_obs, tangent_basis(grid.bearing), sqrt_info,
@@ -94,13 +107,15 @@ def imu_residuals_window(state: WindowState, pre, sqrt_info, gravity, valid):
 
 
 def state_box_minus(state: WindowState, prior: PriorFactor):
-    """Full-layout tangent difference x ⊟ x0 (quaternion-aware)."""
+    """Full-layout tangent difference x ⊟ x0 (quaternion-aware); the
+    extrinsic part is camera-major [C, 6]."""
+    tics, qics = ex_2d(state.tic, state.qic)
+    x0_tics, x0_qics = ex_2d(prior.x0_tic, prior.x0_qic)
     return torch.cat([
         torch.cat([state.p - prior.x0_p, quat_box_minus(state.q, prior.x0_q)], dim=-1).reshape(-1),
         torch.cat([state.v - prior.x0_v, state.ba - prior.x0_ba,
                    state.bg - prior.x0_bg], dim=-1).reshape(-1),
-        state.tic - prior.x0_tic,
-        quat_box_minus(state.qic, prior.x0_qic),
+        torch.cat([tics - x0_tics, quat_box_minus(qics, x0_qics)], dim=-1).reshape(-1),
         (state.td - prior.x0_td).reshape(1),
     ])
 

@@ -38,3 +38,10 @@ def yaw_gauge_fix(out: WindowState, origin_p0, origin_q0) -> WindowState:
         q=mat_to_quat(rot_diff[None] @ quat_to_mat(out.q)),
         v=out.v @ rot_diff.T,
     )
+
+
+def gauge_apply_pose(rot_diff, pivot, origin_p0, p, q):
+    """Apply the window's gauge correction to an extra pose: the
+    relocalization loop pose rides the same correction (the reference
+    rotates relo_Pose with rot_diff in double2vector, estimator.cpp:605-611)."""
+    return rot_diff @ (p - pivot) + origin_p0, mat_to_quat(rot_diff @ quat_to_mat(q))

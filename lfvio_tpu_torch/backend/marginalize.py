@@ -19,12 +19,19 @@ import torch
 
 from .factors import prior_residual
 from .solver import linearize_imu_rows, linearize_proj_rows
-from .state import PriorFactor, SolverConfig, WindowState, pose_dim, pose_off, sb_off
+from .state import (
+    PriorFactor,
+    SolverConfig,
+    WindowState,
+    n_cams_of,
+    pose_dim,
+    pose_off,
+    sb_off,
+)
 
 
-def _drop_keep_old(n_frames: int):
+def _drop_keep_old(n_frames: int, D: int):
     """Static column indices for MARGIN_OLD: drop pose0 (6) + speedbias0 (9)."""
-    D = pose_dim(n_frames)
     drop = np.r_[pose_off(0):pose_off(0) + 6, sb_off(0, n_frames):sb_off(0, n_frames) + 9]
     keep = np.setdiff1d(np.arange(D), drop)
     return drop, keep
@@ -68,7 +75,7 @@ def marginalize_old_qr(state: WindowState, grid, pre0, sqrt_info_imu0, imu0_vali
     n_frames = state.p.shape[0]
     dtype, dev = state.p.dtype, state.p.device
     F, W1 = grid.valid.shape
-    D = pose_dim(n_frames)
+    D = pose_dim(n_frames, n_cams_of(state))
 
     grid0 = grid.replace(used=grid.used & (grid.anchor == 0))
     imu_valid = torch.zeros_like(imu0_valid)
@@ -86,7 +93,7 @@ def marginalize_old_qr(state: WindowState, grid, pre0, sqrt_info_imu0, imu0_vali
         [dep_rows, torch.zeros((Jimu.shape[0] + D, F), dtype=dtype, device=dev)], dim=0
     )
     r = torch.cat([res_w.reshape(R1), imu_res.reshape(-1), rp])
-    drop, keep = _drop_keep_old(n_frames)
+    drop, keep = _drop_keep_old(n_frames, D)
     A = torch.cat(
         [A_pose[:, torch.as_tensor(drop, device=dev)], A_dep,
          A_pose[:, torch.as_tensor(keep, device=dev)], r[:, None]], dim=1

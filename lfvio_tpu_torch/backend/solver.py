@@ -1,19 +1,21 @@
 """Sliding-window bundle adjustment: dense Schur + Levenberg-Marquardt.
 
 Port of ``lfvio_tpu.backend.solver`` (the reference's Ceres DENSE_SCHUR
-solve, estimator.cpp:810-825) for a mono rig:
+solve, estimator.cpp:810-825):
 
   1. Per-factor Jacobians by forward-mode autodiff on the tangent
      perturbation (``torch.func.jacfwd``), vmapped over every observation of
      the [F, W+1] grid and over the W IMU intervals.
   2. Dense normal equations in the full local layout: H_pp [D, D],
-     H_pl [D, F] and the diagonal H_ll [F].
+     H_pl [D, F] and the diagonal H_ll [F]. Each observation's extrinsic
+     blocks are scattered to its camera's columns with ``index_add_``.
   3. Schur elimination of the inverse depths, one Cholesky of the reduced
      D×D system (``cholesky_ex``: a non-PD system gives a non-finite step,
      which LM rejects, as jnp.linalg.cholesky's NaN does).
   4. LM with accept/reject, linearization reuse after a rejected step and
      the relative cost-plateau exit, at most ``max_iterations`` iterations
-     (a Python loop in place of the JAX scan/cond).
+     or the caller's ``max_iter_dyn`` (a Python loop in place of the JAX
+     scan/cond).
 """
 
 from __future__ import annotations
@@ -28,25 +30,38 @@ from ..imu import Preintegration, imu_residual
 from .factors import (
     anchor_values,
     cauchy_corrector,
+    obs_extrinsics,
     imu_residuals_window,
     prior_residual,
     projection_residual,
     projection_residuals_grid,
     residual_mask,
 )
-from .state import FeatureGrid, PriorFactor, SolverConfig, WindowState, pose_dim
+from .state import (
+    FeatureGrid,
+    PriorFactor,
+    SolverConfig,
+    WindowState,
+    ex_2d,
+    n_cams_of,
+    pose_dim,
+)
 
 
 def apply_delta(state: WindowState, dx, dlam, cfg: SolverConfig):
     """Retract the full tangent step onto the state (right-multiplicative
     quaternion update, cf. PoseLocalParameterization::Plus)."""
     n = state.p.shape[0]
+    C = n_cams_of(state)
     pose = dx[: 6 * n].reshape(n, 6)
     sb = dx[6 * n : 15 * n].reshape(n, 9)
-    dex = dx[15 * n : 15 * n + 6]
+    dex = dx[15 * n : 15 * n + 6 * C].reshape(C, 6)
     if cfg.estimate_extrinsic:
-        tic = state.tic + dex[0:3]
-        qic = quat_normalize(quat_mul(state.qic, so3_exp(dex[3:6])))
+        tics, qics = ex_2d(state.tic, state.qic)
+        tic = tics + dex[:, 0:3]
+        qic = quat_normalize(quat_mul(qics, so3_exp(dex[:, 3:6])))
+        if state.tic.ndim == 1:
+            tic, qic = tic[0], qic[0]
     else:
         tic, qic = state.tic, state.qic
     return WindowState(
@@ -62,18 +77,19 @@ def apply_delta(state: WindowState, dx, dlam, cfg: SolverConfig):
     )
 
 
-def _proj_local_residual(d, p_i, q_i, p_j, q_j, tic, qic, inv_dep, td,
-                         pts_i, pts_j, vel_i, vel_j, td_obs_i, td_obs_j, tb,
-                         sqrt_info):
+def _proj_local_residual(d, p_i, q_i, p_j, q_j, tic_i, qic_i, tic_j, qic_j,
+                         inv_dep, td, pts_i, pts_j, vel_i, vel_j, td_obs_i,
+                         td_obs_j, tb, sqrt_info):
     """One projection residual as a function of the 26-dim perturbation
     [δpose_i(6), δpose_j(6), δex_i(6), δex_j(6), δλ(1), δtd(1)]. The anchor-
-    and observation-side extrinsics are perturbed separately; their blocks
-    land in the same columns and add (the total derivative)."""
+    and observation-side extrinsics are perturbed separately; where both
+    observations come from one camera their blocks land in the same columns
+    and add (the total derivative)."""
     r = projection_residual(
         p_i + d[0:3], quat_mul(q_i, so3_exp(d[3:6])),
         p_j + d[6:9], quat_mul(q_j, so3_exp(d[9:12])),
-        tic + d[12:15], quat_mul(qic, so3_exp(d[15:18])),
-        tic + d[18:21], quat_mul(qic, so3_exp(d[21:24])),
+        tic_i + d[12:15], quat_mul(qic_i, so3_exp(d[15:18])),
+        tic_j + d[18:21], quat_mul(qic_j, so3_exp(d[21:24])),
         inv_dep + d[24], td + d[25],
         pts_i, pts_j, vel_i, vel_j, td_obs_i, td_obs_j, tb, sqrt_info,
     )
@@ -102,6 +118,7 @@ def linearize_projection(state: WindowState, grid: FeatureGrid, cfg: SolverConfi
     F, W1 = grid.valid.shape
     dtype = state.p.dtype
     p_i, q_i, pts_i, vel_i, td_obs_i = anchor_values(state, grid)
+    tic_i, qic_i, tic_j, qic_j = obs_extrinsics(state, grid)
 
     def per_obs(x, k):  # [F, ...] anchor-side or [W1, ...] frame-side -> [F*W1, ...]
         x = x[:, None] if k == "f" else x[None]
@@ -109,16 +126,20 @@ def linearize_projection(state: WindowState, grid: FeatureGrid, cfg: SolverConfi
 
     args = (
         per_obs(p_i, "f"), per_obs(q_i, "f"), per_obs(state.p, "w"),
-        per_obs(state.q, "w"), per_obs(state.inv_depth, "f"),
+        per_obs(state.q, "w"),
+        per_obs(tic_i, "f"), per_obs(qic_i, "f"),
+        tic_j.reshape(F * W1, 3), qic_j.reshape(F * W1, 4),
+        per_obs(state.inv_depth, "f"),
         per_obs(pts_i, "f"), grid.bearing.reshape(F * W1, 3),
         per_obs(vel_i, "f"), grid.velocity.reshape(F * W1, 3),
         per_obs(td_obs_i, "f"), grid.td_obs.reshape(F * W1),
         tangent_basis(grid.bearing).reshape(F * W1, 2, 3),
     )
 
-    def fn(d, p_i, q_i, p_j, q_j, lam, pts_i, pts_j, vel_i, vel_j, tdo_i, tdo_j, tb):
+    def fn(d, p_i, q_i, p_j, q_j, tic_i, qic_i, tic_j, qic_j, lam,
+           pts_i, pts_j, vel_i, vel_j, tdo_i, tdo_j, tb):
         return _proj_local_residual(
-            d, p_i, q_i, p_j, q_j, state.tic, state.qic, lam, state.td,
+            d, p_i, q_i, p_j, q_j, tic_i, qic_i, tic_j, qic_j, lam, state.td,
             pts_i, pts_j, vel_i, vel_j, tdo_i, tdo_j, tb, cfg.proj_sqrt_info,
         )
 
@@ -140,7 +161,8 @@ def linearize_proj_rows(state: WindowState, grid: FeatureGrid, cfg: SolverConfig
     Returns (res_w [F,W1,2], Jfull [F,W1,2,D], J_lam [F,W1,2], valid [F,W1],
     cost)."""
     F, W1 = grid.valid.shape
-    dtype = state.p.dtype
+    dtype, dev = state.p.dtype, state.p.device
+    C = n_cams_of(state)
     res, J26, valid, w = linearize_projection(state, grid, cfg)
     sq = torch.sum(res * res, dim=-1)
     c2 = cfg.cauchy_c**2
@@ -149,23 +171,33 @@ def linearize_proj_rows(state: WindowState, grid: FeatureGrid, cfg: SolverConfig
     J26 = J26 * w[..., None]
 
     J_pi, J_pj = J26[..., 0:6], J26[..., 6:12]
-    J_ex = J26[..., 12:18] + J26[..., 18:24]
+    J_exi, J_exj = J26[..., 12:18], J26[..., 18:24]
     J_lam, J_td = J26[..., 24], J26[..., 25]
     if not cfg.estimate_extrinsic:
-        J_ex = torch.zeros_like(J_ex)
+        J_exi, J_exj = torch.zeros_like(J_exi), torch.zeros_like(J_exj)
     if not cfg.estimate_td:
         J_td = torch.zeros_like(J_td)
 
     onehot = torch.nn.functional.one_hot(grid.anchor, W1).to(dtype)  # [F, W1]
-    eyeW = torch.eye(W1, dtype=dtype, device=state.p.device)
+    eyeW = torch.eye(W1, dtype=dtype, device=dev)
     Jpose = torch.einsum("fjac,jk->fjakc", J_pj, eyeW) + torch.einsum(
         "fjac,fk->fjakc", J_pi, onehot
     )
+    # Extrinsic columns (camera-major [C, 6]): the anchor-side block goes to
+    # the anchor observation's camera, the observation-side block to the
+    # observing camera; blocks of one camera add.
+    cam_j = grid.cam_index().reshape(-1)  # [F*W1]
+    cam_i = grid.cam_index()[torch.arange(F, device=dev), grid.anchor].repeat_interleave(W1)
+    row = torch.arange(F * W1, device=dev) * C
+    Jex = torch.zeros((F * W1 * C, 2, 6), dtype=dtype, device=dev)
+    Jex.index_add_(0, row + cam_j, J_exj.reshape(F * W1, 2, 6))
+    Jex.index_add_(0, row + cam_i, J_exi.reshape(F * W1, 2, 6))
+    Jex = Jex.reshape(F, W1, C, 2, 6).permute(0, 1, 3, 2, 4).reshape(F, W1, 2, 6 * C)
     Jfull = torch.cat(
         [
             Jpose.reshape(F, W1, 2, 6 * W1),
-            torch.zeros((F, W1, 2, 9 * W1), dtype=dtype, device=state.p.device),
-            J_ex,
+            torch.zeros((F, W1, 2, 9 * W1), dtype=dtype, device=dev),
+            Jex,
             J_td[..., None],
         ],
         dim=-1,
@@ -179,7 +211,8 @@ def linearize_imu_rows(state: WindowState, pre: Preintegration, sqrt_info_imu,
     Returns (imu_res [W,15], Jimu [W*15, D], cost)."""
     W1 = state.p.shape[0]
     W = W1 - 1
-    D = pose_dim(W1)
+    C = n_cams_of(state)
+    D = pose_dim(W1, C)
     dtype, dev = state.p.dtype, state.p.device
     zero30 = torch.zeros(30, dtype=dtype, device=dev)
     fn = partial(_imu_local_residual, gravity=gravity)
@@ -208,7 +241,7 @@ def linearize_imu_rows(state: WindowState, pre: Preintegration, sqrt_info_imu,
         [
             Jp.reshape(W, 15, 6 * W1),
             Jsb.reshape(W, 15, 9 * W1),
-            torch.zeros((W, 15, 7), dtype=dtype, device=dev),
+            torch.zeros((W, 15, 6 * C + 1), dtype=dtype, device=dev),
         ],
         dim=-1,
     ).reshape(W * 15, D)
@@ -219,7 +252,7 @@ def assemble_normal_equations(state, grid, pre, sqrt_info_imu, imu_valid,
                               prior, gravity, cfg):
     """(H_pp, H_pl, H_ll, b_p, b_l, cost) at the current linearization."""
     F, W1 = grid.valid.shape
-    D = pose_dim(W1)
+    D = pose_dim(W1, n_cams_of(state))
     res_w, Jfull, J_lam, _, cost_proj = linearize_proj_rows(state, grid, cfg)
     Jmat = Jfull.reshape(F * W1 * 2, D)
     rvec = res_w.reshape(-1)
@@ -276,11 +309,21 @@ def _schur_solve(H_pp, H_pl, H_ll, b_p, b_l, lam, used):
     return dx, dlam
 
 
-def lm_loop(state, lin_fn, solve_fn, cost_fn, cfg: SolverConfig):
+def lm_loop(state, lin_fn, solve_fn, cost_fn, cfg: SolverConfig,
+            max_iter_dyn=None, apply_fn=None):
     """Levenberg-Marquardt accept/reject loop: the linearization is reused
     after a rejected step (re-solved with more damping), and an accepted
     step improving the cost by less than cfg.cost_tol (relative) stops the
-    iteration. Returns (state, init_cost, final_cost, cost_hist)."""
+    iteration. ``max_iter_dyn`` (an int) caps the iterations below
+    cfg.max_iterations: the caller derives it from the reference's wall
+    budget max_solver_time (estimator.cpp:810-825). ``apply_fn`` retracts a
+    step onto whatever ``state`` is (default: apply_delta on a WindowState).
+    Returns (state, init_cost, final_cost, cost_hist)."""
+    if apply_fn is None:
+        apply_fn = apply_delta
+    n_iter = cfg.max_iterations
+    if max_iter_dyn is not None:
+        n_iter = min(n_iter, int(max_iter_dyn))
 
     def finite_or_inf(c):
         return torch.where(torch.isfinite(c), c, torch.inf)
@@ -290,13 +333,13 @@ def lm_loop(state, lin_fn, solve_fn, cost_fn, cfg: SolverConfig):
     lam = float(cfg.init_lambda)
     lin, need_lin = None, True
     hist = []
-    for _ in range(cfg.max_iterations):
+    for _ in range(n_iter):
         if need_lin:
             lin = lin_fn(state)
         dx, dlam = solve_fn(lin, lam)
         accept = conv = False
         if bool(torch.isfinite(dx).all() & torch.isfinite(dlam).all()):
-            s_new = apply_delta(state, dx, dlam, cfg)
+            s_new = apply_fn(state, dx, dlam, cfg)
             new_cost = finite_or_inf(cost_fn(s_new))
             accept = bool(new_cost < cost)
             if accept:
@@ -313,9 +356,10 @@ def lm_loop(state, lin_fn, solve_fn, cost_fn, cfg: SolverConfig):
 
 def lm_solve(state: WindowState, grid: FeatureGrid, pre: Preintegration,
              sqrt_info_imu, imu_valid, prior: PriorFactor, gravity,
-             cfg: SolverConfig):
+             cfg: SolverConfig, max_iter_dyn=None):
     """LM over the window, ≤ cfg.max_iterations iterations (reference:
-    ceres with max 8 iterations, estimator.cpp:810-825)."""
+    ceres with max 8 iterations and a wall budget, estimator.cpp:810-825;
+    the budget maps to max_iter_dyn, see lm_loop)."""
 
     def lin_fn(s):
         return assemble_normal_equations(
@@ -328,4 +372,4 @@ def lm_solve(state: WindowState, grid: FeatureGrid, pre: Preintegration,
     def cost_fn(s):
         return total_cost(s, grid, pre, sqrt_info_imu, imu_valid, prior, gravity, cfg)
 
-    return lm_loop(state, lin_fn, solve_fn, cost_fn, cfg)
+    return lm_loop(state, lin_fn, solve_fn, cost_fn, cfg, max_iter_dyn)

@@ -1,1 +1,8 @@
-from .models import ScaramuzzaCamera, camera_from_dict, camera_from_yaml
+from .models import (
+    KannalaBrandtCamera,
+    MeiCamera,
+    PinholeCamera,
+    ScaramuzzaCamera,
+    camera_from_dict,
+    camera_from_yaml,
+)

@@ -2,8 +2,8 @@
 
 Every function takes a mapping of field name -> numpy array (or number),
 as read off a ``lfvio_tpu`` dataclass with ``np.asarray`` by the caller,
-and never touches a JAX object. Fields the port does not have (the
-multi-camera ``cam`` grid column, ``n_cams``) are ignored.
+and never touches a JAX object. An optional field (``FeatureGrid.cam``) may
+be absent from the mapping or None.
 """
 
 from __future__ import annotations
@@ -14,13 +14,16 @@ import numpy as np
 import torch
 
 from .backend.state import FeatureGrid, PriorFactor, SolverConfig, WindowState
-from .cam.models import ScaramuzzaCamera
+from .cam import models as cam_models
 from .imu.preintegration import ImuNoise
 
 
 def _tensors(cls, fields: dict, dtype, device, keep_dtype=()):
     out = {}
     for f in dataclasses.fields(cls):
+        if fields.get(f.name) is None and f.default is None:
+            out[f.name] = None
+            continue
         a = np.array(fields[f.name])
         if f.name in keep_dtype:
             out[f.name] = torch.as_tensor(a, device=device)
@@ -29,9 +32,11 @@ def _tensors(cls, fields: dict, dtype, device, keep_dtype=()):
     return cls(**out)
 
 
-def camera(fields: dict, dtype=torch.float64, device=None) -> ScaramuzzaCamera:
-    """poly, inv_poly, C, D, E, cx, cy."""
-    return _tensors(ScaramuzzaCamera, fields, dtype, device)
+def camera(fields: dict, dtype=torch.float64, device=None, model="ScaramuzzaCamera"):
+    """The camera model named ``model`` (the JAX dataclass's class name:
+    ScaramuzzaCamera, PinholeCamera, KannalaBrandtCamera or MeiCamera) from
+    its parameter fields."""
+    return _tensors(getattr(cam_models, model), fields, dtype, device)
 
 
 def imu_noise(fields: dict) -> ImuNoise:
@@ -45,9 +50,11 @@ def window_state(fields: dict, dtype=torch.float64, device=None) -> WindowState:
 
 
 def feature_grid(fields: dict, dtype=torch.float64, device=None) -> FeatureGrid:
-    g = _tensors(FeatureGrid, fields, dtype, device, keep_dtype=("valid", "anchor", "used"))
+    g = _tensors(FeatureGrid, fields, dtype, device,
+                 keep_dtype=("valid", "anchor", "used", "cam"))
     return g.replace(valid=g.valid.to(torch.bool), anchor=g.anchor.to(torch.int64),
-                     used=g.used.to(torch.bool))
+                     used=g.used.to(torch.bool),
+                     cam=None if g.cam is None else g.cam.to(torch.int64))
 
 
 def prior_factor(fields: dict, dtype=torch.float64, device=None) -> PriorFactor:
@@ -57,3 +64,16 @@ def prior_factor(fields: dict, dtype=torch.float64, device=None) -> PriorFactor:
 
 def solver_config(fields: dict) -> SolverConfig:
     return SolverConfig(**{f.name: fields[f.name] for f in dataclasses.fields(SolverConfig)})
+
+
+def estimator_from_checkpoint(path, cfg=None, **cfg_kw):
+    """An ``Estimator`` resumed from a checkpoint .npz, written by this
+    package's ``save_checkpoint`` or by the JAX package's (the keys are the
+    same): how a running estimator's state is carried across. ``cfg`` is an
+    ``EstimatorConfig`` of the configuration the file was written under, or
+    its fields are given as keywords; the estimator lands on ``cfg.device``
+    (the CUDA card unless named)."""
+    from .runtime.checkpoint import load_checkpoint
+    from .runtime.estimator import Estimator, EstimatorConfig
+
+    return load_checkpoint(path, Estimator(cfg or EstimatorConfig(**cfg_kw)))

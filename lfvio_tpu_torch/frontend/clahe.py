@@ -37,8 +37,11 @@ def clahe(img, clip_limit: float = 3.0, grid: int = 8, n_bins: int = 256):
     rows = torch.arange(H, device=dev)
     cols = torch.arange(W, device=dev)
     tile = (rows // th)[:, None] * grid + (cols // tw)[None, :]
-    hist = torch.bincount(
-        (tile * n_bins + bins).reshape(-1), minlength=grid * grid * n_bins
+    # Per-tile histograms by a scatter-add (torch.bincount would make the
+    # host wait for the device to learn the largest bin).
+    idx = (tile * n_bins + bins).reshape(-1)
+    hist = torch.zeros(grid * grid * n_bins, dtype=torch.int64, device=dev).scatter_add_(
+        0, idx, torch.ones_like(idx)
     ).to(dtype).reshape(grid * grid, n_bins)
     lut = _tile_luts(hist, clip_limit, npix, n_bins).reshape(-1)
 

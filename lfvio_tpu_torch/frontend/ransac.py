@@ -71,12 +71,14 @@ def spherical_ransac_e(uniforms, b1, b2, valid):
     order = torch.argsort(keys, dim=-1)[:, :8]  # [n_hyp, 8]
     E_hyp = _solve_E(_constraint_rows(b1[order], b2[order]))
     inl_hyp, score_hyp = _score(E_hyp, b1, b2, valid)
-    best = torch.argmax(score_hyp)
-    best_inl = inl_hyp[best]
+    # index_select, not [best]: indexing with a 0-dim tensor reads it on the host.
+    best = torch.argmax(score_hyp).reshape(1)
+    best_inl = inl_hyp.index_select(0, best)[0]
 
     # Refit on the best hypothesis's inliers + rescore
     # (feature_tracker.cpp:311-326); keep the hypothesis if it collapses.
     E_fit = _solve_E(_constraint_rows(b1, b2), weights=best_inl.to(b1.dtype))
     inliers, _ = _score(E_fit, b1, b2, valid)
     ok = torch.sum(inliers) >= 8
-    return torch.where(ok, E_fit, E_hyp[best]), torch.where(ok, inliers, best_inl)
+    return (torch.where(ok, E_fit, E_hyp.index_select(0, best)[0]),
+            torch.where(ok, inliers, best_inl))

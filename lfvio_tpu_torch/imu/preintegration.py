@@ -34,6 +34,7 @@ from ..geom import (
     quat_rotate,
     quat_to_mat,
     skew,
+    so3_exp,
 )
 
 O_P, O_R, O_V, O_BA, O_BG = 0, 3, 6, 9, 12
@@ -232,3 +233,23 @@ def propagate_state_midpoint(p, q, v, acc_0, gyr_0, acc_1, gyr_1, dt, ba, bg, gr
     un_acc_1 = quat_rotate(q_new, acc_1 - ba) - gravity
     un_acc = 0.5 * (un_acc_0 + un_acc_1)
     return p + dt * v + 0.5 * dt * dt * un_acc, q_new, v + dt * un_acc
+
+
+def propagate_interval_midpoint(p, q, v, dts, accs, gyrs, acc0, gyr0, ba, bg, gravity):
+    """World-frame midpoint propagation of one state (p, q, v) through a
+    whole (padded) interval [M] of IMU samples at fixed biases: what M calls
+    of ``propagate_state_midpoint`` with exact rotation increments give, in
+    log depth. The orientations are a prefix product of the increments; the
+    midpoint accelerations are then closed-form and (v, p) are cumulative
+    sums. Zero-padded samples (dt = 0) are exact no-ops."""
+    prev_accs = torch.cat([acc0[None, :], accs[:-1]], dim=0)
+    prev_gyrs = torch.cat([gyr0[None, :], gyrs[:-1]], dim=0)
+    dt = dts[:, None]
+    r = so3_exp((0.5 * (prev_gyrs + gyrs) - bg) * dt)
+    q_k = quat_normalize(quat_mul(q, _prefix_quat(r)))  # orientation after step k
+    q_prev = torch.cat([q[None, :], q_k[:-1]], dim=0)
+    un_acc = 0.5 * (quat_rotate(q_prev, prev_accs - ba) + quat_rotate(q_k, accs - ba)) - gravity
+    dv = torch.cumsum(un_acc * dt, dim=0)
+    v_prev = v + torch.cat([torch.zeros_like(dv[:1]), dv[:-1]], dim=0)
+    p_end = p + torch.sum(dt * v_prev + 0.5 * dt * dt * un_acc, dim=0)
+    return p_end, q_k[-1], v + dv[-1]

@@ -1,23 +1,34 @@
-"""Sliding-window VIO estimator (synchronous, solve lag 1).
+"""Sliding-window VIO estimator.
 
-Port of ``lfvio_tpu.runtime.estimator`` in its lag-1 configuration (the
-reference Estimator, estimator.cpp): the INITIAL → NON_LINEAR state
-machine, measurement handling, the numpy bootstrap (``..vinit``, the port's own copy),
-the per-frame solve, failure detection, marginalization and the window
-slide.
+Port of ``lfvio_tpu.runtime.estimator`` (the reference Estimator,
+estimator.cpp): the INITIAL → NON_LINEAR state machine, measurement
+handling, the numpy bootstrap (``..vinit``, the port's own copy) with the
+online extrinsic-rotation calibration, the per-frame solve with td and
+extrinsic estimation, relocalization, the solver's wall-clock budget,
+failure detection, marginalization and the window slide, for any window
+length and number of cameras.
 
 Division of labour: host mirrors (numpy f64) hold the window and drive the
 policy; each frame's solve is plain torch calls on ``cfg.device`` in
 ``cfg.solver_dtype`` — preintegration of all window intervals, covariance
 whitening, triangulation, LM, the yaw-gauge fix — followed by the QR
-marginalization, whose prior stays on the device. A dispatched solve is
-completed (written back, checked, slid) by :meth:`finalize_solve` before the
-next frame's measurements are applied.
+marginalization, whose prior stays on the device.
+
+A dispatched solve is completed (written back, checked, slid) by
+:meth:`finalize_solve`. Its results travel to the host as non-blocking
+copies into pinned buffers behind one CUDA event, and finalize waits on that
+event only. With ``solve_lag`` > 1 up to that many solves stay pending: the
+window slides eagerly at dispatch with the IMU-propagated mirrors, and a
+solved window is rebased through the slides that happened since when it
+arrives. With ``device_chain`` the next solve then starts from the previous
+solve's output on the device (slid, the new frame propagated) instead of
+from the stale mirrors.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -28,32 +39,70 @@ from ..backend import (
     SolverConfig,
     WindowState,
     lm_solve,
+    lm_solve_relo,
     marginalize_old_qr,
     marginalize_second_new_qr,
     triangulate_grid,
     yaw_gauge_fix,
 )
-from ..backend.state import WINDOW
-from ..device import resolve_device
+from ..backend.factors import projection_residuals_grid
+from ..backend.gauge import gauge_apply_pose, yaw_gauge_transform
+from ..backend.state import WINDOW  # the default window length only
+from ..device import Fetch, resolve_device
 from ..geom import host as hg
-from ..imu import ImuNoise, preintegrate, whiten_covariance
+from ..imu import ImuNoise, preintegrate, propagate_interval_midpoint, whiten_covariance
 from ..vinit import global_sfm, pnp_bearing_gn, solve_relative_rt, visual_imu_alignment
 from ..vinit.alignment import AlignFrame
+from ..vinit.ex_rotation import ExtrinsicRotationCalibrator
 from .feature_manager import HostFeatureManager
+
+
+def _norm_deg(a):
+    return (a + 180.0) % 360.0 - 180.0
 
 
 @dataclasses.dataclass
 class EstimatorConfig:
     n_feature_slots: int = 256
+    # Sliding-window keyframes (reference WINDOW_SIZE, parameters.h:12):
+    # every shape (solver layout, grids, priors, IMU buffers) derives from it.
+    window: int = WINDOW
+    # Cameras in the rig (dual-PAL up+down = 2). tic / ric may be per-camera
+    # arrays ([C,3] / [C,3,3]) when n_cams > 1.
+    n_cams: int = 1
     max_imu_per_interval: int = 256
     min_parallax: float = 10.0 / 160.0  # keyframe_parallax / FOCAL_LENGTH
     imu_noise: ImuNoise = dataclasses.field(
         default_factory=lambda: ImuNoise(0.02, 0.01, 0.04, 0.001)
     )
     g_norm: float = 9.81
+    estimate_td: bool = False
+    estimate_extrinsic: bool = False
+    # ESTIMATE_EXTRINSIC=2 (estimator.cpp:126-142): start with no knowledge
+    # of the extrinsic rotation and hand-eye calibrate it during INITIAL.
+    calib_extrinsic_rotation: bool = False
+    # Rolling shutter (projection_td_factor.cpp:21-22,53-56): per-observation
+    # td_obs = td_meas - TR/ROW * (row - ROW/2). TR = 0: global shutter.
+    rolling_shutter_tr: float = 0.0
+    image_rows: int = 480
     td0: float = 0.0
     tic: np.ndarray = dataclasses.field(default_factory=lambda: np.zeros(3))
     ric: np.ndarray = dataclasses.field(default_factory=lambda: np.eye(3))
+    max_iterations: int = 8
+    # Reference wall-clock budget per solve (estimator.cpp:810-825):
+    # max_solver_time seconds, x0.8 when marginalizing old; 0 = unlimited.
+    # Enforced as an iteration cap: budget / measured time of one LM
+    # iteration (calibrate_solver_budget).
+    max_solver_time: float = 0.0
+    # Frames a solve's result may lag before its values are integrated:
+    # 1 = finalize before the next dispatch; 2 or more = the window slides
+    # eagerly at dispatch with propagated values, and the solved values are
+    # rebased through the slides when they arrive.
+    solve_lag: int = 1
+    # With solve_lag > 1: seed solve k+1 on the device from solve k's output
+    # (slide + IMU propagation of the new frame) instead of from the host's
+    # stale propagated mirrors.
+    device_chain: bool = True
     solver_dtype: torch.dtype = torch.float32
     device: torch.device | str | None = None  # None: the CUDA card
 
@@ -61,14 +110,27 @@ class EstimatorConfig:
 class Estimator:
     INITIAL, NON_LINEAR = 0, 1
 
+    # Reprojection gate: observations with residuals beyond this (sqrt_info
+    # units, 1 px ~ 0.667) would be dropped after the solve. Off by default,
+    # as the reference ships removeOutlier disabled
+    # (feature_manager.cpp:255-268): the Cauchy loss bounds outliers already.
+    GATE_THRESH = 1e9
+
     def __init__(self, cfg: EstimatorConfig):
         self.cfg = cfg
-        self.WIN = WINDOW
-        self.NF = WINDOW + 1
+        self.WIN = int(cfg.window)
+        self.NF = self.WIN + 1
         self.device = resolve_device(cfg.device)
-        # td and the extrinsics stay fixed in this configuration.
-        self.scfg = SolverConfig(estimate_td=False, estimate_extrinsic=False)
+        self.scfg = SolverConfig(
+            max_iterations=cfg.max_iterations,
+            estimate_td=cfg.estimate_td,
+            estimate_extrinsic=cfg.estimate_extrinsic,
+            n_cams=cfg.n_cams,
+        )
         self.gravity = None  # set by the bootstrap
+        # Measured host time of one LM iteration (calibrate_solver_budget);
+        # None until calibrated, and then the wall budget cannot bind.
+        self._iter_time = None
         self.clear_state()
 
     # ------------------------------------------------------------------ state
@@ -80,8 +142,19 @@ class Estimator:
         self.Vs = np.zeros((W1, 3))
         self.Bas = np.zeros((W1, 3))
         self.Bgs = np.zeros((W1, 3))
-        self.tic = np.asarray(cfg.tic, np.float64).copy()
-        self.qic = hg.mat_to_quat(np.asarray(cfg.ric, np.float64))
+        tic_in = np.asarray(cfg.tic, np.float64)
+        ric_in = np.asarray(cfg.ric, np.float64)
+        if cfg.n_cams > 1:
+            # One row per camera; a single extrinsic is broadcast.
+            if tic_in.ndim == 1:
+                tic_in = np.tile(tic_in, (cfg.n_cams, 1))
+            if ric_in.ndim == 2:
+                ric_in = np.tile(ric_in, (cfg.n_cams, 1, 1))
+            self.tic = tic_in.copy()
+            self.qic = np.stack([hg.mat_to_quat(R) for R in ric_in])
+        else:
+            self.tic = tic_in.copy()
+            self.qic = hg.mat_to_quat(ric_in)
         self.td = cfg.td0
         self.frame_count = 0
         self.solver_flag = self.INITIAL
@@ -114,7 +187,30 @@ class Estimator:
         self.last_R0 = np.eye(3)
         self.initial_timestamp = -1e18
         self.marg_old = True
-        self._pending = None  # the dispatched, not yet finalized solve
+        # Online extrinsic-rotation calibration (ESTIMATE_EXTRINSIC=2).
+        self.ex_calib = ExtrinsicRotationCalibrator()
+        self.extrinsic_calibrated = not cfg.calib_extrinsic_rotation
+        # Dispatched, not yet finalized solves, oldest first; at most
+        # cfg.solve_lag of them.
+        self._pending_q = []
+        # Device state chain: the previous solve's output window and the
+        # kind of the eager slide that followed it. None: the next solve is
+        # seeded from the host mirrors (start, restart, failure, relo).
+        self._chain = None
+        # Relocalization (estimator_node.cpp:261-285).
+        self.relo_relative_t = None
+        self.relo_relative_q = None
+        self.relo_relative_yaw = None
+        self.relo_frame_stamp = None
+        self._relo_active = None  # armed loop match for the next solve
+
+    def _tic0(self):
+        """Primary camera's extrinsic translation: the host geometry paths
+        (bootstrap, relo, slide re-anchoring) work on camera 0."""
+        return self.tic if self.tic.ndim == 1 else self.tic[0]
+
+    def _ric0(self):
+        return hg.quat_to_mat(self.qic if self.qic.ndim == 1 else self.qic[0])
 
     # ------------------------------------------------------------------- IMU
     def process_imu(self, dt, acc, gyr):
@@ -140,17 +236,20 @@ class Estimator:
                 self._imu_gyrs[j, n] = gyr
                 self._imu_n[j] = n + 1
             self._imu_sumdt[j] += dt
-            g = np.array([0.0, 0.0, self.cfg.g_norm])
-            R = hg.quat_to_mat(self.Qs[j])
-            un_acc_0 = R @ (self.acc_0 - self.Bas[j]) - g
-            un_gyr = 0.5 * (self.gyr_0 + gyr) - self.Bgs[j]
-            q_new = hg.quat_normalize(hg.quat_mul(self.Qs[j], hg.so3_exp(un_gyr * dt)))
-            un_acc_1 = hg.quat_to_mat(q_new) @ (acc - self.Bas[j]) - g
-            un_acc = 0.5 * (un_acc_0 + un_acc_1)
-            self.Ps[j] += dt * self.Vs[j] + 0.5 * dt * dt * un_acc
-            self.Vs[j] += dt * un_acc
-            self.Qs[j] = q_new
+            self.Ps[j], self.Qs[j], self.Vs[j] = self._midpoint_step(
+                self.Ps[j], self.Qs[j], self.Vs[j], self.Bas[j], self.Bgs[j],
+                self.acc_0, self.gyr_0, acc, gyr, dt)
         self.acc_0, self.gyr_0 = acc, gyr
+
+    def _midpoint_step(self, P, Q, V, Ba, Bg, acc0, gyr0, acc, gyr, dt):
+        """One world-frame midpoint propagation step on the host."""
+        g = np.array([0.0, 0.0, self.cfg.g_norm])
+        un_acc_0 = hg.quat_to_mat(Q) @ (acc0 - Ba) - g
+        un_gyr = 0.5 * (gyr0 + gyr) - Bg
+        Q = hg.quat_normalize(hg.quat_mul(Q, hg.so3_exp(un_gyr * dt)))
+        un_acc_1 = hg.quat_to_mat(Q) @ (acc - Ba) - g
+        un_acc = 0.5 * (un_acc_0 + un_acc_1)
+        return P + dt * V + 0.5 * dt * dt * un_acc, Q, V + dt * un_acc
 
     # ------------------------------------------------------- device inputs
     def _tensor(self, a, dtype=None):
@@ -174,56 +273,136 @@ class Estimator:
             bearing=t(fm.bearing), velocity=t(fm.velocity), td_obs=t(fm.td_obs),
             valid=t(fm.valid, torch.bool), anchor=t(fm.anchor, torch.int64),
             used=t(fm.used_mask(), torch.bool),
+            cam=t(fm.cam, torch.int64) if self.cfg.n_cams > 1 else None,
         )
 
-    def _solve_step(self, state, grid, prior, origin_p0, origin_q0):
+    def _device_imu(self):
+        """The padded IMU window: (dts, accs, gyrs, a0, g0, valid) of the W
+        intervals."""
+        t = self._tensor
+        return (
+            t(self._imu_dts[1:]), t(self._imu_accs[1:]), t(self._imu_gyrs[1:]),
+            t(self._imu_a0[1:]), t(self._imu_g0[1:]),
+            t((self._imu_n[1:] > 0) & (self._imu_sumdt[1:] < 10.0), torch.bool),
+        )
+
+    def _apply_chain(self, state, chain, marg_prev, dts, accs, gyrs, a0, g0):
+        """The window that seeds the LM when the device chain is on: the
+        previous solve's output ``chain`` advanced on the device. The eager
+        slide that followed it is applied (shift for MARGIN_OLD, newest-merge
+        for SECOND_NEW) and the new frame (slot W) is midpoint-propagated
+        from the previous newest frame over the newest interval's samples:
+        row W−1 of the padded window holds exactly the samples since the
+        previous dispatch after either slide (the SECOND_NEW merge lands in
+        row W−2). Inverse depths stay the host's."""
+        cp, cq, cv, cba, cbg, ctic, cqic, ctd = chain
+        W = self.WIN
+
+        def shift(a):
+            if marg_prev:
+                return torch.cat([a[1:], a[-1:]], dim=0)
+            a = a.clone()
+            a[W - 1] = a[W]
+            return a
+
+        p2, q2, v2, ba2, bg2 = (shift(x) for x in (cp, cq, cv, cba, cbg))
+        gravity = self._tensor([0.0, 0.0, self.cfg.g_norm])
+        # Post-slide slot W still holds the previous newest frame.
+        p2[W], q2[W], v2[W] = propagate_interval_midpoint(
+            p2[W], q2[W], v2[W], dts[W - 1], accs[W - 1], gyrs[W - 1],
+            a0[W - 1], g0[W - 1], ba2[W], bg2[W], gravity,
+        )
+        return WindowState(p=p2, q=q2, v=v2, ba=ba2, bg=bg2, tic=ctic, qic=cqic,
+                           td=ctd, inv_depth=state.inv_depth)
+
+    def _solve_step(self, state, grid, imu, prior, has_depth, origin_p0, origin_q0,
+                    max_iter, relo=None):
         """The per-frame solve (solveOdometry + double2vector,
         estimator.cpp:475-515, 532-626): preintegrate every window interval
-        at its start frame's biases, whiten, triangulate new features, LM,
-        yaw-gauge fix. Returns the solved state and the intermediates the
-        MARGIN_OLD prior needs."""
+        at its start frame's biases, whiten, triangulate new features, LM
+        (with the loop pose as a free block when ``relo`` is armed,
+        estimator.cpp:777-808), yaw-gauge fix. Returns a dict with the
+        solved state and the intermediates the MARGIN_OLD prior needs."""
         t = self._tensor
+        dts, accs, gyrs, a0, g0, imu_valid = imu
         gravity = t([0.0, 0.0, self.cfg.g_norm])
-        pre = preintegrate(
-            t(self._imu_dts[1:]), t(self._imu_accs[1:]), t(self._imu_gyrs[1:]),
-            t(self._imu_a0[1:]), t(self._imu_g0[1:]), state.ba[:-1], state.bg[:-1],
-            self.cfg.imu_noise,
-        )
-        imu_valid = t((self._imu_n[1:] > 0) & (self._imu_sumdt[1:] < 10.0), torch.bool)
+        pre = preintegrate(dts, accs, gyrs, a0, g0, state.ba[:-1], state.bg[:-1],
+                           self.cfg.imu_noise)
         sqrt_info, imu_valid = whiten_covariance(pre.covariance, imu_valid)
-        state = state.replace(
-            inv_depth=triangulate_grid(state, grid, t(self.fm.depth > 0, torch.bool))
-        )
-        out, _, _, _ = lm_solve(
-            state, grid, pre, sqrt_info, imu_valid, prior, gravity, self.scfg
-        )
-        out = yaw_gauge_fix(out, t(origin_p0), t(origin_q0))
-        return out, pre, sqrt_info, imu_valid, gravity
+        state = state.replace(inv_depth=triangulate_grid(state, grid, has_depth))
+        res = dict(pre=pre, sqrt_info=sqrt_info, imu_ok=imu_valid, gravity=gravity,
+                   rn=None, rvalid=None, relo_p=None, relo_q=None)
+        if relo is None:
+            out, _, _, _ = lm_solve(state, grid, pre, sqrt_info, imu_valid, prior,
+                                    gravity, self.scfg, max_iter_dyn=max_iter)
+        else:
+            out, rp, rq, _, _ = lm_solve_relo(
+                state, grid, pre, sqrt_info, imu_valid, prior, gravity, self.scfg,
+                t(relo["p"]), t(relo["q"]), t(relo["bearing"]),
+                t(relo["mask"], torch.bool), max_iter_dyn=max_iter,
+            )
+            # The loop pose rides the window's gauge correction
+            # (estimator.cpp:605-611).
+            rot, pivot = yaw_gauge_transform(out, origin_p0, origin_q0)
+            res["relo_p"], res["relo_q"] = gauge_apply_pose(rot, pivot, origin_p0, rp, rq)
+        out = yaw_gauge_fix(out, origin_p0, origin_q0)
+        if relo is None and self.GATE_THRESH < 1e8:
+            r, res["rvalid"] = projection_residuals_grid(out, grid, self.scfg.proj_sqrt_info)
+            res["rn"] = torch.linalg.norm(r, dim=-1)
+        res["out"] = out
+        return res
 
     def _empty_prior(self):
-        return PriorFactor.empty(self.cfg.solver_dtype, self.NF, self.device)
+        return PriorFactor.empty(self.cfg.solver_dtype, self.NF, self.device,
+                                 self.cfg.n_cams)
 
     # ------------------------------------------------------------------ frame
     def process_image_arrays(self, ids, bearings, vels, rows, mask, t: float,
-                             td_pair=None):
+                             td_pair=None, cams=None):
         """Estimator::processImage (estimator.cpp:122-220), array interface.
 
         ids/bearings/vels/rows: per-slot arrays from FrontEnd.process_arrays;
-        mask selects the published observations. A dispatched solve is left
-        for :meth:`finalize_solve` to complete (the pipeline calls it at the
-        next frame and on flush). td_pair is the td the pipeline paired IMU
-        with.
+        mask selects the published observations; cams is the per-observation
+        camera id of a multi-camera front end. The frame's solve is
+        dispatched and left for :meth:`finalize_solve` (the pipeline
+        finalizes it ``solve_lag`` frames later and on flush). td_pair is
+        the td the pipeline paired IMU with.
         """
         cfg = self.cfg
         sel = np.where(np.asarray(mask))[0]
         ids_s = np.asarray(ids)[sel]
         b_s = np.asarray(bearings)[sel]
         v_s = np.asarray(vels)[sel]
+        # td_obs records the td used for the IMU pairing (finalize_solve may
+        # have moved self.td since) minus the rolling-shutter row term.
         td_rec = self.td if td_pair is None else td_pair
-        tds = np.full(len(sel), td_rec)
+        tr = cfg.rolling_shutter_tr
+        if tr != 0.0:
+            rows_s = np.asarray(rows, np.float64)[sel]
+            tds = td_rec - (tr / cfg.image_rows) * (rows_s - cfg.image_rows / 2.0)
+        else:
+            tds = np.full(len(sel), td_rec)
+        cams_s = None if cams is None else np.asarray(cams, np.int32)[sel]
         self.marg_old = self.fm.add_frame_arrays(
-            self.frame_count, ids_s, b_s, v_s, tds, cfg.min_parallax
+            self.frame_count, ids_s, b_s, v_s, tds, cfg.min_parallax, cams=cams_s
         )
+
+        # Online extrinsic-rotation calibration during INITIAL
+        # (estimator.cpp:126-142): hand-eye on frame-pair rotations until
+        # the calibrator's excitation gate passes.
+        if (not self.extrinsic_calibrated and self.frame_count != 0
+                and self.solver_flag == self.INITIAL):
+            b1, b2, _ = self.fm.corresponding(self.frame_count - 1, self.frame_count)
+            if len(b1) >= 9:
+                pre = self._np_preint(self.imu_buf[self.frame_count])
+                if pre is not None:
+                    done, ric = self.ex_calib.add_pair(b1, b2, pre["delta_q"])
+                    if done:
+                        if self.qic.ndim == 2:
+                            self.qic[0] = hg.mat_to_quat(ric)
+                        else:
+                            self.qic = hg.mat_to_quat(ric)
+                        self.extrinsic_calibrated = True
 
         self.headers[self.frame_count] = t
         if self.solver_flag == self.INITIAL:
@@ -242,7 +421,9 @@ class Estimator:
         if self.solver_flag == self.INITIAL:
             if self.frame_count == self.WIN:
                 ok = False
-                if t - self.initial_timestamp > 0.1:
+                # The bootstrap needs a trusted extrinsic rotation
+                # (estimator.cpp:152).
+                if self.extrinsic_calibrated and t - self.initial_timestamp > 0.1:
                     ok = self._initial_structure()
                     self.initial_timestamp = t
                 if ok:
@@ -258,13 +439,160 @@ class Estimator:
         else:
             self._dispatch_solve(t, first=False)
 
+    # ------------------------------------------------------------------ relo
+    def _header_index(self, stamp, n):
+        idx = None
+        for i in range(n):
+            if abs(self.headers[i] - stamp) < 1e-7:
+                idx = i
+        return idx
+
+    def _set_relo_outputs(self, idx, relo_t, relo_r, prev_p, prev_q):
+        """relo_relative_t/q/yaw and the drift correction from a loop pose
+        (double2vector, estimator.cpp:605-624)."""
+        R_idx = hg.quat_to_mat(self.Qs[idx])
+        self.relo_relative_t = relo_r.T @ (self.Ps[idx] - relo_t)
+        self.relo_relative_q = hg.mat_to_quat(relo_r.T @ R_idx)
+        yaw_r = float(hg.R_to_ypr_deg(relo_r)[0])
+        self.relo_relative_yaw = _norm_deg(float(hg.R_to_ypr_deg(R_idx)[0]) - yaw_r)
+        dy = _norm_deg(float(hg.R_to_ypr_deg(hg.quat_to_mat(prev_q))[0]) - yaw_r)
+        self.drift_correct_r = hg.ypr_deg_to_R([dy, 0.0, 0.0])
+        self.drift_correct_t = prev_p - self.drift_correct_r @ relo_t
+
+    def set_relo_frame(self, frame_stamp, match_ids, match_bearings, prev_relo_p,
+                       prev_relo_q):
+        """The estimator side of a loop closure (setReloFrame,
+        estimator.cpp:1133-1152, fed from estimator_node.cpp:261-285).
+
+        ``frame_stamp`` must match a window keyframe header;
+        ``match_ids`` / ``match_bearings`` are the loop frame's matched
+        feature ids and unit bearings (old camera frame); (``prev_relo_p``,
+        ``prev_relo_q``) is the loop frame's pose in the pose-graph world.
+
+        A bearing-space PnP of the loop frame against the window's
+        triangulated landmarks seeds the loop pose at once (this method's
+        outputs); the next frame's solve takes the loop pose as a free
+        6-dim block with one relo row per matched feature (backend/relo.py),
+        and the refined outputs land at that solve's finalize. Returns True
+        when a drift estimate was produced."""
+        idx = self._header_index(frame_stamp, self.WIN)
+        if idx is None or self.solver_flag != self.NON_LINEAR:
+            return False
+        ric, tic0 = self._ric0(), self._tic0()
+        pw, bb = [], []
+        relo_bearing = np.zeros((self.cfg.n_feature_slots, 3))
+        relo_mask = np.zeros(self.cfg.n_feature_slots, bool)
+        match_bearings = np.asarray(match_bearings, np.float64)
+        for fid, b_old in zip(np.asarray(match_ids, np.int64), match_bearings):
+            s = self.fm._id2slot.get(int(fid), -1)
+            if s < 0 or self.fm.depth[s] <= 0:
+                continue
+            a = int(self.fm.anchor[s])
+            p_cam = self.fm.bearing[s, a] * self.fm.depth[s]
+            pw.append(hg.quat_to_mat(self.Qs[a]) @ (ric @ p_cam + tic0) + self.Ps[a])
+            b_u = b_old / max(np.linalg.norm(b_old), 1e-12)
+            bb.append(b_u)
+            relo_bearing[s] = b_u
+            relo_mask[s] = True
+        if len(pw) < 6:
+            return False
+
+        # Seed from the matched window frame (the reference seeds relo_Pose
+        # with para_Pose[i]); solve the loop frame's camera pose in the VIO
+        # world.
+        R_wi = hg.quat_to_mat(self.Qs[idx])
+        R_wc0 = R_wi @ ric
+        t_wc0 = self.Ps[idx] + R_wi @ tic0
+        R_cw, t_cw, ok = pnp_bearing_gn(np.stack(pw), np.stack(bb), R_wc0.T, -R_wc0.T @ t_wc0)
+        if not ok:
+            return False
+        R_wc = R_cw.T
+        relo_r = R_wc @ ric.T  # loop frame's IMU pose in the VIO world
+        relo_t = -R_wc @ t_cw - relo_r @ tic0
+        prev_p = np.asarray(prev_relo_p, np.float64).copy()
+        prev_q = np.asarray(prev_relo_q, np.float64).copy()
+        self._set_relo_outputs(idx, relo_t, relo_r, prev_p, prev_q)
+        self.relo_frame_stamp = frame_stamp
+        # Arm the relo solve for the next frame; one-shot, like the reference
+        # (relocalization_info is cleared in double2vector).
+        self._relo_active = dict(
+            bearing=relo_bearing, mask=relo_mask, p=relo_t.copy(),
+            q=hg.mat_to_quat(relo_r), stamp=float(frame_stamp), prev_p=prev_p,
+            prev_q=prev_q,
+            # Slots can be freed and refilled before the solve: it re-checks
+            # that each masked slot still holds the same feature.
+            snap_ids=self.fm.feature_id.copy(),
+        )
+        return True
+
+    def _finalize_relo(self, meta, relo_p, relo_q):
+        """Relative-pose outputs from the jointly refined loop pose; runs at
+        the relo solve's finalize, before the window slides."""
+        idx = self._header_index(meta["stamp"], self.NF)
+        if idx is None:
+            return
+        self._set_relo_outputs(idx, relo_p, hg.quat_to_mat(relo_q), meta["prev_p"],
+                               meta["prev_q"])
+
     # ----------------------------------------------------------------- solve
+    def _iterations_allowed(self) -> int:
+        """LM iteration cap for the reference's real-time wall budget
+        (estimator.cpp:810-825): max_solver_time seconds per solve, x0.8
+        when marginalizing old. Uncalibrated or budget <= 0: the static
+        cap."""
+        cfg = self.cfg
+        if cfg.max_solver_time <= 0 or not self._iter_time:
+            return cfg.max_iterations
+        budget = cfg.max_solver_time * (0.8 if self.marg_old else 1.0)
+        return int(np.clip(budget / self._iter_time, 1, cfg.max_iterations))
+
+    def calibrate_solver_budget(self, n=4):
+        """Measure the time of one LM iteration so that max_solver_time can
+        bind: the solve at 1 iteration against the solve at max_iterations,
+        n runs each on the host's clock around a device synchronize; the
+        fixed cost cancels in the difference. Each run perturbs the window
+        positions so the iterations do real work (a converged window stops
+        at the cost plateau). Reads the estimator only; costs 2(n+1) solves."""
+        if self.frame_count < self.WIN or self.solver_flag != self.NON_LINEAR:
+            return None
+        prior = self.prior if self.prior is not None else self._empty_prior()
+        state, grid, imu = self._device_state(), self._device_grid(), self._device_imu()
+        has_depth = self._tensor(self.fm.depth > 0, torch.bool)
+        op0, oq0 = self._tensor(self.Ps[0]), self._tensor(self.Qs[0])
+
+        def run(max_iter, seed):
+            rng = np.random.default_rng(seed)
+            s = state.replace(p=state.p + self._tensor(rng.normal(0.0, 0.05, state.p.shape)))
+            return self._solve_step(s, grid, imu, prior, has_depth, op0, oq0, max_iter)
+
+        def sync():
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+
+        for mi in (1, self.cfg.max_iterations):  # warm
+            run(mi, 0)
+        sync()
+        t0 = time.perf_counter()
+        for i in range(n):
+            run(1, 1 + i)
+        sync()
+        t1 = time.perf_counter()
+        for i in range(n):
+            run(self.cfg.max_iterations, 1 + i)
+        sync()
+        t2 = time.perf_counter()
+        iters = max(self.cfg.max_iterations - 1, 1)
+        self._iter_time = max(((t2 - t1) - (t1 - t0)) / (n * iters), 1e-7)
+        return self._iter_time
+
     def _dispatch_solve(self, t: float, first: bool = False):
-        """Run the frame's solve and marginalization on the device; the
-        host-side completion waits for :meth:`finalize_solve`."""
+        """Run the frame's solve and marginalization on the device and start
+        the result's copies to the host; the host-side completion waits for
+        :meth:`finalize_solve`."""
         if self.frame_count < self.WIN:
             return
-        self.finalize_solve()
+        while len(self._pending_q) >= max(self.cfg.solve_lag, 1):
+            self.finalize_solve()  # for direct use without the pipeline
         prior = self.prior if self.prior is not None else self._empty_prior()
         # Gauge origin: pre-solve frame 0, or the last good pose after a
         # detected failure (estimator.cpp:536-547).
@@ -273,53 +601,193 @@ class Estimator:
             self.failure_occur = False
         else:
             origin_p0, origin_q0 = self.Ps[0], self.Qs[0]
-        grid = self._device_grid()
-        out, pre, sqrt_info, imu_ok, gravity = self._solve_step(
-            self._device_state(), grid, prior, origin_p0, origin_q0
+
+        relo = self._relo_active if not first else None
+        if relo is not None:
+            # Only slots still holding the feature seen at set_relo_frame.
+            relo = dict(relo, mask=relo["mask"] & (self.fm.feature_id == relo["snap_ids"]))
+        lagged = self.cfg.solve_lag > 1
+        chain_on = (self.cfg.device_chain and lagged and self._chain is not None
+                    and relo is None and not first)
+        state, grid, imu = self._device_state(), self._device_grid(), self._device_imu()
+        op0, oq0 = self._tensor(origin_p0), self._tensor(origin_q0)
+        if chain_on:
+            state = self._apply_chain(state, self._chain["state"], self._chain["marg"],
+                                      *imu[:5])
+            # Gauge origin: pre-solve frame 0 of the state that seeds the LM.
+            op0, oq0 = state.p[0].clone(), state.q[0].clone()
+        res = self._solve_step(
+            state, grid, imu, prior, self._tensor(self.fm.depth > 0, torch.bool),
+            op0, oq0, self._iterations_allowed(), relo=relo,
         )
+        out = res["out"]
+        relo_meta = None
+        if relo is not None:
+            relo_meta = dict(stamp=relo["stamp"], prev_p=relo["prev_p"], prev_q=relo["prev_q"])
+            self._relo_active = None  # one-shot
+        # Arm the chain for the next dispatch (its advance needs this output
+        # and the kind of the eager slide below); a relo solve breaks it.
+        if self.cfg.device_chain and lagged and relo is None:
+            self._chain = dict(
+                state=(out.p, out.q, out.v, out.ba, out.bg, out.tic, out.qic, out.td),
+                marg=bool(self.marg_old),
+            )
+        else:
+            self._chain = None
         if self.marg_old:
             self.prior = marginalize_old_qr(
-                out, grid, pre, sqrt_info, imu_ok, prior, gravity, self.scfg
+                out, grid, res["pre"], res["sqrt_info"], res["imu_ok"], prior,
+                res["gravity"], self.scfg,
             )
         else:
             self.prior = marginalize_second_new_qr(out, prior, self.scfg)
-        self._pending = dict(state=out, t=t, first=first)
+        pend = dict(
+            fetch=Fetch([out.p, out.q, out.v, out.ba, out.bg, out.tic, out.qic, out.td,
+                         out.inv_depth, res["rn"], res["rvalid"], res["relo_p"],
+                         res["relo_q"]]),
+            t=t, first=first, relo=relo_meta, eager_slid=lagged,
+            slides=[],  # slides that happen after this dispatch
+            # Which depths a lagged write-back may touch: slots can re-anchor
+            # or change hands between dispatch and finalize.
+            snap_id=self.fm.feature_id.copy(),
+            snap_anchor=self.fm.anchor.copy(),
+            snap_used=np.asarray(self.fm.used_mask()).copy(),
+        )
+        self._pending_q.append(pend)
+        if lagged:
+            # Slide now with the propagated (pre-solve) mirrors, so the next
+            # frame's bookkeeping goes on without the result; every pending
+            # solve records the slide.
+            marg = bool(self.marg_old)
+            self._slide_window()
+            for p_ in self._pending_q:
+                p_["slides"].append(marg)
 
     def pending_count(self):
-        return 0 if self._pending is None else 1
+        return len(self._pending_q)
 
     def finalize_solve(self):
-        """Complete the dispatched solve: write-back, failure detection,
-        window slide, trajectory record."""
-        pend, self._pending = self._pending, None
-        if pend is None:
+        """Complete the oldest pending solve: wait for its copies, write
+        back, failure detection, window slide (unless it happened at
+        dispatch), trajectory record."""
+        if not self._pending_q:
             return
-        self._write_back(pend["state"])
+        pend = self._pending_q.pop(0)
+        host = [a if a is None or a.dtype.kind != "f" else a.astype(np.float64)
+                for a in pend["fetch"].numpy()]
+        state_host, (rn, rvalid, relo_p, relo_q) = host[:9], host[9:]
+        if pend["eager_slid"]:
+            self._write_back_lagged(pend, state_host)
+        else:
+            self._write_back(*state_host)
+        if relo_p is not None and pend["relo"] is not None:
+            self._finalize_relo(pend["relo"], relo_p, relo_q)
+        if rn is not None and not pend["eager_slid"]:
+            self._gate_observations(rn, rvalid)
         if not pend["first"] and self._failure_detection():
             self.failure_occur = True
             self.clear_state()
             return
-        self._slide_window()
+        if not pend["eager_slid"]:
+            self._slide_window()
         if not pend["first"]:
             self.fm.remove_failures()
+        if pend["eager_slid"]:
+            # The dispatched frame's solved pose (pre-slide slot W).
+            p_s, q_s = state_host[0], state_host[1]
+        else:
+            p_s, q_s = self.Ps, self.Qs
         self.times.append(pend["t"])
-        self.traj_p.append(self.Ps[self.WIN].copy())
-        self.traj_q.append(self.Qs[self.WIN].copy())
-        self.last_R = hg.quat_to_mat(self.Qs[self.WIN])
-        self.last_P = self.Ps[self.WIN].copy()
+        self.traj_p.append(p_s[self.WIN].copy())
+        self.traj_q.append(q_s[self.WIN].copy())
+        self.last_R = hg.quat_to_mat(q_s[self.WIN])
+        self.last_P = p_s[self.WIN].copy()
         if not pend["first"]:
-            self.last_R0 = hg.quat_to_mat(self.Qs[0])
-            self.last_P0 = self.Ps[0].copy()
+            self.last_R0 = hg.quat_to_mat(q_s[0])
+            self.last_P0 = p_s[0].copy()
 
-    def _write_back(self, s: WindowState):
+    def _write_back(self, p, q, v, ba, bg, tic, qic, td, inv_depth):
         """Copy the solved (gauge-fixed) window into the host mirrors."""
-        host = lambda a: a.cpu().numpy().astype(np.float64)
-        self.Ps[:] = host(s.p)
-        self.Qs[:] = host(s.q)
-        self.Vs[:] = host(s.v)
-        self.Bas = host(s.ba)
-        self.Bgs = host(s.bg)
-        self.fm.mark_solved_depths(host(s.inv_depth), self.fm.used_mask())
+        self.Ps[:] = p
+        self.Qs[:] = q
+        self.Vs[:] = v
+        self.Bas = ba.copy()
+        self.Bgs = bg.copy()
+        if self.cfg.estimate_extrinsic:
+            self.tic = tic.copy()
+            self.qic = qic.copy()
+        if self.cfg.estimate_td:
+            self.td = float(td)
+        self.fm.mark_solved_depths(inv_depth, np.asarray(self.fm.used_mask()))
+
+    def _write_back_lagged(self, pend, state_host):
+        """Rebase a lagged solve onto the current (already slid,
+        IMU-propagated) mirrors: map each solved slot through the slides
+        since dispatch, then re-propagate the trailing slots created
+        afterwards from their corrected predecessors with the buffered
+        interval samples."""
+        p, q, v, ba, bg, tic, qic, td, inv_depth = state_host
+        src = np.arange(self.NF)
+        n_old = 0
+        for marg_old in pend["slides"]:
+            if marg_old:
+                src = np.concatenate([src[1:], [-1]])
+                n_old += 1
+            else:
+                src = np.concatenate([src[: self.WIN - 1], src[self.WIN:], [-1]])
+        ok = src >= 0
+        self.Ps[ok] = p[src[ok]]
+        self.Qs[ok] = q[src[ok]]
+        self.Vs[ok] = v[src[ok]]
+        self.Bas[ok] = ba[src[ok]]
+        self.Bgs[ok] = bg[src[ok]]
+        if self.cfg.estimate_extrinsic:
+            self.tic = tic.copy()
+            self.qic = qic.copy()
+        if self.cfg.estimate_td:
+            self.td = float(td)
+        for j in np.where(~ok)[0]:
+            if j > 0:
+                self._propagate_slot(int(j))
+        # Depths: only slots still holding the same feature at the same
+        # physical anchor (its index shifted by the old-slides count).
+        applicable = (
+            pend["snap_used"]
+            & (self.fm.feature_id == pend["snap_id"])
+            & (self.fm.anchor == pend["snap_anchor"] - n_old)
+        )
+        self.fm.mark_solved_depths(inv_depth, applicable)
+
+    def _propagate_slot(self, j):
+        """Midpoint-propagate mirror slot j from slot j-1 over its buffered
+        interval samples (process_imu's scheme)."""
+        P, Q, V = self.Ps[j - 1].copy(), self.Qs[j - 1].copy(), self.Vs[j - 1].copy()
+        Ba, Bg = self.Bas[j - 1].copy(), self.Bgs[j - 1].copy()
+        self.Bas[j] = Ba
+        self.Bgs[j] = Bg
+        acc0, gyr0 = self._imu_a0[j].copy(), self._imu_g0[j].copy()
+        for k in range(int(self._imu_n[j])):
+            acc, gyr = self._imu_accs[j, k], self._imu_gyrs[j, k]
+            P, Q, V = self._midpoint_step(P, Q, V, Ba, Bg, acc0, gyr0, acc, gyr,
+                                          self._imu_dts[j, k])
+            acc0, gyr0 = acc, gyr
+        self.Ps[j], self.Qs[j], self.Vs[j] = P, Q, V
+
+    def _gate_observations(self, rn, valid):
+        bad = valid.astype(bool) & (rn > self.GATE_THRESH)
+        if not bad.any():
+            return
+        fm = self.fm
+        for f, j in zip(*np.where(bad)):
+            if fm.anchor[f] != j:  # anchor rows are never residual rows
+                fm.valid[f, j] = False
+        # Features left with < 2 observations are dead.
+        for f in np.where(fm.feature_id >= 0)[0]:
+            if fm.valid[f].sum() < 2:
+                fm._free(f)
+            elif not fm.valid[f, fm.anchor[f]]:
+                fm.anchor[f] = int(np.argmax(fm.valid[f]))
+                fm.depth[f] = -1.0
 
     # ------------------------------------------------------------------ slide
     def _slide_window(self):
@@ -328,7 +796,7 @@ class Estimator:
         if self.marg_old:
             back_R0 = hg.quat_to_mat(self.Qs[0])
             back_P0 = self.Ps[0].copy()
-            ric = hg.quat_to_mat(self.qic)
+            ric, tic0 = self._ric0(), self._tic0()
             for arr in (self.Ps, self.Qs, self.Vs, self.Bas, self.Bgs, self.headers):
                 arr[:-1] = arr[1:]
             self.imu_buf = self.imu_buf[1:] + [[]]
@@ -341,8 +809,8 @@ class Estimator:
             self._imu_sumdt[0] = 0.0
             if self.solver_flag == self.NON_LINEAR:
                 Rnew0 = hg.quat_to_mat(self.Qs[0])
-                self.fm.slide_old(back_R0 @ ric, back_P0 + back_R0 @ self.tic,
-                                  Rnew0 @ ric, self.Ps[0] + Rnew0 @ self.tic)
+                self.fm.slide_old(back_R0 @ ric, back_P0 + back_R0 @ tic0,
+                                  Rnew0 @ ric, self.Ps[0] + Rnew0 @ tic0)
             else:
                 self.fm.slide_old(np.eye(3), np.zeros(3), np.eye(3), np.zeros(3))
             t0 = self.headers[0]
@@ -417,8 +885,7 @@ class Estimator:
 
     def _initial_structure(self):
         """estimator.cpp:221-363 initialStructure + visualInitialAlign."""
-        ric = hg.quat_to_mat(self.qic)
-        tic = self.tic
+        ric, tic = self._ric0(), self._tic0()
         # 1. Relative pose pivot.
         rel = None
         for i in range(self.WIN):

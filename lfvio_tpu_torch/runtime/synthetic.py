@@ -1,8 +1,9 @@
-"""Synthetic VIO world: rendered PAL frames + exact IMU + ground truth.
+"""Synthetic VIO world: rendered camera frames + exact IMU + ground truth.
 
 Port of ``lfvio_tpu.runtime.synthetic``: a procedurally textured
-cylindrical room seen by a Scaramuzza PAL camera along an analytic
-trajectory. The trajectory and IMU are closed-form numpy f64 (a sum of
+cylindrical room seen by any of the camera models along an analytic
+trajectory, from the IMU's own pose or from a camera mounted on the rig
+(``render_rig``: the down camera of a dual-PAL rig). The trajectory and IMU are closed-form numpy f64 (a sum of
 sinusoids; body rates from the exact SO(3) right Jacobian); rendering is
 inverse-mapped in torch on the world's device: pixel → camera ray (the
 camera's lift) → world ray → nearest cylinder/floor/ceiling hit → texture.
@@ -109,7 +110,7 @@ def _np_so3_right_jac(th):
 
 @dataclasses.dataclass
 class SyntheticWorld:
-    camera: ScaramuzzaCamera
+    camera: object  # any model of ..cam
     width: int = 512
     height: int = 384
     room_radius: float = 6.0
@@ -172,6 +173,17 @@ class SyntheticWorld:
         """Ground truth: position, orientation quaternion (wxyz)."""
         return self._p_of_t(t), _np_so3_exp(self._theta_of_t(t))
 
+    def pose_batch(self, ts):
+        """Ground truth for many timestamps at once."""
+        return self.pose(np.asarray(ts, np.float64))
+
+    def velocity(self, t):
+        return self._v_of_t(t)
+
+    def imu_sample(self, t):
+        acc, om = self.imu_batch(np.asarray([t]))
+        return acc[0], om[0]
+
     def imu_batch(self, ts):
         """Exact accelerometer and gyroscope at timestamps ts:
         a_body = Rᵀ(a_w + g), ω_body = Jr(θ)·θ̇."""
@@ -211,6 +223,14 @@ class SyntheticWorld:
         """Frame at time t as a float tensor on the world's device."""
         p, q = self.pose(t)
         return self.render_from(_np_quat_to_mat(q), p)
+
+    def render_rig(self, t, ric, tic):
+        """Frame from a camera mounted at (ric, tic) in the IMU frame, e.g.
+        the down camera of a dual-PAL rig (ric = diag(1, -1, -1))."""
+        p, q = self.pose(t)
+        R_wi = _np_quat_to_mat(q)
+        return self.render_from(R_wi @ np.asarray(ric, np.float64),
+                                p + R_wi @ np.asarray(tic, np.float64))
 
     def render_u8(self, t):
         """Frame at time t rounded to uint8 (as a camera delivers it)."""

@@ -1,11 +1,21 @@
 """Front end: per-frame feature tracking on torch tensors.
 
-Port of ``lfvio_tpu.runtime.tracker.FrontEnd`` (the reference's
-feature_tracker readImage pipeline + feature_tracker_node publishing):
-CLAHE → pyramid → pyramidal LK (one launch of the fused CUDA kernel on a
-CUDA device, the plain version on the CPU) → border/annulus/RANSAC rejection
-→ masked Shi-Tomasi refill → bearing lift. Images, pyramids and the slot chain live on
-``device``; id and track-count bookkeeping stays on the host (numpy).
+Port of ``lfvio_tpu.runtime.tracker`` (the reference's feature_tracker
+readImage pipeline + feature_tracker_node publishing): CLAHE → pyramid →
+pyramidal LK (one launch of the fused CUDA kernel on a CUDA device, the
+plain version on the CPU) → border/annulus/RANSAC rejection → masked
+Shi-Tomasi refill → bearing lift, for any camera model. Images, pyramids
+and the slot chain live on ``device``; id and track-count bookkeeping stays
+on the host (numpy).
+
+``FrontEnd.dispatch`` enqueues a frame's device work, starts the copies of
+its results to the host and returns; ``finalize`` waits for those copies
+(one CUDA event) and does the bookkeeping, possibly several frames later:
+the device's slot chain has advanced at dispatch. Nothing of the port's own
+makes ``dispatch`` wait for the device; on a published frame RANSAC's
+``torch.linalg.eigh`` / ``svd`` still do (their error checks read it).
+``DualFrontEnd`` drives two FrontEnds (a dual-PAL rig) with one feature-id
+space.
 """
 
 from __future__ import annotations
@@ -13,7 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import Fetch, resolve_device
 from ..frontend import (
     annulus_mask,
     clahe,
@@ -32,16 +42,31 @@ BORDER = 1  # inBorder's BORDER_SIZE
 REFINE_WIN = 15
 
 
+class IdCounter:
+    """Feature-id allocator. A multi-camera rig draws the ids of all its
+    cameras from one sequence, so that the estimator's id space is global
+    (the reference's dual-PAL rig publishes one id namespace across both
+    images, estimator_node.cpp:292-312)."""
+
+    def __init__(self):
+        self.next = 0
+
+    def take(self, k: int) -> int:
+        s = self.next
+        self.next += int(k)
+        return s
+
+
 class FrontEnd:
     def __init__(
         self,
         camera,
         image_size,  # (H, W)
-        annulus,  # (center_x, center_y, max_r, min_r): the PAL image ring
         max_cnt: int = 200,
         min_dist: int = 20,
         n_slots: int = 256,
         equalize: bool = True,
+        annulus=None,  # (center_x, center_y, max_r, min_r) of a PAL image ring, or None
         dtype=torch.float32,
         seed: int = 0,
         device=None,  # None: the CUDA card
@@ -54,11 +79,14 @@ class FrontEnd:
         self.min_dist = min_dist
         self.N = n_slots
         self.equalize = equalize
-        self.static_mask = annulus_mask(
-            image_size, *[float(a) for a in annulus], dtype=dtype, device=self.device
-        )
+        if annulus is not None:
+            self.static_mask = annulus_mask(
+                image_size, *[float(a) for a in annulus], dtype=dtype, device=self.device
+            )
+        else:
+            self.static_mask = torch.ones(image_size, dtype=torch.bool, device=self.device)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
-        self._next_id = 0
+        self._ids_src = IdCounter()  # a DualFrontEnd rebinds it to the rig's shared one
         self.reset()
 
     def reset(self):
@@ -179,36 +207,42 @@ class FrontEnd:
         return pyr, status, new_src, pos_next, self._lift(pos_next), valid_next
 
     # ----------------------------------------------------------------- frame
-    def process_arrays(self, img, t: float, publish: bool = True):
-        """Run one frame. Returns (ids [N], bearings [N,3], vels [N,3],
-        rows [N], pub_mask [N]) over the slot arrays — pub_mask selects the
-        features the reference would publish (track_cnt > 1) — or None on
-        the first frame and when publish=False."""
+    def dispatch(self, img, t: float, publish: bool = True):
+        """Enqueue the frame's device work and the copies of its results to
+        the host, without waiting for either. Returns a handle for
+        :meth:`finalize`. The device slot chain (pos, valid) advances here:
+        the next dispatch consumes this one's device outputs directly, so
+        finalize may run several frames later."""
         if self._dev_pos is None:
             pyr, pos0, valid0, new_src = self._first_impl(img)
             self.prev_pyr = pyr
             self._dev_pos, self._dev_valid = pos0, valid0
-            return self.finalize("first", t, publish, pos0, valid0)
+            return ("first", Fetch([pos0, valid0]), t, publish)
         pyr, status, new_src, pos_next, bear_next, valid_next = self._step_impl(
             self.prev_pyr, img, self._dev_pos, self._dev_valid, publish
         )
         self.prev_pyr = pyr
         self._dev_pos, self._dev_valid = pos_next, valid_next
-        return self.finalize("step", t, publish, status, new_src, pos_next, bear_next)
+        return ("step", Fetch([status, new_src, pos_next, bear_next]), t, publish)
 
-    def _take_ids(self, k):
-        ids = np.arange(self._next_id, self._next_id + k)
-        self._next_id += k
-        return ids
+    def process_arrays(self, img, t: float, publish: bool = True):
+        """Run one frame synchronously. Returns (ids [N], bearings [N,3],
+        vels [N,3], rows [N], pub_mask [N]) over the slot arrays — pub_mask
+        selects the features the reference would publish (track_cnt > 1) —
+        or None on the first frame and when publish=False."""
+        return self.finalize(self.dispatch(img, t, publish))
 
-    def finalize(self, kind, t, publish, *outs):
-        """Host id / track-count bookkeeping on the step's outputs."""
-        outs = [o.cpu().numpy() for o in outs]
+    def finalize(self, handle):
+        """Complete a dispatched frame: wait for its copies and do the host
+        id / track-count bookkeeping."""
+        kind, fetch, t, publish = handle
+        outs = fetch.numpy()
         if kind == "first":
             pos0, valid0 = outs
             slots = np.where(valid0)[0]
             self.pos = pos0.astype(np.float64)
-            self.ids[slots] = self._take_ids(len(slots))
+            s0 = self._ids_src.take(len(slots))
+            self.ids[slots] = np.arange(s0, s0 + len(slots))
             self.track_cnt[slots] = 1
             self.prev_time = t
             self.prev_bearing = np.zeros((self.N, 3))
@@ -231,7 +265,8 @@ class FrontEnd:
         # Ids for refill slots; slots ascend with detection order.
         new_slots = np.where(new_src >= 0)[0]
         if publish and len(new_slots):
-            self.ids[new_slots] = self._take_ids(len(new_slots))
+            s0 = self._ids_src.take(len(new_slots))
+            self.ids[new_slots] = np.arange(s0, s0 + len(new_slots))
             self.track_cnt[new_slots] = 1
         valid = self.ids >= 0
 
@@ -265,3 +300,37 @@ class FrontEnd:
             int(ids[s]): (bearings[s].copy(), vels[s].copy(), float(rows[s]))
             for s in np.where(pub)[0]
         }
+
+
+class DualFrontEnd:
+    """Image-level dual-PAL (two-camera) front end: two FrontEnds with one
+    feature-id space, driven by one pipeline on (img_up, img_down) frame
+    tuples. Each camera runs its own device work (CLAHE, pyramid, LK,
+    RANSAC, refill against its own mask: two fused LK launches a frame);
+    the published arrays are the concatenation over cameras with a
+    per-observation camera id (estimator_node.cpp:292-312)."""
+
+    def __init__(self, fe0: FrontEnd, fe1: FrontEnd):
+        # One id sequence for both trackers: ids from fe1's own counter
+        # would collide with fe0's.
+        fe1._ids_src = fe0._ids_src
+        self.fes = (fe0, fe1)
+        self.device = fe0.device
+
+    def reset(self):
+        for fe in self.fes:
+            fe.reset()
+
+    def dispatch(self, imgs, t: float, publish: bool = True):
+        return ("dual", tuple(fe.dispatch(img, t, publish=publish)
+                              for fe, img in zip(self.fes, imgs)), t, publish)
+
+    def finalize(self, handle):
+        outs = [fe.finalize(h) for fe, h in zip(self.fes, handle[1])]
+        if outs[0] is None or outs[1] is None:
+            return None
+        cams = np.concatenate([np.full(len(o[0]), c, np.int32) for c, o in enumerate(outs)])
+        return tuple(np.concatenate([o[k] for o in outs]) for k in range(5)) + (cams,)
+
+    def process_arrays(self, imgs, t: float, publish: bool = True):
+        return self.finalize(self.dispatch(imgs, t, publish))

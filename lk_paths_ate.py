@@ -10,8 +10,9 @@ First the FrontEnd alone runs ``chip_smoke.py``'s full-scale stream
 path and the plain version get the same inputs on every tracked frame; the
 count of ``ok`` flags that differ and the largest position difference are
 printed. Then the whole pipeline runs the stream once on each path (fused,
-five launches, plain, fused again) and prints its solves, the time of its
-first solve and its ATE.
+five launches, plain, fused again) at solve lag 1 / depth 1, and once more on
+the fused launch at solve lag 2 / depth 3 (bench.py's own configuration), and
+prints its solves, the time of its first solve and its ATE.
 """
 
 from __future__ import annotations
@@ -60,13 +61,14 @@ def main():
           f"five launches {int(r[:, 3].sum())} ok flags differ, max {r[:, 4].max():.3g} px",
           flush=True)
 
-    for name in ("fused", "five launches", "plain", "fused"):
-        fe, est, pipe = make()
+    for name, lag, depth in (("fused", 1, 1), ("five launches", 1, 1), ("plain", 1, 1),
+                             ("fused", 1, 1), ("fused", 2, 3)):
+        fe, est, pipe = make(lag, depth)
         klt_cuda.pyramidal_lk = paths[name]
         chip_smoke.feed(pipe, stream, frames)
         pipe.flush()
         ate, n = chip_smoke.trajectory_ate(world, est)
-        print(f"{name}: {len(est.times)} solves, first at t = {est.times[0]:.4f} s, "
+        print(f"{name}, solve lag {lag}, depth {depth}: {len(est.times)} solves, first at t = {est.times[0]:.4f} s, "
               f"ATE {ate:.5f} m over {n} poses", flush=True)
     return 0
 

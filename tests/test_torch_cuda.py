@@ -239,3 +239,71 @@ def test_frontend_on_cuda_runs_through_the_kernel(dev):
     outs = [fe.process_arrays(world.render(k / 15), k / 15) for k in range(3)]
     assert (klt_cuda.lk_pyramid.launches, klt_cuda.lk_level.launches) == (before[0] + 2, before[1])
     assert outs[2][4].sum() > 60
+
+
+def _pal_frontend(dev, seed=0, n_slots=160):
+    from lfvio_tpu_torch.runtime import FrontEnd
+    from lfvio_tpu_torch.runtime.synthetic import (
+        SYN_MAX_R, SYN_MIN_R, SyntheticWorld, make_synthetic_pal_camera)
+
+    world = SyntheticWorld(camera=make_synthetic_pal_camera(), device=dev)
+    return world, FrontEnd(world.camera, (world.height, world.width), max_cnt=120, min_dist=15,
+                           n_slots=n_slots, annulus=(256, 192, SYN_MAX_R, SYN_MIN_R),
+                           seed=seed, device=dev)
+
+
+def test_dispatch_does_not_wait_and_equals_process_arrays(dev):
+    """FrontEnd.dispatch enqueues and returns: behind a busy stream the
+    handle's event has not completed when dispatch is back, so nothing in it
+    waited for the card. Shown on an unpublished frame (CLAHE, pyramid, the
+    LK kernel, the lift): a published frame's RANSAC calls
+    torch.linalg.eigh and svd, whose error checks read the device. And
+    dispatch + a later finalize gives what process_arrays gives, bit for
+    bit, over 5 tracked frames (handles finalized two frames late, as the
+    pipeline does at depth 3)."""
+    world, fe_a = _pal_frontend(dev)
+    _, fe_b = _pal_frontend(dev)
+    imgs = [world.render(k / 15) for k in range(6)]
+    torch.cuda.synchronize()
+    publish = [k != 3 for k in range(6)]
+    sync_outs = [fe_a.process_arrays(img, k / 15, publish=publish[k])
+                 for k, img in enumerate(imgs)]
+    handles, late_outs = [], []
+    for k, img in enumerate(imgs):
+        if not publish[k]:
+            torch.cuda._sleep(int(2e8))  # keep the stream busy for ~0.1 s
+        h = fe_b.dispatch(img, k / 15, publish=publish[k])
+        if not publish[k]:
+            assert h[1].event is not None and not h[1].event.query()
+        handles.append(h)
+        if len(handles) == 3:
+            late_outs.append(fe_b.finalize(handles.pop(0)))
+    late_outs += [fe_b.finalize(h) for h in handles]
+    for a, b in zip(sync_outs, late_outs):
+        assert (a is None) == (b is None)
+        for x, y in zip(a or (), b or ()):
+            np.testing.assert_array_equal(x, y)
+    assert [o is None for o in late_outs] == [True, False, False, True, False, False]
+    assert sync_outs[5][4].sum() > 60
+
+
+def test_dual_frontend_counts_two_launches_a_frame(dev):
+    """DualFrontEnd: two fused launches per tracked frame pair, one id space
+    (no id handed out twice), a camera id per observation."""
+    from lfvio_tpu_torch.runtime.tracker import DualFrontEnd
+
+    world, fe0 = _pal_frontend(dev, n_slots=128)
+    _, fe1 = _pal_frontend(dev, seed=1, n_slots=128)
+    fe = DualFrontEnd(fe0, fe1)
+    rics = [np.eye(3), np.diag([1.0, -1.0, -1.0])]
+    tics = [np.array([0.0, 0.0, 0.05]), np.array([0.0, 0.0, -0.05])]
+    before = klt_cuda.lk_pyramid.launches
+    for k in range(4):
+        out = fe.process_arrays(
+            tuple(world.render_rig(k / 15, rics[c], tics[c]) for c in range(2)), k / 15)
+    assert klt_cuda.lk_pyramid.launches == before + 2 * 3
+    ids, bearings, vels, rows, pub, cams = out
+    assert len(ids) == 256 and set(np.unique(cams)) == {0, 1}
+    live = ids[ids >= 0]
+    assert len(np.unique(live)) == len(live) > 100
+    assert pub[cams == 0].sum() > 30 and pub[cams == 1].sum() > 30

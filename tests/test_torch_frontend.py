@@ -124,7 +124,7 @@ def test_scaramuzza_parity():
     np.testing.assert_allclose(td.lift_sphere(t(px)).numpy(),
                                np.asarray(jd.lift_sphere(jnp.asarray(px))), atol=1e-12)
     with pytest.raises(ValueError):
-        tcam.camera_from_dict({"model_type": "PINHOLE"})
+        tcam.camera_from_dict({"model_type": "ORTHOGRAPHIC"})
 
 
 # ------------------------------------------------------------- image ops

@@ -218,6 +218,8 @@ def test_port_imports_nothing_of_the_jax_package():
         names = [m.name for m in pkgutil.walk_packages(lfvio_tpu_torch.__path__,
                                                        "lfvio_tpu_torch.")]
         assert "lfvio_tpu_torch.vinit.sfm" in names and len(names) > 30, names
+        for new in ("backend.relo", "runtime.config", "runtime.checkpoint"):
+            assert "lfvio_tpu_torch." + new in names, new
         for name in names:
             importlib.import_module(name)
         import chip_smoke
@@ -237,22 +239,69 @@ def _build_frontend(**kw):
     return FrontEnd(cam, (192, 256), annulus=(128, 96, 95, 32), n_slots=48, **kw)
 
 
+def _build_dual(**kw):
+    from lfvio_tpu_torch.runtime.tracker import DualFrontEnd
+
+    return DualFrontEnd(_build_frontend(**kw), _build_frontend(seed=1, **kw))
+
+
+_PINHOLE_RIG = """%YAML:1.0
+model_type: PINHOLE
+image_width: 256
+image_height: 192
+projection_parameters:
+   fx: 200.0
+   fy: 200.0
+   cx: 128.0
+   cy: 96.0
+"""
+
+
+def _rig():
+    from lfvio_tpu_torch.runtime.config import load_rig_yaml
+
+    return load_rig_yaml(_PINHOLE_RIG)
+
+
+def _build_from_yaml(tmp_path, **kw):
+    path = tmp_path / "rig.yaml"
+    path.write_text(_PINHOLE_RIG)
+    return VioPipeline.from_yaml(str(path), n_slots=32, **kw).est
+
+
+def _build_from_checkpoint(tmp_path, **kw):
+    from lfvio_tpu_torch import convert
+    from lfvio_tpu_torch.runtime.checkpoint import save_checkpoint
+
+    path = str(tmp_path / "ckpt.npz")
+    save_checkpoint(path, Estimator(EstimatorConfig(n_feature_slots=16, device="cpu")))
+    return convert.estimator_from_checkpoint(path, n_feature_slots=16, **kw)
+
+
 @pytest.mark.parametrize("build", [
-    _build_frontend,
-    lambda **kw: Estimator(EstimatorConfig(n_feature_slots=64, **kw)),
-    lambda **kw: tsyn.SyntheticWorld(camera=tsyn.make_synthetic_pal_camera(256, 192),
-                                     width=256, height=192, **kw),
-], ids=["FrontEnd", "Estimator", "SyntheticWorld"])
-def test_entry_points_default_to_the_card(build):
+    lambda tmp, **kw: _build_frontend(**kw),
+    lambda tmp, **kw: Estimator(EstimatorConfig(n_feature_slots=64, **kw)),
+    lambda tmp, **kw: tsyn.SyntheticWorld(camera=tsyn.make_synthetic_pal_camera(256, 192),
+                                          width=256, height=192, **kw),
+    lambda tmp, **kw: _build_dual(**kw),
+    lambda tmp, **kw: _rig().make_frontend(n_slots=32, **kw),
+    lambda tmp, **kw: _rig().make_estimator(n_slots=32, **kw),
+    lambda tmp, **kw: _rig().make_pipeline(n_slots=32, **kw).fe,
+    _build_from_yaml,
+    _build_from_checkpoint,
+], ids=["FrontEnd", "Estimator", "SyntheticWorld", "DualFrontEnd", "RigConfig.make_frontend",
+        "RigConfig.make_estimator", "RigConfig.make_pipeline", "VioPipeline.from_yaml",
+        "load_checkpoint"])
+def test_entry_points_default_to_the_card(build, tmp_path):
     """Built without a device an entry point lands on the CUDA card, and
     raises where there is none (no quiet step down to the CPU); built with
     device="cpu" it runs on the CPU."""
-    assert build(device="cpu").device == torch.device("cpu")
+    assert build(tmp_path, device="cpu").device == torch.device("cpu")
     if torch.cuda.is_available():
-        assert build().device.type == "cuda"
+        assert build(tmp_path).device.type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
-            build()
+            build(tmp_path)
 
 
 @pytest.mark.slow
