@@ -1,15 +1,22 @@
-"""Square-root (QR) marginalization producing the window prior.
+"""Schur-complement marginalization producing the window prior.
 
-Port of the QR paths of ``lfvio_tpu.backend.marginalize``
-(MarginalizationInfo::marginalize, marginalization_factor.cpp:174-297):
-the stacked whitened Jacobian rows are column-ordered
-[dropped | kept | residual]; the rows of the R factor below the dropped
-block are the marginal square-root prior on the kept variables. No H = JᵀJ
-is formed, so f32 suffices, and a rank-deficient dropped block (the gauge
-directions) needs no pivot.
+Port of ``lfvio_tpu.backend.marginalize`` (MarginalizationInfo::marginalize,
+marginalization_factor.cpp:174-297), both forms:
 
-R's row signs depend on the QR implementation; every use of the prior goes
-through JᵀJ, Jᵀr and |r|², which do not.
+  * QR (``marginalize_old_qr``, ``marginalize_second_new_qr``; what the
+    runtime uses): the stacked whitened Jacobian rows are column-ordered
+    [dropped | kept | residual]; the rows of the R factor below the dropped
+    block are the marginal square-root prior on the kept variables. No
+    H = JᵀJ is formed, so f32 suffices, and a rank-deficient dropped block
+    (the gauge directions) needs no pivot.
+  * eigh (``marginalize_old``, ``marginalize_second_new``): the reference's
+    own H-space elimination with its eigenvalue pseudo-inverse and the
+    square root J = S^{1/2} Vᵀ, r = S^{-1/2} Vᵀ b. Forming H squares the
+    condition number, so these take float64 only.
+
+R's row signs and the eigenvectors' signs (and their rotation within a
+repeated eigenvalue) depend on the implementation; every use of the prior
+goes through JᵀJ, Jᵀr and |r|², which do not.
 """
 
 from __future__ import annotations
@@ -18,7 +25,7 @@ import numpy as np
 import torch
 
 from .factors import prior_residual
-from .solver import linearize_imu_rows, linearize_proj_rows
+from .solver import assemble_normal_equations, linearize_imu_rows, linearize_proj_rows
 from .state import (
     PriorFactor,
     SolverConfig,
@@ -28,6 +35,8 @@ from .state import (
     pose_off,
     sb_off,
 )
+
+EPS = 1e-8  # reference eigenvalue threshold (marginalization_factor.h eps)
 
 
 def _drop_keep_old(n_frames: int, D: int):
@@ -67,6 +76,41 @@ def _slide_perm(n_frames: int, D: int, src_of):
     return perm
 
 
+def _slid_old(J, r0, state: WindowState, valid):
+    """The prior re-indexed for MARGIN_OLD's slide: new slot k takes old slot
+    k+1's columns, the last slot's columns (the eliminated frame 0's, zero)
+    are zeroed explicitly, and x0 shifts the same way."""
+    n_frames = state.p.shape[0]
+    J = _zero_last_slot(J[:, _slide_perm(n_frames, J.shape[1], lambda k: (k + 1) % n_frames)],
+                        n_frames)
+
+    def roll(a):
+        return torch.cat([a[1:], a[-1:]], dim=0)
+
+    x0 = state.replace(p=roll(state.p), q=roll(state.q), v=roll(state.v),
+                       ba=roll(state.ba), bg=roll(state.bg))
+    return PriorFactor.from_state(J, r0, x0, valid)
+
+
+def _slid_second_new(J, r0, state: WindowState, valid):
+    """The prior re-indexed for MARGIN_SECOND_NEW's merge: slots 0..W-2 keep
+    their columns, slot W-1 takes slot W's; x0's slot W-1 takes slot W's
+    values (the surviving newest frame)."""
+    n_frames = state.p.shape[0]
+    W = n_frames - 1
+    J = _zero_last_slot(J[:, _slide_perm(n_frames, J.shape[1], lambda k: k if k < W - 1 else W)],
+                        n_frames)
+
+    def merge(a):
+        a = a.clone()
+        a[W - 1] = a[W]
+        return a
+
+    x0 = state.replace(p=merge(state.p), q=merge(state.q), v=merge(state.v),
+                       ba=merge(state.ba), bg=merge(state.bg))
+    return PriorFactor.from_state(J, r0, x0, valid)
+
+
 def marginalize_old_qr(state: WindowState, grid, pre0, sqrt_info_imu0, imu0_valid,
                        prior: PriorFactor, gravity, cfg: SolverConfig):
     """MARGIN_OLD: old prior + IMU(0,1) + projection factors anchored at
@@ -104,16 +148,7 @@ def marginalize_old_qr(state: WindowState, grid, pre0, sqrt_info_imu0, imu0_vali
     rk = Rfac[m:m + K, m + K]
     ok = torch.isfinite(Jk).all() & torch.isfinite(rk).all()
     J, r0 = _scatter_prior(torch.where(ok, Jk, 0.0), torch.where(ok, rk, 0.0), keep, D)
-    # Slide old: new slot k = old slot k+1; the last slot's columns are the
-    # (eliminated, zero) frame-0 ones, zeroed explicitly.
-    J = _zero_last_slot(J[:, _slide_perm(n_frames, D, lambda k: (k + 1) % n_frames)], n_frames)
-
-    def roll(a):
-        return torch.cat([a[1:], a[-1:]], dim=0)
-
-    x0 = state.replace(p=roll(state.p), q=roll(state.q), v=roll(state.v),
-                       ba=roll(state.ba), bg=roll(state.bg))
-    return PriorFactor.from_state(J, r0, x0, ok)
+    return _slid_old(J, r0, state, ok)
 
 
 def marginalize_second_new_qr(state: WindowState, prior: PriorFactor, cfg: SolverConfig):
@@ -137,15 +172,82 @@ def marginalize_second_new_qr(state: WindowState, prior: PriorFactor, cfg: Solve
     rk = Rfac[6:6 + K, 6 + K]
     ok = prior.valid & torch.isfinite(Jk).all() & torch.isfinite(rk).all()
     J, r0 = _scatter_prior(torch.where(ok, Jk, 0.0), torch.where(ok, rk, 0.0), keep, D)
-    # Slide: slots 0..W-2 unchanged; slot W-1 takes slot W's columns.
-    W = n_frames - 1
-    J = _zero_last_slot(J[:, _slide_perm(n_frames, D, lambda k: k if k < W - 1 else W)], n_frames)
+    return _slid_second_new(J, r0, state, ok)
 
-    def merge(a):
-        a = a.clone()
-        a[W - 1] = a[W]
-        return a
 
-    x0 = state.replace(p=merge(state.p), q=merge(state.q), v=merge(state.v),
-                       ba=merge(state.ba), bg=merge(state.bg))
-    return PriorFactor.from_state(J, r0, x0, ok)
+# ------------------------------------------------------------------ eigh
+def _require_f64(x):
+    if x.dtype != torch.float64:
+        raise TypeError(f"the eigh marginalization needs float64, got {x.dtype}: forming "
+                        "H = JᵀJ squares the condition number (use the QR paths in float32)")
+
+
+def _eliminate_indices(H, b, drop_idx):
+    """Schur-eliminate the rows / columns ``drop_idx`` (static indices) with
+    an eigendecomposition pseudo-inverse of their block
+    (marginalization_factor.cpp:266-281). The output keeps the full shape
+    with the eliminated rows and columns zeroed."""
+    D = H.shape[0]
+    idx = torch.as_tensor(np.asarray(drop_idx, np.int64), device=H.device)
+    keep = torch.ones(D, dtype=H.dtype, device=H.device)
+    keep[idx] = 0.0
+    Amm = H[idx[:, None], idx[None, :]]
+    w, V = torch.linalg.eigh(0.5 * (Amm + Amm.T))
+    # Relative threshold: the spectrum spans ~[0, 1e7] with sqrt_info² scales,
+    # and an absolute eps would keep noisy near-null directions.
+    thr = torch.clamp(torch.max(torch.abs(w)) * 1e-12, min=EPS)
+    inv_w = torch.where(w > thr, 1.0 / torch.maximum(w, thr), 0.0)
+    Amm_inv = (V * inv_w[None, :]) @ V.T
+    Hm = H[:, idx]
+    H_new = H - Hm @ Amm_inv @ Hm.T
+    b_new = b - Hm @ (Amm_inv @ b[idx])
+    return H_new * keep[:, None] * keep[None, :], b_new * keep
+
+
+def _sqrt_factorize(H, b):
+    """J, r with JᵀJ = H and Jᵀr = b on H's numerically non-null eigenspace
+    (marginalization_factor.cpp:283-291)."""
+    w, V = torch.linalg.eigh(0.5 * (H + H.T))
+    thr = torch.clamp(torch.max(w) * 1e-10, min=EPS)
+    S = torch.where(w > thr, w, 0.0)
+    S_inv = torch.where(w > thr, 1.0 / torch.maximum(w, thr), 0.0)
+    J = torch.sqrt(S)[:, None] * V.T
+    r = (torch.sqrt(S_inv)[:, None] * V.T) @ b
+    return J, r
+
+
+def marginalize_old(state: WindowState, grid, pre0, sqrt_info_imu0, imu0_valid,
+                    prior: PriorFactor, gravity, cfg: SolverConfig):
+    """MARGIN_OLD in H space (float64): the factors of ``marginalize_old_qr``
+    assembled into normal equations; the anchored inverse depths are
+    eliminated analytically (their block is diagonal), then pose0 and
+    speedbias0 through the pseudo-inverse; returns the new PriorFactor
+    re-indexed for the slid window."""
+    _require_f64(state.p)
+    n_frames = state.p.shape[0]
+    D = pose_dim(n_frames, n_cams_of(state))
+    grid0 = grid.replace(used=grid.used & (grid.anchor == 0))
+    imu_valid = torch.zeros_like(imu0_valid)
+    imu_valid[0] = imu0_valid[0]
+    H_pp, H_pl, H_ll, b_p, b_l, _ = assemble_normal_equations(
+        state, grid0, pre0, sqrt_info_imu0, imu_valid, prior, gravity, cfg)
+    drop_f = grid0.used & (H_ll > EPS)
+    inv_Hll = torch.where(drop_f, 1.0 / torch.clamp(H_ll, min=EPS), 0.0)
+    H_pp = H_pp - (H_pl * inv_Hll[None, :]) @ H_pl.T
+    b_p = b_p - H_pl @ (inv_Hll * b_l)
+    drop, _ = _drop_keep_old(n_frames, D)
+    J, r = _sqrt_factorize(*_eliminate_indices(H_pp, b_p, drop))
+    return _slid_old(J, r, state, torch.ones((), dtype=torch.bool, device=J.device))
+
+
+def marginalize_second_new(state: WindowState, prior: PriorFactor, cfg: SolverConfig):
+    """MARGIN_SECOND_NEW in H space (float64): the prior evaluated at the
+    current state, pose[W-1] eliminated, re-indexed for the merge of the
+    second-newest frame (estimator.cpp:949-1005)."""
+    _require_f64(prior.J)
+    n_frames = prior.x0_p.shape[0]
+    rp = prior_residual(state, prior)
+    J0 = torch.where(prior.valid, prior.J, torch.zeros_like(prior.J))
+    drop = np.arange(pose_off(n_frames - 2), pose_off(n_frames - 2) + 6)
+    J, r = _sqrt_factorize(*_eliminate_indices(J0.T @ J0, J0.T @ rp, drop))
+    return _slid_second_new(J, r, state, torch.ones((), dtype=torch.bool, device=J.device))

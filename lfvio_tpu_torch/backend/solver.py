@@ -287,9 +287,11 @@ def total_cost(state, grid, pre, sqrt_info_imu, imu_valid, prior, gravity, cfg):
     return cost_proj + 0.5 * torch.sum(imu_res * imu_res) + 0.5 * torch.sum(rp * rp)
 
 
-def _schur_solve(H_pp, H_pl, H_ll, b_p, b_l, lam, used):
+def _schur_solve(H_pp, H_pl, H_ll, b_p, b_l, lam, used, reduce=None):
     """Solve the damped system by eliminating the diagonal depth block.
-    Returns (dx [D], dlam [F]); non-finite when the system is not PD."""
+    Returns (dx [D], dlam [F]); non-finite when the system is not PD.
+    ``reduce`` (the feature-sharded solver's) sums the depth block's Schur
+    terms (S [D, D], c [D]) over the ranks that hold the other features."""
     D = H_pp.shape[0]
     info_ok = used & (H_ll > 1e-12)  # depth slots without information stay put
     H_ll_safe = torch.where(info_ok, H_ll, 1.0)
@@ -297,8 +299,12 @@ def _schur_solve(H_pp, H_pl, H_ll, b_p, b_l, lam, used):
     H_pl_safe = torch.where(info_ok[None, :], H_pl, 0.0)
 
     inv_Hll = 1.0 / (H_ll_safe * (1.0 + lam))
-    H_red = H_pp - (H_pl_safe * inv_Hll[None, :]) @ H_pl_safe.T
-    b_red = b_p - H_pl_safe @ (inv_Hll * b_l_safe)
+    S = (H_pl_safe * inv_Hll[None, :]) @ H_pl_safe.T
+    c = H_pl_safe @ (inv_Hll * b_l_safe)
+    if reduce is not None:
+        S, c = reduce(S, c)
+    H_red = H_pp - S
+    b_red = b_p - c
     diag = torch.clamp(torch.diagonal(H_pp), 1e-6, 1e32)
     eye = torch.eye(D, dtype=H_pp.dtype, device=H_pp.device)
     L, info = torch.linalg.cholesky_ex(H_red + lam * torch.diag(diag) + 1e-10 * eye)

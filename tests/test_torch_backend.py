@@ -306,3 +306,80 @@ def test_marginalize_second_new_qr_invalid_prior(problem):
 
     tp = tmarg.marginalize_second_new_qr(tst, PriorFactor.empty(F64), tcfg)
     assert not bool(tp.valid) and float(tp.J.abs().max()) == 0.0
+
+
+# ------------------------------------------------- eigh marginalization
+@pytest.fixture(scope="module")
+def scene():
+    """tests/test_backend.py's window (64 features anchored at frame 0, exact
+    bearings and IMU) at the truth, in JAX and port form, with an
+    informative prior whose residual is non-zero."""
+    from tests.test_backend import G, make_scene, make_state, make_window_imu, project_to_grid
+
+    p, v, q, pts_w, tic, qic = make_scene()
+    grid, inv_depth = project_to_grid(p, q, pts_w, tic, qic, noise_px=0.5)
+    pre, si = make_window_imu(p, v, q)
+    state = make_state(p, v, q, tic, qic, inv_depth)
+    D = jb.state.pose_dim(state.p.shape[0])
+    rng = np.random.default_rng(2)
+    A = rng.standard_normal((D, D))
+    prior = jb.PriorFactor.from_state(jnp.asarray(np.linalg.cholesky(A @ A.T + D * np.eye(D)).T),
+                                      jnp.asarray(0.1 * rng.standard_normal(D)), state)
+    iv = jnp.ones((state.p.shape[0] - 1,), bool)
+    cfg = jb.SolverConfig(estimate_td=False, estimate_extrinsic=False)
+    tpre = timu.Preintegration(**{k: t(v_) for k, v_ in fields(pre).items()})
+    return dict(j=(state, grid, pre, si, iv, prior, G, cfg),
+                t=(convert.window_state(fields(state)), convert.feature_grid(fields(grid)), tpre,
+                   t(si), torch.as_tensor(np.asarray(iv)), convert.prior_factor(fields(prior)),
+                   t(G), convert.solver_config(dataclasses.asdict(cfg))))
+
+
+@pytest.mark.parametrize("with_prior", [False, True])
+def test_marginalize_old_eigh(scene, with_prior):
+    """marginalize_old (H-space elimination, eigenvalue pseudo-inverse,
+    S^{1/2}Vᵀ square root): JᵀJ and Jᵀr within 1e-8 of their scale of the
+    JAX package's; the x0 snapshots identical."""
+    st, grid, pre, si, iv, prior, g, cfg = scene["j"]
+    tst, tgrid, tpre, tsi, tiv, tprior, tg, tcfg = scene["t"]
+    if not with_prior:
+        prior, tprior = jb.PriorFactor.empty(jnp.float64), tmarg.PriorFactor.empty(F64)
+    jp = jax.jit(jmarg.marginalize_old, static_argnums=7)(st, grid, pre, si, iv, prior, g, cfg)
+    tp = tmarg.marginalize_old(tst, tgrid, tpre, tsi, tiv, tprior, tg, tcfg)
+    assert bool(tp.valid)
+    for x, y in zip(_info(jp), _info(dataclasses.replace(tp, J=tp.J.numpy(), r0=tp.r0.numpy()))):
+        close(x, y, 1e-8)
+    for name in ("x0_p", "x0_q", "x0_v", "x0_ba", "x0_bg"):
+        close(getattr(jp, name), getattr(tp, name), 1e-12)
+
+
+def test_marginalize_second_new_eigh(scene):
+    """marginalize_second_new on the MARGIN_OLD prior, evaluated at a moved
+    state (a non-zero prior residual): information within 1e-8 of the JAX
+    package's; float32 is refused."""
+    st, grid, pre, si, iv, prior, g, cfg = scene["j"]
+    tst, tgrid, tpre, tsi, tiv, tprior, tg, tcfg = scene["t"]
+    jold = jax.jit(jmarg.marginalize_old, static_argnums=7)(st, grid, pre, si, iv, prior, g, cfg)
+    told = tmarg.marginalize_old(tst, tgrid, tpre, tsi, tiv, tprior, tg, tcfg)
+    rng = np.random.default_rng(9)
+    dp = 0.01 * rng.standard_normal(st.p.shape)
+    jst = dataclasses.replace(st, p=st.p + dp)
+    tst = tst.replace(p=tst.p + t(dp))
+    jp = jax.jit(jmarg.marginalize_second_new, static_argnums=2)(jst, jold, cfg)
+    tp = tmarg.marginalize_second_new(tst, told, tcfg)
+    for x, y in zip(_info(jp), _info(dataclasses.replace(tp, J=tp.J.numpy(), r0=tp.r0.numpy()))):
+        close(x, y, 1e-8)
+    for name in ("x0_p", "x0_q", "x0_v"):
+        close(getattr(jp, name), getattr(tp, name), 1e-12)
+    f32 = dataclasses.replace(told, J=told.J.float())
+    with pytest.raises(TypeError, match="float64"):
+        tmarg.marginalize_second_new(tst, f32, tcfg)
+
+
+def test_eigh_and_qr_priors_agree(scene):
+    """The port's two MARGIN_OLD forms carry the same information (the
+    bound of tests/test_marg_qr.py, 2e-6 of the scale)."""
+    tst, tgrid, tpre, tsi, tiv, tprior, tg, tcfg = scene["t"]
+    e = tmarg.marginalize_old(tst, tgrid, tpre, tsi, tiv, tprior, tg, tcfg)
+    q = tmarg.marginalize_old_qr(tst, tgrid, tpre, tsi, tiv, tprior, tg, tcfg)
+    for x, y in zip(_info(e), _info(q)):
+        close(x, y, 2e-6)

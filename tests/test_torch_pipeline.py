@@ -162,8 +162,9 @@ def test_trajectory_io_roundtrip(tmp_path):
 
 
 def test_port_imports_and_runs_without_jax():
-    """With JAX made unimportable, the port imports and runs three frames
-    of its FrontEnd and one lm_solve on the CPU."""
+    """With JAX made unimportable, the port imports (calib, dist, native and
+    the runtime tools included) and runs three frames of its FrontEnd, one
+    lm_solve and make_window_problem on the CPU."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -174,6 +175,9 @@ def test_port_imports_and_runs_without_jax():
         from lfvio_tpu_torch.backend import (FeatureGrid, PriorFactor, SolverConfig,
                                              WindowState, lm_solve)
         from lfvio_tpu_torch.imu import ImuNoise, preintegrate, whiten_covariance
+        from lfvio_tpu_torch import calib, dist, native
+        from lfvio_tpu_torch.runtime import ar_demo, datasets, panorama, profiling
+        assert profiling.make_window_problem(8, device="cpu")["grid"].valid.shape == (8, 11)
         w = synthetic.SyntheticWorld(camera=synthetic.make_synthetic_pal_camera(256, 192),
                                      width=256, height=192, device="cpu")
         fe = FrontEnd(w.camera, (192, 256), max_cnt=40, min_dist=10, n_slots=48,
@@ -218,7 +222,10 @@ def test_port_imports_nothing_of_the_jax_package():
         names = [m.name for m in pkgutil.walk_packages(lfvio_tpu_torch.__path__,
                                                        "lfvio_tpu_torch.")]
         assert "lfvio_tpu_torch.vinit.sfm" in names and len(names) > 30, names
-        for new in ("backend.relo", "runtime.config", "runtime.checkpoint"):
+        for new in ("backend.relo", "runtime.config", "runtime.checkpoint", "calib.chessboard",
+                    "calib.intrinsic", "dist.sharding", "dist.marginalize", "dist.frame_step",
+                    "native", "runtime.datasets", "runtime.panorama", "runtime.ar_demo",
+                    "runtime.profiling"):
             assert "lfvio_tpu_torch." + new in names, new
         for name in names:
             importlib.import_module(name)
