@@ -1,5 +1,5 @@
-"""Feature-sharded estimation over ``torch.distributed`` (port of the
-feature axis of ``lfvio_tpu.dist``)."""
+"""Sharded estimation over ``torch.distributed`` (port of ``lfvio_tpu.dist``):
+the feature axis and the keyframe axis."""
 
 from .sharding import (
     FeatureMesh,
@@ -11,3 +11,4 @@ from .sharding import (
 )
 from .marginalize import marginalize_old_qr_sharded
 from .frame_step import triangulate_sharded, vio_frame_step_sharded
+from .kf_axis import KfMesh, make_kf_mesh, segmented_trajectory_solve
