@@ -22,10 +22,15 @@ lines; any failure ends the run with a non-zero exit code:
      VioPipeline(FrontEnd, Estimator) fed the bench.py configuration
      (1280x960, CLAHE, 256 slots, max_cnt 200, 15 Hz frames, 200 Hz IMU,
      window 10, publish 10 Hz) over a 6 s synthetic stream, on the card;
-     frames/s over the post-warm-up 40%;
-     exactly one fused LK launch per tracked frame; then a few frames of the
-     same FrontEnd with the level loop on the host over the one-level
-     wrapper (five launches per frame);
+     frames/s over the post-warm-up 40%; the estimator's solve and
+     marginalization as CUDA graph replays; exactly one fused LK launch per
+     tracked frame and the eigensolver kernel (csrc/sym_eig.cu) launched in
+     RANSAC and triangulation; every FrontEnd.dispatch and
+     Estimator._dispatch_solve after the warm-up under
+     torch.cuda.set_sync_debug_mode("error") (none may wait for the card),
+     with the host's ms per call; then a few frames of the same FrontEnd
+     with the level loop on the host over the one-level wrapper (five
+     launches per frame);
   5. the accuracy gate of tests/test_e2e.py::test_e2e_vio_ate on the card
      (512x384, f32 tracker, f64 solver, 7 s): ATE < 0.25 m;
   6. bench.py's configuration as bench.py runs it: the stream of phase 4 at
@@ -35,7 +40,9 @@ lines; any failure ends the run with a non-zero exit code:
   7. the estimator's capabilities on the card, bearing-level (a stub front
      end serves analytic bearings; 64 slots, f64 solver): td recovery,
      online extrinsic rotation, relocalization, window 20, solve lag 3, the
-     solver's wall budget (the bounds of tests/test_capabilities.py);
+     solver's wall budget (the bounds of tests/test_capabilities.py), and
+     the f32 operating point (tests/test_f32.py's 6 s stream: the f32 ATE
+     at most max(2 x the f64 ATE, 0.05 m));
   8. a rendered dual-PAL rig: DualFrontEnd of two 512x384 trackers with one
      id space, n_cams = 2, 4.5 s: both cameras in the window, ATE < 0.25 m,
      two fused LK launches per tracked frame;
@@ -55,7 +62,19 @@ lines; any failure ends the run with a non-zero exit code:
      the one card: f64 on 2x2 ranks with tests/test_kf_axis.py's bounds
      against the monolithic lm_solve, and equal to the same ranks on the
      CPU; f32 at the main path's window (11 keyframes, 256 slots a segment)
-     through the scaling bench's rows at 1x1, 2x1 and 2x2.
+     through the scaling bench's rows at 1x1, 2x1 and 2x2;
+ 14. the estimator's device programs: the eigensolver kernel against
+     torch.linalg.eigh on the main path's inputs (the [256, 4, 4] DLT
+     matrices of a triangulation, RANSAC's [100, 9, 9] / [1, 9, 9] and
+     [100, 3, 3] / [1, 3, 3]), with CUDA-event times and the bound; each
+     program's graph replay against the same function run eagerly on the
+     same inputs in f64 (solve, relocalization solve, both
+     marginalizations: within 1e-9 of the scale); phase 4's stream once
+     more with the programs run eagerly (the f32 ATE within 1 mm of the
+     graph run's); the card's ms per replay, the graphs captured and their
+     capture seconds; whether the QR marginalization drops information
+     (ROADMAP queue 3) on the parity streams and phases 4 and 6: each
+     MARGIN_OLD's QR prior against the eigh one in f64, measured only.
 
 Prints one JSON line with each kernel's numbers, then the card's line, and
 last {"ok": true, "device": {...}}. Imports neither JAX nor the JAX package.
@@ -76,9 +95,13 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-REPLACES = "lfvio_tpu/frontend/klt_pallas.py:86 (_lk_level_kernel)"
+REPLACES = {"lk_pyramid": "lfvio_tpu/frontend/klt_pallas.py:86 (_lk_level_kernel)",
+            "lk_level": "lfvio_tpu/frontend/klt_pallas.py:86 (_lk_level_kernel)",
+            "sym_eig": "lfvio_tpu/frontend/ransac.py:36 (jnp.linalg.eigh; also :40 svd, "
+                       "backend/triangulate.py:69 eigh; XLA, no Pallas kernel)"}
 SOURCES = {"lk_pyramid": "lfvio_tpu_torch/csrc/lk_pyramid.cu",
-           "lk_level": "lfvio_tpu_torch/csrc/lk_pyramid.cu"}
+           "lk_level": "lfvio_tpu_torch/csrc/lk_pyramid.cu",
+           "sym_eig": "lfvio_tpu_torch/csrc/sym_eig.cu"}
 # Beside the loose bounds (ok on >= 99%, 0.05 px): the largest kernel-vs-plain
 # error seen on an H100 is 1.2e-4 px, so 2e-3 px still passes float32 sums in
 # another order but catches a kernel that mishandles a few taps; at a single
@@ -88,6 +111,8 @@ TIGHT_PX = 2e-3
 # and float32 rate outside the tensor cores.
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+# The sync debug mode the steady-state dispatch runs under (phase 4).
+SYNC_CHECK = "error"
 
 
 def log(msg):
@@ -447,7 +472,8 @@ def timed_call(fn, rec, key):
 
 def add_stage_timers(fe, est, profile_solve=5):
     """--profile: wrap the FrontEnd's and the Estimator's per-frame entry
-    points, and the LK call the FrontEnd makes (``klt_cuda.pyramidal_lk``),
+    points (``dispatch``, ``_dispatch_solve``), and the LK call the FrontEnd
+    makes (``klt_cuda.pyramidal_lk``),
     with CUDA-synchronized host timers, and trace one solve with
     torch.profiler. Returns the dict the timers fill (ms per call)."""
     import torch
@@ -475,7 +501,7 @@ def add_stage_timers(fe, est, profile_solve=5):
         dev_us = sum(getattr(e, "self_device_time_total", 0) or 0 for e in ka)
         top = sorted(ka, key=lambda e: -e.count)[:5]
         log(f"[4p] traced solve {profile_solve}: self device time {dev_us / 1e3:.3f} ms; "
-            f"most called ops: " + ", ".join(f"{e.key} x{e.count}" for e in top))
+            f"most called ops: " + ", ".join(f"{e.key[:60]} x{e.count}" for e in top))
         return out
 
     n_solves = [0]
@@ -486,8 +512,8 @@ def add_stage_timers(fe, est, profile_solve=5):
         n_solves[0] += 1
         return "solve first" if n_solves[0] == 1 else f"solve {n_solves[0]}"
 
-    wrap(fe, "process_arrays",
-         lambda a, k: "frontend published" if k.get("publish", True) else "frontend unpublished")
+    wrap(fe, "dispatch", lambda a, k: "frontend dispatch, published" if k.get(
+        "publish", a[2] if len(a) > 2 else True) else "frontend dispatch, unpublished")
     wrap(klt_cuda, "pyramidal_lk", lambda a, k: "frontend LK stage (inside the frames above)")
     wrap(est, "_dispatch_solve", solve_key)
     return rec
@@ -553,21 +579,57 @@ def trajectory_ate(world, est):
     return ate_rmse(times, np.asarray(est.traj_p), times, gt)
 
 
-def run_full_scale(tag, rig, plain_calls, solve_lag, depth, profile=False):
+def reset_launches():
+    """Set every kernel wrapper's launch count to 0."""
+    from lfvio_tpu_torch.frontend import klt_cuda
+    from lfvio_tpu_torch.geom.eigh_cuda import sym_eig
+
+    klt_cuda.lk_pyramid.launches = klt_cuda.lk_level.launches = sym_eig.launches = 0
+
+
+def sync_checked(fn, rec, key):
+    """``fn`` run under torch.cuda.set_sync_debug_mode(SYNC_CHECK), so that
+    any wait for the card inside it raises; appends the host's ms per call
+    (no synchronize) to rec[key]."""
+    import torch
+
+    def run(*a, **k):
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode(SYNC_CHECK)
+        try:
+            return fn(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            rec.setdefault(key, []).append(1e3 * (time.perf_counter() - t0))
+
+    return run
+
+
+def run_full_scale(tag, rig, plain_calls, solve_lag, depth, profile=False, sync_check=False,
+                   graphs=True, marg_record=None):
     """The full-scale stream through a fresh pipeline at (solve_lag, depth):
     warm-up on the first 60%, frames/s over the rest, the launch counts of
-    the run (set to 0 just before it), the trajectory checks. Returns
-    (fe, est, stages, launches, frames/s, ATE)."""
+    the run (set to 0 just before it), the trajectory checks. With
+    ``sync_check`` every FrontEnd.dispatch and Estimator._dispatch_solve
+    after the warm-up runs under the sync debug mode "error", timed on the
+    host. ``graphs=False`` runs the estimator's programs eagerly.
+    ``marg_record`` (a list) collects each MARGIN_OLD's QR-against-eigh
+    information difference (record_marg_information). Returns
+    dict(fe, est, stages, launches, sym_launches, fps, ate, host_ms)."""
     import torch
     from lfvio_tpu_torch.frontend import klt_cuda
+    from lfvio_tpu_torch.geom.eigh_cuda import sym_eig
 
     world, stream, frames, make = rig
     fe, est, pipe = make(solve_lag, depth)
+    est.use_graphs = graphs
+    if marg_record is not None:
+        record_marg_information(est, marg_record)
     stages = add_stage_timers(fe, est) if profile else None
 
     tracked = count_calls(fe, "_step_impl")
     padded = count_level_pads()
-    klt_cuda.lk_pyramid.launches = klt_cuda.lk_level.launches = 0
+    reset_launches()
     plain_calls["n"] = 0
     t_split = FULL_SCALE_SECONDS * 0.6
     warm = [it for it in stream if it[1] <= t_split]
@@ -576,20 +638,34 @@ def run_full_scale(tag, rig, plain_calls, solve_lag, depth, profile=False):
     feed(pipe, warm, frames)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
+    host_ms = {}
+    if sync_check:
+        fe.dispatch = sync_checked(fe.dispatch, host_ms, "FrontEnd.dispatch")
+        est._dispatch_solve = sync_checked(est._dispatch_solve, host_ms,
+                                           "Estimator._dispatch_solve")
     feed(pipe, rest, frames)
     pipe.flush()
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    launches = klt_cuda.lk_pyramid.launches
+    if sync_check:  # what runs on these objects later may wait
+        del fe.dispatch, est._dispatch_solve
+    launches, sym_launches = klt_cuda.lk_pyramid.launches, sym_eig.launches
     n_timed = sum(1 for it in rest if it[0] == "frame")
     fps = n_timed / (t2 - t1)
     times = np.asarray(est.times)
     traj = np.asarray(est.traj_p)
-    log(f"{tag} solve lag {solve_lag}, depth {depth}: warm-up {t1 - t0:.2f} s; timed {n_timed} "
+    n_graphs, capture_s = est.graph_stats()
+    log(f"{tag} solve lag {solve_lag}, depth {depth}, programs "
+        f"{'as CUDA graphs' if graphs else 'eager'}: warm-up {t1 - t0:.2f} s; timed {n_timed} "
         f"frames in {t2 - t1:.3f} s = "
         f"{fps:.3f} frames/s; solves {len(times)}; tracked frames {tracked['n']}; fused LK "
         f"launches {launches}; one-level launches {klt_cuda.lk_level.launches}; plain LK calls "
-        f"{plain_calls['n']}; level images padded {padded['n']}")
+        f"{plain_calls['n']}; level images padded {padded['n']}; sym_eig launches {sym_launches}; "
+        f"graphs captured {n_graphs} in {capture_s:.2f} s")
+    for key, vals in host_ms.items():
+        log(f"{tag} {key} after the warm-up, under set_sync_debug_mode({SYNC_CHECK!r}): n "
+            f"{len(vals)}, host ms per call min {min(vals):.3f}, median "
+            f"{float(np.median(vals)):.3f}, max {max(vals):.3f}")
     if est.solver_flag != est.NON_LINEAR:
         raise AssertionError("full-scale run did not initialize")
     if not (len(traj) and np.isfinite(traj).all()) or est.pending_count():
@@ -597,11 +673,18 @@ def run_full_scale(tag, rig, plain_calls, solve_lag, depth, profile=False):
     if (launches == 0 or launches != tracked["n"] or klt_cuda.lk_level.launches != 0
             or plain_calls["n"] != 0 or padded["n"] != 0):
         raise AssertionError("the main path's LK is not one fused launch per tracked frame")
+    if sym_launches == 0:
+        raise AssertionError("the main path did not launch the eigensolver kernel")
+    if graphs and n_graphs == 0:
+        raise AssertionError("the estimator's programs were not captured as CUDA graphs")
+    if sync_check and len(host_ms.get("Estimator._dispatch_solve", [])) < 5:
+        raise AssertionError("too few steady-state solves under the sync check")
     ate, n = trajectory_ate(world, est)
     log(f"{tag} ATE {ate:.4f} m over {n} poses; first solve at t = {times[0]:.4f} s")
     if n != len(times):
         raise AssertionError("not as many trajectory poses as solves")
-    return fe, est, stages, launches, fps, ate
+    return dict(fe=fe, est=est, stages=stages, launches=launches, sym_launches=sym_launches,
+                fps=fps, ate=ate, host_ms=host_ms)
 
 
 def phase_full_scale(rig, plain_calls, profile=False):
@@ -610,24 +693,26 @@ def phase_full_scale(rig, plain_calls, profile=False):
     timers synchronize the card, so the frames/s of such a run are not the
     cell's)."""
     log(f"[4] stream: {len(rig[1])} events, {len(rig[2])} frames rendered on the card")
-    fe, est, stages, launches, fps, ate = run_full_scale("[4]", rig, plain_calls, 1, 1, profile)
-    level_launches = phase_five_launch_path(fe, rig[2], stages)
-    if stages is not None:
-        log_stage_timers(stages)
-    return launches, level_launches, fps, ate, float(est.times[0])
+    run = run_full_scale("[4]", rig, plain_calls, 1, 1, profile, sync_check=not profile)
+    run["level_launches"] = phase_five_launch_path(run["fe"], rig[2], run["stages"])
+    if run["stages"] is not None:
+        log_stage_timers(run["stages"])
+    return run
 
 
-def phase_bench_configuration(rig, plain_calls, fps_lag1, ate_lag1, t_first_lag1):
+def phase_bench_configuration(rig, plain_calls, run4):
     """bench.py's configuration as bench.py runs it (bench.py:116-119):
     solve lag 2 with the device state chain, depth 3."""
-    _, est, _, launches, fps, ate = run_full_scale("[6]", rig, plain_calls, 2, 3)
+    run = run_full_scale("[6]", rig, plain_calls, 2, 3)
+    fps, ate = run["fps"], run["ate"]
     log(f"[6] frames/s at lag 2 / depth 3: {fps:.3f}, beside phase 4's lag 1 / depth 1: "
-        f"{fps_lag1:.3f} (ratio {fps / fps_lag1:.3f}); ATE {ate:.4f} m beside {ate_lag1:.4f} m")
+        f"{run4['fps']:.3f} (ratio {fps / run4['fps']:.3f}); ATE {ate:.4f} m beside "
+        f"{run4['ate']:.4f} m")
     if not ate < 0.5:
         raise AssertionError("lag-2 / depth-3 ATE is not below 0.5 m")
-    if abs(float(est.times[0]) - t_first_lag1) > 1e-9:
+    if abs(float(run["est"].times[0]) - float(run4["est"].times[0])) > 1e-9:
         raise AssertionError("lag 2 / depth 3 initialized on another frame than lag 1 / depth 1")
-    return launches, fps, ate
+    return run
 
 
 def phase_five_launch_path(fe, frames, stages):
@@ -856,7 +941,37 @@ def phase_capabilities(dev):
                 f"{int(np.clip(0.04 / est._iter_time, 1, 8))}")
 
     stream("wall budget", mk_est(max_solver_time=1e-7), mk_world(), 1.5, check_budget)
+
+    t0 = time.perf_counter()
+    (ate64, n64), (ate32, n32) = f32_stream_ates(dev)
+    out["ate_f64"], out["ate_f32"] = ate64, ate32
+    log(f"[7] f32 operating point (tests/test_f32.py's stream, 6 s at 20 Hz, 48 landmarks): "
+        f"f32 ATE {ate32:.4f} m over {n32} poses, f64 {ate64:.4f} m over {n64} (bound "
+        f"max(2 x f64, 0.05) = {max(2 * ate64, 0.05):.4f} m); {time.perf_counter() - t0:.1f} s")
+    if not (np.isfinite(ate32) and ate32 <= max(2.0 * ate64, 0.05) and n32 >= 30):
+        raise AssertionError("the f32 solver is not within its bound of the f64 one")
     return out
+
+
+def f32_stream_ates(device):
+    """tests/test_f32.py's scenario: the bearing stream of 48 landmarks, 6 s
+    at 20 Hz, through the estimator (64 slots) with the solver in f64 and in
+    f32 on ``device``. Returns ((ATE, poses) f64, (ATE, poses) f32)."""
+    import torch
+    from lfvio_tpu_torch.runtime import Estimator, EstimatorConfig, VioPipeline
+    from lfvio_tpu_torch.runtime.synthetic import SyntheticWorld, make_synthetic_pal_camera
+
+    pts = make_landmarks(n=48)
+    res = []
+    for sd in (torch.float64, torch.float32):
+        world = SyntheticWorld(camera=make_synthetic_pal_camera(dtype=torch.float64),
+                               dtype=torch.float64, device=device)
+        est = Estimator(EstimatorConfig(n_feature_slots=64, solver_dtype=sd, device=device))
+        run_bearing_stream(VioPipeline(BearingFrontEnd(world, pts), est), world, 6.0)
+        if est.solver_flag != est.NON_LINEAR:
+            raise AssertionError(f"the {sd} stream did not initialize")
+        res.append(trajectory_ate(world, est))
+    return res
 
 
 # The JAX test's stream is 6 s; 4.5 s keeps the whole run inside its time
@@ -871,6 +986,7 @@ def phase_dual_pal(dev, plain_calls):
     DualFrontEnd and the n_cams = 2 estimator."""
     import torch
     from lfvio_tpu_torch.frontend import klt_cuda
+    from lfvio_tpu_torch.geom.eigh_cuda import sym_eig
     from lfvio_tpu_torch.runtime import Estimator, EstimatorConfig, FrontEnd, VioPipeline
     from lfvio_tpu_torch.runtime.synthetic import (
         SYN_MAX_R, SYN_MIN_R, SyntheticWorld, make_synthetic_pal_camera)
@@ -890,7 +1006,7 @@ def phase_dual_pal(dev, plain_calls):
     solves = {}
     est._dispatch_solve = timed_call(est._dispatch_solve, solves, "ms")
     tracked = [count_calls(f, "_step_impl") for f in fes]
-    klt_cuda.lk_pyramid.launches = klt_cuda.lk_level.launches = 0
+    reset_launches()
     plain_calls["n"] = 0
     stream = world.generate(DUAL_PAL_SECONDS, 15.0, 200.0)
     n_frames = sum(1 for e in stream if e[0] == "frame")
@@ -899,14 +1015,15 @@ def phase_dual_pal(dev, plain_calls):
         stream, lambda tt: tuple(world.render_rig(tt, rics[c], tics[c]) for c in range(2)))
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = klt_cuda.lk_pyramid.launches
+    launches, sym_launches = klt_cuda.lk_pyramid.launches, sym_eig.launches
     ate, n = trajectory_ate(world, est)
     cams = est.fm.cam[est.fm.valid]
     ms = [m for m in solves["ms"] if m > 0.01]
     log(f"[8] dual-PAL: {n_frames} frame pairs in {dt:.1f} s = {n_frames / dt:.3f} frames/s "
         f"(rendering and a synchronize around each solve included); {len(times)} solves, median "
         f"{float(np.median(ms[1:])):.1f} ms with n_cams = 2 (D = 178); tracked frames "
-        f"{tracked[0]['n']} + {tracked[1]['n']}; fused LK launches {launches}; plain LK calls "
+        f"{tracked[0]['n']} + {tracked[1]['n']}; fused LK launches {launches}; sym_eig launches "
+        f"{sym_launches}; plain LK calls "
         f"{plain_calls['n']}; observations in the window from camera 0: {int((cams == 0).sum())}, "
         f"camera 1: {int((cams == 1).sum())}; ATE {ate:.4f} m over {n} poses (< 0.25)")
     if est.solver_flag != est.NON_LINEAR or len(times) <= 30:
@@ -916,9 +1033,11 @@ def phase_dual_pal(dev, plain_calls):
     if (launches != tracked[0]["n"] + tracked[1]["n"] or launches != 2 * tracked[0]["n"]
             or launches == 0 or plain_calls["n"] != 0 or klt_cuda.lk_level.launches != 0):
         raise AssertionError("dual-PAL: not two fused LK launches per tracked frame")
+    if sym_launches == 0:
+        raise AssertionError("dual-PAL: the eigensolver kernel was not launched")
     if not (np.isfinite(ate) and ate < 0.25):
         raise AssertionError("dual-PAL accuracy gate failed")
-    return dict(launches=launches, fps=n_frames / dt, ate=ate,
+    return dict(launches=launches, sym_launches=sym_launches, fps=n_frames / dt, ate=ate,
                 solve_ms=float(np.median(ms[1:])))
 
 
@@ -984,6 +1103,7 @@ def phase_euroc(rig, plain_calls):
     euroc_stream + run_sequence."""
     import torch
     from lfvio_tpu_torch.frontend import klt_cuda
+    from lfvio_tpu_torch.geom.eigh_cuda import sym_eig
     from lfvio_tpu_torch.runtime.datasets import euroc_stream, read_euroc_groundtruth, run_sequence
     from lfvio_tpu_torch.runtime.evaluation import ate_rmse
 
@@ -1020,7 +1140,7 @@ def phase_euroc(rig, plain_calls):
         fe, est, pipe = make(2, 3)
         tracked = count_calls(fe, "_step_impl")
         padded = count_level_pads()
-        klt_cuda.lk_pyramid.launches = klt_cuda.lk_level.launches = 0
+        reset_launches()
         plain_calls["n"] = 0
         t_split = FULL_SCALE_SECONDS * 0.6
         t0 = time.perf_counter()
@@ -1033,7 +1153,7 @@ def phase_euroc(rig, plain_calls):
         pipe.flush()
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-    launches = klt_cuda.lk_pyramid.launches
+    launches, sym_launches = klt_cuda.lk_pyramid.launches, sym_eig.launches
     n_timed = sum(1 for it in rest if it[0] == "frame")
     fps = n_timed / (t2 - t1)
     times, traj = np.asarray(est.times), np.asarray(est.traj_p)
@@ -1048,7 +1168,7 @@ def phase_euroc(rig, plain_calls):
         f"{times[0]:.4f} s; poses {len(times)}; ATE {ate:.4f} m over {n} poses against the "
         f"ground-truth CSV; tracked frames {tracked['n']}; fused LK launches {launches}; "
         f"one-level launches {klt_cuda.lk_level.launches}; plain LK calls {plain_calls['n']}; "
-        f"level images padded {padded['n']}")
+        f"level images padded {padded['n']}; sym_eig launches {sym_launches}")
     if est.solver_flag != est.NON_LINEAR or len(times) <= 25 or n != len(times):
         raise AssertionError("EuRoC run did not initialize, or too few poses")
     if not (np.isfinite(traj).all() and ate < 0.5):
@@ -1056,7 +1176,9 @@ def phase_euroc(rig, plain_calls):
     if (launches == 0 or launches != tracked["n"] or klt_cuda.lk_level.launches != 0
             or plain_calls["n"] != 0 or padded["n"] != 0):
         raise AssertionError("the EuRoC path's LK is not one fused launch per tracked frame")
-    return dict(launches=launches, fps=fps, ate=ate)
+    if sym_launches == 0:
+        raise AssertionError("the EuRoC path did not launch the eigensolver kernel")
+    return dict(launches=launches, sym_launches=sym_launches, fps=fps, ate=ate)
 
 
 # ------------------------------------------------ phase 10: tools
@@ -1478,6 +1600,358 @@ def phase_kf_axis(device="cuda:0"):
                                  f"{n_outer} rounds too")
     return full
 
+# ------------------------------------------------ phase 14: device programs
+# sym_eig against torch.linalg.eigh on the same inputs. Each pair (f32, the
+# main path's type; f64): eigenvalues within the first bound of the largest
+# |eigenvalue|; residuals |A v - w v| and |VᵀV - I| within the second of it
+# (a backward-stable solver's are a few roundings); the smallest
+# eigenvector, which every caller uses, within the third after matching
+# its sign wherever it is well posed, i.e. the second eigenvalue is at least
+# the fourth times the largest: there two solvers may differ by about a
+# rounding over that gap (1.2e-7 / 1e-2 in f32). RANSAC's 8-point matrices
+# are rank 8 and mostly not well posed at 1e-2 in f32 (the residual holds
+# them).
+EIG_BOUNDS = {"float32": (1e-5, 1e-5, 1e-3, 1e-2), "float64": (1e-12, 1e-12, 1e-9, 1e-6)}
+# A graph replay against the same program run eagerly on the same inputs
+# (f64): the same kernels in the same order, up to the order of atomic sums.
+GRAPH_F64 = 1e-9
+# The phase-4 stream with the programs eager against as graphs (f32): ATE
+# within 1 mm.
+GRAPH_ATE_M = 1e-3
+
+
+def main_path_eig_inputs(dev):
+    """The symmetric matrices the main path hands the eigensolver, recorded
+    from the calls themselves: a triangulation of make_window_problem(256)
+    (the full-scale window, f32) and one RANSAC (100 hypotheses and the refit
+    over 256 slots of bearings seen all around the rig, 40 outliers)."""
+    import torch
+    from lfvio_tpu_torch.backend import triangulate as tri
+    from lfvio_tpu_torch.frontend import ransac
+    from lfvio_tpu_torch.runtime.profiling import make_window_problem
+
+    seen = []
+
+    def record(A):
+        seen.append(A.clone())
+        return torch.linalg.eigh(A)
+
+    pb = make_window_problem(256, torch.float32, device=dev)
+    rng = np.random.default_rng(5)
+    N = 256
+    X = rng.standard_normal((N, 3))
+    X *= rng.uniform(2.0, 8.0, (N, 1)) / np.linalg.norm(X, axis=-1, keepdims=True)
+    R = np.linalg.qr(rng.standard_normal((3, 3)))[0]
+    R *= np.linalg.det(R)
+    X2 = X @ R.T + [0.2, -0.1, 0.05]
+    X2[:40] = rng.standard_normal((40, 3))  # outliers
+    tt = lambda a: torch.as_tensor(a / np.linalg.norm(a, axis=-1, keepdims=True),
+                                   dtype=torch.float32, device=dev)
+    valid = torch.as_tensor(rng.random(N) < 0.85, device=dev)
+    uni = torch.as_tensor(rng.random((ransac.N_HYPOTHESES, N)), dtype=torch.float32, device=dev)
+    saved = tri.sym_eig, ransac.sym_eig
+    tri.sym_eig = ransac.sym_eig = record
+    try:
+        tri.triangulate_grid(pb["state"], pb["grid"],
+                             torch.zeros(256, dtype=torch.bool, device=dev))
+        ransac.spherical_ransac_e(uni, tt(X), tt(X2), valid)
+    finally:
+        tri.sym_eig, ransac.sym_eig = saved
+    return seen  # [256,4,4], [100,9,9], [100,3,3], [1,9,9], [1,3,3]
+
+
+def eig_errors(A, w, V, w_ref, V_ref, posed_gap):
+    """(eigenvalue error, residual |A v - w v| and |VᵀV - I|, both relative
+    to the largest |eigenvalue|; the smallest eigenvector's largest error
+    after matching its sign, over the well-posed matrices; their share)."""
+    import torch
+
+    n = A.shape[-1]
+    A, w, V = A.reshape(-1, n, n), w.reshape(-1, n), V.reshape(-1, n, n)
+    w_ref, V_ref = w_ref.reshape(-1, n), V_ref.reshape(-1, n, n)
+    scale = w_ref.abs().amax(-1).clamp(min=1e-30)
+    ew = float(((w - w_ref).abs().amax(-1) / scale).max())
+    eye = torch.eye(n, dtype=A.dtype, device=A.device)
+    res = (A @ V - V * w[:, None, :]).abs().amax((-1, -2)) / scale
+    orth = (V.transpose(-1, -2) @ V - eye).abs().amax((-1, -2))
+    er = float(torch.maximum(res, orth).max())
+    v, vr = V[..., :, 0], V_ref[..., :, 0]
+    v = v * torch.sign((v * vr).sum(-1, keepdim=True))
+    posed = (w_ref[:, 1] - w_ref[:, 0]) >= posed_gap * scale
+    ev = float((v - vr).abs().amax(-1)[posed].max()) if bool(posed.any()) else 0.0
+    return ew, er, ev, float(posed.float().mean())
+
+
+def eig_bound_ms(inputs):
+    """The least time for these decompositions on an H100: each input read
+    once and each output (eigenvalues, eigenvectors) written once at 3.35
+    TB/s, against 9 n^3 operations a matrix (the classic count of a
+    symmetric eigendecomposition with vectors) at the float32 rate."""
+    nbytes = sum(A.numel() * A.element_size() * 2 + A.shape[0] * A.shape[-1] * A.element_size()
+                 for A in inputs)
+    ops = sum(9 * A.shape[0] * A.shape[-1] ** 3 for A in inputs)
+    t_b, t_o = 1e3 * nbytes / PEAK_BYTES_S, 1e3 * ops / PEAK_F32_FLOPS
+    return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations"), nbytes, ops
+
+
+def phase_sym_eig(dev):
+    """The eigensolver kernel against its plain version (torch.linalg.eigh)
+    on the main path's inputs, in f32 and f64, and its times."""
+    import torch
+    from lfvio_tpu_torch.geom.eigh_cuda import sym_eig
+
+    inputs = main_path_eig_inputs(dev)
+    shapes = [tuple(A.shape) for A in inputs]
+    worst = 0.0
+    for dtype in (torch.float32, torch.float64):
+        ew_b, er_b, ev_b, gap = EIG_BOUNDS[str(dtype).split(".")[-1]]
+        for A in inputs:
+            A = A.to(dtype)
+            w, V = sym_eig(A)
+            w_ref, V_ref = torch.linalg.eigh(A)
+            torch.cuda.synchronize()
+            ew, er, ev, share = eig_errors(A, w, V, w_ref, V_ref, gap)
+            log(f"[14] sym_eig {dtype} {tuple(A.shape)} against torch.linalg.eigh: eigenvalues "
+                f"within {ew:.2e} of the largest (bound {ew_b}); residuals |Av - wv|, |VᵀV - I| "
+                f"{er:.2e} (bound {er_b}); smallest eigenvector within {ev:.2e} (bound {ev_b}) "
+                f"on the {100 * share:.0f}% well posed at {gap}")
+            if not (ew <= ew_b and er <= er_b and ev <= ev_b):
+                raise AssertionError(f"sym_eig disagrees with torch.linalg.eigh at {A.shape}")
+            if dtype == torch.float32:
+                worst = max(worst, ew, ev)
+    bad = torch.zeros((2, 10, 10), device=dev)
+    try:
+        sym_eig(bad)
+        raise AssertionError("sym_eig took a 10 x 10 matrix")
+    except ValueError:
+        pass
+    # A published frame's launches (RANSAC's four, the solve's triangulation)
+    # behind a full queue, and the library's eigh on the same five inputs,
+    # its wait for the card included.
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    block = lambda: [flush.zero_() for _ in range(12)]
+
+    def frame():
+        for A in inputs:
+            sym_eig(A)
+
+    def library():
+        for A in inputs:
+            torch.linalg.eigh(A)
+        torch.cuda.synchronize()
+
+    per_shape = [cuda_ms(lambda A=A: sym_eig(A), reps=10, blocker=block) for A in inputs]
+    ms = cuda_ms(frame, reps=10, blocker=block)
+    alone = cuda_ms(frame)
+    lib = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        library()
+        lib.append(1e3 * (time.perf_counter() - t0))
+    lib_ms = float(np.median(lib))
+    bound, by, nbytes, ops = eig_bound_ms(inputs)
+    log(f"[14] sym_eig per published frame ({', '.join(map(str, shapes))}; f32): "
+        f"{ms:.4f} ms on the card behind a full queue (per shape "
+        + ", ".join(f"{t:.4f}" for t in per_shape)
+        + f"), {alone:.4f} ms launched alone, host cost included; torch.linalg.eigh on the same "
+        f"inputs {lib_ms:.4f} ms with its wait (median of 10 host-timed); bound {bound:.6f} ms "
+        f"by {by} ({nbytes} B, {ops / 1e6:.3f} MFLOP)")
+    return dict(max_abs_err=worst, ms=ms, ms_launched_alone=alone, plain_ms=lib_ms,
+                bound_ms=bound, bound_by=by, library_ms=lib_ms)
+
+
+def info_err(a, b):
+    """Largest difference of two priors' JᵀJ, Jᵀr (and r0ᵀr0) relative to
+    the scale of b's."""
+    Ha, Hb = a.J.T @ a.J, b.J.T @ b.J
+    ba, bb = a.J.T @ a.r0, b.J.T @ b.r0
+    return max(float((Ha - Hb).abs().max() / Hb.abs().max().clamp(min=1)),
+               float((ba - bb).abs().max() / bb.abs().max().clamp(min=1)),
+               float((a.r0 @ a.r0 - b.r0 @ b.r0).abs() / (b.r0 @ b.r0).clamp(min=1)))
+
+
+def state_err(a, b, fields=("p", "q", "v", "ba", "bg", "tic", "qic", "td", "inv_depth")):
+    return max(float((getattr(a, f) - getattr(b, f)).abs().max()
+                     / getattr(b, f).abs().max().clamp(min=1)) for f in fields)
+
+
+def phase_graphs_f64(dev):
+    """Each program's graph replay against the same function run eagerly on
+    the same inputs, f64, on an estimator a bearing stream initialized (64
+    slots): the solve, the relocalization solve, both marginalizations."""
+    import torch
+    from lfvio_tpu_torch.device import clone_tree
+    from lfvio_tpu_torch.runtime import Estimator, EstimatorConfig, VioPipeline
+    from lfvio_tpu_torch.runtime.synthetic import SyntheticWorld, make_synthetic_pal_camera
+
+    world = SyntheticWorld(camera=make_synthetic_pal_camera(dtype=torch.float64),
+                           dtype=torch.float64, device=dev)
+    pts = make_landmarks()
+    est = Estimator(EstimatorConfig(n_feature_slots=64, solver_dtype=torch.float64, device=dev))
+    run_bearing_stream(VioPipeline(BearingFrontEnd(world, pts), est), world, 1.5)
+    if est.solver_flag != est.NON_LINEAR:
+        raise AssertionError("the f64 stream did not initialize")
+    cap = est.cfg.max_iterations
+    prior = est.prior if est.prior is not None else est._empty_prior()
+    chain = est._zero_chain()
+    packed = est._upload(est._pack_solve_buffer(est.Ps[0], est.Qs[0]))
+    g_res, g_grid = clone_tree(est._program(("solve", cap))(packed, prior, chain))
+    e_res, e_grid = est._solve_packed_impl(packed, prior, chain, max_iter=cap)
+    errs = {"solve": state_err(g_res["out"], e_res["out"])}
+    args = (e_res["out"], e_grid, e_res["pre"], e_res["sqrt_info"], e_res["imu_ok"], prior)
+    errs["marg_old"] = info_err(clone_tree(est._program(("marg_old",))(*args)),
+                                est._marg_old_impl(*args))
+    errs["marg_new"] = info_err(clone_tree(est._program(("marg_new",))(e_res["out"], prior)),
+                                est._marg_new_impl(e_res["out"], prior))
+    t_loop = float(est.headers[est.WIN - 2])
+    b = cam_bearings(world, t_loop, pts, np.eye(3), np.zeros(3))
+    p_true, q_true = world.pose(t_loop)
+    if not est.set_relo_frame(t_loop, np.arange(len(pts)), b, p_true, q_true):
+        raise AssertionError("set_relo_frame refused the match")
+    packed_r = est._upload(est._pack_solve_buffer(est.Ps[0], est.Qs[0], relo=est._relo_active))
+    g_res, _ = clone_tree(est._program(("relo", cap))(packed_r, prior))
+    e_res, _ = est._solve_relo_packed_impl(packed_r, prior, max_iter=cap)
+    errs["relo"] = max(state_err(g_res["out"], e_res["out"]),
+                       float((g_res["relo_p"] - e_res["relo_p"]).abs().max()),
+                       float((g_res["relo_q"] - e_res["relo_q"]).abs().max()))
+    torch.cuda.synchronize()
+    n, cap_s = est.graph_stats()
+    log(f"[14] f64 graph replay against eager on the same inputs (64 slots, cap {cap}): "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + f" of the scale (bound {GRAPH_F64}); {n} graphs captured in {cap_s:.2f} s")
+    if not all(v <= GRAPH_F64 for v in errs.values()):
+        raise AssertionError("a graph replay disagrees with the eager program")
+    return errs
+
+
+# ROADMAP queue 3 item 1: the QR marginalization drops information when an
+# all-zero depth column's pivot row belongs to a frame-0 feature. A
+# MARGIN_OLD "hits" it when its QR prior's JᵀJ / Jᵀr differ from the eigh
+# prior's (marginalize_old, the reference's own H-space elimination) by more
+# than tests/test_marg_qr.py's bound between the two, relative to the scale;
+# both are computed in f64 from the program's inputs. A measurement only:
+# the estimator keeps the QR prior, as the JAX package does.
+QR_EIGH_BOUND = 2e-6
+
+
+def record_marg_information(est, rec):
+    """Wrap ``est``'s MARGIN_OLD program so that each call also computes the
+    QR and the eigh prior of its inputs in f64 and appends their relative
+    information difference to ``rec``."""
+    import torch
+    from lfvio_tpu_torch.backend.marginalize import marginalize_old, marginalize_old_qr
+
+    def f64(x):
+        if x is None:
+            return x
+        if isinstance(x, torch.Tensor):
+            return x.double() if x.is_floating_point() else x
+        if isinstance(x, tuple):
+            return tuple(f64(y) for y in x)
+        return type(x)(**{k: f64(v) for k, v in vars(x).items()})
+
+    make = est._program
+
+    def program(key):
+        prog = make(key)
+        if key[0] != "marg_old":
+            return prog
+
+        def run(*args):
+            out = prog(*args)
+            a = f64(args) + (est._gravity_t.double(), est.scfg)
+            rec.append(info_err(marginalize_old_qr(*a), marginalize_old(*a)))
+            return out
+
+        return run
+
+    est._program = program
+
+
+def log_marg_information(tag, name, rec):
+    hits = sum(e > QR_EIGH_BOUND for e in rec)
+    log(f"{tag} QR against eigh marginalization, {name}: {len(rec)} MARGIN_OLD, information "
+        f"differs by at most {max(rec, default=0.0):.2e} of the scale, {hits} above "
+        f"{QR_EIGH_BOUND} (the fault)")
+    return dict(n=len(rec), max=max(rec, default=0.0), hits=hits)
+
+
+def phase_qr_information(dev):
+    """The parity streams of tests/test_torch_estimator.py and
+    tests/test_torch_lag.py (the bearing harness, 64 slots, f64, 1.5 s) on
+    the card, each MARGIN_OLD's QR information against the eigh one."""
+    import torch
+    from lfvio_tpu_torch.runtime import Estimator, EstimatorConfig, VioPipeline
+    from lfvio_tpu_torch.runtime.synthetic import SyntheticWorld, make_synthetic_pal_camera
+
+    pts = make_landmarks()
+    out = {}
+    for name, cfg, fe_kw, world_kw in (
+            ("lag1", dict(solve_lag=1), {}, {}),
+            ("lag2_chain", dict(solve_lag=2, device_chain=True), {}, {}),
+            ("lag3", dict(solve_lag=3), {}, {}),
+            ("td", dict(solve_lag=1, estimate_td=True), dict(td_true=0.005),
+             dict(traj_freq=0.8))):
+        world = SyntheticWorld(camera=make_synthetic_pal_camera(dtype=torch.float64),
+                               dtype=torch.float64, device=dev, **world_kw)
+        est = Estimator(EstimatorConfig(n_feature_slots=64, solver_dtype=torch.float64,
+                                        device=dev, **cfg))
+        rec = []
+        record_marg_information(est, rec)
+        run_bearing_stream(VioPipeline(BearingFrontEnd(world, pts, **fe_kw), est), world, 1.5)
+        out[name] = log_marg_information("[14]", f"parity stream {name}", rec)
+    return out
+
+
+def phase_programs(dev, rig, plain_calls, run4):
+    """The eigensolver kernel, f64 graph replays against eager, phase 4's
+    stream with eager programs, and the card's time per replay."""
+    import torch
+
+    t0 = time.perf_counter()
+    eig = phase_sym_eig(dev)
+    phase_graphs_f64(dev)
+    est = run4["est"]
+    prior = est.prior
+    chain = est._zero_chain()
+    packed = est._upload(est._pack_solve_buffer(est.Ps[0], est.Qs[0]))
+    cap = est.cfg.max_iterations
+    solve = est._program(("solve", cap))
+    res, grid = solve(packed, prior, chain)
+    marg_args = (res["out"], grid, res["pre"], res["sqrt_info"], res["imu_ok"], prior)
+    times = {
+        f"solve (cap {cap})": cuda_ms(lambda: solve(packed, prior, chain), n=5, warmup=1),
+        "marg_old": cuda_ms(lambda: est._program(("marg_old",))(*marg_args), n=5, warmup=1),
+        "marg_new": cuda_ms(lambda: est._program(("marg_new",))(res["out"], prior), n=5,
+                            warmup=1),
+        f"solve (cap {cap}), eager": cuda_ms(
+            lambda: est._solve_packed_impl(packed, prior, chain, max_iter=cap), n=3, warmup=1),
+    }
+    n, cap_s = est.graph_stats()
+    log(f"[14] phase 4's estimator (f32, 256 slots), ms per call between CUDA events (a replay "
+        f"includes copying its inputs in): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
+        + f"; {n} graphs captured in {cap_s:.2f} s in all ("
+        + ", ".join(f"{k} {p.capture_s:.2f} s" for k, p in est._programs.items()
+                    if hasattr(p, "capture_s")) + ")")
+    qr = phase_qr_information(dev)
+    rec4, rec6 = [], []
+    eager = run_full_scale("[14]", rig, plain_calls, 1, 1, graphs=False,
+                           marg_record=rec4)
+    qr["phase 4"] = log_marg_information("[14]", "phase 4's stream", rec4)
+    run_full_scale("[14]", rig, plain_calls, 2, 3, marg_record=rec6)
+    qr["phase 6"] = log_marg_information("[14]", "phase 6's stream", rec6)
+    d_ate = abs(eager["ate"] - run4["ate"])
+    log(f"[14] phase 4's stream with the programs eager: {eager['fps']:.3f} frames/s beside "
+        f"{run4['fps']:.3f} as graphs; ATE {eager['ate']:.6f} m beside {run4['ate']:.6f} m "
+        f"(difference {d_ate:.2e}, bound {GRAPH_ATE_M}); phase 14 took "
+        f"{time.perf_counter() - t0:.1f} s")
+    if d_ate > GRAPH_ATE_M or abs(float(eager["est"].times[0])
+                                  - float(run4["est"].times[0])) > 1e-9:
+        raise AssertionError("the graph path's ATE is not within 1 mm of the eager path's")
+    return eig, times, qr
+
+
 
 def main(argv):
     import torch
@@ -1503,34 +1977,40 @@ def main(argv):
     log(f"[1] torch {torch.__version__} cuda {torch.version.cuda}; {nvcc[-1] if nvcc else 'nvcc ?'}")
 
     t0 = time.perf_counter()
-    lib = klt_cuda.build(verbose=True)
-    log(f"[2] built {lib.name} from {', '.join(sorted(set(SOURCES.values())))} in "
+    libs = klt_cuda.build(verbose=True)
+    log(f"[2] built {', '.join(p.name for p in libs.values())} from "
+        f"{', '.join(sorted(set(SOURCES.values())))} (one nvcc per source, in parallel) in "
         f"{time.perf_counter() - t0:.2f} s")
 
     t_run = time.perf_counter()
     kernels = phase_kernel_vs_plain(dev)
     plain_calls = count_plain_lk()
     rig = full_scale_rig(dev)
-    launches, level_launches, fps, ate_full, t_first = phase_full_scale(rig, plain_calls, profile)
+    run4 = phase_full_scale(rig, plain_calls, profile)
     phase_e2e_gate(dev)
-    launches6, fps6, ate6 = phase_bench_configuration(rig, plain_calls, fps, ate_full, t_first)
-    caps = phase_capabilities(dev)
+    run6 = phase_bench_configuration(rig, plain_calls, run4)
+    phase_capabilities(dev)
     dual = phase_dual_pal(dev, plain_calls)
     euroc = phase_euroc(rig, plain_calls)
     phase_tools(rig, dev)
-    del rig
     phase_profiling(dev)
     phase_dist()
     phase_kf_axis()
-    log(f"[end] launches of lk_pyramid on the main paths: {launches} (phase 4), {launches6} "
-        f"(phase 6), {dual['launches']} (phase 8), {euroc['launches']} (phase 9); whole run "
-        f"{time.perf_counter() - t_run + 0.0:.1f} s after the build")
+    kernels["sym_eig"], _, _ = phase_programs(dev, rig, plain_calls, run4)
+    del rig
+    paths = (run4, run6, dual, euroc)
+    launches = {"lk_pyramid": sum(r["launches"] for r in paths),
+                "lk_level": run4["level_launches"],
+                "sym_eig": sum(r["sym_launches"] for r in paths)}
+    log(f"[end] launches on the main paths (phases 4, 6, 8, 9): lk_pyramid "
+        + ", ".join(str(r["launches"]) for r in paths) + "; sym_eig "
+        + ", ".join(str(r["sym_launches"]) for r in paths)
+        + f"; whole run {time.perf_counter() - t_run + 0.0:.1f} s after the build")
 
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES,
-         "launches": n, **kernels[name]}
-        for name, n in (("lk_pyramid", launches + launches6 + dual["launches"] + euroc["launches"]),
-                        ("lk_level", level_launches))]}))
+        {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+         "launches": launches[name], **kernels[name]}
+        for name in ("lk_pyramid", "lk_level", "sym_eig")]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

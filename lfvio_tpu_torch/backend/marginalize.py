@@ -21,6 +21,8 @@ goes through JᵀJ, Jᵀr and |r|², which do not.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -46,21 +48,10 @@ def _drop_keep_old(n_frames: int, D: int):
     return drop, keep
 
 
-def _scatter_prior(Jk, rk, keep, D):
-    J = torch.zeros((D, D), dtype=Jk.dtype, device=Jk.device)
-    r0 = torch.zeros((D,), dtype=Jk.dtype, device=Jk.device)
-    k = torch.as_tensor(keep, device=Jk.device)
-    J[k[:, None], k[None, :]] = Jk
-    r0[k] = rk
-    return J, r0
-
-
-def _zero_last_slot(J, n_frames):
-    """The refreshed newest slot carries no prior information."""
-    W = n_frames - 1
-    J[:, pose_off(W):pose_off(W) + 6] = 0.0
-    J[:, sb_off(W, n_frames):sb_off(W, n_frames) + 9] = 0.0
-    return J
+def _drop_keep_second_new(n_frames: int, D: int):
+    """Static column indices for MARGIN_SECOND_NEW: drop pose[W-1] (6)."""
+    drop = np.arange(pose_off(n_frames - 2), pose_off(n_frames - 2) + 6)
+    return drop, np.setdiff1d(np.arange(D), drop)
 
 
 def _slide_perm(n_frames: int, D: int, src_of):
@@ -76,13 +67,48 @@ def _slide_perm(n_frames: int, D: int, src_of):
     return perm
 
 
+@functools.lru_cache(maxsize=None)
+def _indices(kind: str, n_frames: int, D: int, device: torch.device):
+    """(drop, keep, slide permutation) of a marginalization kind as int64
+    tensors on ``device``, built once: an index copied from the host cannot
+    be captured in a CUDA graph, and a program's warm-up call, outside the
+    capture, builds them."""
+    W = n_frames - 1
+    if kind == "old":
+        drop, keep = _drop_keep_old(n_frames, D)
+        perm = _slide_perm(n_frames, D, lambda k: (k + 1) % n_frames)
+    else:
+        drop, keep = _drop_keep_second_new(n_frames, D)
+        perm = _slide_perm(n_frames, D, lambda k: k if k < W - 1 else W)
+    return tuple(torch.as_tensor(np.asarray(a, np.int64), device=device)
+                 for a in (drop, keep, perm))
+
+
+def _scatter_prior(Jk, rk, keep, D):
+    J = torch.zeros((D, D), dtype=Jk.dtype, device=Jk.device)
+    r0 = torch.zeros((D,), dtype=Jk.dtype, device=Jk.device)
+    J[keep[:, None], keep[None, :]] = Jk
+    r0[keep] = rk
+    return J, r0
+
+
+def _zero_last_slot(J, n_frames):
+    """The refreshed newest slot carries no prior information."""
+    W = n_frames - 1
+    # fill_, not "= 0.0": a Python scalar assigned to a CUDA slice is copied
+    # from the host, which a CUDA graph cannot hold.
+    J[:, pose_off(W):pose_off(W) + 6].fill_(0.0)
+    J[:, sb_off(W, n_frames):sb_off(W, n_frames) + 9].fill_(0.0)
+    return J
+
+
 def _slid_old(J, r0, state: WindowState, valid):
     """The prior re-indexed for MARGIN_OLD's slide: new slot k takes old slot
     k+1's columns, the last slot's columns (the eliminated frame 0's, zero)
     are zeroed explicitly, and x0 shifts the same way."""
     n_frames = state.p.shape[0]
-    J = _zero_last_slot(J[:, _slide_perm(n_frames, J.shape[1], lambda k: (k + 1) % n_frames)],
-                        n_frames)
+    perm = _indices("old", n_frames, J.shape[1], J.device)[2]
+    J = _zero_last_slot(J[:, perm], n_frames)
 
     def roll(a):
         return torch.cat([a[1:], a[-1:]], dim=0)
@@ -98,8 +124,8 @@ def _slid_second_new(J, r0, state: WindowState, valid):
     values (the surviving newest frame)."""
     n_frames = state.p.shape[0]
     W = n_frames - 1
-    J = _zero_last_slot(J[:, _slide_perm(n_frames, J.shape[1], lambda k: k if k < W - 1 else W)],
-                        n_frames)
+    perm = _indices("second_new", n_frames, J.shape[1], J.device)[2]
+    J = _zero_last_slot(J[:, perm], n_frames)
 
     def merge(a):
         a = a.clone()
@@ -137,11 +163,8 @@ def marginalize_old_qr(state: WindowState, grid, pre0, sqrt_info_imu0, imu0_vali
         [dep_rows, torch.zeros((Jimu.shape[0] + D, F), dtype=dtype, device=dev)], dim=0
     )
     r = torch.cat([res_w.reshape(R1), imu_res.reshape(-1), rp])
-    drop, keep = _drop_keep_old(n_frames, D)
-    A = torch.cat(
-        [A_pose[:, torch.as_tensor(drop, device=dev)], A_dep,
-         A_pose[:, torch.as_tensor(keep, device=dev)], r[:, None]], dim=1
-    )
+    drop, keep, _ = _indices("old", n_frames, D, dev)
+    A = torch.cat([A_pose[:, drop], A_dep, A_pose[:, keep], r[:, None]], dim=1)
     m, K = len(drop) + F, len(keep)
     Rfac = torch.linalg.qr(A, mode="r")[1]
     Jk = Rfac[m:m + K, m:m + K]
@@ -160,13 +183,9 @@ def marginalize_second_new_qr(state: WindowState, prior: PriorFactor, cfg: Solve
     dev = prior.J.device
     rp = prior_residual(state, prior)
     J0 = torch.where(prior.valid, prior.J, torch.zeros_like(prior.J))
-    drop = np.arange(pose_off(n_frames - 2), pose_off(n_frames - 2) + 6)
-    keep = np.setdiff1d(np.arange(D), drop)
+    drop, keep, _ = _indices("second_new", n_frames, D, dev)
     K = len(keep)
-    A = torch.cat(
-        [J0[:, torch.as_tensor(drop, device=dev)],
-         J0[:, torch.as_tensor(keep, device=dev)], rp[:, None]], dim=1
-    )
+    A = torch.cat([J0[:, drop], J0[:, keep], rp[:, None]], dim=1)
     Rfac = torch.linalg.qr(A, mode="r")[1]
     Jk = Rfac[6:6 + K, 6:6 + K]
     rk = Rfac[6:6 + K, 6 + K]
@@ -248,6 +267,6 @@ def marginalize_second_new(state: WindowState, prior: PriorFactor, cfg: SolverCo
     n_frames = prior.x0_p.shape[0]
     rp = prior_residual(state, prior)
     J0 = torch.where(prior.valid, prior.J, torch.zeros_like(prior.J))
-    drop = np.arange(pose_off(n_frames - 2), pose_off(n_frames - 2) + 6)
+    drop, _ = _drop_keep_second_new(n_frames, J0.shape[0])
     J, r = _sqrt_factorize(*_eliminate_indices(J0.T @ J0, J0.T @ rp, drop))
     return _slid_second_new(J, r, state, torch.ones((), dtype=torch.bool, device=J.device))

@@ -134,7 +134,8 @@ def _relo_apply(rs, dx, dlam, cfg):
 
 def lm_solve_relo(state: WindowState, grid: FeatureGrid, pre, sqrt_info_imu,
                   imu_valid, prior: PriorFactor, gravity, cfg: SolverConfig,
-                  relo_p0, relo_q0, relo_bearing, relo_mask, max_iter_dyn=None):
+                  relo_p0, relo_q0, relo_bearing, relo_mask, max_iter_dyn=None,
+                  limit=None):
     """LM over the window plus the free loop pose (augmented D+6 system).
 
     Returns (state_out, relo_p, relo_q, init_cost, final_cost)."""
@@ -169,6 +170,6 @@ def lm_solve_relo(state: WindowState, grid: FeatureGrid, pre, sqrt_info_imu,
 
     (s_out, rp, rq), c0, c1, _ = lm_loop(
         (state, relo_p0, relo_q0), lin_fn, solve_fn, cost_fn, cfg, max_iter_dyn,
-        apply_fn=_relo_apply,
+        apply_fn=_relo_apply, limit=limit,
     )
     return s_out, rp, rq, c0, c1

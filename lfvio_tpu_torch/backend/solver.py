@@ -10,16 +10,18 @@ solve, estimator.cpp:810-825):
      H_pl [D, F] and the diagonal H_ll [F]. Each observation's extrinsic
      blocks are scattered to its camera's columns with ``index_add_``.
   3. Schur elimination of the inverse depths, one Cholesky of the reduced
-     D×D system (``cholesky_ex``: a non-PD system gives a non-finite step,
-     which LM rejects, as jnp.linalg.cholesky's NaN does).
-  4. LM with accept/reject, linearization reuse after a rejected step and
-     the relative cost-plateau exit, at most ``max_iterations`` iterations
-     or the caller's ``max_iter_dyn`` (a Python loop in place of the JAX
-     scan/cond).
+     D×D system (``cholesky_ex`` and two triangular solves: a non-PD system
+     gives a non-finite step, which LM rejects, as jnp.linalg.cholesky's
+     NaN does).
+  4. LM in the JAX form: a fixed count of iterations whose accept/reject,
+     linearization reuse after a rejected step and relative cost-plateau
+     exit are selected on the device (``torch.where``), so a solve reads
+     nothing back and can be captured as one CUDA graph.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from functools import partial
 
 import torch
@@ -178,7 +180,9 @@ def linearize_proj_rows(state: WindowState, grid: FeatureGrid, cfg: SolverConfig
     if not cfg.estimate_td:
         J_td = torch.zeros_like(J_td)
 
-    onehot = torch.nn.functional.one_hot(grid.anchor, W1).to(dtype)  # [F, W1]
+    # One-hot anchors [F, W1] by comparison (one_hot checks its classes on the
+    # host off the card).
+    onehot = (grid.anchor[:, None] == torch.arange(W1, device=dev)).to(dtype)
     eyeW = torch.eye(W1, dtype=dtype, device=dev)
     Jpose = torch.einsum("fjac,jk->fjakc", J_pj, eyeW) + torch.einsum(
         "fjac,fk->fjakc", J_pi, onehot
@@ -187,7 +191,8 @@ def linearize_proj_rows(state: WindowState, grid: FeatureGrid, cfg: SolverConfig
     # the anchor observation's camera, the observation-side block to the
     # observing camera; blocks of one camera add.
     cam_j = grid.cam_index().reshape(-1)  # [F*W1]
-    cam_i = grid.cam_index()[torch.arange(F, device=dev), grid.anchor].repeat_interleave(W1)
+    cam_i = grid.cam_index()[torch.arange(F, device=dev), grid.anchor][:, None].expand(F, W1)
+    cam_i = cam_i.reshape(-1)
     row = torch.arange(F * W1, device=dev) * C
     Jex = torch.zeros((F * W1 * C, 2, 6), dtype=dtype, device=dev)
     Jex.index_add_(0, row + cam_j, J_exj.reshape(F * W1, 2, 6))
@@ -308,64 +313,100 @@ def _schur_solve(H_pp, H_pl, H_ll, b_p, b_l, lam, used, reduce=None):
     diag = torch.clamp(torch.diagonal(H_pp), 1e-6, 1e32)
     eye = torch.eye(D, dtype=H_pp.dtype, device=H_pp.device)
     L, info = torch.linalg.cholesky_ex(H_red + lam * torch.diag(diag) + 1e-10 * eye)
-    # Gauss-Newton convention: step = -H^-1 b (b = Jᵀr).
-    dx = -torch.cholesky_solve(b_red[:, None], L)[:, 0]
+    # Gauss-Newton convention: step = -H^-1 b (b = Jᵀr). Two triangular
+    # solves: cholesky_solve may read its status on the host.
+    y = torch.linalg.solve_triangular(L, b_red[:, None], upper=False)
+    dx = -torch.linalg.solve_triangular(L.T, y, upper=True)[:, 0]
     dx = torch.where(info == 0, dx, torch.nan)
     dlam = -inv_Hll * (b_l_safe + H_pl_safe.T @ dx)
     return dx, dlam
 
 
+def _tree_where(c, a, b):
+    """torch.where(c, a, b) over a state: a tensor, a tuple of states, or a
+    dataclass of tensors (WindowState)."""
+    if isinstance(a, torch.Tensor):
+        return torch.where(c, a, b)
+    if isinstance(a, tuple):
+        return tuple(_tree_where(c, x, y) for x, y in zip(a, b))
+    return dataclasses.replace(a, **{f.name: _tree_where(c, getattr(a, f.name), getattr(b, f.name))
+                                     for f in dataclasses.fields(a)})
+
+
+def _finite_or_inf(c):
+    return torch.where(torch.isfinite(c), c, torch.inf)
+
+
 def lm_loop(state, lin_fn, solve_fn, cost_fn, cfg: SolverConfig,
-            max_iter_dyn=None, apply_fn=None):
-    """Levenberg-Marquardt accept/reject loop: the linearization is reused
-    after a rejected step (re-solved with more damping), and an accepted
-    step improving the cost by less than cfg.cost_tol (relative) stops the
-    iteration. ``max_iter_dyn`` (an int) caps the iterations below
-    cfg.max_iterations: the caller derives it from the reference's wall
-    budget max_solver_time (estimator.cpp:810-825). ``apply_fn`` retracts a
-    step onto whatever ``state`` is (default: apply_delta on a WindowState).
-    Returns (state, init_cost, final_cost, cost_hist)."""
+            max_iter_dyn=None, apply_fn=None, limit=None):
+    """Levenberg-Marquardt accept/reject loop in the JAX form
+    (``lfvio_tpu/backend/solver.py::lm_loop``): a fixed count of iterations
+    carrying (state, lam, cost, lin, need_lin, done) as tensors, every
+    decision a ``torch.where`` on the device, so the loop reads nothing back.
+
+      * Linearization reuse: each iteration linearizes, and the previous
+        linearization is selected after a rejected step (re-solved with more
+        damping). ``lin`` starts at zeros; ``need_lin`` starts True.
+      * A non-finite step (a non-PD damped system) is zeroed and rejected.
+      * Cost-plateau exit: an accepted step improving the cost by less than
+        cfg.cost_tol (relative) sets ``done``; later iterations change
+        nothing.
+      * The count: ``max_iter_dyn`` (a Python int, the caller's wall-budget
+        cap, estimator.cpp:810-825) or cfg.max_iterations, whichever is
+        smaller, fixes the loop's length; under a CUDA graph every iteration
+        does its work, so the cap must shorten the loop, not mask it.
+        ``limit`` (a device scalar, optional) masks the iterations at and
+        after it, as JAX's packed ``max_iter`` does.
+
+    ``apply_fn`` retracts a step onto whatever ``state`` is (default:
+    apply_delta on a WindowState). Returns (state, init_cost, final_cost,
+    cost history [n_iter])."""
     if apply_fn is None:
         apply_fn = apply_delta
     n_iter = cfg.max_iterations
     if max_iter_dyn is not None:
         n_iter = min(n_iter, int(max_iter_dyn))
-
-    def finite_or_inf(c):
-        return torch.where(torch.isfinite(c), c, torch.inf)
-
-    init_cost = finite_or_inf(cost_fn(state))
+    init_cost = _finite_or_inf(cost_fn(state))
     cost = init_cost
-    lam = float(cfg.init_lambda)
-    lin, need_lin = None, True
+    lam = torch.full((), cfg.init_lambda, dtype=init_cost.dtype, device=init_cost.device)
+    need_lin = torch.ones((), dtype=torch.bool, device=init_cost.device)
+    done = torch.zeros((), dtype=torch.bool, device=init_cost.device)
+    lin = None
     hist = []
-    for _ in range(n_iter):
-        if need_lin:
-            lin = lin_fn(state)
-        dx, dlam = solve_fn(lin, lam)
-        accept = conv = False
-        if bool(torch.isfinite(dx).all() & torch.isfinite(dlam).all()):
-            s_new = apply_fn(state, dx, dlam, cfg)
-            new_cost = finite_or_inf(cost_fn(s_new))
-            accept = bool(new_cost < cost)
-            if accept:
-                rel_impr = (cost - new_cost) / torch.clamp(cost, min=1e-30)
-                conv = bool(rel_impr < cfg.cost_tol)
-                state, cost = s_new, new_cost
-        lam = min(max(lam * (0.4 if accept else 8.0), 1e-9), 1e6)
-        need_lin = accept
+    for it in range(n_iter):
+        if limit is not None:
+            done = done | (limit <= it)
+        lin_new = lin_fn(state)
+        if lin is None:
+            lin = tuple(torch.zeros_like(x) for x in lin_new)
+        lin_cur = tuple(torch.where(need_lin, x, y) for x, y in zip(lin_new, lin))
+        dx, dlam = solve_fn(lin_cur, lam)
+        step_ok = torch.isfinite(dx).all() & torch.isfinite(dlam).all()
+        s_new = apply_fn(state, torch.where(step_ok, dx, 0.0), torch.where(step_ok, dlam, 0.0),
+                         cfg)
+        new_cost = _finite_or_inf(cost_fn(s_new))
+        accept = step_ok & (new_cost < cost)
+        rel_impr = (cost - new_cost) / torch.clamp(cost, min=1e-30)
+        conv = accept & (rel_impr < cfg.cost_tol)
+        lam_next = torch.clamp(torch.where(accept, lam * 0.4, lam * 8.0), 1e-9, 1e6)
+        # After done every carry keeps its value.
+        go = ~done & accept
+        state = _tree_where(go, s_new, state)
+        cost = torch.where(go, new_cost, cost)
+        lam = torch.where(done, lam, lam_next)
+        lin = tuple(torch.where(done, x, y) for x, y in zip(lin, lin_cur))
+        need_lin = torch.where(done, need_lin, accept)
+        done = done | conv
         hist.append(cost)
-        if conv:
-            break
-    return state, init_cost, cost, hist
+    return state, init_cost, cost, torch.stack(hist)
 
 
 def lm_solve(state: WindowState, grid: FeatureGrid, pre: Preintegration,
              sqrt_info_imu, imu_valid, prior: PriorFactor, gravity,
-             cfg: SolverConfig, max_iter_dyn=None):
+             cfg: SolverConfig, max_iter_dyn=None, limit=None):
     """LM over the window, ≤ cfg.max_iterations iterations (reference:
     ceres with max 8 iterations and a wall budget, estimator.cpp:810-825;
-    the budget maps to max_iter_dyn, see lm_loop)."""
+    the budget maps to max_iter_dyn and ``limit``, see lm_loop)."""
 
     def lin_fn(s):
         return assemble_normal_equations(
@@ -378,4 +419,4 @@ def lm_solve(state: WindowState, grid: FeatureGrid, pre: Preintegration,
     def cost_fn(s):
         return total_cost(s, grid, pre, sqrt_info_imu, imu_valid, prior, gravity, cfg)
 
-    return lm_loop(state, lin_fn, solve_fn, cost_fn, cfg, max_iter_dyn)
+    return lm_loop(state, lin_fn, solve_fn, cost_fn, cfg, max_iter_dyn, limit=limit)

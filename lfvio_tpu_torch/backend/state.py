@@ -21,6 +21,8 @@ import dataclasses
 
 import torch
 
+from ..geom import quat_identity
+
 WINDOW = 10  # default sliding-window keyframes (reference WINDOW_SIZE)
 NFRAMES = WINDOW + 1
 
@@ -77,7 +79,7 @@ class WindowState:
     def zeros(n_features: int, dtype=torch.float32, n_frames: int = NFRAMES,
               device=None, n_cams: int = 1):
         z = lambda *s: torch.zeros(s, dtype=dtype, device=device)
-        unit_q = torch.tensor([1.0, 0, 0, 0], dtype=dtype, device=device)
+        unit_q = quat_identity(dtype, device)
         return WindowState(
             p=z(n_frames, 3), q=unit_q.repeat(n_frames, 1), v=z(n_frames, 3),
             ba=z(n_frames, 3), bg=z(n_frames, 3),

@@ -3,9 +3,10 @@
 feature_manager.cpp:199-253).
 
 For each feature, two DLT rows per observing frame relative to the anchor
-camera; the null vector of AᵀA (batched 4x4 eigh) gives the point, and the
-depth is the *ray* depth ⟨X, bearing_anchor⟩ (valid on the negative half-
-plane). The eigenvector's sign cancels in X[:3] / X[3].
+camera; the null vector of AᵀA (batched 4x4 eigh: ``geom/eigh_cuda.py``'s
+kernel on the card) gives the point, and the depth is the *ray* depth
+⟨X, bearing_anchor⟩ (valid on the negative half-plane). The eigenvector's
+sign cancels in X[:3] / X[3].
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from ..geom import quat_to_mat
+from ..geom.eigh_cuda import sym_eig
 from .state import FeatureGrid, WindowState, ex_2d
 
 INIT_DEPTH = 5.0
@@ -47,7 +49,7 @@ def triangulate_grid(state: WindowState, grid: FeatureGrid, has_depth):
     row1 = f[..., 1:2] * P[..., 2, :] - f[..., 2:3] * P[..., 1, :]
     rows = torch.stack([row0, row1], dim=2) * grid.valid[..., None, None].to(dtype)
     AtA = torch.einsum("fwra,fwrb->fab", rows, rows)
-    _, V = torch.linalg.eigh(AtA + 1e-12 * torch.eye(4, dtype=dtype, device=dev))
+    _, V = sym_eig(AtA + 1e-12 * torch.eye(4, dtype=dtype, device=dev))
     X = V[..., :, 0]
     denom = torch.where(torch.abs(X[..., 3]) < 1e-10, 1e-10, X[..., 3])
     Xp = X[..., :3] / denom[..., None]

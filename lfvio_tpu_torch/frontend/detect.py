@@ -91,7 +91,7 @@ def select_features(response, static_mask, existing_pts, existing_valid,
     resp = torch.where(static_mask & ~excl, response, 0.0)
     B = 5  # kill the border ridge of the edge-replicated stencils
     border = torch.zeros((H, W), dtype=torch.bool, device=dev)
-    border[B:-B, B:-B] = True
+    border[B:-B, B:-B].fill_(True)  # fill_: "= True" copies the scalar from the host
     resp = torch.where(border, resp, 0.0)
     resp = torch.where(resp >= quality_level * torch.max(resp), resp, 0.0)
     resp = torch.where(resp >= _max_filter(resp, 3, 3), resp, 0.0)

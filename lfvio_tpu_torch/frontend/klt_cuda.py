@@ -1,8 +1,10 @@
-"""The LK kernel (``csrc/lk_pyramid.cu``): build and binding.
+"""The LK kernel (``csrc/lk_pyramid.cu``): build and binding; the build of
+every kernel source of the port.
 
-The CUDA sources are compiled with one ``nvcc`` call for ``sm_90a`` into one
-shared library with a plain C interface at first use, keyed by a hash of
-all sources, under ``lfvio_tpu_torch/build/``, and loaded with ``ctypes``.
+Each CUDA source under ``csrc/`` is compiled for ``sm_90a`` into a shared
+library of its own with a plain C interface at first use, keyed by a hash
+of the source and the flags, under ``lfvio_tpu_torch/build/``: one ``nvcc``
+per source, all started together. Libraries are loaded with ``ctypes``.
 
 ``lk_pyramid`` is the wrapper of the fused launch: every pyramid level and
 the refine pass of a frame in one launch. ``pyramidal_lk``, which the
@@ -28,7 +30,7 @@ import torch
 from . import klt
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "lk_pyramid.cu",)
+SOURCES = (_PKG / "csrc" / "lk_pyramid.cu", _PKG / "csrc" / "sym_eig.cu")
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -46,38 +48,48 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile the kernels if no library for these sources exists yet;
-    returns the library's path. ``verbose`` adds ``-Xptxas -v`` and prints
-    what the compiler reports for each kernel (registers, shared memory,
-    spills)."""
+def _lib_path(src: Path) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
-        h.update(src.read_bytes())
-    lib = BUILD_DIR / f"liblk_{h.hexdigest()[:16]}.so"
-    if lib.exists() and not verbose:
-        return lib
+    h.update(src.read_bytes())
+    return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
+
+
+def build(verbose: bool = False) -> dict:
+    """Compile every kernel source whose library does not exist yet, one
+    ``nvcc`` per source, all started together; returns {source stem:
+    library path}. ``verbose`` rebuilds all of them with ``-Xptxas -v`` and
+    prints what the compiler reports for each kernel (registers, shared
+    memory, spills)."""
+    libs = {src.stem: _lib_path(src) for src in SOURCES}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), *map(str, SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if verbose:
-        print(proc.stdout + proc.stderr, flush=True)
-    os.replace(tmp, lib)
-    return lib
+    running = []
+    for src in SOURCES:
+        lib = libs[src.stem]
+        if lib.exists() and not verbose:
+            continue
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+               "-o", str(tmp), str(src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        running.append((src, proc, tmp, lib))
+    for src, proc, tmp, lib in running:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src.name} ({proc.returncode}):\n{err}")
+        if verbose:
+            print(f"{src.name}:\n{out}{err}", flush=True)
+        os.replace(tmp, lib)
+    return libs
 
 
-_lib = None
+_libs = {}
 
 
-def _library():
-    global _lib
-    if _lib is None:
-        _lib = ctypes.CDLL(str(build()))
-    return _lib
+def library(stem: str):
+    """The loaded library of ``csrc/<stem>.cu``, built at first use."""
+    if stem not in _libs:
+        _libs[stem] = ctypes.CDLL(str(build()[stem]))
+    return _libs[stem]
 
 
 _fn = None
@@ -91,7 +103,7 @@ def _launch(name, pyr_prev, pyr_next, shapes, passes, has_refine, pts, valid, ok
     ``iters`` may be None. Raises if the launch fails."""
     global _fn
     if _fn is None:
-        fn = _library().lk_pyramid_launch
+        fn = library("lk_pyramid").lk_pyramid_launch
         P, I = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [P, P, P, P, P, I, P, P, P, P, I, I, ctypes.c_float,
                        P, P, P, I, I, P, P, P, P, P]

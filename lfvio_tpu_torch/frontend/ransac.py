@@ -3,8 +3,10 @@
 Port of ``lfvio_tpu.frontend.ransac.spherical_ransac_e`` (the reference's
 myfindFundamentalMat / compute_E_21 / check_inliers,
 feature_tracker.cpp:186-327): 8-point essential matrices on bearings for
-100 hypotheses at once (batched 9x9 eigh), symmetric cosine residual with
-threshold sin(0.5°), best-score selection and a refit on the inliers.
+100 hypotheses at once (batched 9x9 eigh: ``geom/eigh_cuda.py``'s kernel
+on the card, so a frame's dispatch never waits for it), symmetric cosine
+residual with threshold sin(0.5°), best-score selection and a refit on the
+inliers.
 
 The random draws are an argument: the caller makes the [n_hyp, N] uniforms
 (the FrontEnd from its own ``torch.Generator``), so a test can hand in the
@@ -14,6 +16,8 @@ JAX package's draws.
 from __future__ import annotations
 
 import torch
+
+from ..geom.eigh_cuda import sym_eig
 
 COS_THR = 0.00872653549837  # sin(0.5 deg), reference feature_tracker.cpp:226
 N_HYPOTHESES = 100  # reference max_num_iter (feature_tracker.cpp:290)
@@ -26,15 +30,19 @@ def _constraint_rows(b1, b2):
 
 def _solve_E(A, weights=None):
     """Least-squares essential matrix from constraint rows A [..., n, 9]:
-    smallest eigenvector of AᵀA, projected to rank 2. Defined up to sign."""
+    smallest eigenvector of AᵀA, projected to rank 2. Defined up to sign.
+
+    The projection is E (I − v₃v₃ᵀ), v₃ the smallest eigenvector of EᵀE:
+    with E = U diag(s₁, s₂, s₃) Vᵀ that is exactly U diag(s₁, s₂, 0) Vᵀ, the
+    JAX package's svd form, from the same eigensolver."""
     if weights is not None:
         A = A * weights[..., None]
     AtA = torch.einsum("...ni,...nj->...ij", A, A)
-    _, V = torch.linalg.eigh(AtA)
+    _, V = sym_eig(AtA)
     E = V[..., :, 0].reshape(*V.shape[:-2], 3, 3)
-    U, S, Vt = torch.linalg.svd(E)
-    S2 = torch.cat([S[..., :2], torch.zeros_like(S[..., 2:])], dim=-1)
-    return U @ (S2[..., :, None] * Vt)
+    _, W = sym_eig(E.transpose(-1, -2) @ E)
+    v3 = W[..., :, 0]
+    return E - (E @ v3[..., :, None]) * v3[..., None, :]
 
 
 def _score(E, b1, b2, valid):

@@ -20,7 +20,12 @@ import torch
 
 
 def _vec(v, like):
-    return torch.as_tensor(v, dtype=like.dtype, device=like.device)
+    """The constant vector ``v`` on ``like``'s device and dtype, filled there
+    (a host copy could not be captured in a CUDA graph)."""
+    out = torch.empty(len(v), dtype=like.dtype, device=like.device)
+    for i, x in enumerate(v):
+        out[i].fill_(x)
+    return out
 
 
 def skew(v):
@@ -37,7 +42,10 @@ def skew(v):
 
 
 def quat_identity(dtype=torch.float32, device=None):
-    return torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dtype, device=device)
+    # Filled on the device (no host copy: capturable in a CUDA graph).
+    q = torch.zeros(4, dtype=dtype, device=device)
+    q[0].fill_(1.0)
+    return q
 
 
 def quat_normalize(q):

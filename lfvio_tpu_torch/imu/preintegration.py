@@ -29,6 +29,7 @@ import torch
 from ..geom import (
     quat_conj,
     quat_from_small_angle,
+    quat_identity,
     quat_mul,
     quat_normalize,
     quat_rotate,
@@ -50,9 +51,12 @@ class ImuNoise:
     gyr_w: float
 
     def noise_matrix(self, dtype, device=None):
-        d = [self.acc_n**2] * 3 + [self.gyr_n**2] * 3 + [self.acc_n**2] * 3 \
-            + [self.gyr_n**2] * 3 + [self.acc_w**2] * 3 + [self.gyr_w**2] * 3
-        return torch.diag(torch.tensor(d, dtype=dtype, device=device))
+        # Filled on the device (no host copy: capturable in a CUDA graph).
+        d = torch.empty((6, 3), dtype=dtype, device=device)
+        for k, x in enumerate((self.acc_n, self.gyr_n, self.acc_n, self.gyr_n,
+                               self.acc_w, self.gyr_w)):
+            d[k].fill_(x**2)
+        return torch.diag(d.reshape(18))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -146,7 +150,7 @@ def preintegrate(dts, accs, gyrs, acc0, gyr0, ba, bg, noise: ImuNoise):
 
     # 1. Orientation prefix chain.
     dq_prefix = quat_normalize(_prefix_quat(r_local))  # Δq after step k
-    ident = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dtype, device=dev)
+    ident = quat_identity(dtype, dev)
     dq_prev = torch.cat(
         [ident.expand(*dq_prefix.shape[:-2], 1, 4), dq_prefix[..., :-1, :]], dim=-2
     )

@@ -9,26 +9,36 @@ failure detection, marginalization and the window slide, for any window
 length and number of cameras.
 
 Division of labour: host mirrors (numpy f64) hold the window and drive the
-policy; each frame's solve is plain torch calls on ``cfg.device`` in
-``cfg.solver_dtype`` — preintegration of all window intervals, covariance
-whitening, triangulation, LM, the yaw-gauge fix — followed by the QR
-marginalization, whose prior stays on the device.
+policy; each frame's device work is two programs in ``cfg.solver_dtype``,
+as in the JAX package (``lfvio_tpu/runtime/estimator.py:125-149``): the
+solve (unpack, the device state chain, preintegration of all window
+intervals, covariance whitening, triangulation, LM, the yaw-gauge fix) and
+the QR marginalization, whose prior stays on the device. All host inputs
+of a solve travel as ONE packed buffer (the JAX layout, ``_build_pack_layout``)
+in one non-blocking copy from a ring of pinned buffers. On the card each
+program is a ``device.DeviceProgram``: captured once as a CUDA graph (one
+solve graph per LM iteration cap, one relocalization solve graph per cap,
+one graph per marginalization kind, all in one memory pool) and replayed
+once per published frame, so dispatching a frame reads nothing from the
+card. On the CPU the same functions run eagerly.
 
 A dispatched solve is completed (written back, checked, slid) by
 :meth:`finalize_solve`. Its results travel to the host as non-blocking
-copies into pinned buffers behind one CUDA event, and finalize waits on that
-event only. With ``solve_lag`` > 1 up to that many solves stay pending: the
-window slides eagerly at dispatch with the IMU-propagated mirrors, and a
-solved window is rebased through the slides that happened since when it
-arrives. With ``device_chain`` the next solve then starts from the previous
-solve's output on the device (slid, the new frame propagated) instead of
-from the stale mirrors.
+copies into pinned buffers behind one CUDA event, started right after the
+replay, and finalize waits on that event only. With ``solve_lag`` > 1 up to
+that many solves stay pending: the window slides eagerly at dispatch with
+the IMU-propagated mirrors, and a solved window is rebased through the
+slides that happened since when it arrives. With ``device_chain`` the next
+solve then starts from the previous solve's output on the device (slid, the
+new frame propagated) instead of from the stale mirrors; the packed
+``use_chain`` / ``marg_prev`` flags select it on the device.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+from functools import partial
 
 import numpy as np
 import torch
@@ -48,8 +58,9 @@ from ..backend import (
 from ..backend.factors import projection_residuals_grid
 from ..backend.gauge import gauge_apply_pose, yaw_gauge_transform
 from ..backend.state import WINDOW  # the default window length only
-from ..device import Fetch, resolve_device
+from ..device import DeviceProgram, Fetch, clone_tree, resolve_device
 from ..geom import host as hg
+from ..geom import quat_identity
 from ..imu import ImuNoise, preintegrate, propagate_interval_midpoint, whiten_covariance
 from ..vinit import global_sfm, pnp_bearing_gn, solve_relative_rt, visual_imu_alignment
 from ..vinit.alignment import AlignFrame
@@ -128,9 +139,30 @@ class Estimator:
             n_cams=cfg.n_cams,
         )
         self.gravity = None  # set by the bootstrap
-        # Measured host time of one LM iteration (calibrate_solver_budget);
-        # None until calibrated, and then the wall budget cannot bind.
+        # Measured time of one LM iteration (calibrate_solver_budget); None
+        # until calibrated, and then the wall budget cannot bind.
         self._iter_time = None
+        self._pack_layout, self._pack_size = self._build_pack_layout()
+        on_card = self.device.type == "cuda"
+        if on_card:
+            # QR and the batched Cholesky through cuSOLVER: MAGMA's hybrid
+            # paths wait for the host and cannot be captured.
+            torch.backends.cuda.preferred_linalg_library("cusolver")
+        # The device programs, keyed ("solve", cap), ("relo", cap),
+        # ("marg_old",), ("marg_new",); on the card their graphs share a pool.
+        self._programs = {}
+        self._pool = torch.cuda.graph_pool_handle() if on_card else None
+        # False before the first solve runs the programs eagerly, op for op,
+        # on the card too: the reference the graphs are held against.
+        self.use_graphs = True
+        # solve_lag + 1 pinned upload buffers, each reused once the copy out
+        # of it (its event) has completed.
+        self._ring = ([[torch.empty(self._pack_size, dtype=cfg.solver_dtype, pin_memory=True),
+                        None] for _ in range(max(cfg.solve_lag, 1) + 1)] if on_card else None)
+        self._ring_i = 0
+        self._gravity_t = self._tensor([0.0, 0.0, cfg.g_norm])
+        self._empty_prior_cache = None
+        self._zero_chain_cache = None
         self.clear_state()
 
     # ------------------------------------------------------------------ state
@@ -276,70 +308,61 @@ class Estimator:
             cam=t(fm.cam, torch.int64) if self.cfg.n_cams > 1 else None,
         )
 
-    def _device_imu(self):
-        """The padded IMU window: (dts, accs, gyrs, a0, g0, valid) of the W
-        intervals."""
-        t = self._tensor
-        return (
-            t(self._imu_dts[1:]), t(self._imu_accs[1:]), t(self._imu_gyrs[1:]),
-            t(self._imu_a0[1:]), t(self._imu_g0[1:]),
-            t((self._imu_n[1:] > 0) & (self._imu_sumdt[1:] < 10.0), torch.bool),
-        )
-
     def _apply_chain(self, state, chain, marg_prev, dts, accs, gyrs, a0, g0):
         """The window that seeds the LM when the device chain is on: the
         previous solve's output ``chain`` advanced on the device. The eager
         slide that followed it is applied (shift for MARGIN_OLD, newest-merge
-        for SECOND_NEW) and the new frame (slot W) is midpoint-propagated
-        from the previous newest frame over the newest interval's samples:
-        row W−1 of the padded window holds exactly the samples since the
-        previous dispatch after either slide (the SECOND_NEW merge lands in
-        row W−2). Inverse depths stay the host's."""
+        for SECOND_NEW; ``marg_prev`` a bool or a device flag) and the new
+        frame (slot W) is midpoint-propagated from the previous newest frame
+        over the newest interval's samples: row W−1 of the padded window
+        holds exactly the samples since the previous dispatch after either
+        slide (the SECOND_NEW merge lands in row W−2). Inverse depths stay
+        the host's."""
         cp, cq, cv, cba, cbg, ctic, cqic, ctd = chain
         W = self.WIN
 
         def shift(a):
-            if marg_prev:
-                return torch.cat([a[1:], a[-1:]], dim=0)
-            a = a.clone()
-            a[W - 1] = a[W]
-            return a
+            old = torch.cat([a[1:], a[-1:]], dim=0)
+            new = a.clone()
+            new[W - 1] = a[W]
+            if isinstance(marg_prev, bool):
+                return old if marg_prev else new
+            return torch.where(marg_prev, old, new)
 
         p2, q2, v2, ba2, bg2 = (shift(x) for x in (cp, cq, cv, cba, cbg))
-        gravity = self._tensor([0.0, 0.0, self.cfg.g_norm])
         # Post-slide slot W still holds the previous newest frame.
         p2[W], q2[W], v2[W] = propagate_interval_midpoint(
             p2[W], q2[W], v2[W], dts[W - 1], accs[W - 1], gyrs[W - 1],
-            a0[W - 1], g0[W - 1], ba2[W], bg2[W], gravity,
+            a0[W - 1], g0[W - 1], ba2[W], bg2[W], self._gravity_t,
         )
         return WindowState(p=p2, q=q2, v=v2, ba=ba2, bg=bg2, tic=ctic, qic=cqic,
                            td=ctd, inv_depth=state.inv_depth)
 
     def _solve_step(self, state, grid, imu, prior, has_depth, origin_p0, origin_q0,
-                    max_iter, relo=None):
+                    max_iter, relo=None, limit=None):
         """The per-frame solve (solveOdometry + double2vector,
         estimator.cpp:475-515, 532-626): preintegrate every window interval
         at its start frame's biases, whiten, triangulate new features, LM
-        (with the loop pose as a free block when ``relo`` is armed,
-        estimator.cpp:777-808), yaw-gauge fix. Returns a dict with the
-        solved state and the intermediates the MARGIN_OLD prior needs."""
-        t = self._tensor
+        (with the loop pose as a free block when ``relo`` = (p, q, bearing,
+        mask) tensors is given, estimator.cpp:777-808), yaw-gauge fix.
+        ``max_iter`` (an int) is the LM's length, ``limit`` its in-program
+        limit. Returns a dict with the solved state and the intermediates the
+        MARGIN_OLD prior needs."""
         dts, accs, gyrs, a0, g0, imu_valid = imu
-        gravity = t([0.0, 0.0, self.cfg.g_norm])
+        gravity = self._gravity_t
         pre = preintegrate(dts, accs, gyrs, a0, g0, state.ba[:-1], state.bg[:-1],
                            self.cfg.imu_noise)
         sqrt_info, imu_valid = whiten_covariance(pre.covariance, imu_valid)
         state = state.replace(inv_depth=triangulate_grid(state, grid, has_depth))
-        res = dict(pre=pre, sqrt_info=sqrt_info, imu_ok=imu_valid, gravity=gravity,
+        res = dict(pre=pre, sqrt_info=sqrt_info, imu_ok=imu_valid,
                    rn=None, rvalid=None, relo_p=None, relo_q=None)
         if relo is None:
             out, _, _, _ = lm_solve(state, grid, pre, sqrt_info, imu_valid, prior,
-                                    gravity, self.scfg, max_iter_dyn=max_iter)
+                                    gravity, self.scfg, max_iter_dyn=max_iter, limit=limit)
         else:
             out, rp, rq, _, _ = lm_solve_relo(
                 state, grid, pre, sqrt_info, imu_valid, prior, gravity, self.scfg,
-                t(relo["p"]), t(relo["q"]), t(relo["bearing"]),
-                t(relo["mask"], torch.bool), max_iter_dyn=max_iter,
+                *relo, max_iter_dyn=max_iter, limit=limit,
             )
             # The loop pose rides the window's gauge correction
             # (estimator.cpp:605-611).
@@ -352,9 +375,211 @@ class Estimator:
         res["out"] = out
         return res
 
+    # ------------------------------------------------------- packed upload
+    def _build_pack_layout(self):
+        """Static layout of the ONE per-solve host→device buffer (the JAX
+        package's entries, order and sizes): every solve input (window state,
+        feature grid, padded IMU window, gauge origin, the iteration limit,
+        the chain flags, relo extras) flattened into one solver-dtype vector.
+        Bools ride as 0/1, int indices as exact small floats."""
+        cfg = self.cfg
+        F, W1, W, M, C = (cfg.n_feature_slots, self.NF, self.WIN,
+                          cfg.max_imu_per_interval, cfg.n_cams)
+        entries = [
+            ("p", (W1, 3)), ("q", (W1, 4)), ("v", (W1, 3)),
+            ("ba", (W1, 3)), ("bg", (W1, 3)),
+            ("tic", (C, 3) if C > 1 else (3,)),
+            ("qic", (C, 4) if C > 1 else (4,)),
+            ("td", ()), ("inv_depth", (F,)),
+            ("g_bearing", (F, W1, 3)), ("g_velocity", (F, W1, 3)),
+            ("g_td_obs", (F, W1)), ("g_valid", (F, W1)),
+            ("g_anchor", (F,)), ("g_used", (F,)),
+            ("g_cam", (F, W1) if C > 1 else (0,)),
+            ("dts", (W, M)), ("accs", (W, M, 3)), ("gyrs", (W, M, 3)),
+            ("a0", (W, 3)), ("g0", (W, 3)), ("imu_valid", (W,)),
+            ("has_depth", (F,)), ("origin_p0", (3,)), ("origin_q0", (4,)),
+            ("max_iter", ()),
+            # The device chain: use_chain selects the advanced previous
+            # solve over the packed host state; marg_prev is the kind of the
+            # eager slide that followed that solve.
+            ("use_chain", ()), ("marg_prev", ()),
+            ("relo_p", (3,)), ("relo_q", (4,)),
+            ("relo_bearing", (F, 3)), ("relo_mask", (F,)),
+        ]
+        layout, off = {}, 0
+        for name, shape in entries:
+            n = int(np.prod(shape)) if shape else 1
+            layout[name] = (off, shape)
+            off += n
+        return layout, off
+
+    def _pack_solve_buffer(self, origin_p0, origin_q0, relo=None, chain_flags=None):
+        """A fresh packed buffer (numpy, solver dtype) from the host mirrors."""
+        cfg, fm, L = self.cfg, self.fm, self._pack_layout
+        buf = np.zeros(self._pack_size, np.dtype(str(cfg.solver_dtype).split(".")[-1]))
+
+        def put(name, val):
+            off, shape = L[name]
+            n = int(np.prod(shape)) if shape else 1
+            buf[off:off + n] = np.asarray(val, buf.dtype).ravel()
+
+        put("p", self.Ps)
+        put("q", self.Qs)
+        put("v", self.Vs)
+        put("ba", self.Bas)
+        put("bg", self.Bgs)
+        put("tic", self.tic)
+        put("qic", self.qic)
+        put("td", self.td)
+        put("inv_depth", np.where(fm.depth > 0, 1.0 / np.maximum(fm.depth, 1e-6), 1.0))
+        put("g_bearing", fm.bearing)
+        put("g_velocity", fm.velocity)
+        put("g_td_obs", fm.td_obs)
+        put("g_valid", fm.valid)
+        put("g_anchor", fm.anchor)
+        put("g_used", fm.used_mask())
+        if cfg.n_cams > 1:
+            put("g_cam", fm.cam)
+        put("dts", self._imu_dts[1:])
+        put("accs", self._imu_accs[1:])
+        put("gyrs", self._imu_gyrs[1:])
+        put("a0", self._imu_a0[1:])
+        put("g0", self._imu_g0[1:])
+        put("imu_valid", (self._imu_n[1:] > 0) & (self._imu_sumdt[1:] < 10.0))
+        put("has_depth", fm.depth > 0)
+        put("origin_p0", origin_p0)
+        put("origin_q0", origin_q0)
+        put("max_iter", self._iterations_allowed())
+        if chain_flags is not None:
+            put("use_chain", float(chain_flags[0]))
+            put("marg_prev", float(chain_flags[1]))
+        if relo is not None:
+            put("relo_p", relo["p"])
+            put("relo_q", relo["q"])
+            put("relo_bearing", relo["bearing"])
+            put("relo_mask", relo["mask"])
+        return buf
+
+    def _upload(self, buf):
+        """The packed buffer on the solve device: on the card one
+        non-blocking copy out of the next pinned ring buffer (waiting only if
+        that buffer's previous copy has not completed yet)."""
+        if self._ring is None:
+            return torch.from_numpy(buf).to(self.device)
+        slot = self._ring[self._ring_i]
+        self._ring_i = (self._ring_i + 1) % len(self._ring)
+        host, event = slot
+        if event is not None and not event.query():
+            event.synchronize()
+        host.numpy()[:] = buf
+        packed = host.to(self.device, non_blocking=True)
+        slot[1] = torch.cuda.Event()
+        slot[1].record()
+        return packed
+
+    def _unpack(self, packed):
+        """The solve's inputs from the packed buffer (views of it). Returns
+        (state, grid, imu, (has_depth, origin_p0, origin_q0, max_iter),
+        (relo_p, relo_q, relo_bearing, relo_mask), use_chain, marg_prev)."""
+        L = self._pack_layout
+
+        def get(name):
+            off, shape = L[name]
+            n = int(np.prod(shape)) if shape else 1
+            return packed[off:off + n].reshape(shape)
+
+        state = WindowState(
+            p=get("p"), q=get("q"), v=get("v"), ba=get("ba"), bg=get("bg"),
+            tic=get("tic"), qic=get("qic"), td=get("td"), inv_depth=get("inv_depth"),
+        )
+        grid = FeatureGrid(
+            bearing=get("g_bearing"), velocity=get("g_velocity"), td_obs=get("g_td_obs"),
+            valid=get("g_valid") > 0.5, anchor=get("g_anchor").to(torch.int64),
+            used=get("g_used") > 0.5,
+            cam=get("g_cam").to(torch.int64) if self.cfg.n_cams > 1 else None,
+        )
+        imu = (get("dts"), get("accs"), get("gyrs"), get("a0"), get("g0"),
+               get("imu_valid") > 0.5)
+        misc = (get("has_depth") > 0.5, get("origin_p0"), get("origin_q0"),
+                get("max_iter").to(torch.int32))
+        relo = (get("relo_p"), get("relo_q"), get("relo_bearing"), get("relo_mask") > 0.5)
+        return state, grid, imu, misc, relo, get("use_chain") > 0.5, get("marg_prev") > 0.5
+
+    # ------------------------------------------------------ device programs
+    def _solve_packed_impl(self, packed, prior, chain, max_iter):
+        """The solve program: unpack, the device chain selected by the packed
+        flags, then the solve. Returns (solve dict, grid)."""
+        state, grid, imu, misc, _, use, marg_prev = self._unpack(packed)
+        has_depth, op0, oq0, mi = misc
+        chained = self._apply_chain(state, chain, marg_prev, *imu[:5])
+        sel = lambda a, b: torch.where(use, a, b)
+        state = WindowState(
+            p=sel(chained.p, state.p), q=sel(chained.q, state.q), v=sel(chained.v, state.v),
+            ba=sel(chained.ba, state.ba), bg=sel(chained.bg, state.bg),
+            tic=sel(chained.tic, state.tic), qic=sel(chained.qic, state.qic),
+            td=sel(chained.td, state.td), inv_depth=state.inv_depth,
+        )
+        # Gauge origin: pre-solve frame 0 of whichever state seeds the LM.
+        op0, oq0 = sel(chained.p[0], op0), sel(chained.q[0], oq0)
+        return self._solve_step(state, grid, imu, prior, has_depth, op0, oq0, max_iter,
+                                limit=mi), grid
+
+    def _solve_relo_packed_impl(self, packed, prior, max_iter):
+        """The relocalization solve program (the D+6 system)."""
+        state, grid, imu, misc, relo, _, _ = self._unpack(packed)
+        has_depth, op0, oq0, mi = misc
+        return self._solve_step(state, grid, imu, prior, has_depth, op0, oq0, max_iter,
+                                relo=relo, limit=mi), grid
+
+    def _marg_old_impl(self, out, grid, pre, sqrt_info, imu_ok, prior):
+        """The MARGIN_OLD program (estimator.cpp:832-948)."""
+        return marginalize_old_qr(out, grid, pre, sqrt_info, imu_ok, prior, self._gravity_t,
+                                  self.scfg)
+
+    def _marg_new_impl(self, out, prior):
+        """The MARGIN_SECOND_NEW program (estimator.cpp:949-1005)."""
+        return marginalize_second_new_qr(out, prior, self.scfg)
+
+    def _program(self, key):
+        """The device program of ``key``, made at first use (on the card its
+        graph is captured at its first call)."""
+        prog = self._programs.get(key)
+        if prog is None:
+            kind = key[0]
+            if kind == "solve":
+                fn = partial(self._solve_packed_impl, max_iter=key[1])
+            elif kind == "relo":
+                fn = partial(self._solve_relo_packed_impl, max_iter=key[1])
+            else:
+                fn = self._marg_old_impl if kind == "marg_old" else self._marg_new_impl
+            prog = DeviceProgram(fn, pool=self._pool, name="_".join(map(str, key)))
+            self._programs[key] = prog if self.use_graphs else fn
+        return self._programs[key]
+
+    def graph_stats(self):
+        """(graphs captured, their capture seconds in all)."""
+        caps = [p.capture_s for p in self._programs.values()
+                if isinstance(p, DeviceProgram) and p.graph is not None]
+        return len(caps), float(sum(caps))
+
+    def _zero_chain(self):
+        """A finite stand-in chain (identity rotations) for solves that do
+        not chain: the packed flag deselects it on the device."""
+        if self._zero_chain_cache is None:
+            sd, dev, W1, C = self.cfg.solver_dtype, self.device, self.NF, self.cfg.n_cams
+            z = lambda *sh: torch.zeros(sh, dtype=sd, device=dev)
+            unit_q = quat_identity(sd, dev)
+            self._zero_chain_cache = (
+                z(W1, 3), unit_q.repeat(W1, 1), z(W1, 3), z(W1, 3), z(W1, 3),
+                z(3) if C == 1 else z(C, 3), unit_q if C == 1 else unit_q.repeat(C, 1), z(),
+            )
+        return self._zero_chain_cache
+
     def _empty_prior(self):
-        return PriorFactor.empty(self.cfg.solver_dtype, self.NF, self.device,
-                                 self.cfg.n_cams)
+        if self._empty_prior_cache is None:
+            self._empty_prior_cache = PriorFactor.empty(self.cfg.solver_dtype, self.NF,
+                                                        self.device, self.cfg.n_cams)
+        return self._empty_prior_cache
 
     # ------------------------------------------------------------------ frame
     def process_image_arrays(self, ids, bearings, vels, rows, mask, t: float,
@@ -548,28 +773,34 @@ class Estimator:
 
     def calibrate_solver_budget(self, n=4):
         """Measure the time of one LM iteration so that max_solver_time can
-        bind: the solve at 1 iteration against the solve at max_iterations,
-        n runs each on the host's clock around a device synchronize; the
-        fixed cost cancels in the difference. Each run perturbs the window
-        positions so the iterations do real work (a converged window stops
-        at the cost plateau). Reads the estimator only; costs 2(n+1) solves."""
+        bind: the solve program at cap 1 against the solve program at
+        max_iterations (on the card, replays of their graphs), n runs each on
+        the host's clock around a device synchronize; the fixed cost cancels
+        in the difference. Each run perturbs the window positions so the
+        iterations do real work (a converged window stops at the cost
+        plateau). Reads the estimator only (its chain and prior are copies
+        no replay overwrites); costs 2(n+1) solves."""
         if self.frame_count < self.WIN or self.solver_flag != self.NON_LINEAR:
             return None
         prior = self.prior if self.prior is not None else self._empty_prior()
-        state, grid, imu = self._device_state(), self._device_grid(), self._device_imu()
-        has_depth = self._tensor(self.fm.depth > 0, torch.bool)
-        op0, oq0 = self._tensor(self.Ps[0]), self._tensor(self.Qs[0])
+        packed = self._pack_solve_buffer(self.Ps[0], self.Qs[0])
+        L = self._pack_layout
+        off_mi = L["max_iter"][0]
+        off_p, shape_p = L["p"]
+        n_p = int(np.prod(shape_p))
 
         def run(max_iter, seed):
-            rng = np.random.default_rng(seed)
-            s = state.replace(p=state.p + self._tensor(rng.normal(0.0, 0.05, state.p.shape)))
-            return self._solve_step(s, grid, imu, prior, has_depth, op0, oq0, max_iter)
+            b = packed.copy()
+            b[off_mi] = max_iter
+            b[off_p:off_p + n_p] += np.random.default_rng(seed).normal(0.0, 0.05, n_p)
+            return self._program(("solve", max_iter))(self._upload(b), prior,
+                                                      self._zero_chain())
 
         def sync():
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
 
-        for mi in (1, self.cfg.max_iterations):  # warm
+        for mi in (1, self.cfg.max_iterations):  # captured and warm
             run(mi, 0)
         sync()
         t0 = time.perf_counter()
@@ -586,9 +817,10 @@ class Estimator:
         return self._iter_time
 
     def _dispatch_solve(self, t: float, first: bool = False):
-        """Run the frame's solve and marginalization on the device and start
-        the result's copies to the host; the host-side completion waits for
-        :meth:`finalize_solve`."""
+        """Enqueue the frame's solve and marginalization programs and the
+        result's copies to the host, without waiting for the device: pack,
+        one upload, one replay per program, one fetch behind an event. The
+        host-side completion waits for :meth:`finalize_solve`."""
         if self.frame_count < self.WIN:
             return
         while len(self._pending_q) >= max(self.cfg.solve_lag, 1):
@@ -609,43 +841,42 @@ class Estimator:
         lagged = self.cfg.solve_lag > 1
         chain_on = (self.cfg.device_chain and lagged and self._chain is not None
                     and relo is None and not first)
-        state, grid, imu = self._device_state(), self._device_grid(), self._device_imu()
-        op0, oq0 = self._tensor(origin_p0), self._tensor(origin_q0)
-        if chain_on:
-            state = self._apply_chain(state, self._chain["state"], self._chain["marg"],
-                                      *imu[:5])
-            # Gauge origin: pre-solve frame 0 of the state that seeds the LM.
-            op0, oq0 = state.p[0].clone(), state.q[0].clone()
-        res = self._solve_step(
-            state, grid, imu, prior, self._tensor(self.fm.depth > 0, torch.bool),
-            op0, oq0, self._iterations_allowed(), relo=relo,
-        )
+        packed = self._upload(self._pack_solve_buffer(
+            origin_p0, origin_q0, relo=relo,
+            chain_flags=(chain_on, self._chain["marg"] if chain_on else False)))
+        cap = self._iterations_allowed()
+        if relo is not None:
+            res, grid = self._program(("relo", cap))(packed, prior)
+        else:
+            chain = self._chain["state"] if chain_on else self._zero_chain()
+            res, grid = self._program(("solve", cap))(packed, prior, chain)
         out = res["out"]
+        # The copies to the host start now, before any other replay can
+        # overwrite the program's outputs.
+        fetch = Fetch([out.p, out.q, out.v, out.ba, out.bg, out.tic, out.qic, out.td,
+                       out.inv_depth, res["rn"], res["rvalid"], res["relo_p"], res["relo_q"]])
         relo_meta = None
         if relo is not None:
             relo_meta = dict(stamp=relo["stamp"], prev_p=relo["prev_p"], prev_q=relo["prev_q"])
             self._relo_active = None  # one-shot
-        # Arm the chain for the next dispatch (its advance needs this output
-        # and the kind of the eager slide below); a relo solve breaks it.
+        # Arm the chain for the next dispatch (its advance needs a copy of
+        # this output and the kind of the eager slide below); a relo solve
+        # breaks it.
         if self.cfg.device_chain and lagged and relo is None:
             self._chain = dict(
-                state=(out.p, out.q, out.v, out.ba, out.bg, out.tic, out.qic, out.td),
+                state=clone_tree((out.p, out.q, out.v, out.ba, out.bg, out.tic, out.qic, out.td)),
                 marg=bool(self.marg_old),
             )
         else:
             self._chain = None
         if self.marg_old:
-            self.prior = marginalize_old_qr(
-                out, grid, res["pre"], res["sqrt_info"], res["imu_ok"], prior,
-                res["gravity"], self.scfg,
-            )
+            new_prior = self._program(("marg_old",))(out, grid, res["pre"], res["sqrt_info"],
+                                                    res["imu_ok"], prior)
         else:
-            self.prior = marginalize_second_new_qr(out, prior, self.scfg)
+            new_prior = self._program(("marg_new",))(out, prior)
+        self.prior = clone_tree(new_prior)  # the next solve's input, kept off the graphs
         pend = dict(
-            fetch=Fetch([out.p, out.q, out.v, out.ba, out.bg, out.tic, out.qic, out.td,
-                         out.inv_depth, res["rn"], res["rvalid"], res["relo_p"],
-                         res["relo_q"]]),
-            t=t, first=first, relo=relo_meta, eager_slid=lagged,
+            fetch=fetch, t=t, first=first, relo=relo_meta, eager_slid=lagged,
             slides=[],  # slides that happen after this dispatch
             # Which depths a lagged write-back may touch: slots can re-anchor
             # or change hands between dispatch and finalize.

@@ -22,7 +22,7 @@ import time
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import DeviceProgram, resolve_device
 
 
 def make_window_problem(n_feat=256, dtype=torch.float32, n_obs_frames=None, seed=0,
@@ -146,7 +146,9 @@ def time_stage(name, fn, args, n=20, chain_arg=None, note=""):
 
 def profile_solve(n_slots=256, max_iterations=8, dtype=torch.float32, n=20, device=None):
     """Per-stage times of the estimator's solve and marginalization at
-    production shapes (the JAX package's rows). Returns a list of StageTime."""
+    production shapes (the JAX package's rows; on the card also the solve and
+    MARGIN_OLD as the estimator runs them, CUDA graph replays, with their
+    capture times). Returns a list of StageTime."""
     from ..backend import lm_solve
     from ..backend.gauge import yaw_gauge_fix
     from ..backend.marginalize import marginalize_old_qr, marginalize_second_new_qr
@@ -175,10 +177,21 @@ def profile_solve(n_slots=256, max_iterations=8, dtype=torch.float32, n=20, devi
     results.append(time_stage(f"triangulate_grid ({n_slots} slots)", triangulate_grid,
                               (state, grid, has_depth), n=n))
 
-    results.append(time_stage(
-        f"lm_solve total ({cfg.max_iterations} iters)",
-        lambda s: lm_solve(s, grid, pre, sqrt_info, imu_ok, prior, gravity, cfg),
-        (state,), n=max(n // 2, 5), chain_arg=0))
+    def f_lm(s):
+        return lm_solve(s, grid, pre, sqrt_info, imu_ok, prior, gravity, cfg)
+
+    results.append(time_stage(f"lm_solve total ({cfg.max_iterations} iters)", f_lm, (state,),
+                              n=max(n // 2, 5), chain_arg=0))
+    if dev.type == "cuda":
+        # The same solve as the estimator runs it on the card: one CUDA graph,
+        # captured at the first call and replayed (QR through cuSOLVER, as the
+        # estimator selects it: MAGMA's hybrid path cannot be captured).
+        torch.backends.cuda.preferred_linalg_library("cusolver")
+        prog = DeviceProgram(f_lm, name="lm_solve")
+        row = time_stage(f"lm_solve total, CUDA graph replay ({cfg.max_iterations} iters)",
+                         prog, (state,), n=max(n // 2, 5), chain_arg=0)
+        row.note = f"1 graph captured in {prog.capture_s:.2f} s (first s includes it)"
+        results.append(row)
 
     def f_asm(s):
         return assemble_normal_equations(s, grid, pre, sqrt_info, imu_ok, prior, gravity, cfg)
@@ -192,10 +205,15 @@ def profile_solve(n_slots=256, max_iterations=8, dtype=torch.float32, n=20, devi
         lambda s: total_cost(s, grid, pre, sqrt_info, imu_ok, prior, gravity, cfg), (state,), n=n))
     results.append(time_stage("yaw_gauge_fix",
                               lambda s: yaw_gauge_fix(s, state.p[0], state.q[0]), (state,), n=n))
-    results.append(time_stage(
-        "marginalize_old_qr",
-        lambda s: marginalize_old_qr(s, grid, pre, sqrt_info, imu_ok, prior, gravity, cfg),
-        (state,), n=n))
+    def f_marg(s):
+        return marginalize_old_qr(s, grid, pre, sqrt_info, imu_ok, prior, gravity, cfg)
+
+    results.append(time_stage("marginalize_old_qr", f_marg, (state,), n=n))
+    if dev.type == "cuda":
+        prog = DeviceProgram(f_marg, name="marginalize_old_qr")
+        row = time_stage("marginalize_old_qr, CUDA graph replay", prog, (state,), n=n)
+        row.note = f"1 graph captured in {prog.capture_s:.2f} s (first s includes it)"
+        results.append(row)
     results.append(time_stage("marginalize_second_new_qr",
                               lambda s: marginalize_second_new_qr(s, prior, cfg), (state,), n=n))
     return results

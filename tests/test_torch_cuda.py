@@ -1,5 +1,8 @@
 """The LK kernel (lfvio_tpu_torch/csrc/lk_pyramid.cu) on a CUDA card: the fused
 launch per frame, and one level step as a one-pass launch of the same kernel.
+The eigensolver kernel (lfvio_tpu_torch/csrc/sym_eig.cu) against
+torch.linalg.eigh, and the estimator's programs as CUDA graphs against the
+same functions run eagerly.
 
 Every test here needs the card: the kernel has no CPU mode, so they skip
 without one. This file imports neither JAX nor the JAX package, so it also
@@ -307,3 +310,87 @@ def test_dual_frontend_counts_two_launches_a_frame(dev):
     live = ids[ids >= 0]
     assert len(np.unique(live)) == len(live) > 100
     assert pub[cams == 0].sum() > 30 and pub[cams == 1].sum() > 30
+
+
+# ------------------------------------------------------------- sym_eig
+def _spread_spd(rng, B, n, dtype, dev):
+    """B symmetric matrices with eigenvalues spread over [0, 1] (gaps of at
+    least 1 / (n - 1): every eigenvector well posed) in random bases."""
+    Q = np.linalg.qr(rng.standard_normal((B, n, n)))[0]
+    lam = np.sort(np.linspace(0.0, 1.0, n) + 0.1 / n * rng.random((B, n)), axis=-1)
+    A = Q @ (lam[..., None] * np.swapaxes(Q, -1, -2))
+    return torch.as_tensor(A, dtype=dtype, device=dev)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+@pytest.mark.parametrize("shape", [(256, 4), (101, 9), (101, 3)])
+def test_sym_eig_matches_eigh(dev, shape, dtype, tol):
+    """The main path's three shapes: eigenvalues ascending and within tol of
+    the library's, every eigenvector parallel to the library's
+    (|vᵀv_ref| within tol of 1) and unit length."""
+    from lfvio_tpu_torch.geom.eigh_cuda import sym_eig
+
+    B, n = shape
+    A = _spread_spd(np.random.default_rng(n), B, n, dtype, dev)
+    before = sym_eig.launches
+    w, V = sym_eig(A)
+    torch.cuda.synchronize()
+    assert sym_eig.launches == before + 1
+    w_ref, V_ref = torch.linalg.eigh(A)
+    assert float((w - w_ref).abs().max()) <= tol
+    assert bool((w[:, 1:] >= w[:, :-1]).all())
+    dots = (V * V_ref).sum(-2).abs()
+    assert float((dots - 1).abs().max()) <= 10 * tol
+    assert float((V.norm(dim=-2) - 1).abs().max()) <= 10 * tol
+
+
+def test_sym_eig_wrapper(dev):
+    """Batch shapes pass through, a rank-deficient matrix gives its null
+    vector, an empty batch launches nothing, and what the kernel does not
+    take raises (no library fallback)."""
+    from lfvio_tpu_torch.geom.eigh_cuda import sym_eig
+
+    rng = np.random.default_rng(0)
+    X = torch.as_tensor(rng.standard_normal((2, 3, 8, 9)), device=dev)
+    w, V = sym_eig(X.transpose(-1, -2) @ X)  # rank 8: one null vector each
+    assert w.shape == (2, 3, 9) and V.shape == (2, 3, 9, 9)
+    null = V[..., :, 0]
+    assert float((X @ null[..., :, None]).abs().max()) <= 1e-10
+    before = sym_eig.launches
+    w0, V0 = sym_eig(torch.zeros((0, 4, 4), device=dev))
+    assert w0.shape == (0, 4) and sym_eig.launches == before
+    for bad in (torch.zeros((3, 10, 10), device=dev), torch.zeros((3, 4, 4), dtype=torch.int32,
+                                                                   device=dev),
+                torch.zeros((3, 4, 5), device=dev)):
+        with pytest.raises(ValueError):
+            sym_eig(bad)
+
+
+def test_published_dispatch_does_not_wait(dev):
+    """A published frame's dispatch (RANSAC's eigensolves now the kernel)
+    enqueues and returns behind a busy stream: its event has not completed
+    when dispatch is back, and no call in it is a synchronizing one."""
+    world, fe = _pal_frontend(dev)
+    imgs = [world.render(k / 15) for k in range(3)]
+    fe.process_arrays(imgs[0], 0.0)
+    fe.process_arrays(imgs[1], 1 / 15)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(2e8))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        h = fe.dispatch(imgs[2], 2 / 15, publish=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert h[1].event is not None and not h[1].event.query()
+    assert fe.finalize(h)[4].sum() > 60
+
+
+def test_estimator_graphs_match_eager_f64(dev):
+    """One replay of each program's CUDA graph (solve, relocalization solve,
+    both marginalizations) against the same function run eagerly on the
+    same inputs, f64, within 1e-9 of the scale (chip_smoke.py phase 14)."""
+    import chip_smoke
+
+    errs = chip_smoke.phase_graphs_f64(dev)
+    assert set(errs) == {"solve", "marg_old", "marg_new", "relo"}
+    assert max(errs.values()) <= 1e-9
