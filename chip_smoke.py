@@ -66,15 +66,17 @@ lines; any failure ends the run with a non-zero exit code:
  14. the estimator's device programs: the eigensolver kernel against
      torch.linalg.eigh on the main path's inputs (the [256, 4, 4] DLT
      matrices of a triangulation, RANSAC's [100, 9, 9] / [1, 9, 9] and
-     [100, 3, 3] / [1, 3, 3]), with CUDA-event times and the bound; each
+     [100, 3, 3] / [1, 3, 3]), with CUDA-event times beside the shared-
+     memory kernel's, the
+     bound and a histogram of the Jacobi sweeps each matrix took; each
      program's graph replay against the same function run eagerly on the
      same inputs in f64 (solve, relocalization solve, both
      marginalizations: within 1e-9 of the scale); phase 4's stream once
      more with the programs run eagerly (the f32 ATE within 1 mm of the
      graph run's); the card's ms per replay, the graphs captured and their
-     capture seconds; whether the QR marginalization drops information
-     (ROADMAP queue 3) on the parity streams and phases 4 and 6: each
-     MARGIN_OLD's QR prior against the eigh one in f64, measured only.
+     capture seconds; each MARGIN_OLD's and SECOND_NEW's QR prior against
+     the eigh one in f64 on the parity streams and phases 4 and 6 (JᵀJ and
+     Jᵀr within 2e-6 of the scale, or the run fails).
 
 Prints one JSON line with each kernel's numbers, then the card's line, and
 last {"ok": true, "device": {...}}. Imports neither JAX nor the JAX package.
@@ -154,6 +156,27 @@ def cuda_times(fn, n=20, warmup=3, reps=1, blocker=None):
 def cuda_ms(fn, **kw):
     """Median of ``cuda_times``."""
     return float(np.median(cuda_times(fn, **kw)))
+
+
+# A spin of the card (about 10 ms at the H100's clock) after the blocker's
+# writes: longer than a slow host takes to enqueue a sample's calls (50 calls
+# of the eigensolver's wrapper took more than the writes alone on one host).
+SPIN_CYCLES = 20_000_000
+
+
+def make_blocker(dev):
+    """The ``blocker`` of ``cuda_times``: 256 MB of writes, 12 times (which
+    also empties the 50 MB L2), then SPIN_CYCLES of the card."""
+    import torch
+
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+
+    def block():
+        for _ in range(12):
+            flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
+
+    return block
 
 
 def textured(H, W, seed=0):
@@ -350,11 +373,10 @@ def phase_kernel_vs_plain(dev):
     # Times in turns inside this call: plain, five launches, fused, fused,
     # plain. "Launched alone" is one call between two events on an idle card,
     # the host's launch cost included, as a frame pays it; "on the card" is
-    # 10 calls enqueued behind a blocker (256 MB of writes, 12 times, which also
-    # empties the 50 MB L2), the card's own time; "L2 cold" is one call right
+    # 10 calls enqueued behind a blocker (make_blocker: writes that empty the
+    # 50 MB L2, then a spin), the card's own time; "L2 cold" is one call right
     # behind the blocker.
-    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
-    block = lambda: [flush.zero_() for _ in range(12)]
+    block = make_blocker(dev)
     plain_a = cuda_ms(lambda: plain(case))
     levels_alone = cuda_ms(lambda: levels(case))
     levels_ms = cuda_ms(lambda: levels(case), reps=10, blocker=block)
@@ -613,7 +635,7 @@ def run_full_scale(tag, rig, plain_calls, solve_lag, depth, profile=False, sync_
     ``sync_check`` every FrontEnd.dispatch and Estimator._dispatch_solve
     after the warm-up runs under the sync debug mode "error", timed on the
     host. ``graphs=False`` runs the estimator's programs eagerly.
-    ``marg_record`` (a list) collects each MARGIN_OLD's QR-against-eigh
+    ``marg_record`` (a dict) collects each marginalization's QR-against-eigh
     information difference (record_marg_information). Returns
     dict(fe, est, stages, launches, sym_launches, fps, ate, host_ms)."""
     import torch
@@ -1694,6 +1716,26 @@ def eig_bound_ms(inputs):
     return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations"), nbytes, ops
 
 
+# The shared-memory warp kernel that csrc/sym_eig.cu's 5..9 path replaced
+# (commit 58a6b94), ms per launch behind a full queue at the main path's
+# inputs on an H100 80GB HBM3 at 700 W (PERF.md §6).
+SHARED_MEMORY_EIG_MS = {(256, 4, 4): 0.0096, (100, 9, 9): 0.0662, (100, 3, 3): 0.0048,
+                        (9, 9): 0.0547, (3, 3): 0.0039}
+
+
+def log_sweeps(inputs):
+    """Each main-path input's histogram of Jacobi sweeps a matrix (f32), and
+    how many matrices stopped at the cap."""
+    from lfvio_tpu_torch.geom.eigh_cuda import MAX_SWEEPS, sym_eig
+
+    for A in inputs:
+        counts = sym_eig(A, sweeps=True)[2].reshape(-1).cpu().numpy()
+        hist = dict(zip(*np.unique(counts, return_counts=True)))
+        log(f"[14] sym_eig sweeps a matrix at {tuple(A.shape)} (f32): "
+            + ", ".join(f"{int(k)}: {int(v)}" for k, v in sorted(hist.items()))
+            + f"; {int((counts >= MAX_SWEEPS).sum())} of {len(counts)} at the cap of {MAX_SWEEPS}")
+
+
 def phase_sym_eig(dev):
     """The eigensolver kernel against its plain version (torch.linalg.eigh)
     on the main path's inputs, in f32 and f64, and its times."""
@@ -1719,6 +1761,7 @@ def phase_sym_eig(dev):
                 raise AssertionError(f"sym_eig disagrees with torch.linalg.eigh at {A.shape}")
             if dtype == torch.float32:
                 worst = max(worst, ew, ev)
+    log_sweeps(inputs)
     bad = torch.zeros((2, 10, 10), device=dev)
     try:
         sym_eig(bad)
@@ -1728,8 +1771,7 @@ def phase_sym_eig(dev):
     # A published frame's launches (RANSAC's four, the solve's triangulation)
     # behind a full queue, and the library's eigh on the same five inputs,
     # its wait for the card included.
-    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
-    block = lambda: [flush.zero_() for _ in range(12)]
+    block = make_blocker(dev)
 
     def frame():
         for A in inputs:
@@ -1741,6 +1783,10 @@ def phase_sym_eig(dev):
         torch.cuda.synchronize()
 
     per_shape = [cuda_ms(lambda A=A: sym_eig(A), reps=10, blocker=block) for A in inputs]
+    log("[14] sym_eig ms per launch behind a full queue, beside the shared-memory kernel's on an "
+        "H100 80GB HBM3 at 700 W: " + ", ".join(f"{sh} {t:.4f} [{SHARED_MEMORY_EIG_MS[sh]}]"
+                                      for sh, t in zip(shapes, per_shape))
+        + f"; a published frame {sum(per_shape):.4f} [{sum(SHARED_MEMORY_EIG_MS.values()):.4f}]")
     ms = cuda_ms(frame, reps=10, blocker=block)
     alone = cuda_ms(frame)
     lib = []
@@ -1824,22 +1870,44 @@ def phase_graphs_f64(dev):
     return errs
 
 
-# ROADMAP queue 3 item 1: the QR marginalization drops information when an
-# all-zero depth column's pivot row belongs to a frame-0 feature. A
-# MARGIN_OLD "hits" it when its QR prior's JᵀJ / Jᵀr differ from the eigh
-# prior's (marginalize_old, the reference's own H-space elimination) by more
-# than tests/test_marg_qr.py's bound between the two, relative to the scale;
-# both are computed in f64 from the program's inputs. A measurement only:
-# the estimator keeps the QR prior, as the JAX package does.
+# The QR marginalizations against the eigh ones (marginalize_old /
+# marginalize_second_new, the reference's own H-space elimination), both in
+# f64 from each program call's inputs, within tests/test_marg_qr.py's bound
+# between the two forms, relative to the scale: JᵀJ, and Jᵀr within the
+# eigenspace the eigh prior keeps. Its square root J = S^{1/2} Vᵀ zeroes the
+# eigenvalues below 1e-10 of the largest, so its Jᵀr has no component along
+# their eigenvectors while the QR's keeps one (on phase 4's stream run on
+# the CPU: JᵀJ within 3e-12, Jᵀr within 5.6e-8, projected within 1.6e-11).
+# r0ᵀr0 is a constant of the cost and is not compared. Before the unit rows
+# in each empty dropped column (backend/marginalize.py) every MARGIN_OLD
+# missed the bound by up to 6.98 of the scale; a miss now fails the run.
 QR_EIGH_BOUND = 2e-6
 
 
-def record_marg_information(est, rec):
-    """Wrap ``est``'s MARGIN_OLD program so that each call also computes the
-    QR and the eigh prior of its inputs in f64 and appends their relative
-    information difference to ``rec``."""
+def marg_info_err(qr, eigh):
+    """(compared, unprojected): the QR prior's JᵀJ and Jᵀr against the eigh
+    prior's, relative to the eigh prior's scale, with the QR's Jᵀr projected
+    on the range of the eigh prior's JᵀJ, and without that projection."""
     import torch
-    from lfvio_tpu_torch.backend.marginalize import marginalize_old, marginalize_old_qr
+
+    Hq, He = qr.J.T @ qr.J, eigh.J.T @ eigh.J
+    bq, be = qr.J.T @ qr.r0, eigh.J.T @ eigh.r0
+    w, V = torch.linalg.eigh(He)
+    Vk = V[:, w > w.max() * 1e-12]
+    rel = lambda x, y: float((x - y).abs().max() / y.abs().max().clamp(min=1))
+    eh = rel(Hq, He)
+    return max(eh, rel(Vk @ (Vk.T @ bq), be)), max(eh, rel(bq, be))
+
+
+def record_marg_information(est, rec):
+    """Wrap ``est``'s marginalization programs so that each call also
+    computes the QR and the eigh prior of its inputs in f64 and appends
+    their information difference (``marg_info_err``) to ``rec["old"]`` or
+    ``rec["new"]``."""
+    import torch
+    from lfvio_tpu_torch.backend.marginalize import (marginalize_old, marginalize_old_qr,
+                                                     marginalize_second_new,
+                                                     marginalize_second_new_qr)
 
     def f64(x):
         if x is None:
@@ -1851,16 +1919,19 @@ def record_marg_information(est, rec):
         return type(x)(**{k: f64(v) for k, v in vars(x).items()})
 
     make = est._program
+    forms = {"marg_old": ("old", marginalize_old_qr, marginalize_old),
+             "marg_new": ("new", marginalize_second_new_qr, marginalize_second_new)}
 
     def program(key):
         prog = make(key)
-        if key[0] != "marg_old":
+        if key[0] not in forms:
             return prog
+        kind, qr, eigh = forms[key[0]]
 
         def run(*args):
             out = prog(*args)
-            a = f64(args) + (est._gravity_t.double(), est.scfg)
-            rec.append(info_err(marginalize_old_qr(*a), marginalize_old(*a)))
+            a = f64(args) + ((est._gravity_t.double(),) if kind == "old" else ()) + (est.scfg,)
+            rec.setdefault(kind, []).append(marg_info_err(qr(*a), eigh(*a)))
             return out
 
         return run
@@ -1869,17 +1940,26 @@ def record_marg_information(est, rec):
 
 
 def log_marg_information(tag, name, rec):
-    hits = sum(e > QR_EIGH_BOUND for e in rec)
-    log(f"{tag} QR against eigh marginalization, {name}: {len(rec)} MARGIN_OLD, information "
-        f"differs by at most {max(rec, default=0.0):.2e} of the scale, {hits} above "
-        f"{QR_EIGH_BOUND} (the fault)")
-    return dict(n=len(rec), max=max(rec, default=0.0), hits=hits)
+    """Log the QR-against-eigh records of one run; raise on any miss."""
+    out = {}
+    for kind, label in (("old", "MARGIN_OLD"), ("new", "SECOND_NEW")):
+        errs = rec.get(kind, [])
+        worst = max((e for e, _ in errs), default=0.0)
+        raw = max((r for _, r in errs), default=0.0)
+        hits = sum(e > QR_EIGH_BOUND for e, _ in errs)
+        log(f"{tag} QR against eigh marginalization, {name}: {len(errs)} {label}, JᵀJ and Jᵀr "
+            f"(on the eigh prior's range) differ by at most {worst:.2e} of the scale, {hits} "
+            f"above {QR_EIGH_BOUND}; Jᵀr unprojected {raw:.2e}")
+        out[kind] = dict(n=len(errs), max=worst, unprojected=raw, hits=hits)
+    if any(v["hits"] for v in out.values()):
+        raise AssertionError(f"a QR marginalization of {name} drops information")
+    return out
 
 
 def phase_qr_information(dev):
     """The parity streams of tests/test_torch_estimator.py and
     tests/test_torch_lag.py (the bearing harness, 64 slots, f64, 1.5 s) on
-    the card, each MARGIN_OLD's QR information against the eigh one."""
+    the card, each marginalization's QR information against the eigh one."""
     import torch
     from lfvio_tpu_torch.runtime import Estimator, EstimatorConfig, VioPipeline
     from lfvio_tpu_torch.runtime.synthetic import SyntheticWorld, make_synthetic_pal_camera
@@ -1896,7 +1976,7 @@ def phase_qr_information(dev):
                                dtype=torch.float64, device=dev, **world_kw)
         est = Estimator(EstimatorConfig(n_feature_slots=64, solver_dtype=torch.float64,
                                         device=dev, **cfg))
-        rec = []
+        rec = {}
         record_marg_information(est, rec)
         run_bearing_stream(VioPipeline(BearingFrontEnd(world, pts, **fe_kw), est), world, 1.5)
         out[name] = log_marg_information("[14]", f"parity stream {name}", rec)
@@ -1935,7 +2015,7 @@ def phase_programs(dev, rig, plain_calls, run4):
         + ", ".join(f"{k} {p.capture_s:.2f} s" for k, p in est._programs.items()
                     if hasattr(p, "capture_s")) + ")")
     qr = phase_qr_information(dev)
-    rec4, rec6 = [], []
+    rec4, rec6 = {}, {}
     eager = run_full_scale("[14]", rig, plain_calls, 1, 1, graphs=False,
                            marg_record=rec4)
     qr["phase 4"] = log_marg_information("[14]", "phase 4's stream", rec4)

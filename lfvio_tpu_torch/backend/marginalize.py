@@ -84,6 +84,17 @@ def _indices(kind: str, n_frames: int, D: int, device: torch.device):
                  for a in (drop, keep, perm))
 
 
+def _with_unit_rows(A, m):
+    """A [R, C] whose first ``m`` columns are dropped, with m rows appended:
+    row i is the unit row of column i where that column is all zero, and
+    zero elsewhere (residual 0). The mask is computed on the device, so the
+    shape is static and nothing is read back (a CUDA graph holds it)."""
+    empty = (A[:, :m] == 0).all(dim=0)
+    unit = torch.cat([torch.diag(empty.to(A.dtype)),
+                      torch.zeros((m, A.shape[1] - m), dtype=A.dtype, device=A.device)], dim=1)
+    return torch.cat([A, unit], dim=0)
+
+
 def _scatter_prior(Jk, rk, keep, D):
     J = torch.zeros((D, D), dtype=Jk.dtype, device=Jk.device)
     r0 = torch.zeros((D,), dtype=Jk.dtype, device=Jk.device)
@@ -166,7 +177,7 @@ def marginalize_old_qr(state: WindowState, grid, pre0, sqrt_info_imu0, imu0_vali
     drop, keep, _ = _indices("old", n_frames, D, dev)
     A = torch.cat([A_pose[:, drop], A_dep, A_pose[:, keep], r[:, None]], dim=1)
     m, K = len(drop) + F, len(keep)
-    Rfac = torch.linalg.qr(A, mode="r")[1]
+    Rfac = torch.linalg.qr(_with_unit_rows(A, m), mode="r")[1]
     Jk = Rfac[m:m + K, m:m + K]
     rk = Rfac[m:m + K, m + K]
     ok = torch.isfinite(Jk).all() & torch.isfinite(rk).all()
@@ -186,7 +197,7 @@ def marginalize_second_new_qr(state: WindowState, prior: PriorFactor, cfg: Solve
     drop, keep, _ = _indices("second_new", n_frames, D, dev)
     K = len(keep)
     A = torch.cat([J0[:, drop], J0[:, keep], rp[:, None]], dim=1)
-    Rfac = torch.linalg.qr(A, mode="r")[1]
+    Rfac = torch.linalg.qr(_with_unit_rows(A, len(drop)), mode="r")[1]
     Jk = Rfac[6:6 + K, 6:6 + K]
     rk = Rfac[6:6 + K, 6 + K]
     ok = prior.valid & torch.isfinite(Jk).all() & torch.isfinite(rk).all()

@@ -18,42 +18,62 @@
 // matrices (256 x 4 x 4 and 101 x 9 x 9: tens of KB), so bytes and
 // arithmetic are both far below a microsecond of the card; each matrix is a
 // dependent chain of rotations. The design keeps that chain short and in
-// the fastest memory:
+// registers:
 //
 //  * n <= 4: one thread per matrix, the matrix and its eigenvectors in
 //    registers (every index is a compile-time constant: N is a template
-//    argument and all loops unroll), the classic cyclic-by-row sweep.
-//  * 5 <= n <= 9: one warp per matrix, padded to m = 10 (an even order; the
-//    padding row and column are zero, so their rotations are identities).
-//    Each round of the round-robin ordering rotates m/2 disjoint pairs at
-//    once: lanes 0..m-1 each compute the rotation of their index's pair,
-//    then the 32 lanes rewrite the m x m matrix and the eigenvector matrix
-//    from shared memory in one pass (A' = J^T A J with J a product of
-//    disjoint rotations: each new element reads four old ones), two
-//    __syncwarp()s a round, m - 1 rounds a sweep.
-//  * Each sweep starts with the off-diagonal mass; the loop stops when it
-//    falls below the type's rounding of the diagonal (the test runs on the
-//    card, so the host never waits), or after MAX_SWEEPS (quadratic
-//    convergence needs 5-8 at these orders).
+//    argument and all loops unroll), the classic cyclic-by-row sweep; a
+//    sweep starts while the off-diagonal mass exceeds eps^2 of the
+//    diagonal's.
+//  * 5 <= n <= 9: one 16-lane group per matrix, two matrices a warp, the
+//    matrix padded to an even order M (6, 8 or 10; the padding rows and
+//    columns are zero, so their rotations are skipped). Lane j holds column
+//    j of A and of V in registers. A sweep is M - 1 rounds of the
+//    round-robin ordering, each rotating M/2 disjoint pairs at once; the
+//    rounds unroll, so every register index is a compile-time constant.
+//    In a round the lower lane of each pair computes its rotation
+//    (Rutishauser's form; in float the hardware's reciprocal and rsqrt,
+//    never on a zero, infinite or NaN operand, which IEEE division and
+//    square root take a slow path for), the column rotation A J and V J
+//    takes the partner lane's column by __shfl_sync, and the row rotation
+//    J^T (A J) is local once the round's (c, s) pairs are broadcast by
+//    shuffles: no shared memory and no barrier inside a sweep. The matrix
+//    is first scaled by a power of two to |a| <= 1 (exact), so that the
+//    squared tests below cannot overflow.
+//  * The 5..9 path skips a rotation when |a_pq| <= eps sqrt(|a_pp a_qq|)
+//    (Demmel and Veselic's relative test) and starts a sweep only while
+//    some pair fails it, found by one __any_sync over the warp (the
+//    matrices of a warp's two groups run the same number of sweeps). Both
+//    paths stop at MAX_SWEEPS at the latest, and report each matrix's
+//    count of sweeps that rotated when asked.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int MAX_SWEEPS = 16;
-// A sweep starts only while the off-diagonal norm exceeds TOL_SCALE * eps
-// of the diagonal's: below that the eigenvectors are as exact as the type's
-// rounding of the matrix allows (an error of about eps |A| / gap, as any
-// backward-stable solver's), and a rank-deficient matrix's rounding noise
-// keeps the norm from falling much further in float32.
+// The thread path starts a sweep only while the off-diagonal norm exceeds
+// TOL_SCALE * eps of the diagonal's: below that the eigenvectors are as
+// exact as the type's rounding of the matrix allows (an error of about
+// eps |A| / gap, as any backward-stable solver's), and a rank-deficient
+// matrix's rounding noise keeps the norm from falling much further in
+// float32.
 constexpr double TOL_SCALE = 1.0;
-constexpr int WARP_M = 10;        // the warp path's padded order
+constexpr int GROUP = 16;  // lanes a matrix of the 5..9 path
 constexpr int WARPS_PER_BLOCK = 4;
+constexpr unsigned FULL = 0xffffffffu;
 constexpr int THREAD_BLOCK = 128;
 
 template <typename T> __device__ __forceinline__ T eps_of();
 template <> __device__ __forceinline__ float eps_of<float>() { return 1.1920929e-07f; }
 template <> __device__ __forceinline__ double eps_of<double>() { return 2.220446049250313e-16; }
+
+// 1 / sqrt(x) to about an ulp: the hardware estimate and one Newton step
+// (a rotation's c and s must stay orthogonal to the type's rounding).
+__device__ __forceinline__ float rsqrt_of(float x) {
+  const float y = rsqrtf(x);
+  return y * (1.5f - 0.5f * x * y * y);
+}
 
 // The Jacobi rotation (c, s) that zeroes a_pq (Numerical Recipes' jacobi:
 // t = sgn(theta) / (|theta| + sqrt(theta^2 + 1)), theta = (a_qq - a_pp) /
@@ -77,7 +97,7 @@ __device__ __forceinline__ void rotation(T app, T aqq, T apq, T& c, T& s) {
 template <typename T, int N>
 __global__ void __launch_bounds__(THREAD_BLOCK)
 sym_eig_thread_kernel(const T* __restrict__ A, T* __restrict__ w, T* __restrict__ V,
-                      int batch) {
+                      int* __restrict__ sweeps, int batch) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= batch) return;
   const T* a_in = A + (size_t)b * N * N;
@@ -94,7 +114,8 @@ sym_eig_thread_kernel(const T* __restrict__ A, T* __restrict__ w, T* __restrict_
     for (int j = 0; j < N; ++j) v[i][j] = T(i == j);
   }
   const T tol = TOL_SCALE * eps_of<T>();
-  for (int sweep = 0; sweep < MAX_SWEEPS; ++sweep) {
+  int sweep = 0;
+  for (; sweep < MAX_SWEEPS; ++sweep) {
     T off = T(0), diag = T(0);
 #pragma unroll
     for (int i = 0; i < N; ++i) {
@@ -154,6 +175,7 @@ sym_eig_thread_kernel(const T* __restrict__ A, T* __restrict__ w, T* __restrict_
       }
     }
   }
+  if (sweeps) sweeps[b] = sweep;
   T* w_out = w + (size_t)b * N;
   T* v_out = V + (size_t)b * N * N;
 #pragma unroll
@@ -174,121 +196,197 @@ __device__ __forceinline__ int partner(int i, int r, int m) {
   return pp == 0 ? 0 : (pp - 1 + r) % (m - 1) + 1;
 }
 
-template <typename T>
-struct WarpScratch {
-  T a[2][WARP_M * WARP_M];  // the matrix, in turns
-  T v[2][WARP_M * WARP_M];  // the eigenvectors, in turns
-  T jd[WARP_M];             // J[i][i] for each index
-  T jo[WARP_M];             // J[k][i], k the partner of i
-  int pk[WARP_M];           // the partner of each index this round
-  T d[WARP_M];
-};
+// The rotation (c, s) that zeroes a_pq, Rutishauser's form: theta = (a_qq -
+// a_pp) / (2 a_pq), t = sgn(theta) / (|theta| + sqrt(theta^2 + 1)), or
+// 1 / (2 theta) where theta^2 would swamp the 1; c = 1 / sqrt(1 + t^2).
+// Called with a_pq != 0 only (a skipped pair passes 0, 0, 1), so no
+// operand is a zero, an infinity or a NaN, which IEEE division and square
+// root serve on a slow path. float: the hardware's approximate reciprocal
+// and rsqrt (t needs no more than a few ulps: a_pq is set to zero
+// afterwards, and c, s come from t whatever its error); double: IEEE.
+__device__ __forceinline__ void rotation_fast(float app, float aqq, float apq, float& c,
+                                              float& s) {
+  const float theta = __fdividef(aqq - app, 2.0f * apq);
+  const float at = fabsf(theta);
+  const float big = 1.0f / 1.1920929e-07f;
+  const float u = fminf(at, big);
+  const float h = u * u + 1.0f;
+  float t = at > big ? __fdividef(0.5f, at) : __fdividef(1.0f, u + h * rsqrtf(h));
+  t = copysignf(t, theta);
+  c = rsqrt_of(t * t + 1.0f);
+  s = t * c;
+}
+__device__ __forceinline__ void rotation_fast(double app, double aqq, double apq, double& c,
+                                              double& s) {
+  const double theta = (aqq - app) / (2.0 * apq);
+  const double at = fabs(theta);
+  const double big = 1.0 / 2.220446049250313e-16;
+  const double u = fmin(at, big);
+  double t = at > big ? 0.5 / at : 1.0 / (u + sqrt(u * u + 1.0));
+  t = copysign(t, theta);
+  c = 1.0 / sqrt(t * t + 1.0);
+  s = t * c;
+}
 
+// NaN sorts last; the ranks of the group's n eigenvalues are a permutation.
 template <typename T>
-__global__ void __launch_bounds__(WARPS_PER_BLOCK * 32)
-sym_eig_warp_kernel(const T* __restrict__ A, T* __restrict__ w, T* __restrict__ V,
-                    int batch, int n) {
-  __shared__ WarpScratch<T> scratch[WARPS_PER_BLOCK];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int b = blockIdx.x * WARPS_PER_BLOCK + warp;
-  if (b >= batch) return;  // whole warps leave together
-  constexpr int m = WARP_M, mm = WARP_M * WARP_M;
-  WarpScratch<T>& S = scratch[warp];
-  const T* a_in = A + (size_t)b * n * n;
-  for (int e = lane; e < mm; e += 32) {
-    const int i = e / m, j = e % m;
+__device__ __forceinline__ bool before(T x, T y) { return x < y || (isnan(y) && !isnan(x)); }
+
+// Lane j's diagonal element a_jj.
+template <typename T, int M>
+__device__ __forceinline__ T diagonal(const T (&a)[M], int j) {
+  T d = a[0];
+#pragma unroll
+  for (int i = 1; i < M; ++i) d = i == j ? a[i] : d;
+  return d;
+}
+
+// One round r of the round-robin ordering on this lane's column j of A and
+// of V (lanes j >= M hold nothing and pair with themselves).
+template <typename T, int M>
+__device__ __forceinline__ void group_round(T (&a)[M], T (&v)[M], int j, int r, T tol,
+                                            bool& rotated) {
+  const int k = j < M ? partner(j, r, M) : j;
+  T ak[M], vk[M];
+#pragma unroll
+  for (int i = 0; i < M; ++i) {  // the partner's columns, before the rotation
+    ak[i] = __shfl_sync(FULL, a[i], k, GROUP);
+    vk[i] = __shfl_sync(FULL, v[i], k, GROUP);
+  }
+  const T ajj = diagonal<T, M>(a, j);
+  T ajk = a[0];
+#pragma unroll
+  for (int i = 1; i < M; ++i) ajk = i == k ? a[i] : ajk;
+  const T akk = __shfl_sync(FULL, ajj, k, GROUP);
+  // The lower lane of each pair (p = j < q = k) decides and computes:
+  // |a_pq| > eps sqrt(|a_pp a_qq|), squared (the matrix is scaled to
+  // |a| <= 1, so no square overflows; one that underflows is far below eps
+  // of the matrix and is left).
+  const bool rot = j < k && ajk * ajk > tol * tol * fabs(ajj * akk);
+  T c, s;
+  rotation_fast(rot ? ajj : T(0), rot ? akk : T(0), rot ? ajk : T(1), c, s);
+  c = rot ? c : T(1);
+  s = rot ? s : T(0);
+  rotated |= rot;
+  const int p = min(j, k);
+  const T cj = __shfl_sync(FULL, c, p, GROUP);
+  const T sj = __shfl_sync(FULL, s, p, GROUP);
+  const bool rot_pair = __shfl_sync(FULL, (int)rot, p, GROUP);
+  const T oj = j == p ? -sj : sj;  // J[q][p] = -s, J[p][q] = s
+#pragma unroll
+  for (int i = 0; i < M; ++i) {  // A J and V J: this lane's column
+    a[i] = cj * a[i] + oj * ak[i];
+    v[i] = cj * v[i] + oj * vk[i];
+  }
+#pragma unroll
+  for (int pp = 0; pp < M; ++pp) {  // J^T (A J): rows pp and its partner
+    const int qq = partner(pp, r, M);
+    if (pp < qq) {
+      const T cp = __shfl_sync(FULL, c, pp, GROUP);
+      const T sp = __shfl_sync(FULL, s, pp, GROUP);
+      const T xp = a[pp], xq = a[qq];
+      a[pp] = cp * xp - sp * xq;
+      a[qq] = sp * xp + cp * xq;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < M; ++i) a[i] = (rot_pair && i == k) ? T(0) : a[i];  // the zeroed a_pq
+}
+
+// Whether some element of lane j's column fails the relative test
+// |a_ij| <= eps sqrt(|a_ii a_jj|), squared as in group_round.
+template <typename T, int M>
+__device__ __forceinline__ bool above_tolerance(const T (&a)[M], int j, T tol) {
+  const T ajj = diagonal<T, M>(a, j);
+  bool above = false;
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+    const T aii = __shfl_sync(FULL, ajj, i, GROUP);
+    above |= i != j && a[i] * a[i] > tol * tol * fabs(aii * ajj);
+  }
+  return above;
+}
+
+// The main path's launches have at most 13 blocks (100 matrices, 8 a
+// block), so asking for one block a multiprocessor costs nothing and lets
+// the compiler spend registers rather than spill.
+template <typename T, int M>
+__global__ void __launch_bounds__(WARPS_PER_BLOCK * 32, 1)
+sym_eig_group_kernel(const T* __restrict__ A, T* __restrict__ w, T* __restrict__ V,
+                     int* __restrict__ sweeps, int batch, int n) {
+  const int lane = threadIdx.x % 32;
+  const int j = lane % GROUP;
+  const int b = (blockIdx.x * blockDim.x + threadIdx.x) / GROUP;
+  const bool live = b < batch;  // a dead group runs on zeros: every warp stays whole
+  const T* a_in = A + (size_t)(live ? b : 0) * n * n;
+  T a[M], v[M];
+  T amax = T(0);
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
     T x = T(0);
-    if (i < n && j < n) x = i >= j ? a_in[i * n + j] : a_in[j * n + i];
-    S.a[0][e] = x;
-    S.v[0][e] = T(i == j);
+    if (live && i < n && j < n) x = i >= j ? a_in[i * n + j] : a_in[j * n + i];
+    a[i] = x;
+    v[i] = T(i == j);
+    amax = fmax(amax, fabs(x));
   }
-  __syncwarp();
-  int cur = 0;
-  const T tol = TOL_SCALE * eps_of<T>();
+  // Scale by a power of two (exact) so that the largest |a| lies in
+  // [0.5, 1); the eigenvalues are scaled back at the end.
+#pragma unroll
+  for (int o = GROUP / 2; o > 0; o /= 2) amax = fmax(amax, __shfl_xor_sync(FULL, amax, o, GROUP));
+  int e = 0;
+  frexp(amax, &e);
+#pragma unroll
+  for (int i = 0; i < M; ++i) a[i] = ldexp(a[i], -e);
+  const T tol = eps_of<T>();
+  int swept = 0;  // sweeps in which this group rotated
   for (int sweep = 0; sweep < MAX_SWEEPS; ++sweep) {
-    T off = T(0), diag = T(0);
-    for (int e = lane; e < mm; e += 32) {
-      const int i = e / m, j = e % m;
-      const T x = S.a[cur][e];
-      if (i == j) diag += x * x;
-      else if (i < j) off += x * x;
-    }
-    for (int k = 16; k > 0; k >>= 1) {
-      off += __shfl_xor_sync(0xffffffffu, off, k);
-      diag += __shfl_xor_sync(0xffffffffu, diag, k);
-    }
-    if (!(off > tol * tol * diag)) break;  // the same on every lane
-    for (int r = 0; r < m - 1; ++r) {
-      const T* a = S.a[cur];
-      if (lane < m) {
-        const int k = partner(lane, r, m);
-        const int p = min(lane, k), q = max(lane, k);
-        T c, s;
-        rotation(a[p * m + p], a[q * m + q], a[p * m + q], c, s);
-        S.jd[lane] = c;
-        S.jo[lane] = lane == p ? -s : s;  // J[q][p] = -s, J[p][q] = s
-        S.pk[lane] = k;
-      }
-      __syncwarp();
-      T* a2 = S.a[cur ^ 1];
-      const T* v = S.v[cur];
-      T* v2 = S.v[cur ^ 1];
-      for (int e = lane; e < mm; e += 32) {
-        const int i = e / m, j = e % m;
-        const int ki = S.pk[i], kj = S.pk[j];
-        const T di = S.jd[i], oi = S.jo[i], dj = S.jd[j], oj = S.jo[j];
-        // (J^T A J)[i][j] over the two indices of each pair; the pair's own
-        // off-diagonal element is the one the rotation zeroes.
-        a2[e] = (ki == j) ? T(0)
-                          : di * (dj * a[i * m + j] + oj * a[i * m + kj])
-                                + oi * (dj * a[ki * m + j] + oj * a[ki * m + kj]);
-        v2[e] = dj * v[i * m + j] + oj * v[i * m + kj];
-      }
-      __syncwarp();
-      cur ^= 1;
-    }
+    // A sweep runs while some pair fails the relative test (the test every
+    // round applies before it rotates; a sweep that rotated nothing would
+    // only repeat it).
+    if (!__any_sync(FULL, above_tolerance<T, M>(a, j, tol))) break;
+    bool rotated = false;
+#pragma unroll
+    for (int r = 0; r < M - 1; ++r) group_round<T, M>(a, v, j, r, tol, rotated);
+    swept += ((__ballot_sync(FULL, rotated) >> (lane & GROUP)) & 0xffffu) != 0;
   }
-  // Ascending order: lane 0 sorts the indices (a selection sort of n
-  // values; with a NaN the order is some permutation all the same), then
-  // each lane writes one eigenvalue and its column.
-  if (lane == 0) {
-    for (int i = 0; i < n; ++i) {
-      S.d[i] = S.a[cur][i * m + i];
-      S.pk[i] = i;
-    }
-    for (int i = 0; i < n - 1; ++i) {
-      int best = i;
-      for (int j = i + 1; j < n; ++j)
-        if (S.d[S.pk[j]] < S.d[S.pk[best]]) best = j;
-      const int t = S.pk[i];
-      S.pk[i] = S.pk[best];
-      S.pk[best] = t;
-    }
+  // Ascending order: each lane's eigenvalue is its diagonal element; its
+  // rank among the group's first n lanes says where it and its column go.
+  const T d = ldexp(diagonal<T, M>(a, j), e);
+  int rank = 0;
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+    const T di = __shfl_sync(FULL, d, i, GROUP);
+    rank += i < n && i != j && (before(di, d) || (!before(d, di) && i < j));
   }
-  __syncwarp();
-  T* w_out = w + (size_t)b * n;
+  if (!live || j >= n) return;
+  if (sweeps && j == 0) sweeps[b] = swept;
+  w[(size_t)b * n + rank] = d;
   T* v_out = V + (size_t)b * n * n;
-  if (lane < n) {
-    const int src = S.pk[lane];
-    w_out[lane] = S.d[src];
-    for (int r = 0; r < n; ++r) v_out[r * n + lane] = S.v[cur][r * m + src];
-  }
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+    if (i < n) v_out[i * n + rank] = v[i];
 }
 
 template <typename T>
-int launch(const void* A, void* w, void* V, int batch, int n, cudaStream_t stream) {
+int launch(const void* A, void* w, void* V, int* sw, int batch, int n, cudaStream_t stream) {
   const T* a = (const T*)A;
   T* wo = (T*)w;
   T* vo = (T*)V;
   const int thread_grid = (batch + THREAD_BLOCK - 1) / THREAD_BLOCK;
   switch (n) {
-    case 1: sym_eig_thread_kernel<T, 1><<<thread_grid, THREAD_BLOCK, 0, stream>>>(a, wo, vo, batch); break;
-    case 2: sym_eig_thread_kernel<T, 2><<<thread_grid, THREAD_BLOCK, 0, stream>>>(a, wo, vo, batch); break;
-    case 3: sym_eig_thread_kernel<T, 3><<<thread_grid, THREAD_BLOCK, 0, stream>>>(a, wo, vo, batch); break;
-    case 4: sym_eig_thread_kernel<T, 4><<<thread_grid, THREAD_BLOCK, 0, stream>>>(a, wo, vo, batch); break;
+    case 1: sym_eig_thread_kernel<T, 1><<<thread_grid, THREAD_BLOCK, 0, stream>>>(a, wo, vo, sw, batch); break;
+    case 2: sym_eig_thread_kernel<T, 2><<<thread_grid, THREAD_BLOCK, 0, stream>>>(a, wo, vo, sw, batch); break;
+    case 3: sym_eig_thread_kernel<T, 3><<<thread_grid, THREAD_BLOCK, 0, stream>>>(a, wo, vo, sw, batch); break;
+    case 4: sym_eig_thread_kernel<T, 4><<<thread_grid, THREAD_BLOCK, 0, stream>>>(a, wo, vo, sw, batch); break;
     default: {
-      const int grid = (batch + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK;
-      sym_eig_warp_kernel<T><<<grid, WARPS_PER_BLOCK * 32, 0, stream>>>(a, wo, vo, batch, n);
+      const int per_block = WARPS_PER_BLOCK * 32 / GROUP;
+      const int grid = (batch + per_block - 1) / per_block;
+      if (n <= 6)
+        sym_eig_group_kernel<T, 6><<<grid, WARPS_PER_BLOCK * 32, 0, stream>>>(a, wo, vo, sw, batch, n);
+      else if (n <= 8)
+        sym_eig_group_kernel<T, 8><<<grid, WARPS_PER_BLOCK * 32, 0, stream>>>(a, wo, vo, sw, batch, n);
+      else
+        sym_eig_group_kernel<T, 10><<<grid, WARPS_PER_BLOCK * 32, 0, stream>>>(a, wo, vo, sw, batch, n);
     }
   }
   return (int)cudaGetLastError();
@@ -297,13 +395,15 @@ int launch(const void* A, void* w, void* V, int batch, int n, cudaStream_t strea
 }  // namespace
 
 // A: batch contiguous n x n matrices (the lower triangle is read); w: batch x n
-// eigenvalues, ascending; V: batch x n x n, eigenvector k in column k.
+// eigenvalues, ascending; V: batch x n x n, eigenvector k in column k;
+// sweeps: null, or batch ints that receive each matrix's count of sweeps.
 // dtype 0 = float32, 1 = float64. Returns the CUDA error of the launch, or -1
 // for arguments the kernel does not take.
-extern "C" int sym_eig_launch(const void* A, void* w, void* V, int batch, int n, int dtype,
-                              void* stream) {
+extern "C" int sym_eig_launch(const void* A, void* w, void* V, void* sweeps, int batch, int n,
+                              int dtype, void* stream) {
   if (n < 1 || n > 9 || batch < 0 || (dtype != 0 && dtype != 1)) return -1;
   if (batch == 0) return 0;
-  return dtype ? launch<double>(A, w, V, batch, n, (cudaStream_t)stream)
-               : launch<float>(A, w, V, batch, n, (cudaStream_t)stream);
+  int* sw = (int*)sweeps;
+  return dtype ? launch<double>(A, w, V, sw, batch, n, (cudaStream_t)stream)
+               : launch<float>(A, w, V, sw, batch, n, (cudaStream_t)stream);
 }

@@ -24,7 +24,7 @@ import torch
 import torch.distributed as dist
 
 from ..backend.factors import prior_residual
-from ..backend.marginalize import _drop_keep_old, _scatter_prior, _slid_old
+from ..backend.marginalize import _drop_keep_old, _scatter_prior, _slid_old, _with_unit_rows
 from ..backend.solver import linearize_imu_rows, linearize_proj_rows
 from ..backend.state import FeatureGrid, PriorFactor, SolverConfig, WindowState, n_cams_of, pose_dim
 from .sharding import FeatureMesh
@@ -54,15 +54,9 @@ def marginalize_old_qr_sharded(mesh: FeatureMesh, state: WindowState, grid: Feat
                 ).reshape(R1, Floc)
     A_pose = Jfull.reshape(R1, D)
     A1 = torch.cat([dep_rows, A_pose[:, drop_t], A_pose[:, keep_t], res_w.reshape(R1, 1)], dim=1)
-    # An all-zero depth column (a feature not anchored at frame 0) gets no
-    # Householder reflection, so R's row at its pivot is whatever working
-    # row sits there, which can carry other features' information; that row
-    # would be dropped with the depth rows. A unit row in the column becomes
-    # the pivot row instead and moves that information below the block.
-    empty = (J_lam.reshape(Floc, -1) == 0).all(dim=1)
-    A1 = torch.cat([A1, torch.cat([torch.diag(empty.to(dtype)),
-                                   torch.zeros((Floc, C), dtype=dtype, device=dev)], dim=1)])
-    B = torch.linalg.qr(A1, mode="r")[1][Floc:, Floc:]
+    # An all-zero depth column (a feature not anchored at frame 0) gets a
+    # unit row, as in the single-device QR.
+    B = torch.linalg.qr(_with_unit_rows(A1, Floc), mode="r")[1][Floc:, Floc:]
     B_local = torch.zeros((C, C), dtype=dtype, device=dev)
     B_local[:min(B.shape[0], C)] = B[:C]
 
@@ -78,8 +72,8 @@ def marginalize_old_qr_sharded(mesh: FeatureMesh, state: WindowState, grid: Feat
     extra_r = torch.cat([imu_res.reshape(-1), rp])
     A2 = torch.cat([*parts, torch.cat([extra[:, drop_t], extra[:, keep_t], extra_r[:, None]],
                                       dim=1)], dim=0)
-    Rfac = torch.linalg.qr(A2, mode="r")[1]
     m = len(drop)
+    Rfac = torch.linalg.qr(_with_unit_rows(A2, m), mode="r")[1]
     Jk = Rfac[m:m + K, m:m + K]
     rk = Rfac[m:m + K, m + K]
     ok = torch.isfinite(Jk).all() & torch.isfinite(rk).all()

@@ -5,9 +5,9 @@ A [..., n, n] with n <= 9 in float32 or float64: the lower triangle is read,
 eigenvalues come out ascending and eigenvectors as unit columns, their signs
 arbitrary (every caller is sign-invariant). On a CUDA tensor it launches the
 cyclic-Jacobi kernel on the current stream (one thread per matrix for
-n <= 4, one warp for larger n) or raises; it never calls the library, whose
-``eigh`` reads its error flag on the host and so could neither run without a
-wait nor be captured in a CUDA graph. On a CPU tensor it is the plain
+n <= 4, a 16-lane group for larger n) or raises; it never calls the
+library, whose ``eigh`` reads its error flag on the host and so could
+neither run without a wait nor be captured in a CUDA graph. On a CPU tensor it is the plain
 version, ``torch.linalg.eigh``. ``sym_eig.launches`` counts kernel launches.
 
 It stands where the JAX package's jitted programs call ``jnp.linalg.eigh``
@@ -24,6 +24,7 @@ import torch
 from ..device import register_kernel
 
 MAX_N = 9
+MAX_SWEEPS = 16  # csrc/sym_eig.cu's cap on the Jacobi sweeps of a matrix
 _DTYPES = {torch.float32: 0, torch.float64: 1}
 
 
@@ -43,13 +44,18 @@ class SymEigKernel:
 
             fn = library("sym_eig").sym_eig_launch
             P, I = ctypes.c_void_p, ctypes.c_int
-            fn.argtypes = [P, P, P, I, I, I, P]
+            fn.argtypes = [P, P, P, P, I, I, I, P]
             fn.restype = ctypes.c_int
             self._fn = fn
         return self._fn
 
-    def __call__(self, A):
+    def __call__(self, A, sweeps=False):
+        """(w, V); with ``sweeps`` also each matrix's count of Jacobi sweeps
+        (int32, the batch shape), which only the kernel has."""
         if not A.is_cuda:
+            if sweeps:
+                raise ValueError("sym_eig: sweep counts come from the kernel, and a CPU tensor "
+                                 "takes the plain version")
             return sym_eig_plain(A)
         n = A.shape[-1]
         if A.dim() < 2 or A.shape[-2] != n or not 1 <= n <= MAX_N or A.dtype not in _DTYPES:
@@ -60,15 +66,18 @@ class SymEigKernel:
         B = a.shape[0]
         w = torch.empty((B, n), dtype=A.dtype, device=A.device)
         V = torch.empty((B, n, n), dtype=A.dtype, device=A.device)
+        counts = torch.empty(B, dtype=torch.int32, device=A.device) if sweeps else None
         if B:
             with torch.cuda.device(A.device):
-                err = self._launcher()(a.data_ptr(), w.data_ptr(), V.data_ptr(), B, n,
+                err = self._launcher()(a.data_ptr(), w.data_ptr(), V.data_ptr(),
+                                       counts.data_ptr() if sweeps else None, B, n,
                                        _DTYPES[A.dtype],
                                        torch.cuda.current_stream(A.device).cuda_stream)
             if err != 0:
                 raise RuntimeError(f"sym_eig kernel launch failed: cudaError {err}")
             self.launches += 1
-        return w.reshape(*batch_shape, n), V.reshape(*batch_shape, n, n)
+        out = (w.reshape(*batch_shape, n), V.reshape(*batch_shape, n, n))
+        return out + (counts.reshape(batch_shape),) if sweeps else out
 
 
 sym_eig = register_kernel(SymEigKernel())

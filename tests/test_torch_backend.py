@@ -383,3 +383,101 @@ def test_eigh_and_qr_priors_agree(scene):
     q = tmarg.marginalize_old_qr(tst, tgrid, tpre, tsi, tiv, tprior, tg, tcfg)
     for x, y in zip(_info(e), _info(q)):
         close(x, y, 2e-6)
+
+
+# ------------------------------------- empty dropped columns (unit rows)
+# The port's QR forms give every all-zero dropped column a unit row, so they
+# equal the JAX package's eigh forms where its QR forms drop information.
+# The bound is tests/test_marg_qr.py's, on JᵀJ and Jᵀr.
+QR_EIGH = 2e-6
+
+
+def _jax_of(obj, cls):
+    """A JAX dataclass ``cls`` from the port's ``obj`` (the shared fields)."""
+    val = lambda x: None if x is None else jnp.asarray(x.numpy())
+    return cls(**{f.name: val(getattr(obj, f.name)) for f in dataclasses.fields(cls)})
+
+
+@pytest.fixture(scope="module")
+def empty_cols():
+    """tests/_torch_dist_child.problem(mixed=True)'s single-device MARGIN_OLD
+    inputs (feature 1 anchored at frame 0 beside features that are not: the
+    empty depth columns' pivot rows fall in feature 1's rows), and its prior
+    with the pose[W-1] columns zeroed (what a SECOND_NEW leaves: slot W-1
+    takes the zeroed newest slot's columns), in port and JAX form."""
+    from lfvio_tpu.imu import Preintegration as JPre
+
+    from lfvio_tpu_torch.imu import preintegrate, whiten_covariance
+    from tests import _torch_dist_child as child
+
+    pb = child.problem(mixed=True)
+    state, grid, prior, gravity, cfg = (pb[k] for k in ("state", "grid", "prior", "gravity", "cfg"))
+    dts, accs, gyrs, a0, g0 = pb["imu"]
+    pre = preintegrate(dts, accs, gyrs, a0, g0, state.ba[:-1], state.bg[:-1], pb["noise"])
+    si, ok = whiten_covariance(pre.covariance, pb["imu_valid"])
+    W = state.p.shape[0] - 1
+    o = tmarg.pose_off(W - 1)
+    assert float(prior.J[:, o:o + 6].abs().max()) > 0
+    J = prior.J.clone()
+    J[:, o:o + 6] = 0.0
+    prior_sn = dataclasses.replace(prior, J=J)
+    jcfg = jb.SolverConfig(**dataclasses.asdict(cfg))
+    jst = _jax_of(state, jb.WindowState)
+    return dict(
+        t=(state, grid, pre, si, ok, prior, gravity, cfg),
+        j=(jst, _jax_of(grid, jb.FeatureGrid), _jax_of(pre, JPre), jnp.asarray(si.numpy()),
+           jnp.asarray(ok.numpy()), _jax_of(prior, jb.PriorFactor),
+           jnp.asarray(gravity.numpy()), jcfg),
+        t_sn=(state, prior_sn, cfg), j_sn=(jst, _jax_of(prior_sn, jb.PriorFactor), jcfg),
+    )
+
+
+def _info_err(ref, got):
+    """The largest difference of JᵀJ and Jᵀr relative to the reference's scale."""
+    errs = []
+    for x, y in zip(_info(ref)[:2], _info(got)[:2]):
+        errs.append(float(np.abs(x - y).max()) / max(1.0, float(np.abs(x).max())))
+    return max(errs)
+
+
+def _np_prior(p):
+    return p if isinstance(p.J, jax.Array) else dataclasses.replace(p, J=p.J.numpy(),
+                                                                       r0=p.r0.numpy())
+
+
+def test_marginalize_old_qr_empty_depth_columns_matches_eigh(empty_cols):
+    """MARGIN_OLD on a grid with empty depth columns: the port's QR prior
+    against the JAX package's eigh prior (marginalize_old), within 2e-6."""
+    jp = jax.jit(jmarg.marginalize_old, static_argnums=7)(*empty_cols["j"])
+    tp = tmarg.marginalize_old_qr(*empty_cols["t"])
+    assert bool(tp.valid)
+    assert _info_err(jp, _np_prior(tp)) <= QR_EIGH
+    for name in ("x0_p", "x0_q", "x0_v", "x0_ba", "x0_bg"):
+        close(getattr(jp, name), getattr(tp, name), 1e-12)
+
+
+def test_marginalize_second_new_qr_empty_pose_columns_matches_eigh(empty_cols):
+    """SECOND_NEW of a prior whose pose[W-1] columns are zero: the port's
+    QR prior against the JAX package's marginalize_second_new, within 2e-6."""
+    jp = jax.jit(jmarg.marginalize_second_new, static_argnums=2)(*empty_cols["j_sn"])
+    tp = tmarg.marginalize_second_new_qr(*empty_cols["t_sn"])
+    assert bool(tp.valid)
+    assert _info_err(jp, _np_prior(tp)) <= QR_EIGH
+    for name in ("x0_p", "x0_q", "x0_v"):
+        close(getattr(jp, name), getattr(tp, name), 1e-12)
+
+
+@pytest.mark.parametrize("kind", ["old", "second_new"])
+def test_jax_qr_drops_information_where_a_dropped_column_is_empty(empty_cols, kind):
+    """The fault the unit rows repair, documented on the reference: on the
+    same inputs the JAX package's QR forms miss its eigh forms by more than
+    the 2e-6 bound (the JAX package is called, not changed)."""
+    if kind == "old":
+        args = empty_cols["j"]
+        qr = jax.jit(jmarg.marginalize_old_qr, static_argnums=7)(*args)
+        eigh = jax.jit(jmarg.marginalize_old, static_argnums=7)(*args)
+    else:
+        args = empty_cols["j_sn"]
+        qr = jax.jit(jmarg.marginalize_second_new_qr, static_argnums=2)(*args)
+        eigh = jax.jit(jmarg.marginalize_second_new, static_argnums=2)(*args)
+    assert _info_err(eigh, qr) > 10 * QR_EIGH

@@ -366,6 +366,90 @@ def test_sym_eig_wrapper(dev):
             sym_eig(bad)
 
 
+def _eig_check(A, w, V, tol):
+    """Residual |A V - V diag(w)| and |VᵀV - I|, and the eigenvalues'
+    distance to torch.linalg.eigh's, relative to the largest |eigenvalue|
+    (residuals hold where eigenvectors are not well posed); ascending order."""
+    w_ref = torch.linalg.eigh(A)[0]
+    scale = w_ref.abs().amax(-1, keepdim=True).clamp(min=1e-30)
+    n = A.shape[-1]
+    eye = torch.eye(n, dtype=A.dtype, device=A.device)
+    res = (A @ V - V * w[..., None, :]).abs().amax(-1) / scale
+    assert float(res.max()) <= tol, float(res.max())
+    assert float((V.transpose(-1, -2) @ V - eye).abs().max()) <= tol
+    assert float(((w - w_ref).abs() / scale).max()) <= tol
+    assert bool((w[..., 1:] >= w[..., :-1]).all())
+
+
+def _eight_point_gram(rng, B, dev):
+    """B of RANSAC's f32 9×9 matrices: AᵀA of the constraint rows b2 ⊗ b1 of
+    8 bearing pairs under a random motion (rank 8, one null vector)."""
+    from lfvio_tpu_torch.frontend.ransac import _constraint_rows
+
+    X = rng.standard_normal((B, 8, 3))
+    X *= rng.uniform(2.0, 8.0, (B, 8, 1)) / np.linalg.norm(X, axis=-1, keepdims=True)
+    R = np.linalg.qr(rng.standard_normal((3, 3)))[0]
+    X2 = X @ (R * np.linalg.det(R)).T + [0.2, -0.1, 0.05]
+    unit = lambda a: torch.as_tensor(a / np.linalg.norm(a, axis=-1, keepdims=True),
+                                     dtype=torch.float32, device=dev)
+    A = _constraint_rows(unit(X), unit(X2))
+    return A.transpose(-1, -2) @ A, A
+
+
+@pytest.mark.parametrize("B", [100, 1])
+def test_sym_eig_eight_point_rank8(dev, B):
+    """RANSAC's shapes, [100, 9, 9] and [1, 9, 9], f32: residuals and
+    eigenvalues within 1e-5 of the largest, the smallest eigenvector a null
+    vector of the constraint rows, every matrix below the sweep cap."""
+    from lfvio_tpu_torch.geom.eigh_cuda import MAX_SWEEPS, sym_eig
+
+    G, rows = _eight_point_gram(np.random.default_rng(B), B, dev)
+    w, V, sweeps = sym_eig(G, sweeps=True)
+    torch.cuda.synchronize()
+    _eig_check(G, w, V, 1e-5)
+    null = (rows @ V[..., :, 0:1]).abs().amax((-1, -2))
+    assert float(null.max()) <= 1e-3
+    assert int(sweeps.max()) < MAX_SWEEPS and int(sweeps.min()) >= 1
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+@pytest.mark.parametrize("n", [5, 6, 7, 8, 9])
+def test_sym_eig_special_matrices(dev, n, dtype, tol):
+    """Each order of the group path on a repeated eigenvalue (a threefold one
+    in a random basis), a diagonal matrix, the zero matrix and a random
+    symmetric one: residuals and eigenvalues within tol of the largest; a
+    diagonal or zero input takes no rotation (0 sweeps) and comes back exact."""
+    from lfvio_tpu_torch.geom.eigh_cuda import MAX_SWEEPS, sym_eig
+
+    rng = np.random.default_rng(n)
+    Q = np.linalg.qr(rng.standard_normal((n, n)))[0]
+    rep = Q @ np.diag([1.0, 1.0, 1.0] + list(np.linspace(2.0, 3.0, n - 3))) @ Q.T
+    B = rng.standard_normal((n, n))
+    diag = np.diag(rng.standard_normal(n))
+    A = torch.as_tensor(np.stack([rep, B + B.T, diag, np.zeros((n, n))]), dtype=dtype, device=dev)
+    w, V, sweeps = sym_eig(A, sweeps=True)
+    torch.cuda.synchronize()
+    _eig_check(A[:2], w[:2], V[:2], tol)
+    assert int(sweeps[:2].max()) < MAX_SWEEPS
+    assert sweeps[2:].tolist() == [0, 0]
+    d = torch.sort(torch.diagonal(A[2]))[0]
+    assert torch.equal(w[2], d) and torch.equal(w[3], torch.zeros_like(w[3]))
+    assert float((V[2].abs().sum(0) - 1).abs().max()) == 0.0
+    assert torch.equal(V[3].abs().sum(0), torch.ones(n, dtype=dtype, device=dev))
+
+
+def test_sym_eig_sweeps_below_the_cap_at_the_main_path_inputs(dev):
+    """The inputs the main path hands the kernel (chip_smoke.py's
+    recording: a triangulation at 256 slots and one RANSAC): no matrix stops
+    at MAX_SWEEPS."""
+    import chip_smoke
+    from lfvio_tpu_torch.geom.eigh_cuda import MAX_SWEEPS, sym_eig
+
+    for A in chip_smoke.main_path_eig_inputs(dev):
+        sweeps = sym_eig(A, sweeps=True)[2]
+        assert int(sweeps.max()) < MAX_SWEEPS, (tuple(A.shape), int(sweeps.max()))
+
+
 def test_published_dispatch_does_not_wait(dev):
     """A published frame's dispatch (RANSAC's eigensolves now the kernel)
     enqueues and returns behind a busy stream: its event has not completed

@@ -289,7 +289,8 @@ def _dual_scene():
 
 def test_dual_pal_estimator_stream_matches_jax():
     """The n_cams = 2 estimator on a bearing-level dual-PAL stream with
-    extrinsics estimated, through both pipelines: same solve times,
+    extrinsics estimated, through both pipelines (the JAX one marginalizing
+    with the eigh forms, ``eigh_marginalizing``): same solve times,
     trajectories and per-camera extrinsics within 1e-6, mixed-camera tracks
     in the window."""
     from lfvio_tpu.runtime.estimator import Estimator as JEstimator, EstimatorConfig as JConfig
@@ -298,14 +299,14 @@ def test_dual_pal_estimator_stream_matches_jax():
     from lfvio_tpu_torch.runtime import synthetic as tsyn
     from lfvio_tpu_torch.runtime.estimator import Estimator, EstimatorConfig
     from lfvio_tpu_torch.runtime.pipeline import VioPipeline
-    from _torch_bearing_harness import run_stream
+    from _torch_bearing_harness import eigh_marginalizing, run_stream
 
     jw = JWorld(camera=make_synthetic_pal_camera(dtype=jnp.float64), traj_freq=0.6)
     tw = tsyn.SyntheticWorld(camera=tsyn.make_synthetic_pal_camera(dtype=F64), traj_freq=0.6,
                              dtype=F64, device="cpu")
     pts = _dual_scene()
     kw = dict(n_feature_slots=96, n_cams=2, tic=TICS, ric=RICS, estimate_extrinsic=True)
-    jest = JEstimator(JConfig(solver_dtype=jnp.float64, **kw))
+    jest = eigh_marginalizing(JEstimator(JConfig(solver_dtype=jnp.float64, **kw)))
     test = Estimator(EstimatorConfig(solver_dtype=F64, device="cpu", **kw))
     run_stream(JPipeline(DualPalStub(jw, pts), jest), jw, 1.5)
     run_stream(VioPipeline(DualPalStub(tw, pts), test), tw, 1.5)

@@ -21,6 +21,7 @@ torch.set_num_threads(1)
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from _bearing_harness import BearingFrontEnd, make_landmarks, run_bearing_stream
+from _torch_bearing_harness import eigh_marginalizing
 
 from lfvio_tpu.runtime.estimator import Estimator as JEstimator, EstimatorConfig as JConfig
 from lfvio_tpu.runtime.synthetic import (
@@ -112,12 +113,12 @@ def _port_bearing_stream(est, world, pts_w, duration, frame_rate, imu_rate=200.0
 
 def test_estimator_pipeline_matches_jax(worlds):
     """One analytic bearing stream (48 landmarks, 20 Hz, 1.5 s) through the
-    JAX pipeline (tests/_bearing_harness.py::run_bearing_stream) and the
-    port's: both initialize on the same frame and their trajectories
-    differ by at most 1 mm (f64 on both sides)."""
+    JAX pipeline (tests/_bearing_harness.py::run_bearing_stream, with the
+    eigh marginalization) and the port's: both initialize on the same frame
+    and their trajectories differ by at most 1 mm (f64 on both sides)."""
     jw, _ = worlds
     pts = make_landmarks()
-    jest = JEstimator(JConfig(n_feature_slots=64, solver_dtype=jnp.float64))
+    jest = eigh_marginalizing(JEstimator(JConfig(n_feature_slots=64, solver_dtype=jnp.float64)))
     run_bearing_stream(jest, jw, pts, duration=1.5, frame_rate=20.0)
     test = Estimator(EstimatorConfig(n_feature_slots=64, solver_dtype=F64, device="cpu"))
     pipe = _port_bearing_stream(test, jw, pts, duration=1.5, frame_rate=20.0)

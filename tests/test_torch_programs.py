@@ -294,7 +294,7 @@ def test_solve_E_matches_jax_up_to_sign():
 
 def test_sym_eig_on_the_cpu_is_the_plain_version():
     """On a CPU tensor the wrapper is torch.linalg.eigh and launches
-    nothing."""
+    nothing; sweep counts, which only the kernel has, are refused."""
     A = torch.as_tensor(np.random.default_rng(0).standard_normal((7, 9, 9)))
     A = A @ A.transpose(-1, -2)
     before = eigh_cuda.sym_eig.launches
@@ -302,6 +302,8 @@ def test_sym_eig_on_the_cpu_is_the_plain_version():
     w_ref, V_ref = torch.linalg.eigh(A)
     assert torch.equal(w, w_ref) and torch.equal(V, V_ref)
     assert eigh_cuda.sym_eig.launches == before
+    with pytest.raises(ValueError, match="sweep counts"):
+        eigh_cuda.sym_eig(A, sweeps=True)
 
 
 # ------------------------------------------------- the programs read nothing
