@@ -72,6 +72,33 @@
 // patch with 16-byte copies where it lies inside the image is the next
 // step to try.
 //
+// The Pallas geometry (klt.py::pyramidal_lk_pallas, the function of the JAX
+// package's Pallas kernel klt_pallas.py::pyramidal_lk_pallas) is a mode of
+// the same kernel, chosen per launch by a template argument, with no refine
+// pass. Per level it differs from klt.py's in where its patches lie: the
+// template patch is 56 x 256 and the search patch 64 x 256 of the level
+// padded by 30 and then edge-padded to whole (8, 128) tiles (Ht x Wt, which
+// the wrapper computes per level and passes in LkLevels), both from
+// origins aligned down to 8 rows and 128 columns; in-patch offsets are
+// clamped to [0, 22] x [0, 214] (rows and columns apart), so a feature may
+// move much further within a level; a template tap outside its patch reads
+// 0, where klt.py's mode reads the edge value.
+//
+// That search window is 64 KB of float32 per feature and pass, over the 48
+// KB of dynamic shared memory a block has without opt-in, and an iteration
+// reads only the 42 x 42 taps around its offset. So this mode stages
+// nothing: the template sample and every iteration's taps are read
+// straight from the level images through the L1 cache (the read-only
+// path), with the pad as an index clamp and the tile-aligned pad as the
+// same clamp (both replicate the edge). The iterations move by sub-pixel
+// steps, so after the first one the taps hit in L1; the two pyramids of a
+// 1280x960 frame (13 MB) stay in the 50 MB L2. Shared memory holds only the
+// (win+2)^2 template sample: 7,396 B at win 41. Staging the whole window
+// with the opt-in (227 KB a block) would copy 64 KB per feature and pass
+// through L2 into shared memory, 5.6 times the taps klt.py's mode stages
+// (64 x 256 against 54 x 54), for taps of which one iteration reads a
+// seventh.
+//
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -shared -Xcompiler -fPIC
 // and bound with ctypes (lfvio_tpu_torch/frontend/klt_cuda.py).
@@ -84,8 +111,13 @@
 #define THREADS 256
 #define MAX_RUN 7      // taps of one window row a thread owns: windows up to 42
 #define NWARPS (THREADS / 32)
-#define MAX_LEVELS 4   // pyramid levels, level 0 included
+#define MAX_LEVELS 8   // pyramid levels, level 0 included: n_levels up to 7
 #define MAX_PASSES (MAX_LEVELS + 1)
+// The Pallas geometry's patches (klt_pallas.py:42-44): LANES columns, the
+// template TROWS and the search SROWS rows.
+#define LANES 256
+#define TROWS 56
+#define SROWS 64
 
 struct LkLevels {
   const float* prev[MAX_LEVELS];
@@ -93,6 +125,8 @@ struct LkLevels {
   int H[MAX_LEVELS];
   int W[MAX_LEVELS];
   int stride[MAX_LEVELS];  // floats between rows
+  int Ht[MAX_LEVELS];      // Pallas geometry: the tile-aligned padded level's
+  int Wt[MAX_LEVELS];      // rows and columns
 };
 
 // The passes in the order they run: levels coarse to fine, then the refine
@@ -130,11 +164,27 @@ __device__ __forceinline__ void stage_patch(float* dst, const float* img, int H,
 }
 
 // Top-left of the template patch of a pass, in padded coordinates.
+template <bool PALLAS>
 __device__ __forceinline__ void template_corner(const LkLevels& L, int lvl, int win, int pad,
                                                 float px, float py, int* tly, int* tlx) {
   const int half = win / 2, tp = win + 4;
-  *tly = min(max((int)floorf(py) - half - 2, 0), L.H[lvl] + 2 * pad - tp);
-  *tlx = min(max((int)floorf(px) - half - 2, 0), L.W[lvl] + 2 * pad - tp);
+  if constexpr (PALLAS) {  // tile-aligned, in the tile-aligned padded level
+    *tly = min(max((int)floorf(py) - half - 2, 0), L.Ht[lvl] - TROWS) / 8 * 8;
+    *tlx = min(max((int)floorf(px) - half - 2, 0), L.Wt[lvl] - LANES) / 128 * 128;
+  } else {
+    *tly = min(max((int)floorf(py) - half - 2, 0), L.H[lvl] + 2 * pad - tp);
+    *tlx = min(max((int)floorf(px) - half - 2, 0), L.W[lvl] + 2 * pad - tp);
+  }
+}
+
+// Pointer to row y (padded coordinates) of a level padded by pad with edge
+// replication, and column x of it: the pad is an index clamp.
+__device__ __forceinline__ const float* padded_row(const float* img, int H, int stride, int pad,
+                                                   int y) {
+  return img + (size_t)min(max(y - pad, 0), H - 1) * stride;
+}
+__device__ __forceinline__ int padded_col(int W, int pad, int x) {
+  return min(max(x - pad, 0), W - 1);
 }
 
 __device__ __forceinline__ float tap(const float* P, int n, int y, int x) {
@@ -167,6 +217,7 @@ __device__ __forceinline__ void block_sum(float (&v)[K], float (*scratch)[3][NWA
   row ^= 1;
 }
 
+template <bool PALLAS>
 __global__ void __launch_bounds__(THREADS)
 lk_pyramid_kernel(const __grid_constant__ LkLevels L, const __grid_constant__ LkPasses P,
                   const float* __restrict__ pts,
@@ -186,7 +237,8 @@ lk_pyramid_kernel(const __grid_constant__ LkLevels L, const __grid_constant__ Lk
   const int patch_max = (wmax + 1 + 2 * SEARCH_MARGIN) * (wmax + 1 + 2 * SEARCH_MARGIN);
   float* tbuf = smem;                           // two template patches, used in turn
   float* spatch = smem + 2 * tp_max;            // search patch
-  float* text = spatch + patch_max;             // (win+2)^2 template sample
+  // The (win+2)^2 template sample; the Pallas geometry stages no patch.
+  float* text = PALLAS ? smem : spatch + patch_max;
 
   const float px0 = pts[2 * f], py0 = pts[2 * f + 1];
   bool ok = valid[f] != 0;
@@ -199,11 +251,11 @@ lk_pyramid_kernel(const __grid_constant__ LkLevels L, const __grid_constant__ Lk
   int p = 0;
   while (p < P.n && !P.run[p]) ++p;
   int lvl_prev = p < P.n ? P.lvl[p] : 0;
-  if (ok && p < P.n) {
+  if (!PALLAS && ok && p < P.n) {
     const int lvl = P.lvl[p];
     const float inv = 1.0f / (float)(1 << lvl);
     int tly, tlx;
-    template_corner(L, lvl, P.win[p], pad, px0 * inv + (float)pad, py0 * inv + (float)pad,
+    template_corner<false>(L, lvl, P.win[p], pad, px0 * inv + (float)pad, py0 * inv + (float)pad,
                     &tly, &tlx);
     stage_patch(tbuf, L.prev[lvl], L.H[lvl], L.W[lvl], L.stride[lvl], pad, tly, tlx,
                 P.win[p] + 4);
@@ -234,10 +286,17 @@ lk_pyramid_kernel(const __grid_constant__ LkLevels L, const __grid_constant__ Lk
     const float gx_in = gx, gy_in = gy;
 
     // The search patch depends on the guess: fetch it now, use it after the
-    // template work below.
-    const int sly = min(max((int)floorf(py + gy) - half - SEARCH_MARGIN, 0), Hp - patch);
-    const int slx = min(max((int)floorf(px + gx) - half - SEARCH_MARGIN, 0), Wp - patch);
-    stage_patch(spatch, L.next[lvl], H, W, L.stride[lvl], pad, sly, slx, patch);
+    // template work below. The Pallas geometry's is read in the iterations.
+    int sly, slx;
+    if constexpr (PALLAS) {
+      sly = min(max((int)floorf(py + gy) - half - SEARCH_MARGIN, 0), L.Ht[lvl] - SROWS) / 8 * 8;
+      slx = min(max((int)floorf(px + gx) - half - SEARCH_MARGIN, 0), L.Wt[lvl] - LANES) / 128 *
+            128;
+    } else {
+      sly = min(max((int)floorf(py + gy) - half - SEARCH_MARGIN, 0), Hp - patch);
+      slx = min(max((int)floorf(px + gx) - half - SEARCH_MARGIN, 0), Wp - patch);
+      stage_patch(spatch, L.next[lvl], H, W, L.stride[lvl], pad, sly, slx, patch);
+    }
     cp_async_commit();
     cp_async_wait<1>();  // this pass's template patch has arrived
     __syncthreads();
@@ -245,7 +304,7 @@ lk_pyramid_kernel(const __grid_constant__ LkLevels L, const __grid_constant__ Lk
     // Template sample over (win+2)^2, offset one pixel up-left.
     {
       int tly, tlx;
-      template_corner(L, lvl, win, pad, px, py, &tly, &tlx);
+      template_corner<PALLAS>(L, lvl, win, pad, px, py, &tly, &tlx);
       const float oy = py - (float)tly - (float)half - 1.0f;
       const float ox = px - (float)tlx - (float)half - 1.0f;
       const float fy0 = floorf(oy), fx0 = floorf(ox);
@@ -264,7 +323,24 @@ lk_pyramid_kernel(const __grid_constant__ LkLevels L, const __grid_constant__ Lk
         const int n_out = min(trun, te - tc0);
         const int y = iy + tr, x = ix + tc0;
         float* __restrict__ out = text + tr * te + tc0;
-        if (iy >= 0 && ix >= 0 && iy + te < tp && ix + te < tp) {  // all taps in the patch
+        if constexpr (PALLAS) {
+          // Patch (yy, xx) is the padded level's (tly + yy, tlx + xx); a tap
+          // outside the TROWS x LANES patch reads 0.
+          const float* img = L.prev[lvl];
+          const int stride = L.stride[lvl];
+          auto tap_at = [&](int yy, int xx) {
+            return (yy >= 0 && yy < TROWS && xx >= 0 && xx < LANES)
+                       ? __ldg(padded_row(img, H, stride, pad, tly + yy) +
+                               padded_col(W, pad, tlx + xx))
+                       : 0.0f;
+          };
+          float v0 = wy * tap_at(y, x) + fy * tap_at(y + 1, x);
+          for (int c = 0; c < n_out; ++c) {
+            const float v1 = wy * tap_at(y, x + c + 1) + fy * tap_at(y + 1, x + c + 1);
+            out[c] = wx * v0 + fx * v1;
+            v0 = v1;
+          }
+        } else if (iy >= 0 && ix >= 0 && iy + te < tp && ix + te < tp) {  // all taps in the patch
           const float* __restrict__ q0 = T0 + y * tp + x;
           const float* __restrict__ q1 = q0 + tp;
           float v0 = wy * q0[0] + fy * q1[0];
@@ -329,11 +405,11 @@ lk_pyramid_kernel(const __grid_constant__ LkLevels L, const __grid_constant__ Lk
 
     // The next pass's template patch depends only on the feature position:
     // fetch it into the other buffer while this pass iterates.
-    if (nxt < P.n && good_G) {
+    if (!PALLAS && nxt < P.n && good_G) {
       const int nl = P.lvl[nxt];
       const float ninv = 1.0f / (float)(1 << nl);
       int tly, tlx;
-      template_corner(L, nl, P.win[nxt], pad, px0 * ninv + (float)pad,
+      template_corner<false>(L, nl, P.win[nxt], pad, px0 * ninv + (float)pad,
                       py0 * ninv + (float)pad, &tly, &tlx);
       stage_patch(tbuf + (cur ^ 1) * tp_max, L.prev[nl], L.H[nl], L.W[nl], L.stride[nl], pad, tly, tlx,
                   P.win[nxt] + 4);
@@ -343,26 +419,43 @@ lk_pyramid_kernel(const __grid_constant__ LkLevels L, const __grid_constant__ Lk
     __syncthreads();
 
     const float base_sy = (float)sly, base_sx = (float)slx;
-    const float hi = (float)(patch - win - 1);
+    const float hi_y = (float)((PALLAS ? SROWS : patch) - win - 1);
+    const float hi_x = (float)((PALLAS ? LANES : patch) - win - 1);
     bool live = good_G;
     int k = 0;
     for (; k < n_iters && live; ++k) {
-      // Offsets in [0, hi] keep every tap, the +1 ones included, inside the
-      // staged patch: no bounds test in this loop.
-      const float oy = fminf(fmaxf(py + gy - base_sy - (float)half, 0.0f), hi);
-      const float ox = fminf(fmaxf(px + gx - base_sx - (float)half, 0.0f), hi);
+      // Offsets in [0, hi_y] x [0, hi_x] keep every tap, the +1 ones
+      // included, inside the search patch: no bounds test in this loop.
+      const float oy = fminf(fmaxf(py + gy - base_sy - (float)half, 0.0f), hi_y);
+      const float ox = fminf(fmaxf(px + gx - base_sx - (float)half, 0.0f), hi_x);
       const float fy0 = floorf(oy), fx0 = floorf(ox);
       const float fy = oy - fy0, fx = ox - fx0;
       const float wy = 1.0f - fy, wx = 1.0f - fx;
       float b[2] = {0.0f, 0.0f};
       if (cnt > 0) {
-        const float* q0 = spatch + ((int)fy0 + r) * patch + (int)fx0 + c0;
-        const float* q1 = q0 + patch;
-        float v0 = wy * q0[0] + fy * q1[0];  // rows first, then columns
+        // Two rows of taps: the staged patch's, or the padded level's
+        // (tile-aligned padding replicates the edge too) with column c at
+        // padded_col(xb + c).
+        const float *q0, *q1;
+        int xb = 0;
+        if constexpr (PALLAS) {
+          const int y = sly + (int)fy0 + r;
+          q0 = padded_row(L.next[lvl], H, L.stride[lvl], pad, y);
+          q1 = padded_row(L.next[lvl], H, L.stride[lvl], pad, y + 1);
+          xb = slx + (int)fx0 + c0;
+        } else {
+          q0 = spatch + ((int)fy0 + r) * patch + (int)fx0 + c0;
+          q1 = q0 + patch;
+        }
+        auto at = [&](const float* q, int c) {
+          if constexpr (PALLAS) return __ldg(q + padded_col(W, pad, xb + c));
+          else return q[c];
+        };
+        float v0 = wy * at(q0, 0) + fy * at(q1, 0);  // rows first, then columns
 #pragma unroll
         for (int c = 0; c < MAX_RUN; ++c) {
           if (c < cnt) {
-            const float v1 = wy * q0[c + 1] + fy * q1[c + 1];
+            const float v1 = wy * at(q0, c + 1) + fy * at(q1, c + 1);
             const float res = (wx * v0 + fx * v1) - T[c];
             b[0] += Tx[c] * res;
             b[1] += Ty[c] * res;
@@ -380,12 +473,12 @@ lk_pyramid_kernel(const __grid_constant__ LkLevels L, const __grid_constant__ Lk
     if (t == 0 && iters_out != nullptr) iters_out[f * P.n + p] = k;
 
     // Border validity in real-image coordinates, and the sample window must
-    // have stayed inside the staged search patch.
+    // have stayed inside the search patch.
     const float fx = px + gx, fy = py + gy;
     const bool inb = fx >= (float)pad + 1.0f && fx < (float)pad + (float)W - 1.0f &&
                      fy >= (float)pad + 1.0f && fy < (float)pad + (float)H - 1.0f;
     const float offy = fy - base_sy - (float)half, offx = fx - base_sx - (float)half;
-    const bool off_ok = offy >= 0.0f && offy <= hi && offx >= 0.0f && offx <= hi;
+    const bool off_ok = offy >= 0.0f && offy <= hi_y && offx >= 0.0f && offx <= hi_x;
     const bool ok_l = good_G && inb && off_ok;
     if (has_refine && p == P.n - 1) {
       // The refine result is kept only where it converged close by; ok is
@@ -416,19 +509,24 @@ lk_pyramid_kernel(const __grid_constant__ LkLevels L, const __grid_constant__ Lk
 }
 
 // Dynamic shared memory of a launch whose largest window is wmax.
-static size_t lk_pyramid_smem(int wmax) {
+static size_t lk_pyramid_smem(int wmax, bool pallas) {
   const int tp = wmax + 4, patch = wmax + 1 + 2 * SEARCH_MARGIN, te = wmax + 2;
-  return sizeof(float) * (size_t)(2 * tp * tp + patch * patch + te * te);
+  return sizeof(float) * (size_t)((pallas ? 0 : 2 * tp * tp + patch * patch) + te * te);
 }
 
-// prev/next: n_levels device pointers each (level 0 first); H, W, stride:
-// n_levels ints; pass_*: n_passes ints in the order the passes run.
+// MAX_LEVELS, which the wrapper names when it refuses a deeper pyramid.
+extern "C" int lk_pyramid_max_levels(void) { return MAX_LEVELS; }
+
+// prev/next: n_levels device pointers each (level 0 first); H, W, stride,
+// and for the Pallas geometry (pallas != 0) Ht, Wt: n_levels ints; pass_*:
+// n_passes ints in the order the passes run.
 // guess_in (the flow to start from, at the first pass's scale), pts_out,
 // guess_out (the flow found, at the last pass's scale) and
 // iters_out may be null. Returns the CUDA error code of the launch, or -1
 // for arguments the kernel does not take.
 extern "C" int lk_pyramid_launch(const void* const* prev, const void* const* next,
-                                 const int* H, const int* W, const int* stride, int n_levels,
+                                 const int* H, const int* W, const int* stride, const int* Ht,
+                                 const int* Wt, int pallas, int n_levels,
                                  const int* pass_lvl, const int* pass_win,
                                  const int* pass_iters, const int* pass_skip, int n_passes,
                                  int has_refine, float refine_max_move, const float* pts,
@@ -445,12 +543,20 @@ extern "C" int lk_pyramid_launch(const void* const* prev, const void* const* nex
     L.H[l] = H[l];
     L.W[l] = W[l];
     L.stride[l] = stride[l];
+    if (pallas) {
+      // The patches must fit the tile-aligned level, their origins align.
+      if (Ht[l] < SROWS || Wt[l] < LANES || Ht[l] % 8 || Wt[l] % 128) return -1;
+      L.Ht[l] = Ht[l];
+      L.Wt[l] = Wt[l];
+    }
   }
+  if (pallas && has_refine) return -1;
   P.n = n_passes;
   int wmax = 1;
   for (int p = 0; p < n_passes; ++p) {
     const int win = pass_win[p];
     if (win < 1 || win > THREADS || pass_lvl[p] < 0 || pass_lvl[p] >= n_levels) return -1;
+    if (pallas && win >= SROWS) return -1;  // offsets in [0, SROWS - win - 1]
     const int per_row = THREADS / win;            // threads a window row can have
     const int run = (win + per_row - 1) / per_row;   // taps each of them owns
     if (run > MAX_RUN) return -1;
@@ -462,10 +568,15 @@ extern "C" int lk_pyramid_launch(const void* const* prev, const void* const* nex
   }
   // MAX_RUN bounds the window at 42, so this stays under the 48 KB that
   // dynamic shared memory may take without opt-in.
-  const size_t smem = lk_pyramid_smem(wmax);
+  const size_t smem = lk_pyramid_smem(wmax, pallas != 0);
   if (smem > 48 * 1024) return -1;
-  lk_pyramid_kernel<<<n, THREADS, smem, (cudaStream_t)stream>>>(
-      L, P, pts, valid, guess_in, pad, has_refine, refine_max_move, pts_out, ok_out, guess_out,
-      iters_out);
+  if (pallas)
+    lk_pyramid_kernel<true><<<n, THREADS, smem, (cudaStream_t)stream>>>(
+        L, P, pts, valid, guess_in, pad, 0, refine_max_move, pts_out, ok_out, guess_out,
+        iters_out);
+  else
+    lk_pyramid_kernel<false><<<n, THREADS, smem, (cudaStream_t)stream>>>(
+        L, P, pts, valid, guess_in, pad, has_refine, refine_max_move, pts_out, ok_out,
+        guess_out, iters_out);
   return (int)cudaGetLastError();
 }

@@ -10,10 +10,12 @@ per source, all started together. Libraries are loaded with ``ctypes``.
 the refine pass of a frame in one launch. ``pyramidal_lk``, which the
 FrontEnd calls, is that wrapper. ``lk_level`` is the wrapper of one level
 step from a given guess (``klt.track_level``): a launch of the same kernel
-with a one-row pass table. On a CUDA tensor a wrapper launches the kernel on
-the current stream or raises; there is no fallback. On a CPU tensor it runs
-the plain version in ``klt.py``. ``lk_pyramid.launches`` and
-``lk_level.launches`` count each wrapper's kernel launches.
+with a one-row pass table. ``pyramidal_lk_pallas`` is the wrapper of the
+kernel's Pallas-geometry mode (``klt.pyramidal_lk_pallas``, one launch a
+frame), which ``FrontEnd(use_pallas=True)`` calls. On a CUDA tensor a
+wrapper launches the kernel on the current stream or raises; there is no
+fallback. On a CPU tensor it runs the plain version in ``klt.py``. Each
+wrapper's ``launches`` counts its kernel launches.
 """
 
 from __future__ import annotations
@@ -92,20 +94,27 @@ def library(stem: str):
     return _libs[stem]
 
 
+def max_levels() -> int:
+    """``csrc/lk_pyramid.cu``'s MAX_LEVELS: the pyramid levels a launch
+    takes, level 0 included."""
+    return library("lk_pyramid").lk_pyramid_max_levels()
+
+
 _fn = None
 
 
 def _launch(name, pyr_prev, pyr_next, shapes, passes, has_refine, pts, valid, ok_out,
-            guess=None, pts_out=None, guess_out=None, iters=None):
+            guess=None, pts_out=None, guess_out=None, iters=None, pallas=False):
     """One launch of ``lk_pyramid_kernel`` on the current stream of the
     tensors' card. ``passes`` are rows (level, window, iterations, skipped)
     in the order they run; ``guess``, ``pts_out``, ``guess_out`` and
-    ``iters`` may be None. Raises if the launch fails."""
+    ``iters`` may be None; ``pallas`` selects the Pallas geometry. Raises
+    if the launch fails."""
     global _fn
     if _fn is None:
         fn = library("lk_pyramid").lk_pyramid_launch
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, P, P, P, I, P, P, P, P, I, I, ctypes.c_float,
+        fn.argtypes = [P, P, P, P, P, P, P, I, I, P, P, P, P, I, I, ctypes.c_float,
                        P, P, P, I, I, P, P, P, P, P]
         fn.restype = ctypes.c_int
         _fn = fn
@@ -114,10 +123,12 @@ def _launch(name, pyr_prev, pyr_next, shapes, passes, has_refine, pts, valid, ok
     ptrs = lambda pyr: (ctypes.c_void_p * nl)(*[pyr[l].data_ptr() for l in range(nl)])
     ints = lambda vals: (ctypes.c_int * len(vals))(*vals)
     ptr = lambda t: None if t is None else t.data_ptr()
+    tiles = [klt.pallas_tile_shape(*s) for s in shapes] if pallas else [(0, 0)] * nl
     with torch.cuda.device(dev):  # launch in the context of the tensors' card
         err = _fn(
             ptrs(pyr_prev), ptrs(pyr_next), ints([s[0] for s in shapes]),
-            ints([s[1] for s in shapes]), ints([s[1] for s in shapes]), nl,
+            ints([s[1] for s in shapes]), ints([s[1] for s in shapes]),
+            ints([t[0] for t in tiles]), ints([t[1] for t in tiles]), int(pallas), nl,
             *(ints([p[k] for p in passes]) for k in range(4)), len(passes),
             int(has_refine), klt.REFINE_MAX_MOVE,
             pts.data_ptr(), valid.data_ptr(), ptr(guess), pts.shape[0], klt.PAD,
@@ -201,6 +212,10 @@ def _check_pyramids(pyr_prev, pyr_next, n_levels):
         raise ValueError(f"lk_pyramid: n_levels must not be negative, got {n_levels}")
     if len(pyr_prev) <= n_levels or len(pyr_next) <= n_levels:
         raise ValueError(f"lk_pyramid: pyramids need {n_levels + 1} levels")
+    if pyr_prev[0].is_cuda and n_levels >= (cap := max_levels()):
+        raise ValueError(f"lk_pyramid: the kernel takes at most MAX_LEVELS = {cap} "
+                         f"levels, level 0 included (n_levels <= {cap - 1}); got "
+                         f"n_levels = {n_levels}")
     dev = pyr_prev[0].device
     dtype = torch.float32 if dev.type == "cuda" else pyr_prev[0].dtype
     shapes = []
@@ -226,28 +241,38 @@ def _check_pyramids(pyr_prev, pyr_next, n_levels):
 
 
 class LkPyramidKernel:
-    """Wrapper of the fused LK launch with the signature of
-    ``klt.pyramidal_lk``: (pyr_prev, pyr_next, pts [N,2], valid [N] bool,
-    n_levels, refine_win) -> (pts_next [N,2], ok [N] bool). With
-    ``return_iters`` a third result, int32 [N, passes], holds the
-    Gauss-Newton iterations each feature took in each pass (levels coarse to
-    fine, then the refine pass; -1 where the pass did not run for it)."""
+    """Wrapper of one fused LK launch a frame, counted in its own
+    ``launches``. ``pallas=False``: the signature of ``klt.pyramidal_lk``,
+    (pyr_prev, pyr_next, pts [N,2], valid [N] bool, n_levels, refine_win)
+    -> (pts_next [N,2], ok [N] bool). ``pallas=True``: the kernel's
+    Pallas-geometry mode, the function of ``klt.pyramidal_lk_pallas``, which
+    has no refine pass (``refine_win`` must be 0). With ``return_iters`` a
+    third result, int32 [N, passes], holds the Gauss-Newton iterations each
+    feature took in each pass (levels coarse to fine, then the refine pass;
+    -1 where the pass did not run for it)."""
 
-    def __init__(self):
+    def __init__(self, pallas: bool = False):
+        self.pallas = pallas
+        self.name = "pyramidal_lk_pallas" if pallas else "lk_pyramid"
         self.launches = 0
 
     def __call__(self, pyr_prev, pyr_next, pts_prev, valid, n_levels: int = 3,
                  refine_win: int = 0, return_iters: bool = False):
+        name = self.name
+        if self.pallas and refine_win:
+            raise ValueError(f"{name}: the Pallas geometry has no refine pass")
         shapes, dtype = _check_pyramids(pyr_prev, pyr_next, n_levels)
         dev = pyr_prev[0].device
         N = pts_prev.shape[0]
-        _check_tensors("lk_pyramid", dev, (
+        _check_tensors(name, dev, (
             ("pts_prev", pts_prev, (N, 2), dtype),
             ("valid", valid, (N,), torch.bool),
         ))
         if dev.type != "cuda":
             if return_iters:
-                raise ValueError("lk_pyramid: iteration counts come from the kernel only")
+                raise ValueError(f"{name}: iteration counts come from the kernel only")
+            if self.pallas:
+                return klt.pyramidal_lk_pallas(pyr_prev, pyr_next, pts_prev, valid, n_levels)
             return klt.pyramidal_lk(pyr_prev, pyr_next, pts_prev, valid, n_levels, refine_win)
         passes = _pass_table(shapes, n_levels, klt.WIN, klt.N_ITERS, refine_win,
                              klt.REFINE_ITERS)
@@ -256,12 +281,13 @@ class LkPyramidKernel:
         iters = (torch.full((N, len(passes)), -1, dtype=torch.int32, device=dev)
                  if return_iters else None)
         if N:  # an empty grid is no launch
-            _launch("lk_pyramid", pyr_prev, pyr_next, shapes, passes, bool(refine_win),
+            _launch(name, pyr_prev, pyr_next, shapes, passes, bool(refine_win),
                     pts_prev.contiguous(), valid.contiguous(), ok_out, pts_out=pts_out,
-                    iters=iters)
+                    iters=iters, pallas=self.pallas)
             self.launches += 1
         return (pts_out, ok_out, iters) if return_iters else (pts_out, ok_out)
 
 
 lk_pyramid = LkPyramidKernel()
 pyramidal_lk = lk_pyramid
+pyramidal_lk_pallas = LkPyramidKernel(pallas=True)

@@ -583,15 +583,19 @@ class Estimator:
 
     # ------------------------------------------------------------------ frame
     def process_image_arrays(self, ids, bearings, vels, rows, mask, t: float,
-                             td_pair=None, cams=None):
+                             defer_solve=False, td_pair=None, cams=None):
         """Estimator::processImage (estimator.cpp:122-220), array interface.
 
         ids/bearings/vels/rows: per-slot arrays from FrontEnd.process_arrays;
         mask selects the published observations; cams is the per-observation
-        camera id of a multi-camera front end. The frame's solve is
-        dispatched and left for :meth:`finalize_solve` (the pipeline
-        finalizes it ``solve_lag`` frames later and on flush). td_pair is
-        the td the pipeline paired IMU with.
+        camera id of a multi-camera front end. td_pair is the td the
+        pipeline paired IMU with.
+
+        Every pending solve is finalized before the call returns, so that a
+        direct caller reads this frame's pose. defer_solve=True dispatches
+        the frame's solve and leaves it for :meth:`finalize_solve`: the
+        pipeline finalizes it ``solve_lag`` frames later and on flush, and
+        mutates no estimator state in between (it queues IMU for replay).
         """
         cfg = self.cfg
         sel = np.where(np.asarray(mask))[0]
@@ -654,6 +658,9 @@ class Estimator:
                 if ok:
                     self.solver_flag = self.NON_LINEAR
                     self._dispatch_solve(t, first=True)
+                    if not defer_solve:
+                        while self._pending_q:
+                            self.finalize_solve()
                 else:
                     self._slide_window()
             else:
@@ -663,6 +670,20 @@ class Estimator:
                     a[j] = a[j - 1]
         else:
             self._dispatch_solve(t, first=False)
+            if not defer_solve:
+                while self._pending_q:
+                    self.finalize_solve()
+
+    def process_image(self, feats: dict, t: float):
+        """Dict interface: feats id -> (bearing3, vel3, row)."""
+        n = len(feats)
+        ids = np.fromiter(feats.keys(), np.int64, count=n)
+        bearings = (np.stack([np.asarray(v[0]) for v in feats.values()])
+                    if n else np.zeros((0, 3)))
+        vels = (np.stack([np.asarray(v[1]) for v in feats.values()])
+                if n else np.zeros((0, 3)))
+        rows = np.asarray([v[2] for v in feats.values()])
+        return self.process_image_arrays(ids, bearings, vels, rows, np.ones(n, bool), t)
 
     # ------------------------------------------------------------------ relo
     def _header_index(self, stamp, n):

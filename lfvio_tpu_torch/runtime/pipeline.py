@@ -254,7 +254,8 @@ class VioPipeline:
                 self._last_pub_t = t
                 n_before = self.est.pending_count()
                 self.est.process_image_arrays(
-                    ids, bearings, vels, rows, pub, t, td_pair=td_pair, cams=cams)
+                    ids, bearings, vels, rows, pub, t, defer_solve=True, td_pair=td_pair,
+                    cams=cams)
                 if self.est.pending_count() > n_before:
                     self._sync_q.append(t + td_pair if td_pair is not None else t + self._td_now)
 

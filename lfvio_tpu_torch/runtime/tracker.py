@@ -35,12 +35,6 @@ from ..frontend import (
 from ..frontend import klt_cuda
 from ..frontend.ransac import N_HYPOTHESES
 
-N_LEVELS = 3  # pyramid levels above the image (OpenCV maxLevel = 3)
-BORDER = 1  # inBorder's BORDER_SIZE
-# Small-window level-0 refinement: the 41-px window averages the curved PAL
-# flow field; a final 15-px pass re-centres on the feature itself.
-REFINE_WIN = 15
-
 
 class IdCounter:
     """Feature-id allocator. A multi-camera rig draws the ids of all its
@@ -67,8 +61,18 @@ class FrontEnd:
         n_slots: int = 256,
         equalize: bool = True,
         annulus=None,  # (center_x, center_y, max_r, min_r) of a PAL image ring, or None
+        n_levels: int = 3,  # pyramid levels above the image (OpenCV maxLevel = 3)
+        border: int = 1,  # inBorder's BORDER_SIZE
         dtype=torch.float32,
         seed: int = 0,
+        refine_win: int = 15,  # small-window level-0 refinement: the 41-px
+        # window averages the curved PAL flow field; a final pass with this
+        # window re-centres on the feature itself. 0: none (the reference's
+        # behaviour).
+        use_pallas: bool = False,  # the LK of the JAX package's Pallas
+        # kernel (klt.pyramidal_lk_pallas: its own patch geometry, no refine
+        # pass; refine_win is then ignored) in place of klt.pyramidal_lk's
+        id_counter: IdCounter | None = None,  # one id sequence shared by cameras
         device=None,  # None: the CUDA card
     ):
         self.device = resolve_device(device)
@@ -79,6 +83,10 @@ class FrontEnd:
         self.min_dist = min_dist
         self.N = n_slots
         self.equalize = equalize
+        self.n_levels = int(n_levels)
+        self.border = border
+        self.refine_win = int(refine_win)
+        self.use_pallas = bool(use_pallas)
         if annulus is not None:
             self.static_mask = annulus_mask(
                 image_size, *[float(a) for a in annulus], dtype=dtype, device=self.device
@@ -86,7 +94,8 @@ class FrontEnd:
         else:
             self.static_mask = torch.ones(image_size, dtype=torch.bool, device=self.device)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
-        self._ids_src = IdCounter()  # a DualFrontEnd rebinds it to the rig's shared one
+        # A DualFrontEnd rebinds it to the rig's shared one.
+        self._ids_src = id_counter if id_counter is not None else IdCounter()
         self.reset()
 
     def reset(self):
@@ -114,7 +123,7 @@ class FrontEnd:
         img = torch.as_tensor(img).to(device=self.device, dtype=self.dtype)
         if self.equalize:
             img = clahe(img)
-        return gaussian_pyramid(img, N_LEVELS)
+        return gaussian_pyramid(img, self.n_levels)
 
     def _lift(self, pts):
         rays = self.camera.lift_projective(pts)
@@ -174,11 +183,14 @@ class FrontEnd:
         bear_next, valid_next)."""
         pyr = self._preprocess(img)
         # The frame's LK: one fused kernel launch on a CUDA device.
-        pts_next, ok = klt_cuda.pyramidal_lk(
-            pyr_prev, pyr, pos, valid, N_LEVELS, refine_win=REFINE_WIN
-        )
-        # Border containment (inBorder, BORDER_SIZE=1) + annulus mask.
-        b = float(BORDER)
+        if self.use_pallas:
+            pts_next, ok = klt_cuda.pyramidal_lk_pallas(pyr_prev, pyr, pos, valid, self.n_levels)
+        else:
+            pts_next, ok = klt_cuda.pyramidal_lk(
+                pyr_prev, pyr, pos, valid, self.n_levels, refine_win=self.refine_win
+            )
+        # Border containment (inBorder, BORDER_SIZE) + annulus mask.
+        b = float(self.border)
         inb = (
             (pts_next[:, 0] >= b) & (pts_next[:, 0] < self.W - b)
             & (pts_next[:, 1] >= b) & (pts_next[:, 1] < self.H - b)

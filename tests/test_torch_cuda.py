@@ -1,5 +1,6 @@
 """The LK kernel (lfvio_tpu_torch/csrc/lk_pyramid.cu) on a CUDA card: the fused
-launch per frame, and one level step as a one-pass launch of the same kernel.
+launch per frame, one level step as a one-pass launch of the same kernel, and
+its Pallas-geometry mode (klt.pyramidal_lk_pallas).
 The eigensolver kernel (lfvio_tpu_torch/csrc/sym_eig.cu) against
 torch.linalg.eigh, and the estimator's programs as CUDA graphs against the
 same functions run eagerly.
@@ -38,9 +39,11 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def _shift_case(dev, H=480, W=640, N=96, dx=2.7, dy=-1.9, seed=0, n_border=0, waves=False):
+def _shift_case(dev, H=480, W=640, N=96, dx=2.7, dy=-1.9, seed=0, n_border=0, waves=False,
+                n_levels=3):
     """A smoothed blocky texture, its bilinear shift by (dx, dy), the
-    pyramids of both and N points away from the border (4 invalid).
+    pyramids of both (n_levels above the image) and N points away from the
+    border (4 invalid).
     ``n_border`` extra points lie within 30 px of the borders and corners;
     ``waves`` puts the texture on long waves that LK follows at coarse levels."""
     rng = np.random.default_rng(seed)
@@ -70,7 +73,8 @@ def _shift_case(dev, H=480, W=640, N=96, dx=2.7, dy=-1.9, seed=0, n_border=0, wa
     pts = torch.as_tensor(pts, dtype=torch.float32, device=dev)
     valid = torch.ones(len(pts), dtype=torch.bool, device=dev)
     valid[:4] = False
-    return gaussian_pyramid(img0, 3), gaussian_pyramid(img1, 3), pts, valid, (dx, dy)
+    return (gaussian_pyramid(img0, n_levels), gaussian_pyramid(img1, n_levels), pts, valid,
+            (dx, dy))
 
 
 @pytest.mark.parametrize("win,iters", [(klt.WIN, klt.N_ITERS), (15, klt.REFINE_ITERS)])
@@ -165,6 +169,70 @@ def test_fused_without_refine_and_with_fewer_levels(dev):
         assert (kp[kok] - pp[kok]).abs().max().item() < TIGHT_PX
 
 
+def test_fused_six_and_seven_levels(dev):
+    """n_levels 6 and 7 at 1280x960 (level 7 is 8 x 10 px, the last the
+    level loop runs) with and without the refine pass, in both modes; the
+    wrapper names the kernel's cap beyond it."""
+    pyr0, pyr1, pts, valid, (dx, dy) = _shift_case(dev, 960, 1280, N=64, n_levels=8)
+    for n_levels in (6, 7):
+        for refine in (0, 15):
+            kp, kok = klt_cuda.pyramidal_lk(pyr0, pyr1, pts, valid, n_levels, refine_win=refine)
+            pp, pok = klt.pyramidal_lk(pyr0, pyr1, pts, valid, n_levels, refine_win=refine)
+            assert torch.equal(kok, pok) and kok.sum().item() >= len(pts) // 2
+            assert (kp[kok] - pp[kok]).abs().max().item() < TIGHT_PX
+        kp, kok = klt_cuda.pyramidal_lk_pallas(pyr0, pyr1, pts, valid, n_levels)
+        pp, pok = klt.pyramidal_lk_pallas(pyr0, pyr1, pts, valid, n_levels)
+        assert torch.equal(kok, pok) and kok.sum().item() >= len(pts) // 2
+        assert (kp[kok] - pp[kok]).abs().max().item() < TIGHT_PX
+    assert min(pyr0[7].shape) == 8
+    for wrapper in (klt_cuda.pyramidal_lk, klt_cuda.pyramidal_lk_pallas):
+        with pytest.raises(ValueError, match=f"MAX_LEVELS = {klt_cuda.max_levels()}"):
+            wrapper(pyr0, pyr1, pts, valid, 8)
+
+
+@pytest.mark.parametrize("size,N,n_border", [((960, 1280), 192, 64), ((384, 512), 96, 32)])
+def test_pallas_mode_matches_plain(dev, size, N, n_border):
+    """The kernel's Pallas-geometry mode at the main path's shape (N = 256)
+    and the dual-PAL tracker's (N = 128), border and corner points
+    included: one launch, ok identical to the plain version's, positions
+    within TIGHT_PX, the known shift recovered, every valid feature's
+    iterations within the limit, and a bit-identical repeat."""
+    pyr0, pyr1, pts, valid, (dx, dy) = _shift_case(dev, *size, N=N, n_border=n_border,
+                                                   dx=3.3, dy=-2.6)
+    before = (klt_cuda.pyramidal_lk_pallas.launches, klt_cuda.lk_pyramid.launches,
+              klt_cuda.lk_level.launches)
+    kp, kok, iters = klt_cuda.pyramidal_lk_pallas(pyr0, pyr1, pts, valid, 3, return_iters=True)
+    torch.cuda.synchronize()
+    assert (klt_cuda.pyramidal_lk_pallas.launches, klt_cuda.lk_pyramid.launches,
+            klt_cuda.lk_level.launches) == (before[0] + 1, before[1], before[2])
+    pp, pok = klt.pyramidal_lk_pallas(pyr0, pyr1, pts, valid, 3)
+    assert torch.equal(kok, pok)
+    assert kok[:N].sum().item() >= N - 10 and 4 <= kok[N:].sum().item() < n_border
+    assert (kp[kok] - pp[kok]).abs().max().item() < TIGHT_PX
+    truth = pts + torch.tensor([dx, dy], device=dev)
+    assert torch.linalg.norm(kp[kok] - truth[kok], dim=-1).median().item() < 0.35
+    assert iters.shape == (len(pts), 4) and (iters[:4] == -1).all()
+    assert (iters[kok] >= 0).all() and (iters <= klt.N_ITERS).all()
+    for _ in range(2):
+        again = klt_cuda.pyramidal_lk_pallas(pyr0, pyr1, pts, valid, 3)
+        assert torch.equal(again[0], kp) and torch.equal(again[1], kok)
+
+
+def test_pallas_mode_reaches_past_the_klt_patch(dev):
+    """A 9.3 px shift at level 0 alone: klt.py's geometry (offsets in [0,
+    12]) loses it, the Pallas geometry's ([0, 22] x [0, 214]) keeps it, on
+    the card as in the plain version."""
+    pyr0, pyr1, pts, valid, (dx, dy) = _shift_case(dev, dx=9.3, dy=3.4, n_levels=0)
+    kp, kok = klt_cuda.pyramidal_lk_pallas(pyr0, pyr1, pts, valid, 0)
+    pp, pok = klt.pyramidal_lk_pallas(pyr0, pyr1, pts, valid, 0)
+    assert torch.equal(kok, pok) and kok.sum().item() >= len(pts) - 10
+    assert (kp[kok] - pp[kok]).abs().max().item() < TIGHT_PX
+    truth = pts + torch.tensor([dx, dy], device=dev)
+    assert torch.linalg.norm(kp[kok] - truth[kok], dim=-1).median().item() < 0.35
+    fp, fok = klt_cuda.pyramidal_lk(pyr0, pyr1, pts, valid, 0)
+    assert (fok & (torch.linalg.norm(fp - truth, dim=-1) < 0.5)).sum().item() < len(pts) // 4
+
+
 def test_pyramid_matches_plain_and_truth(dev):
     """The level loop on the host over the one-level wrapper (refine pass
     included): five launches, agreement with the plain version, the known
@@ -241,6 +309,25 @@ def test_frontend_on_cuda_runs_through_the_kernel(dev):
     before = klt_cuda.lk_pyramid.launches, klt_cuda.lk_level.launches
     outs = [fe.process_arrays(world.render(k / 15), k / 15) for k in range(3)]
     assert (klt_cuda.lk_pyramid.launches, klt_cuda.lk_level.launches) == (before[0] + 2, before[1])
+    assert outs[2][4].sum() > 60
+
+
+def test_frontend_use_pallas_runs_through_the_pallas_mode(dev):
+    """FrontEnd(use_pallas=True) on the card: one launch of the kernel's
+    Pallas mode per tracked frame, none of the other wrappers."""
+    from lfvio_tpu_torch.runtime import FrontEnd
+    from lfvio_tpu_torch.runtime.synthetic import (
+        SYN_MAX_R, SYN_MIN_R, SyntheticWorld, make_synthetic_pal_camera)
+
+    world = SyntheticWorld(camera=make_synthetic_pal_camera(), device=dev)
+    kw = dict(max_cnt=120, min_dist=15, n_slots=160, annulus=(256, 192, SYN_MAX_R, SYN_MIN_R),
+              use_pallas=True, refine_win=15)
+    fe = FrontEnd(world.camera, (world.height, world.width), device=dev, **kw)
+    before = (klt_cuda.pyramidal_lk_pallas.launches, klt_cuda.lk_pyramid.launches,
+              klt_cuda.lk_level.launches)
+    outs = [fe.process_arrays(world.render(k / 15), k / 15) for k in range(3)]
+    assert (klt_cuda.pyramidal_lk_pallas.launches, klt_cuda.lk_pyramid.launches,
+            klt_cuda.lk_level.launches) == (before[0] + 2, before[1], before[2])
     assert outs[2][4].sum() > 60
 
 
