@@ -21,8 +21,11 @@ lines; any failure ends the run with a non-zero exit code:
      then the kernel's Pallas-geometry mode (klt.pyramidal_lk_pallas, the
      function of the JAX package's Pallas kernel, which FrontEnd(use_pallas=
      True) runs) against its plain version at 1280x960 / N = 256 and
-     512x384 / N = 128 with border points, a bit-identical repeat, and its
-     times and bound;
+     512x384 / N = 128 with border points and at level 0 alone with shifts
+     of 9.3 and 14.6 px (the latter carries windows out of the band of the
+     search window the mode stages, so that it stages the band again), a
+     bit-identical repeat, a histogram of the band's restages, and its
+     times, latency floor and bound;
   4. the main path at full width, synchronous (solve lag 1, depth 1):
      VioPipeline(FrontEnd, Estimator) fed the bench.py configuration
      (1280x960, CLAHE, 256 slots, max_cnt 200, 15 Hz frames, 200 Hz IMU,
@@ -450,10 +453,24 @@ def phase_kernel_vs_plain(dev):
                              ms_launched_alone=levels_alone, **common)}
 
 
+# The Pallas mode's times before it staged a band (each iteration read its
+# taps from the level images through L1), on an NVIDIA H100 80GB HBM3 at
+# 700 W with this phase's inputs: ms a frame behind a full queue, ms with 0
+# iterations, us an iteration over the longest chain.
+PALLAS_L1_DESIGN = dict(ms=0.0376, ms_zero_iterations=0.0178, us_per_iteration=1.161)
+
+
+def restage_histogram(restages):
+    """{restages: feature-passes} over the passes that ran."""
+    r = restages[restages >= 0].cpu().numpy()
+    return {int(v): int((r == v).sum()) for v in np.unique(r)}
+
+
 def phase_pallas_mode(dev):
     """The kernel's Pallas-geometry mode against its plain version on the
     same inputs, at the shapes FrontEnd(use_pallas=True) gives it, with
-    times in turns (plain, kernel, kernel, plain) and its bound."""
+    times in turns (plain, kernel, kernel, plain), its latency floor and
+    its bound."""
     import torch
     from lfvio_tpu_torch.frontend import klt, klt_cuda
 
@@ -463,12 +480,14 @@ def phase_pallas_mode(dev):
     H, W, N = 960, 1280, 256
     shift = (3.3, -2.6)
     case = lk_case(dev, H, W, N, shift)
-    kp, kok, iters = klt_cuda.pyramidal_lk_pallas(*case, 3, return_iters=True)
+    kp, kok, iters, restages = klt_cuda.pyramidal_lk_pallas(*case, 3, return_iters=True,
+                                                            return_restages=True)
     torch.cuda.synchronize()
     errs.append(compare_lk("Pallas mode 1280x960", (kp, kok), plain(case), N - 4, True))
     truth = case[2] + torch.tensor(shift, device=dev)
     med_true = torch.linalg.norm(kp[kok] - truth[kok], dim=-1).median().item()
-    log(f"[3] Pallas mode 1280x960: median |kernel - truth| {med_true:.3f} px (< 0.35)")
+    log(f"[3] Pallas mode 1280x960: median |kernel - truth| {med_true:.3f} px (< 0.35); band "
+        f"restages per feature and level {restage_histogram(restages)}")
     if med_true >= 0.35 or int(kok.sum()) < N - 16:
         raise AssertionError("the Pallas mode does not recover the shift")
     again = kernel(case)
@@ -487,6 +506,20 @@ def phase_pallas_mode(dev):
                            klt.pyramidal_lk_pallas(*fcase, 0), N - 4, True))
     if int(fout[1].sum()) < N - 16:
         raise AssertionError("the Pallas mode loses the far shift at level 0")
+    # A shift that carries windows out of the band the kernel stages around
+    # a pass's first offset, so that it stages the band again. LK past ~9 px
+    # finds wrong minima on this texture: recovery is not asserted.
+    wcase = lk_case(dev, H, W, N, (14.6, 2.2))
+    wp, wok, wrest = klt_cuda.pyramidal_lk_pallas(*wcase, 0, return_restages=True)
+    errs.append(compare_lk("Pallas mode, 14.6 px at level 0 alone (wander)", (wp, wok),
+                           klt.pyramidal_lk_pallas(*wcase, 0), N - 4, True))
+    wagain = klt_cuda.pyramidal_lk_pallas(*wcase, 0, return_restages=True)
+    if not all(torch.equal(a, b) for a, b in zip((wp, wok, wrest), wagain)):
+        raise AssertionError("the Pallas mode does not repeat bit for bit in the wander case")
+    log(f"[3] Pallas mode wander: repeat bit-identical; band restages per feature "
+        f"{restage_histogram(wrest)}")
+    if not bool((wrest > 0).any()):
+        raise AssertionError("the wander case never restages the Pallas mode's band")
 
     block = make_blocker(dev)
     plain_a = cuda_ms(lambda: plain(case))
@@ -496,6 +529,9 @@ def phase_pallas_mode(dev):
     k_cold = cuda_ms(lambda: kernel(case), blocker=block)
     plain_b = cuda_ms(lambda: plain(case))
     k_ms, plain_ms = float(np.median(k_t)), 0.5 * (plain_a + plain_b)
+    none_valid = torch.zeros_like(case[3])
+    k_exit = cuda_ms(lambda: klt_cuda.pyramidal_lk_pallas(*case[:3], none_valid, 3), reps=10,
+                     blocker=block)
     limit, klt.N_ITERS = klt.N_ITERS, 0  # the wrapper reads it at each call
     try:
         k_setup = cuda_ms(lambda: kernel(case), reps=10, blocker=block)
@@ -508,19 +544,25 @@ def phase_pallas_mode(dev):
     per_feature = it.clip(min=0).sum(1)[case[3].cpu().numpy()]
     log(f"[3] Pallas mode, iterations per valid feature over the 4 levels: mean "
         f"{per_feature.mean():.2f}, max {int(per_feature.max())} of {sum(p[2] for p in passes)}")
+    old = PALLAS_L1_DESIGN
     log(f"[3] Pallas mode per frame (4 levels, N={N}, {W}x{H}), on the card: {k_ms:.4f} ms (min "
         f"{min(k_t):.4f}; L2 cold {k_cold:.4f}); launched alone, host cost included: "
         f"{k_alone:.4f} ms; plain {plain_a:.3f} / {plain_b:.3f} ms (medians of 20 "
-        f"CUDA-event-timed samples, in turns: plain, kernel, kernel, plain)")
+        f"CUDA-event-timed samples, in turns: plain, kernel, kernel, plain); before the band "
+        f"(taps through L1, H100 80GB HBM3, 700 W): {old['ms']:.4f} ms")
     log(f"[3] Pallas mode bound {bound:.5f} ms by {by}: {nbytes / 1e6:.3f} MB, "
         f"{ops / 1e9:.4f} GFLOP; the launch is at {100 * bound / k_ms:.1f}% of it")
     chain = int(per_feature.max())
-    log(f"[3] Pallas mode with 0 iterations {k_setup:.4f} ms (launch, template work); the rest "
-        f"over the longest chain of {chain} iterations is "
-        f"{1e3 * (k_ms - k_setup) / chain:.3f} us per iteration")
+    per_it = (k_ms - k_setup) / chain
+    log(f"[3] Pallas mode latency floor: with no valid feature the launch takes {k_exit:.4f} ms "
+        f"(launch and exit), with 0 iterations {k_setup:.4f} ms (launch, staging, template "
+        f"work); the rest over the longest chain of {chain} iterations is "
+        f"{1e3 * per_it:.3f} us per iteration, so the iterations alone set a floor of "
+        f"{chain * per_it:.4f} ms; before the band {old['ms_zero_iterations']:.4f} ms with 0 "
+        f"iterations and {old['us_per_iteration']:.3f} us per iteration")
     return dict(max_abs_err=max(errs), ms=k_ms, ms_l2_cold=k_cold, ms_launched_alone=k_alone,
-                ms_zero_iterations=k_setup, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                library_ms=None)
+                ms_zero_iterations=k_setup, ms_no_valid_feature=k_exit, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by, library_ms=None)
 
 
 def count_plain_lk():

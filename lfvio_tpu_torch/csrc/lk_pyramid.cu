@@ -47,11 +47,15 @@
 //    buffer while the current pass iterates.
 //
 // Not used, and why. TMA: its out-of-range fill is zero, not the edge
-// value, and a 54-float box at an arbitrary column is 216 B wide and not
-// 16-byte aligned. Tensor cores: with one fractional offset per window a
-// bilinear sample is a 4-tap stencil (about 8 operations per tap); the
-// banded shift-matrix products that fed the TPU's matrix unit cost about
-// 50 times that arithmetic.
+// value, so it could serve only patches wholly inside the image, and klt.py's
+// 54-float box at an arbitrary column is 216 B wide and not 16-byte aligned;
+// the Pallas geometry's band (below) is aligned, but 16-byte cp.async copies
+// already make its staging one instruction per 16 bytes, and a TMA copy
+// would still need the clamped path at the image's edges: not tried.
+// Tensor cores: with one fractional offset per window a bilinear sample is
+// a 4-tap stencil (about 8 operations per tap); the banded shift-matrix
+// products that fed the TPU's matrix unit cost about 50 times that
+// arithmetic.
 //
 // Block shape: THREADS = 256 threads, one block per feature. A window row
 // is cut into ceil(win / run) runs of run = ceil(win / (256 / win)) taps:
@@ -68,36 +72,58 @@
 // launch and exit, 22 the five passes' set-up (staging, template sample,
 // structure tensor) and 11 the iterations, 0.6 us each in the longest
 // chain (chip_smoke.py phase 3). The set-up makes about 160 warp-wide 4-byte
-// cp.async copies per block and pass; staging an aligned superset of each
-// patch with 16-byte copies where it lies inside the image is the next
-// step to try.
+// cp.async copies per block and pass; the Pallas geometry below stages
+// with 16-byte copies, which this geometry's 54-column patches do not yet.
 //
 // The Pallas geometry (klt.py::pyramidal_lk_pallas, the function of the JAX
-// package's Pallas kernel klt_pallas.py::pyramidal_lk_pallas) is a mode of
-// the same kernel, chosen per launch by a template argument, with no refine
-// pass. Per level it differs from klt.py's in where its patches lie: the
-// template patch is 56 x 256 and the search patch 64 x 256 of the level
-// padded by 30 and then edge-padded to whole (8, 128) tiles (Ht x Wt, which
-// the wrapper computes per level and passes in LkLevels), both from
-// origins aligned down to 8 rows and 128 columns; in-patch offsets are
-// clamped to [0, 22] x [0, 214] (rows and columns apart), so a feature may
-// move much further within a level; a template tap outside its patch reads
-// 0, where klt.py's mode reads the edge value.
+// package's Pallas kernel klt_pallas.py::pyramidal_lk_pallas) is a second
+// kernel, lk_pallas_kernel, over the same body (lk_pyramid_body<true>),
+// launched by the same entry, with no refine pass. Per level it differs
+// from klt.py's in where its patches lie: the template patch is 56 x 256
+// and the search patch 64 x 256 of the level padded by 30 and then
+// edge-padded to whole (8, 128) tiles (Ht x Wt, which the wrapper computes
+// per level and passes in LkLevels), both from origins aligned down to 8
+// rows and 128 columns; in-patch offsets are clamped to [0, 22] x [0, 214]
+// (rows and columns apart), so a feature may move much further within a
+// level; a template tap outside its patch reads 0, where klt.py's mode
+// reads the edge value.
 //
 // That search window is 64 KB of float32 per feature and pass, over the 48
 // KB of dynamic shared memory a block has without opt-in, and an iteration
-// reads only the 42 x 42 taps around its offset. So this mode stages
-// nothing: the template sample and every iteration's taps are read
-// straight from the level images through the L1 cache (the read-only
-// path), with the pad as an index clamp and the tile-aligned pad as the
-// same clamp (both replicate the edge). The iterations move by sub-pixel
-// steps, so after the first one the taps hit in L1; the two pyramids of a
-// 1280x960 frame (13 MB) stay in the 50 MB L2. Shared memory holds only the
-// (win+2)^2 template sample: 7,396 B at win 41. Staging the whole window
-// with the opt-in (227 KB a block) would copy 64 KB per feature and pass
-// through L2 into shared memory, 5.6 times the taps klt.py's mode stages
-// (64 x 256 against 54 x 54), for taps of which one iteration reads a
-// seventh.
+// at offset (iy, ix) reads only the (win+1)^2 = 42 x 42 taps of rows
+// iy .. iy + win and columns ix .. ix + win. Since 22 + win + 1 = 64 = SROWS
+// at win 41 every row is reachable, but only the columns around the
+// offset. So this geometry stages a band: all SROWS rows and band_cols(win)
+// = 60 columns (win + 1, SEARCH_MARGIN on either side and 3 for the
+// alignment, rounded up to whole 16-byte chunks), 15,360 B at win 41,
+// around the pass's first column offset. An iteration whose window leaves
+// the band restages it around its own offset: every thread holds the same
+// guess bit for bit, so the test is uniform over the block, and a restage
+// costs one copy and one barrier. The band holds the floats the padded
+// level holds (the pad and the tile-aligned pad both replicate the edge,
+// so both are the same index clamp), and an iteration reads two
+// shared-memory rows with no test and no clamp, klt.py's mode's loop. The
+// template buffer holds the (win+3)^2 taps the (win+2)^2 sample reads, 0
+// where a tap lies outside the 56 x 256 patch and the clamped level
+// elsewhere, so the sample has no test either. Both start on an image
+// column that is a multiple of 4, so 4 columns that lie inside the image
+// (and the patch) go as one 16-byte cp.async (the levels' rows are 16-byte
+// aligned where W % 4 == 0, as at 1280/640/320/160 and 512/256/128/64),
+// the rest tap by tap. As in klt.py's mode, the band is fetched while the
+// template sample and the structure tensor are computed, and the next
+// pass's template while this pass iterates. Dynamic shared memory at win
+// 41: the band, two template buffers of 44 x 48 floats and the 43^2 sample
+// = 39,652 B. Left free, the compiler took 124 registers for this body;
+// lk_pallas_kernel's launch bounds (three blocks an SM) hold it to 80 with
+// no spills (with 4-byte template copies it spilled 24 B at that cap).
+//
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W, same frame, 4 levels
+// (chip_smoke.py phase 3): 31.5 us per frame, 16% under the 37.6 us of the
+// design it replaced, which staged nothing and read every tap from the
+// level images through L1 with the clamps. 3.5 us launch and exit, 21 us
+// set-up (4.3 us a pass, as klt.py's mode; 17.8 us before), 0.62 us an
+// iteration over the longest chain of 17 (1.16 before; klt.py's mode 0.59
+// in the same run); at 9.7% of the bytes bound. No PyTorch call computes it.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -shared -Xcompiler -fPIC
@@ -143,6 +169,10 @@ __device__ __forceinline__ void cp_async4(float* dst_shared, const float* src_gl
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst_shared);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src_global));
 }
+__device__ __forceinline__ void cp_async16(float* dst_shared, const float* src_global) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst_shared);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src_global));
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -177,14 +207,110 @@ __device__ __forceinline__ void template_corner(const LkLevels& L, int lvl, int 
   }
 }
 
-// Pointer to row y (padded coordinates) of a level padded by pad with edge
-// replication, and column x of it: the pad is an index clamp.
-__device__ __forceinline__ const float* padded_row(const float* img, int H, int stride, int pad,
-                                                   int y) {
-  return img + (size_t)min(max(y - pad, 0), H - 1) * stride;
+// Copy image columns x .. x + 3 of the row at src, clamped into [0, W), to
+// the 16-byte aligned d: one 16-byte cp.async where the four lie inside the
+// image and the row is 16-byte aligned (x is a multiple of 4), else one
+// 4-byte cp.async per tap.
+__device__ __forceinline__ void stage_chunk(float* d, const float* src, int x, int W) {
+  if (((uintptr_t)src & 15) == 0 && x >= 0 && x + 3 < W) {
+    cp_async16(d, src + x);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) cp_async4(d + j, src + min(max(x + j, 0), W - 1));
+  }
 }
-__device__ __forceinline__ int padded_col(int W, int pad, int x) {
-  return min(max(x - pad, 0), W - 1);
+
+// The Pallas geometry's template buffer: win + 3 rows (the taps of the
+// (win+2)^2 sample) of template_cols floats, a multiple of 4 that holds the
+// win + 3 taps of a row from a column up to 3 left of the first; and that
+// shift, which puts the buffer's column 0 on an image column that is a
+// multiple of 4. (tlx, ix): the template patch's first padded column and
+// the sample's first patch column.
+__host__ __device__ __forceinline__ int template_cols(int win) { return (win + 9) / 4 * 4; }
+__device__ __forceinline__ int template_shift(int tlx, int ix, int pad) {
+  return (tlx + ix - pad) & 3;
+}
+
+// The Pallas geometry's template: patch top-left (tly, tlx) in the padded
+// level and the patch position (iy, ix) of the (win+2)^2 sample's first tap,
+// offset one pixel up-left, as the pass computes them.
+__device__ __forceinline__ void pallas_template_origin(const LkLevels& L, int lvl, int win,
+                                                       int pad, float px, float py, int* tly,
+                                                       int* tlx, int* iy, int* ix) {
+  template_corner<true>(L, lvl, win, pad, px, py, tly, tlx);
+  *iy = (int)floorf(py - (float)*tly - (float)(win / 2) - 1.0f);
+  *ix = (int)floorf(px - (float)*tlx - (float)(win / 2) - 1.0f);
+}
+
+// Stage the template taps of a pass into dst. klt.py's geometry: the
+// (win+4)^2 patch. The Pallas geometry: the taps its sample reads, 0 where a
+// patch position lies outside the TROWS x LANES patch (its banded shift
+// matrices give no weight there), the padded level elsewhere; a half-warp
+// per row, 16 bytes at a time where the four taps lie inside the patch.
+template <bool PALLAS>
+__device__ __forceinline__ void stage_template(float* dst, const LkLevels& L, int lvl, int win,
+                                               int pad, float px, float py) {
+  const int H = L.H[lvl], W = L.W[lvl], stride = L.stride[lvl];
+  int tly, tlx;
+  if constexpr (PALLAS) {
+    int iy, ix;
+    pallas_template_origin(L, lvl, win, pad, px, py, &tly, &tlx, &iy, &ix);
+    const int ld = template_cols(win), sh = template_shift(tlx, ix, pad);
+    const int x0 = tlx + ix - pad - sh, xx0 = ix - sh;  // image and patch column of column 0
+    for (int r = threadIdx.x >> 4; r < win + 3; r += THREADS / 16) {
+      const int yy = iy + r;
+      const bool row_in = yy >= 0 && yy < TROWS;
+      const float* src = L.prev[lvl] + (size_t)min(max(tly + yy - pad, 0), H - 1) * stride;
+      for (int q = (threadIdx.x & 15) * 4; q < ld; q += 64) {
+        float* d = dst + r * ld + q;
+        const int xx = xx0 + q;
+        if (row_in && xx >= 0 && xx + 3 < LANES) {
+          stage_chunk(d, src, x0 + q, W);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            if (row_in && xx + j >= 0 && xx + j < LANES)
+              cp_async4(d + j, src + min(max(x0 + q + j, 0), W - 1));
+            else
+              d[j] = 0.0f;
+          }
+        }
+      }
+    }
+  } else {
+    template_corner<false>(L, lvl, win, pad, px, py, &tly, &tlx);
+    stage_patch(dst, L.prev[lvl], H, W, stride, pad, tly, tlx, win + 4);
+  }
+}
+
+// The Pallas geometry's band: columns of one row (a multiple of 4, so that
+// every row starts on a 16-byte boundary), and the image column of its
+// column 0 for a window whose first tap is at image column x: x - m aligned
+// down to 4, m = (band_cols - win - 4) / 2 >= SEARCH_MARGIN, which leaves
+// the window m to m + 3 columns of band on its left and as many, give or
+// take one, on its right (7..10 and 8..11 at win 41).
+__host__ __device__ __forceinline__ int band_cols(int win) {
+  return (win + 2 * SEARCH_MARGIN + 7) / 4 * 4;
+}
+__device__ __forceinline__ int band_origin(int x, int win) {
+  return (x - (band_cols(win) - win - 4) / 2) & ~3;
+}
+
+// Stage the SROWS x bw band whose row 0 is padded row sly and whose column 0
+// is image column c0 (a multiple of 4, maybe outside the image): the floats
+// the padded level holds there, a half-warp per row.
+__device__ __forceinline__ void stage_band(float* dst, const float* img, int H, int W, int stride,
+                                           int pad, int sly, int c0, int bw) {
+  for (int r = threadIdx.x >> 4; r < SROWS; r += THREADS / 16) {
+    const float* src = img + (size_t)min(max(sly + r - pad, 0), H - 1) * stride;
+    for (int q = (threadIdx.x & 15) * 4; q < bw; q += 64)
+      stage_chunk(dst + r * bw + q, src, c0 + q, W);
+  }
+}
+
+// Floats of one template buffer of a launch whose largest window is wmax.
+__host__ __device__ __forceinline__ int template_floats(int wmax, bool pallas) {
+  return pallas ? (wmax + 3) * template_cols(wmax) : (wmax + 4) * (wmax + 4);
 }
 
 __device__ __forceinline__ float tap(const float* P, int n, int y, int x) {
@@ -217,15 +343,17 @@ __device__ __forceinline__ void block_sum(float (&v)[K], float (*scratch)[3][NWA
   row ^= 1;
 }
 
+// The kernel's body, one instance per geometry; the two kernels below
+// differ only in their launch bounds.
 template <bool PALLAS>
-__global__ void __launch_bounds__(THREADS)
-lk_pyramid_kernel(const __grid_constant__ LkLevels L, const __grid_constant__ LkPasses P,
-                  const float* __restrict__ pts,
-                  const uint8_t* __restrict__ valid, const float* __restrict__ guess_in,
-                  int pad, int has_refine, float refine_max_move,
-                  float* __restrict__ pts_out, uint8_t* __restrict__ ok_out,
-                  float* __restrict__ guess_out, int* __restrict__ iters_out) {
-  extern __shared__ float smem[];
+__device__ __forceinline__ void
+lk_pyramid_body(const LkLevels& L, const LkPasses& P, const float* __restrict__ pts,
+                const uint8_t* __restrict__ valid, const float* __restrict__ guess_in,
+                int pad, int has_refine, float refine_max_move,
+                float* __restrict__ pts_out, uint8_t* __restrict__ ok_out,
+                float* __restrict__ guess_out, int* __restrict__ iters_out,
+                int* __restrict__ restages_out) {
+  extern __shared__ __align__(16) float smem[];
   __shared__ float scratch[2][3][NWARPS];
 
   const int f = blockIdx.x;
@@ -233,12 +361,14 @@ lk_pyramid_kernel(const __grid_constant__ LkLevels L, const __grid_constant__ Lk
 
   int wmax = 1;
   for (int p = 0; p < P.n; ++p) wmax = max(wmax, P.win[p]);
-  const int tp_max = (wmax + 4) * (wmax + 4);
-  const int patch_max = (wmax + 1 + 2 * SEARCH_MARGIN) * (wmax + 1 + 2 * SEARCH_MARGIN);
-  float* tbuf = smem;                           // two template patches, used in turn
-  float* spatch = smem + 2 * tp_max;            // search patch
-  // The (win+2)^2 template sample; the Pallas geometry stages no patch.
-  float* text = PALLAS ? smem : spatch + patch_max;
+  const int tp_max = template_floats(wmax, PALLAS);
+  const int patch_max = PALLAS ? SROWS * band_cols(wmax)
+                               : (wmax + 1 + 2 * SEARCH_MARGIN) * (wmax + 1 + 2 * SEARCH_MARGIN);
+  // Two template patches, used in turn, and the search patch; the Pallas
+  // geometry's band comes first, 16-byte aligned for its copies.
+  float* tbuf = PALLAS ? smem + patch_max : smem;
+  float* spatch = PALLAS ? smem : smem + 2 * tp_max;
+  float* text = PALLAS ? tbuf + 2 * tp_max : spatch + patch_max;  // the (win+2)^2 template sample
 
   const float px0 = pts[2 * f], py0 = pts[2 * f + 1];
   bool ok = valid[f] != 0;
@@ -251,14 +381,11 @@ lk_pyramid_kernel(const __grid_constant__ LkLevels L, const __grid_constant__ Lk
   int p = 0;
   while (p < P.n && !P.run[p]) ++p;
   int lvl_prev = p < P.n ? P.lvl[p] : 0;
-  if (!PALLAS && ok && p < P.n) {
+  if (ok && p < P.n) {
     const int lvl = P.lvl[p];
     const float inv = 1.0f / (float)(1 << lvl);
-    int tly, tlx;
-    template_corner<false>(L, lvl, P.win[p], pad, px0 * inv + (float)pad, py0 * inv + (float)pad,
-                    &tly, &tlx);
-    stage_patch(tbuf, L.prev[lvl], L.H[lvl], L.W[lvl], L.stride[lvl], pad, tly, tlx,
-                P.win[p] + 4);
+    stage_template<PALLAS>(tbuf, L, lvl, P.win[p], pad, px0 * inv + (float)pad,
+                           py0 * inv + (float)pad);
   }
   cp_async_commit();
 
@@ -284,14 +411,21 @@ lk_pyramid_kernel(const __grid_constant__ LkLevels L, const __grid_constant__ Lk
     const float px = px0 * inv + (float)pad;  // padded coordinates, as klt.py
     const float py = py0 * inv + (float)pad;
     const float gx_in = gx, gy_in = gy;
+    const float hi_y = (float)((PALLAS ? SROWS : patch) - win - 1);
+    const float hi_x = (float)((PALLAS ? LANES : patch) - win - 1);
 
     // The search patch depends on the guess: fetch it now, use it after the
-    // template work below. The Pallas geometry's is read in the iterations.
-    int sly, slx;
+    // template work below. The Pallas geometry fetches the band around the
+    // first iteration's column offset; bc is the band's first image column.
+    int sly, slx, bc = 0;
+    const int bw = band_cols(win);
     if constexpr (PALLAS) {
       sly = min(max((int)floorf(py + gy) - half - SEARCH_MARGIN, 0), L.Ht[lvl] - SROWS) / 8 * 8;
       slx = min(max((int)floorf(px + gx) - half - SEARCH_MARGIN, 0), L.Wt[lvl] - LANES) / 128 *
             128;
+      const float ox = fminf(fmaxf(px + gx - (float)slx - (float)half, 0.0f), hi_x);
+      bc = band_origin(slx - pad + (int)floorf(ox), win);
+      stage_band(spatch, L.next[lvl], H, W, L.stride[lvl], pad, sly, bc, bw);
     } else {
       sly = min(max((int)floorf(py + gy) - half - SEARCH_MARGIN, 0), Hp - patch);
       slx = min(max((int)floorf(px + gx) - half - SEARCH_MARGIN, 0), Wp - patch);
@@ -323,26 +457,13 @@ lk_pyramid_kernel(const __grid_constant__ LkLevels L, const __grid_constant__ Lk
         const int n_out = min(trun, te - tc0);
         const int y = iy + tr, x = ix + tc0;
         float* __restrict__ out = text + tr * te + tc0;
-        if constexpr (PALLAS) {
-          // Patch (yy, xx) is the padded level's (tly + yy, tlx + xx); a tap
-          // outside the TROWS x LANES patch reads 0.
-          const float* img = L.prev[lvl];
-          const int stride = L.stride[lvl];
-          auto tap_at = [&](int yy, int xx) {
-            return (yy >= 0 && yy < TROWS && xx >= 0 && xx < LANES)
-                       ? __ldg(padded_row(img, H, stride, pad, tly + yy) +
-                               padded_col(W, pad, tlx + xx))
-                       : 0.0f;
-          };
-          float v0 = wy * tap_at(y, x) + fy * tap_at(y + 1, x);
-          for (int c = 0; c < n_out; ++c) {
-            const float v1 = wy * tap_at(y, x + c + 1) + fy * tap_at(y + 1, x + c + 1);
-            out[c] = wx * v0 + fx * v1;
-            v0 = v1;
-          }
-        } else if (iy >= 0 && ix >= 0 && iy + te < tp && ix + te < tp) {  // all taps in the patch
-          const float* __restrict__ q0 = T0 + y * tp + x;
-          const float* __restrict__ q1 = q0 + tp;
+        if (PALLAS || (iy >= 0 && ix >= 0 && iy + te < tp && ix + te < tp)) {  // all taps staged
+          // The Pallas geometry staged the sample's own taps from (iy, ix),
+          // shifted right by template_shift.
+          const int ld = PALLAS ? template_cols(win) : tp;
+          const float* __restrict__ q0 =
+              T0 + (PALLAS ? tr * ld + template_shift(tlx, ix, pad) + tc0 : y * tp + x);
+          const float* __restrict__ q1 = q0 + ld;
           float v0 = wy * q0[0] + fy * q1[0];
 #pragma unroll 4
           for (int c = 0; c < n_out; ++c) {
@@ -405,24 +526,19 @@ lk_pyramid_kernel(const __grid_constant__ LkLevels L, const __grid_constant__ Lk
 
     // The next pass's template patch depends only on the feature position:
     // fetch it into the other buffer while this pass iterates.
-    if (!PALLAS && nxt < P.n && good_G) {
+    if (nxt < P.n && good_G) {
       const int nl = P.lvl[nxt];
       const float ninv = 1.0f / (float)(1 << nl);
-      int tly, tlx;
-      template_corner<false>(L, nl, P.win[nxt], pad, px0 * ninv + (float)pad,
-                      py0 * ninv + (float)pad, &tly, &tlx);
-      stage_patch(tbuf + (cur ^ 1) * tp_max, L.prev[nl], L.H[nl], L.W[nl], L.stride[nl], pad, tly, tlx,
-                  P.win[nxt] + 4);
+      stage_template<PALLAS>(tbuf + (cur ^ 1) * tp_max, L, nl, P.win[nxt], pad,
+                             px0 * ninv + (float)pad, py0 * ninv + (float)pad);
     }
     cp_async_commit();
     cp_async_wait<1>();  // the search patch has arrived
     __syncthreads();
 
     const float base_sy = (float)sly, base_sx = (float)slx;
-    const float hi_y = (float)((PALLAS ? SROWS : patch) - win - 1);
-    const float hi_x = (float)((PALLAS ? LANES : patch) - win - 1);
     bool live = good_G;
-    int k = 0;
+    int k = 0, restages = 0;
     for (; k < n_iters && live; ++k) {
       // Offsets in [0, hi_y] x [0, hi_x] keep every tap, the +1 ones
       // included, inside the search patch: no bounds test in this loop.
@@ -431,31 +547,34 @@ lk_pyramid_kernel(const __grid_constant__ LkLevels L, const __grid_constant__ Lk
       const float fy0 = floorf(oy), fx0 = floorf(ox);
       const float fy = oy - fy0, fx = ox - fx0;
       const float wy = 1.0f - fy, wx = 1.0f - fx;
+      // The staged patch's column of the window's first tap. The Pallas
+      // geometry's window must lie inside the band, or the band is staged
+      // again around it: every thread holds the same guess, so all of them
+      // take this branch or none, after the last iteration's reads (they
+      // came before the barrier of its sums).
+      int col = (int)fx0;
+      if constexpr (PALLAS) {
+        col = slx - pad + (int)fx0 - bc;
+        if (col < 0 || col > bw - 1 - win) {
+          bc = band_origin(slx - pad + (int)fx0, win);
+          stage_band(spatch, L.next[lvl], H, W, L.stride[lvl], pad, sly, bc, bw);
+          cp_async_commit();
+          cp_async_wait<0>();
+          __syncthreads();
+          col = slx - pad + (int)fx0 - bc;
+          ++restages;
+        }
+      }
       float b[2] = {0.0f, 0.0f};
       if (cnt > 0) {
-        // Two rows of taps: the staged patch's, or the padded level's
-        // (tile-aligned padding replicates the edge too) with column c at
-        // padded_col(xb + c).
-        const float *q0, *q1;
-        int xb = 0;
-        if constexpr (PALLAS) {
-          const int y = sly + (int)fy0 + r;
-          q0 = padded_row(L.next[lvl], H, L.stride[lvl], pad, y);
-          q1 = padded_row(L.next[lvl], H, L.stride[lvl], pad, y + 1);
-          xb = slx + (int)fx0 + c0;
-        } else {
-          q0 = spatch + ((int)fy0 + r) * patch + (int)fx0 + c0;
-          q1 = q0 + patch;
-        }
-        auto at = [&](const float* q, int c) {
-          if constexpr (PALLAS) return __ldg(q + padded_col(W, pad, xb + c));
-          else return q[c];
-        };
-        float v0 = wy * at(q0, 0) + fy * at(q1, 0);  // rows first, then columns
+        const int ld = PALLAS ? bw : patch;
+        const float* q0 = spatch + ((int)fy0 + r) * ld + col + c0;  // two rows of taps
+        const float* q1 = q0 + ld;
+        float v0 = wy * q0[0] + fy * q1[0];  // rows first, then columns
 #pragma unroll
         for (int c = 0; c < MAX_RUN; ++c) {
           if (c < cnt) {
-            const float v1 = wy * at(q0, c + 1) + fy * at(q1, c + 1);
+            const float v1 = wy * q0[c + 1] + fy * q1[c + 1];
             const float res = (wx * v0 + fx * v1) - T[c];
             b[0] += Tx[c] * res;
             b[1] += Ty[c] * res;
@@ -471,6 +590,7 @@ lk_pyramid_kernel(const __grid_constant__ LkLevels L, const __grid_constant__ Lk
       live = dx * dx + dy * dy > 1e-4f;
     }
     if (t == 0 && iters_out != nullptr) iters_out[f * P.n + p] = k;
+    if (PALLAS && t == 0 && restages_out != nullptr) restages_out[f * P.n + p] = restages;
 
     // Border validity in real-image coordinates, and the sample window must
     // have stayed inside the search patch.
@@ -508,10 +628,35 @@ lk_pyramid_kernel(const __grid_constant__ LkLevels L, const __grid_constant__ Lk
   }
 }
 
+__global__ void __launch_bounds__(THREADS)
+lk_pyramid_kernel(const __grid_constant__ LkLevels L, const __grid_constant__ LkPasses P,
+                  const float* __restrict__ pts,
+                  const uint8_t* __restrict__ valid, const float* __restrict__ guess_in,
+                  int pad, int has_refine, float refine_max_move,
+                  float* __restrict__ pts_out, uint8_t* __restrict__ ok_out,
+                  float* __restrict__ guess_out, int* __restrict__ iters_out) {
+  lk_pyramid_body<false>(L, P, pts, valid, guess_in, pad, has_refine, refine_max_move, pts_out,
+                         ok_out, guess_out, iters_out, nullptr);
+}
+
+// Three blocks an SM hold the Pallas geometry to 80 registers: left free,
+// the compiler takes 124 for the same loop and buys nothing with them.
+__global__ void __launch_bounds__(THREADS, 3)
+lk_pallas_kernel(const __grid_constant__ LkLevels L, const __grid_constant__ LkPasses P,
+                 const float* __restrict__ pts,
+                 const uint8_t* __restrict__ valid, const float* __restrict__ guess_in,
+                 int pad, float* __restrict__ pts_out, uint8_t* __restrict__ ok_out,
+                 float* __restrict__ guess_out, int* __restrict__ iters_out,
+                 int* __restrict__ restages_out) {
+  lk_pyramid_body<true>(L, P, pts, valid, guess_in, pad, 0, 0.0f, pts_out, ok_out, guess_out,
+                        iters_out, restages_out);
+}
+
 // Dynamic shared memory of a launch whose largest window is wmax.
 static size_t lk_pyramid_smem(int wmax, bool pallas) {
-  const int tp = wmax + 4, patch = wmax + 1 + 2 * SEARCH_MARGIN, te = wmax + 2;
-  return sizeof(float) * (size_t)((pallas ? 0 : 2 * tp * tp + patch * patch) + te * te);
+  const int patch = wmax + 1 + 2 * SEARCH_MARGIN, te = wmax + 2;
+  const int search = pallas ? SROWS * band_cols(wmax) : patch * patch;
+  return sizeof(float) * (size_t)(2 * template_floats(wmax, pallas) + search + te * te);
 }
 
 // MAX_LEVELS, which the wrapper names when it refuses a deeper pyramid.
@@ -522,7 +667,9 @@ extern "C" int lk_pyramid_max_levels(void) { return MAX_LEVELS; }
 // n_passes ints in the order the passes run.
 // guess_in (the flow to start from, at the first pass's scale), pts_out,
 // guess_out (the flow found, at the last pass's scale) and
-// iters_out may be null. Returns the CUDA error code of the launch, or -1
+// iters_out may be null; so may restages_out, which the Pallas geometry
+// fills with the times each feature's band was staged again in each pass.
+// Returns the CUDA error code of the launch, or -1
 // for arguments the kernel does not take.
 extern "C" int lk_pyramid_launch(const void* const* prev, const void* const* next,
                                  const int* H, const int* W, const int* stride, const int* Ht,
@@ -532,7 +679,7 @@ extern "C" int lk_pyramid_launch(const void* const* prev, const void* const* nex
                                  int has_refine, float refine_max_move, const float* pts,
                                  const uint8_t* valid, const float* guess_in, int n, int pad,
                                  float* pts_out, uint8_t* ok_out, float* guess_out,
-                                 int* iters_out, void* stream) {
+                                 int* iters_out, int* restages_out, void* stream) {
   if (n == 0) return 0;
   if (n_levels < 1 || n_levels > MAX_LEVELS || n_passes < 0 || n_passes > MAX_PASSES) return -1;
   LkLevels L = {};
@@ -571,11 +718,10 @@ extern "C" int lk_pyramid_launch(const void* const* prev, const void* const* nex
   const size_t smem = lk_pyramid_smem(wmax, pallas != 0);
   if (smem > 48 * 1024) return -1;
   if (pallas)
-    lk_pyramid_kernel<true><<<n, THREADS, smem, (cudaStream_t)stream>>>(
-        L, P, pts, valid, guess_in, pad, 0, refine_max_move, pts_out, ok_out, guess_out,
-        iters_out);
+    lk_pallas_kernel<<<n, THREADS, smem, (cudaStream_t)stream>>>(
+        L, P, pts, valid, guess_in, pad, pts_out, ok_out, guess_out, iters_out, restages_out);
   else
-    lk_pyramid_kernel<false><<<n, THREADS, smem, (cudaStream_t)stream>>>(
+    lk_pyramid_kernel<<<n, THREADS, smem, (cudaStream_t)stream>>>(
         L, P, pts, valid, guess_in, pad, has_refine, refine_max_move, pts_out, ok_out,
         guess_out, iters_out);
   return (int)cudaGetLastError();

@@ -16,7 +16,7 @@ up to ``n_iters`` Gauss-Newton steps run with a per-feature convergence mask.
 ``pyramidal_lk_pallas`` is the function of the JAX package's Pallas kernel
 (``lfvio_tpu.frontend.klt_pallas``), whose patch geometry differs: wider
 patches at tile-aligned origins, so a feature may move further within a
-level, and no refine pass. The same kernel runs it as a mode of its own.
+level, and no refine pass. A second kernel of the same source runs it.
 """
 
 from __future__ import annotations

@@ -11,8 +11,9 @@ the refine pass of a frame in one launch. ``pyramidal_lk``, which the
 FrontEnd calls, is that wrapper. ``lk_level`` is the wrapper of one level
 step from a given guess (``klt.track_level``): a launch of the same kernel
 with a one-row pass table. ``pyramidal_lk_pallas`` is the wrapper of the
-kernel's Pallas-geometry mode (``klt.pyramidal_lk_pallas``, one launch a
-frame), which ``FrontEnd(use_pallas=True)`` calls. On a CUDA tensor a
+source's Pallas-geometry kernel (``klt.pyramidal_lk_pallas``, one launch a
+frame, staging a band of the search window), which
+``FrontEnd(use_pallas=True)`` calls. On a CUDA tensor a
 wrapper launches the kernel on the current stream or raises; there is no
 fallback. On a CPU tensor it runs the plain version in ``klt.py``. Each
 wrapper's ``launches`` counts its kernel launches.
@@ -104,18 +105,19 @@ _fn = None
 
 
 def _launch(name, pyr_prev, pyr_next, shapes, passes, has_refine, pts, valid, ok_out,
-            guess=None, pts_out=None, guess_out=None, iters=None, pallas=False):
-    """One launch of ``lk_pyramid_kernel`` on the current stream of the
-    tensors' card. ``passes`` are rows (level, window, iterations, skipped)
-    in the order they run; ``guess``, ``pts_out``, ``guess_out`` and
-    ``iters`` may be None; ``pallas`` selects the Pallas geometry. Raises
-    if the launch fails."""
+            guess=None, pts_out=None, guess_out=None, iters=None, restages=None, pallas=False):
+    """One launch of ``lk_pyramid_kernel`` (with ``pallas``,
+    ``lk_pallas_kernel``) on the current stream of the tensors' card.
+    ``passes`` are rows (level, window, iterations, skipped) in the order
+    they run; ``guess``, ``pts_out``, ``guess_out``, ``iters``
+    and ``restages`` may be None; ``pallas`` selects the Pallas geometry.
+    Raises if the launch fails."""
     global _fn
     if _fn is None:
         fn = library("lk_pyramid").lk_pyramid_launch
         P, I = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [P, P, P, P, P, P, P, I, I, P, P, P, P, I, I, ctypes.c_float,
-                       P, P, P, I, I, P, P, P, P, P]
+                       P, P, P, I, I, P, P, P, P, P, P]
         fn.restype = ctypes.c_int
         _fn = fn
     dev = pts.device
@@ -132,7 +134,7 @@ def _launch(name, pyr_prev, pyr_next, shapes, passes, has_refine, pts, valid, ok
             *(ints([p[k] for p in passes]) for k in range(4)), len(passes),
             int(has_refine), klt.REFINE_MAX_MOVE,
             pts.data_ptr(), valid.data_ptr(), ptr(guess), pts.shape[0], klt.PAD,
-            ptr(pts_out), ok_out.data_ptr(), ptr(guess_out), ptr(iters),
+            ptr(pts_out), ok_out.data_ptr(), ptr(guess_out), ptr(iters), ptr(restages),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err == -1:
@@ -244,12 +246,15 @@ class LkPyramidKernel:
     """Wrapper of one fused LK launch a frame, counted in its own
     ``launches``. ``pallas=False``: the signature of ``klt.pyramidal_lk``,
     (pyr_prev, pyr_next, pts [N,2], valid [N] bool, n_levels, refine_win)
-    -> (pts_next [N,2], ok [N] bool). ``pallas=True``: the kernel's
-    Pallas-geometry mode, the function of ``klt.pyramidal_lk_pallas``, which
-    has no refine pass (``refine_win`` must be 0). With ``return_iters`` a
-    third result, int32 [N, passes], holds the Gauss-Newton iterations each
-    feature took in each pass (levels coarse to fine, then the refine pass;
-    -1 where the pass did not run for it)."""
+    -> (pts_next [N,2], ok [N] bool). ``pallas=True``: the
+    Pallas-geometry kernel, the function of ``klt.pyramidal_lk_pallas``,
+    which has no refine pass (``refine_win`` must be 0). With ``return_iters`` a
+    further result, int32 [N, passes], holds the Gauss-Newton iterations
+    each feature took in each pass (levels coarse to fine, then the refine
+    pass; -1 where the pass did not run for it). With ``return_restages``
+    (the Pallas geometry only) a last one, of the same form, holds the times
+    each feature's search band was staged again in each pass, its window
+    having left the band."""
 
     def __init__(self, pallas: bool = False):
         self.pallas = pallas
@@ -257,10 +262,13 @@ class LkPyramidKernel:
         self.launches = 0
 
     def __call__(self, pyr_prev, pyr_next, pts_prev, valid, n_levels: int = 3,
-                 refine_win: int = 0, return_iters: bool = False):
+                 refine_win: int = 0, return_iters: bool = False,
+                 return_restages: bool = False):
         name = self.name
         if self.pallas and refine_win:
             raise ValueError(f"{name}: the Pallas geometry has no refine pass")
+        if return_restages and not self.pallas:
+            raise ValueError(f"{name}: only the Pallas geometry stages a band")
         shapes, dtype = _check_pyramids(pyr_prev, pyr_next, n_levels)
         dev = pyr_prev[0].device
         N = pts_prev.shape[0]
@@ -269,8 +277,8 @@ class LkPyramidKernel:
             ("valid", valid, (N,), torch.bool),
         ))
         if dev.type != "cuda":
-            if return_iters:
-                raise ValueError(f"{name}: iteration counts come from the kernel only")
+            if return_iters or return_restages:
+                raise ValueError(f"{name}: iteration and restage counts come from the kernel only")
             if self.pallas:
                 return klt.pyramidal_lk_pallas(pyr_prev, pyr_next, pts_prev, valid, n_levels)
             return klt.pyramidal_lk(pyr_prev, pyr_next, pts_prev, valid, n_levels, refine_win)
@@ -278,14 +286,15 @@ class LkPyramidKernel:
                              klt.REFINE_ITERS)
         pts_out = torch.empty((N, 2), dtype=torch.float32, device=dev)
         ok_out = torch.empty((N,), dtype=torch.bool, device=dev)
-        iters = (torch.full((N, len(passes)), -1, dtype=torch.int32, device=dev)
-                 if return_iters else None)
+        counts = lambda want: (torch.full((N, len(passes)), -1, dtype=torch.int32, device=dev)
+                               if want else None)
+        iters, restages = counts(return_iters), counts(return_restages)
         if N:  # an empty grid is no launch
             _launch(name, pyr_prev, pyr_next, shapes, passes, bool(refine_win),
                     pts_prev.contiguous(), valid.contiguous(), ok_out, pts_out=pts_out,
-                    iters=iters, pallas=self.pallas)
+                    iters=iters, restages=restages, pallas=self.pallas)
             self.launches += 1
-        return (pts_out, ok_out, iters) if return_iters else (pts_out, ok_out)
+        return (pts_out, ok_out) + tuple(c for c in (iters, restages) if c is not None)
 
 
 lk_pyramid = LkPyramidKernel()

@@ -233,6 +233,30 @@ def test_pallas_mode_reaches_past_the_klt_patch(dev):
     assert (fok & (torch.linalg.norm(fp - truth, dim=-1) < 0.5)).sum().item() < len(pts) // 4
 
 
+@pytest.mark.parametrize("dx,dy", [(9.3, 3.4), (14.6, 2.2)])
+def test_pallas_mode_restages_its_band(dev, dx, dy):
+    """Shifts at level 0 alone that carry windows out of the band of columns
+    the Pallas mode stages around a pass's first offset, so that the kernel
+    stages it again: ok identical to the plain version's, positions within
+    TIGHT_PX, a bit-identical repeat, a restage count for every feature
+    whose pass ran, and some feature restaged. Past ~9 px LK on this
+    texture finds wrong minima too, so recovery is not asserted."""
+    pyr0, pyr1, pts, valid, _ = _shift_case(dev, dx=dx, dy=dy, n_levels=0)
+    kp, kok, iters, restages = klt_cuda.pyramidal_lk_pallas(pyr0, pyr1, pts, valid, 0,
+                                                            return_iters=True,
+                                                            return_restages=True)
+    pp, pok = klt.pyramidal_lk_pallas(pyr0, pyr1, pts, valid, 0)
+    assert torch.equal(kok, pok)
+    assert (kp[kok] - pp[kok]).abs().max().item() < TIGHT_PX
+    assert restages.shape == iters.shape == (len(pts), 1)
+    assert torch.equal(restages < 0, iters < 0) and torch.equal(restages[:, 0] >= 0, valid)
+    assert (restages > 0).any() and (restages <= iters).all()
+    for _ in range(2):
+        again = klt_cuda.pyramidal_lk_pallas(pyr0, pyr1, pts, valid, 0, return_restages=True)
+        assert torch.equal(again[0], kp) and torch.equal(again[1], kok)
+        assert torch.equal(again[2], restages)
+
+
 def test_pyramid_matches_plain_and_truth(dev):
     """The level loop on the host over the one-level wrapper (refine pass
     included): five launches, agreement with the plain version, the known
@@ -290,6 +314,8 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
             klt_cuda.pyramidal_lk(*bad, 3, refine_win=15)
     with pytest.raises(ValueError, match="lk_pyramid"):  # the limit is the kernel's own
         klt_cuda.pyramidal_lk(pyr0, pyr1, pts, valid, 3, refine_win=300)
+    with pytest.raises(ValueError, match="band"):  # only the Pallas geometry restages
+        klt_cuda.pyramidal_lk(pyr0, pyr1, pts, valid, 3, return_restages=True)
     # No feature: empty results, and no launch to count.
     none = klt_cuda.pyramidal_lk(pyr0, pyr1, pts[:0], valid[:0], 3, refine_win=15)
     assert none[0].shape == (0, 2) and none[1].shape == (0,)

@@ -57,6 +57,11 @@ def _case(name):
         # klt.py's search offsets stay in [0, 12], 6 px either way; the
         # Pallas geometry's reach [0, 22] x [0, 214].
         return (9.3, 3.4), inside, valid, 0
+    if name == "wander_at_level_0":
+        # Far enough that windows leave the band of columns the kernel
+        # stages around a pass's first offset (SEARCH_MARGIN px and more
+        # either way), so the kernel restages it.
+        return (14.6, 2.2), inside, valid, 0
     # Features by the right and bottom edges, the outermost just outside
     # the image (where a template tap lies outside its patch).
     edge = lambda size: np.linspace(size - 28, size + 20, N // 2)
@@ -82,10 +87,13 @@ def _edge_geometry(pts):
     return clamps, (last_col >= 256) | (last_row >= 56)
 
 
-@pytest.mark.parametrize("name", ["shift", "far_at_level_0", "edges"])
+@pytest.mark.parametrize("name", ["shift", "far_at_level_0", "wander_at_level_0", "edges"])
 def test_plain_pallas_lk_matches_jax(name):
     """The plain pyramidal_lk_pallas against the JAX function (interpret
-    mode): ok equal, every track within TRACK_PX."""
+    mode): ok equal, every track within TRACK_PX. In the wander case valid
+    features move past the kernel's band in their one pass; on this 8-px
+    block texture LK past ~9 px finds wrong minima, so recovery is not
+    asserted there."""
     shift, pts, valid, n_levels = _case(name)
     img0 = _textured(H, W)
     img1 = _shifted(img0, -shift[0], -shift[1])
@@ -105,6 +113,9 @@ def test_plain_pallas_lk_matches_jax(name):
         clamps, zero_tap = _edge_geometry(pts[valid])
         assert clamps.any() and zero_tap.any()
         assert 4 <= ok.sum() <= N - 4  # features leave the image: a mix
+    elif name == "wander_at_level_0":
+        moved = np.linalg.norm(t_pts.numpy() - pts, axis=-1)[valid]
+        assert moved.max() > klt.SEARCH_MARGIN + 2
     else:
         assert ok.sum() >= N - 4 and np.median(err[ok]) < 0.35
     if name == "far_at_level_0":
