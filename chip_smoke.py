@@ -16,7 +16,8 @@ lines; any failure ends the run with a non-zero exit code:
      launch over the whole pyramid with the refine pass, one level step (a
      one-pass launch) at win 41 / 20 iterations and win 15 / 10, the host
      level loop over that step, border and corner points at 1280x960 and
-     512x384, a shift that loses tracks, a bit-identical repeat, and
+     512x384, the high-rate configuration's 384 features at 1280x960
+     (interior, then with border points), a shift that loses tracks, a bit-identical repeat, and
      CUDA-event times in turns with the roofline bound of this run's work;
      then the kernel's Pallas-geometry mode (klt.pyramidal_lk_pallas, the
      function of the JAX package's Pallas kernel, which FrontEnd(use_pallas=
@@ -29,7 +30,8 @@ lines; any failure ends the run with a non-zero exit code:
   4. the main path at full width, synchronous (solve lag 1, depth 1):
      VioPipeline(FrontEnd, Estimator) fed the bench.py configuration
      (1280x960, CLAHE, 256 slots, max_cnt 200, 15 Hz frames, 200 Hz IMU,
-     window 10, publish 10 Hz) over a 6 s synthetic stream, on the card;
+     window 10, publish 10 Hz) over a 6 s synthetic stream, on the card,
+     every piece built by lfvio_tpu_torch.bench.workload;
      frames/s over the post-warm-up 40%; the estimator's solve and
      marginalization as CUDA graph replays; exactly one fused LK launch per
      tracked frame and the eigensolver kernel (csrc/sym_eig.cu) launched in
@@ -77,9 +79,10 @@ lines; any failure ends the run with a non-zero exit code:
      CPU; f32 at the main path's window (11 keyframes, 256 slots a segment)
      through the scaling bench's rows at 1x1, 2x1 and 2x2;
  14. the estimator's device programs: the eigensolver kernel against
-     torch.linalg.eigh on the main path's inputs (the [256, 4, 4] DLT
-     matrices of a triangulation, RANSAC's [100, 9, 9] / [1, 9, 9] and
-     [100, 3, 3] / [1, 3, 3]), with CUDA-event times beside the shared-
+     torch.linalg.eigh on the main path's inputs at 256 and 384 slots (the
+     [256, 4, 4] and [384, 4, 4] DLT matrices of a triangulation, RANSAC's
+     [100, 9, 9] / [1, 9, 9] and [100, 3, 3] / [1, 3, 3] over 256 and 384
+     slots), with CUDA-event times beside the shared-
      memory kernel's, the
      bound and a histogram of the Jacobi sweeps each matrix took; each
      program's graph replay against the same function run eagerly on the
@@ -89,7 +92,18 @@ lines; any failure ends the run with a non-zero exit code:
      graph run's); the card's ms per replay, the graphs captured and their
      capture seconds; each MARGIN_OLD's and SECOND_NEW's QR prior against
      the eigh one in f64 on the parity streams and phases 4 and 6 (JᵀJ and
-     Jᵀr within 2e-6 of the scale, or the run fails).
+     Jᵀr within 2e-6 of the scale, or the run fails);
+ 15. the bench, ``python -m lfvio_tpu_torch.bench`` in a process of its own
+     from the repository root, in bench.py's default configuration (a) and
+     its high-rate one (b: 30 Hz, max_cnt 300, window 20, 384 slots;
+     bench.py:71-72): each exits 0 with one JSON line on stdout (the metric's
+     name, a finite positive frames/s), one fused LK launch per tracked frame
+     and eigensolver launches in its timed window, ATE < 0.5 m, its figures
+     logged; (a) initializes during its warm-up; (b) is run once more over
+     12 s if it did not initialize within its 6 s, and must then initialize.
+
+The kernels line's launches add up the whole runs of phases 4, 6, 8, 9 and
+15, each counted from 0.
 
 Prints one JSON line with each kernel's numbers, then the card's line, and
 last {"ok": true, "device": {...}}. Imports neither JAX nor the JAX package.
@@ -110,6 +124,9 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+from lfvio_tpu_torch import bench
+
+REPO = os.path.dirname(os.path.abspath(__file__))
 REPLACES = {"lk_pyramid": "lfvio_tpu/frontend/klt_pallas.py:86 (_lk_level_kernel)",
             "lk_level": "lfvio_tpu/frontend/klt_pallas.py:86 (_lk_level_kernel)",
             "lk_pyramid_pallas": "lfvio_tpu/frontend/klt_pallas.py:86 (_lk_level_kernel; its "
@@ -137,11 +154,7 @@ def log(msg):
     print(msg, flush=True)
 
 
-def smi_line():
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+smi_line = bench.smi_line
 
 
 def cuda_times(fn, n=20, warmup=3, reps=1, blocker=None):
@@ -369,6 +382,13 @@ def phase_kernel_vs_plain(dev):
         errs.append(compare_lk(f"dual-PAL shape 512x384, N=128, {n_border} at the borders",
                                fused(dcase), plain(dcase), 124, True))
 
+    # The high-rate configuration's shape (bench.py:71-72): 384 slots, 384
+    # blocks. Interior points, then border and corner points among them.
+    for n_border in (0, 64):
+        hcase = lk_case(dev, H, W, 384, shift, n_border=n_border, seed=3)
+        errs.append(compare_lk(f"high-rate shape 1280x960, N=384, {n_border} at the borders",
+                               fused(hcase), plain(hcase), 380, n_border > 0))
+
     # Lost tracks: 5.6 px of flow at level 3 leaves the search patch for a
     # part of the features, and border points leave the image.
     lcase = lk_case(dev, H, W, N, (44.8, -41.6), n_border=32, smooth=True)
@@ -380,8 +400,9 @@ def phase_kernel_vs_plain(dev):
 
     # One level step (a one-pass launch of the kernel) at each window, same guess.
     g0 = torch.zeros_like(pts_t)
+    level_errs = []
     for win, n_it in ((klt.WIN, klt.N_ITERS), (15, klt.REFINE_ITERS)):
-        errs.append(compare_lk(
+        level_errs.append(compare_lk(
             f"lk_level, level 0, win {win}/{n_it} it",
             klt_cuda.lk_level(pyr0[0], pyr1[0], pts_t, g0, valid, win, n_it),
             klt.track_level(pyr0[0], pyr1[0], pts_t, g0, valid, win, n_it), N - 4, True))
@@ -446,10 +467,10 @@ def phase_kernel_vs_plain(dev):
         f"iteration, so the iterations alone set a floor of "
         f"{chain * per_it:.4f} ms")
     common = dict(plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None)
-    return {"lk_pyramid": dict(max_abs_err=max(errs[:6]), ms=fused_ms, ms_l2_cold=fused_cold,
+    return {"lk_pyramid": dict(max_abs_err=max(errs), ms=fused_ms, ms_l2_cold=fused_cold,
                                ms_launched_alone=fused_alone, ms_zero_iterations=fused_setup,
                                **common),
-            "lk_level": dict(max_abs_err=max(lerr, *errs[6:]), ms=levels_ms,
+            "lk_level": dict(max_abs_err=max(lerr, *level_errs), ms=levels_ms,
                              ms_launched_alone=levels_alone, **common)}
 
 
@@ -686,44 +707,19 @@ def log_stage_timers(rec):
                 f"{float(np.median(vals)):.3f} ms, max {max(vals):.3f} ms")
 
 
-FULL_SCALE_SECONDS = 6.0
+FULL_SCALE = bench.config_from_env({})  # bench.py's default configuration
+FULL_SCALE_SECONDS = FULL_SCALE.duration
+# The ATE bound of bench.py's configurations as bench.py runs them (phases 6
+# and 15) and of the EuRoC run (phase 9).
+FULL_SCALE_ATE_M = 0.5
 
 
 def full_scale_rig(dev):
-    """bench.py's configuration on the card: the synthetic world, its event
-    stream with the frames rendered, and a maker of fresh (FrontEnd,
-    Estimator, VioPipeline) triples."""
-    import torch
-    from lfvio_tpu_torch.runtime import Estimator, EstimatorConfig, FrontEnd, VioPipeline
-    from lfvio_tpu_torch.runtime.synthetic import (
-        MINDVISION_POLY, SyntheticWorld, fit_inverse_poly, scaramuzza_camera)
-
-    W, H = 1280, 960
-    cam = scaramuzza_camera(MINDVISION_POLY, fit_inverse_poly(MINDVISION_POLY, max_rho=510.0),
-                            W, H, dtype=torch.float32)
-    world = SyntheticWorld(camera=cam, width=W, height=H, dtype=torch.float32, device=dev)
-    stream = world.generate(FULL_SCALE_SECONDS, 15.0, 200.0)
-    frames = {e[1]: world.render_u8(e[1]) for e in stream if e[0] == "frame"}
-    torch.cuda.synchronize()
-
-    def make(solve_lag=1, depth=1, **fe_kw):
-        fe = FrontEnd(cam, (H, W), max_cnt=200, min_dist=20, n_slots=256,
-                      annulus=(W / 2.0, H / 2.0, 500.0 * 0.95, 160.0), equalize=True,
-                      dtype=torch.float32, device=dev, **fe_kw)
-        est = Estimator(EstimatorConfig(n_feature_slots=256, solver_dtype=torch.float32,
-                                        max_imu_per_interval=64, solve_lag=solve_lag,
-                                        device_chain=True, device=dev))
-        return fe, est, VioPipeline(fe, est, freq=10.0, depth=depth)
-
-    return world, stream, frames, make
-
-
-def feed(pipe, items, frames):
-    for it in items:
-        if it[0] == "imu":
-            pipe.feed_imu(it[1], it[2], it[3])
-        else:
-            pipe.feed_frame(it[1], frames[it[1]])
+    """bench.py's configuration on the card, from bench.workload: the
+    synthetic world, its event stream with the frames rendered, and a maker
+    of fresh (FrontEnd, Estimator, VioPipeline) triples,
+    ``make(solve_lag, depth, **fe_kw)``: (world, stream, frames, make)."""
+    return bench.workload(FULL_SCALE, dev)
 
 
 def trajectory_ate(world, est):
@@ -735,13 +731,7 @@ def trajectory_ate(world, est):
     return ate_rmse(times, np.asarray(est.traj_p), times, gt)
 
 
-def reset_launches():
-    """Set every kernel wrapper's launch count to 0."""
-    from lfvio_tpu_torch.frontend import klt_cuda
-    from lfvio_tpu_torch.geom.eigh_cuda import sym_eig
-
-    klt_cuda.lk_pyramid.launches = klt_cuda.lk_level.launches = sym_eig.launches = 0
-    klt_cuda.pyramidal_lk_pallas.launches = 0
+reset_launches = bench.reset_launches
 
 
 def sync_checked(fn, rec, key):
@@ -787,7 +777,7 @@ def finalizes_inside(est):
 def run_full_scale(tag, rig, plain_calls, solve_lag, depth, profile=False, sync_check=False,
                    graphs=True, marg_record=None, fe_kw=None):
     """The full-scale stream through a fresh pipeline at (solve_lag,
-    depth), the FrontEnd built with ``fe_kw``:
+    depth), the FrontEnd built with ``fe_kw``, timed by bench.timed_window:
     warm-up on the first 60%, frames/s over the rest, the launch counts of
     the run (set to 0 just before it), the trajectory checks. With
     ``sync_check`` every FrontEnd.dispatch, Estimator.process_image_arrays
@@ -798,13 +788,11 @@ def run_full_scale(tag, rig, plain_calls, solve_lag, depth, profile=False, sync_
     marginalization's QR-against-eigh information difference
     (record_marg_information). Returns dict(fe, est, stages, launches,
     sym_launches, fps, ate, host_ms)."""
-    import torch
     from lfvio_tpu_torch.frontend import klt_cuda
     from lfvio_tpu_torch.geom.eigh_cuda import sym_eig
 
-    world, stream, frames, make = rig
     fe_kw = fe_kw or {}
-    fe, est, pipe = make(solve_lag, depth, **fe_kw)
+    fe, est, pipe = rig.make(solve_lag, depth, **fe_kw)
     # The FrontEnd's LK wrapper, and the other two, which it must not use.
     lk, *others = ((klt_cuda.pyramidal_lk_pallas, klt_cuda.lk_pyramid, klt_cuda.lk_level)
                    if fe_kw.get("use_pallas") else
@@ -816,42 +804,35 @@ def run_full_scale(tag, rig, plain_calls, solve_lag, depth, profile=False, sync_
 
     tracked = count_calls(fe, "_step_impl")
     padded = count_level_pads()
-    reset_launches()
-    plain_calls["n"] = 0
-    t_split = FULL_SCALE_SECONDS * 0.6
-    warm = [it for it in stream if it[1] <= t_split]
-    rest = [it for it in stream if it[1] > t_split]
-    t0 = time.perf_counter()
-    feed(pipe, warm, frames)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    host_ms = {}
-    if sync_check:
+    host_ms, inner = {}, {}
+
+    def install_sync_checks():
         fe.dispatch = sync_checked(fe.dispatch, host_ms, "FrontEnd.dispatch")
         est._dispatch_solve = sync_checked(est._dispatch_solve, host_ms,
                                            "Estimator._dispatch_solve")
-        inner = finalizes_inside(est)
+        inner["count"] = finalizes_inside(est)
         est.process_image_arrays = sync_checked(est.process_image_arrays, host_ms,
                                                 "Estimator.process_image_arrays")
-    feed(pipe, rest, frames)
-    pipe.flush()
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
+
+    reset_launches()
+    plain_calls["n"] = 0
+    win = bench.timed_window(pipe, rig, FULL_SCALE_SECONDS * bench.WARMUP_SHARE,
+                             install_sync_checks if sync_check else None)
     if sync_check:  # what runs on these objects later may wait
         del fe.dispatch, est._dispatch_solve, est.process_image_arrays, est.finalize_solve
         log(f"{tag} solves finalized inside Estimator.process_image_arrays after the warm-up: "
-            f"{inner['n']}")
-        if inner["n"]:
+            f"{inner['count']['n']}")
+        if inner["count"]["n"]:
             raise AssertionError("the pipeline's process_image_arrays finalized a solve")
     launches, sym_launches = lk.launches, sym_eig.launches
-    n_timed = sum(1 for it in rest if it[0] == "frame")
-    fps = n_timed / (t2 - t1)
+    n_timed = win.frames_timed
+    fps = n_timed / win.seconds
     times = np.asarray(est.times)
     traj = np.asarray(est.traj_p)
     n_graphs, capture_s = est.graph_stats()
     log(f"{tag} solve lag {solve_lag}, depth {depth}, programs "
-        f"{'as CUDA graphs' if graphs else 'eager'}: warm-up {t1 - t0:.2f} s; timed {n_timed} "
-        f"frames in {t2 - t1:.3f} s = "
+        f"{'as CUDA graphs' if graphs else 'eager'}: warm-up {win.warmup_s:.2f} s; timed "
+        f"{n_timed} frames in {win.seconds:.3f} s = "
         f"{fps:.3f} frames/s; solves {len(times)}; tracked frames {tracked['n']}; fused LK "
         f"launches {klt_cuda.lk_pyramid.launches}; Pallas-mode launches "
         f"{klt_cuda.pyramidal_lk_pallas.launches}; one-level launches "
@@ -875,7 +856,7 @@ def run_full_scale(tag, rig, plain_calls, solve_lag, depth, profile=False, sync_
         raise AssertionError("the estimator's programs were not captured as CUDA graphs")
     if sync_check and len(host_ms.get("Estimator._dispatch_solve", [])) < 5:
         raise AssertionError("too few steady-state solves under the sync check")
-    ate, n = trajectory_ate(world, est)
+    ate, n = trajectory_ate(rig.world, est)
     log(f"{tag} ATE {ate:.4f} m over {n} poses; first solve at t = {times[0]:.4f} s")
     if n != len(times):
         raise AssertionError("not as many trajectory poses as solves")
@@ -904,8 +885,8 @@ def phase_bench_configuration(rig, plain_calls, run4):
     log(f"[6] frames/s at lag 2 / depth 3: {fps:.3f}, beside phase 4's lag 1 / depth 1: "
         f"{run4['fps']:.3f} (ratio {fps / run4['fps']:.3f}); ATE {ate:.4f} m beside "
         f"{run4['ate']:.4f} m")
-    if not ate < 0.5:
-        raise AssertionError("lag-2 / depth-3 ATE is not below 0.5 m")
+    if not ate < FULL_SCALE_ATE_M:
+        raise AssertionError(f"lag-2 / depth-3 ATE is not below {FULL_SCALE_ATE_M} m")
     if abs(float(run["est"].times[0]) - float(run4["est"].times[0])) > 1e-9:
         raise AssertionError("lag 2 / depth 3 initialized on another frame than lag 1 / depth 1")
     return run
@@ -1386,8 +1367,8 @@ def phase_euroc(rig, plain_calls):
         f"level images padded {padded['n']}; sym_eig launches {sym_launches}")
     if est.solver_flag != est.NON_LINEAR or len(times) <= 25 or n != len(times):
         raise AssertionError("EuRoC run did not initialize, or too few poses")
-    if not (np.isfinite(traj).all() and ate < 0.5):
-        raise AssertionError("EuRoC ATE is not below 0.5 m")
+    if not (np.isfinite(traj).all() and ate < FULL_SCALE_ATE_M):
+        raise AssertionError(f"EuRoC ATE is not below {FULL_SCALE_ATE_M} m")
     if (launches == 0 or launches != tracked["n"] or klt_cuda.lk_level.launches != 0
             or plain_calls["n"] != 0 or padded["n"] != 0):
         raise AssertionError("the EuRoC path's LK is not one fused launch per tracked frame")
@@ -1835,11 +1816,12 @@ GRAPH_F64 = 1e-9
 GRAPH_ATE_M = 1e-3
 
 
-def main_path_eig_inputs(dev):
+def main_path_eig_inputs(dev, N=256):
     """The symmetric matrices the main path hands the eigensolver, recorded
-    from the calls themselves: a triangulation of make_window_problem(256)
+    from the calls themselves: a triangulation of make_window_problem(N)
     (the full-scale window, f32) and one RANSAC (100 hypotheses and the refit
-    over 256 slots of bearings seen all around the rig, 40 outliers)."""
+    over N slots of bearings seen all around the rig, 40 outliers). N = 256
+    is bench.py's default configuration, 384 its high-rate one."""
     import torch
     from lfvio_tpu_torch.backend import triangulate as tri
     from lfvio_tpu_torch.frontend import ransac
@@ -1851,9 +1833,8 @@ def main_path_eig_inputs(dev):
         seen.append(A.clone())
         return torch.linalg.eigh(A)
 
-    pb = make_window_problem(256, torch.float32, device=dev)
+    pb = make_window_problem(N, torch.float32, device=dev)
     rng = np.random.default_rng(5)
-    N = 256
     X = rng.standard_normal((N, 3))
     X *= rng.uniform(2.0, 8.0, (N, 1)) / np.linalg.norm(X, axis=-1, keepdims=True)
     R = np.linalg.qr(rng.standard_normal((3, 3)))[0]
@@ -1868,11 +1849,11 @@ def main_path_eig_inputs(dev):
     tri.sym_eig = ransac.sym_eig = record
     try:
         tri.triangulate_grid(pb["state"], pb["grid"],
-                             torch.zeros(256, dtype=torch.bool, device=dev))
+                             torch.zeros(N, dtype=torch.bool, device=dev))
         ransac.spherical_ransac_e(uni, tt(X), tt(X2), valid)
     finally:
         tri.sym_eig, ransac.sym_eig = saved
-    return seen  # [256,4,4], [100,9,9], [100,3,3], [1,9,9], [1,3,3]
+    return seen  # [N,4,4], [100,9,9], [100,3,3], [1,9,9], [1,3,3]
 
 
 def eig_errors(A, w, V, w_ref, V_ref, posed_gap):
@@ -1916,7 +1897,7 @@ SHARED_MEMORY_EIG_MS = {(256, 4, 4): 0.0096, (100, 9, 9): 0.0662, (100, 3, 3): 0
                         (9, 9): 0.0547, (3, 3): 0.0039}
 
 
-def log_sweeps(inputs):
+def log_sweeps(inputs, label):
     """Each main-path input's histogram of Jacobi sweeps a matrix (f32), and
     how many matrices stopped at the cap."""
     from lfvio_tpu_torch.geom.eigh_cuda import MAX_SWEEPS, sym_eig
@@ -1924,29 +1905,32 @@ def log_sweeps(inputs):
     for A in inputs:
         counts = sym_eig(A, sweeps=True)[2].reshape(-1).cpu().numpy()
         hist = dict(zip(*np.unique(counts, return_counts=True)))
-        log(f"[14] sym_eig sweeps a matrix at {tuple(A.shape)} (f32): "
+        log(f"[14] sym_eig sweeps a matrix at {tuple(A.shape)} ({label}, f32): "
             + ", ".join(f"{int(k)}: {int(v)}" for k, v in sorted(hist.items()))
             + f"; {int((counts >= MAX_SWEEPS).sum())} of {len(counts)} at the cap of {MAX_SWEEPS}")
 
 
 def phase_sym_eig(dev):
     """The eigensolver kernel against its plain version (torch.linalg.eigh)
-    on the main path's inputs, in f32 and f64, and its times."""
+    on the main path's inputs at 256 and 384 slots, in f32 and f64, and its
+    times at 256 slots (with the [384, 4, 4] launch's beside them)."""
     import torch
     from lfvio_tpu_torch.geom.eigh_cuda import sym_eig
 
     inputs = main_path_eig_inputs(dev)
+    inputs384 = main_path_eig_inputs(dev, 384)
     shapes = [tuple(A.shape) for A in inputs]
     worst = 0.0
     for dtype in (torch.float32, torch.float64):
         ew_b, er_b, ev_b, gap = EIG_BOUNDS[str(dtype).split(".")[-1]]
-        for A in inputs:
+        for slots, A in [(256, A) for A in inputs] + [(384, A) for A in inputs384]:
             A = A.to(dtype)
             w, V = sym_eig(A)
             w_ref, V_ref = torch.linalg.eigh(A)
             torch.cuda.synchronize()
             ew, er, ev, share = eig_errors(A, w, V, w_ref, V_ref, gap)
-            log(f"[14] sym_eig {dtype} {tuple(A.shape)} against torch.linalg.eigh: eigenvalues "
+            log(f"[14] sym_eig {dtype} {tuple(A.shape)} ({slots} slots) against "
+                f"torch.linalg.eigh: eigenvalues "
                 f"within {ew:.2e} of the largest (bound {ew_b}); residuals |Av - wv|, |VᵀV - I| "
                 f"{er:.2e} (bound {er_b}); smallest eigenvector within {ev:.2e} (bound {ev_b}) "
                 f"on the {100 * share:.0f}% well posed at {gap}")
@@ -1954,7 +1938,8 @@ def phase_sym_eig(dev):
                 raise AssertionError(f"sym_eig disagrees with torch.linalg.eigh at {A.shape}")
             if dtype == torch.float32:
                 worst = max(worst, ew, ev)
-    log_sweeps(inputs)
+    log_sweeps(inputs, "256 slots")
+    log_sweeps(inputs384, "384 slots")
     bad = torch.zeros((2, 10, 10), device=dev)
     try:
         sym_eig(bad)
@@ -1979,7 +1964,9 @@ def phase_sym_eig(dev):
     log("[14] sym_eig ms per launch behind a full queue, beside the shared-memory kernel's on an "
         "H100 80GB HBM3 at 700 W: " + ", ".join(f"{sh} {t:.4f} [{SHARED_MEMORY_EIG_MS[sh]}]"
                                       for sh, t in zip(shapes, per_shape))
-        + f"; a published frame {sum(per_shape):.4f} [{sum(SHARED_MEMORY_EIG_MS.values()):.4f}]")
+        + f"; a published frame {sum(per_shape):.4f} [{sum(SHARED_MEMORY_EIG_MS.values()):.4f}]"
+        f"; the high-rate configuration's triangulation {tuple(inputs384[0].shape)} "
+        f"{cuda_ms(lambda: sym_eig(inputs384[0]), reps=10, blocker=block):.4f}")
     ms = cuda_ms(frame, reps=10, blocker=block)
     alone = cuda_ms(frame)
     lib = []
@@ -2226,6 +2213,81 @@ def phase_programs(dev, rig, plain_calls, run4):
 
 
 
+# ------------------------------------------------ phase 15: the bench
+# bench.py:71-72's high-rate configuration (BASELINE.json configs[3]).
+BENCH_HIGH_RATE = {"LFVIO_BENCH_FRAME_RATE": "30", "LFVIO_BENCH_MAX_CNT": "300",
+                   "LFVIO_BENCH_WINDOW": "20", "LFVIO_BENCH_SLOTS": "384"}
+BENCH_TIMEOUT_S = 420
+
+
+def run_bench(tag, knobs):
+    """``python -m lfvio_tpu_torch.bench`` in a process of its own from the
+    repository root, with ``knobs`` as its only LFVIO_BENCH_* variables.
+    Checks its exit code, its one JSON line on stdout, and in its figures
+    (stderr) one fused LK launch per tracked frame of the timed window,
+    eigensolver launches in it, a finite trajectory and, where the
+    estimator initialized, ATE < FULL_SCALE_ATE_M. Returns the figures."""
+    env = {k: v for k, v in os.environ.items() if k not in bench.KNOBS}
+    env.update(knobs)
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "lfvio_tpu_torch.bench"], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    for line in res.stderr.splitlines():
+        log(f"{tag} {line}")
+    if res.returncode != 0:
+        raise AssertionError(f"{tag} the bench exited with {res.returncode}")
+    lines = res.stdout.strip().splitlines()
+    out = json.loads(lines[0]) if len(lines) == 1 else {}
+    if not (set(out) == {"metric", "value", "unit", "vs_baseline"}
+            and out["metric"] == bench.METRIC and np.isfinite(out["value"]) and out["value"] > 0):
+        raise AssertionError(f"{tag} the bench's stdout is not one JSON line of its metric: "
+                             f"{res.stdout!r}")
+    fig = json.loads(res.stderr.split("] figures ", 1)[1].splitlines()[0])
+    log(f"{tag} stdout {lines[0]}; process wall {wall:.1f} s")
+    if not (fig["lk_launches"] == fig["frames_timed"] and fig["restarts_timed"] == 0
+            and fig["lk_other_launches_run"] == 0):
+        raise AssertionError(f"{tag} the bench's LK is not one fused launch per tracked frame")
+    if fig["sym_eig_launches"] == 0:
+        raise AssertionError(f"{tag} the bench did not launch the eigensolver kernel")
+    if not fig["trajectory_finite"]:
+        raise AssertionError(f"{tag} non-finite trajectory")
+    if fig["initialized"] and not (fig["ate_m"] is not None and fig["ate_m"] < FULL_SCALE_ATE_M):
+        raise AssertionError(f"{tag} the bench's ATE is not below {FULL_SCALE_ATE_M} m")
+    return fig
+
+
+def phase_bench():
+    """The bench in bench.py's default configuration (a), which must
+    initialize during its warm-up, and in its high-rate one (b), once more
+    over 12 s if it did not initialize within its 6 s; the last run of (b)
+    must have initialized."""
+    runs = {"15a": run_bench("[15a]", {})}
+    a = runs["15a"]
+    if not (a["initialized_in_warmup"] and a["first_solve_t"] is not None
+            and a["first_solve_t"] <= a["t_split"]):
+        raise AssertionError("[15a] the default configuration did not initialize in its warm-up")
+    runs["15b"] = run_bench("[15b]", BENCH_HIGH_RATE)
+    if not runs["15b"]["initialized"]:
+        log("[15b] did not initialize within 6 s: once more with LFVIO_BENCH_DURATION=12")
+        runs["15b12"] = run_bench("[15b12]", dict(BENCH_HIGH_RATE, LFVIO_BENCH_DURATION="12"))
+        if not runs["15b12"]["initialized"]:
+            raise AssertionError("[15b12] the high-rate configuration did not initialize in 12 s")
+    for tag, f in runs.items():
+        peak = f["peak_memory_bytes"]
+        log(f"[{tag}] {f['frame_rate']:g} Hz, max_cnt {f['max_cnt']}, window {f['window']}, "
+            f"{f['n_slots']} slots, {f['duration']:g} s: {f['frames_per_s']:.3f} frames/s over "
+            f"{f['frames_timed']} frames; initialized {f['initialized']} (in the warm-up "
+            f"{f['initialized_in_warmup']}), first solve at t = {f['first_solve_t']} against the "
+            f"split at {f['t_split']:.2f} s; solves {f['solves']} ({f['solves_timed']} timed); "
+            f"ATE {f['ate_m']} m over {f['ate_poses']} poses; LK launches {f['lk_launches_run']} in "
+            f"the run ({f['lk_launches']} timed), sym_eig launches {f['sym_eig_launches_run']} "
+            f"({f['sym_eig_launches']} timed); graphs {f['graphs']} "
+            f"({f['graphs_captured_timed']} captured in the timed window, {f['capture_s']:.2f} s "
+            f"of capture); peak memory {peak / 2**20:.1f} MiB")
+    return runs
+
+
 def main(argv):
     import torch
 
@@ -2273,14 +2335,20 @@ def main(argv):
     phase_kf_axis()
     kernels["sym_eig"], _, _ = phase_programs(dev, rig, plain_calls, run4)
     del rig
+    benches = phase_bench()
+    # Each run's counts were set to 0 just before it: the phases' by
+    # reset_launches, the bench's by bench.run in its own process.
     paths = (run4, run6, dual, euroc)
-    launches = {"lk_pyramid": sum(r["launches"] for r in paths),
+    lk_runs = [r["launches"] for r in paths] + [f["lk_launches_run"] for f in benches.values()]
+    sym_runs = [r["sym_launches"] for r in paths] + [f["sym_eig_launches_run"]
+                                                     for f in benches.values()]
+    launches = {"lk_pyramid": sum(lk_runs),
                 "lk_level": run4["level_launches"],
                 "lk_pyramid_pallas": run6p["launches"],
-                "sym_eig": sum(r["sym_launches"] for r in paths)}
-    log(f"[end] launches on the main paths (phases 4, 6, 8, 9): lk_pyramid "
-        + ", ".join(str(r["launches"]) for r in paths) + "; sym_eig "
-        + ", ".join(str(r["sym_launches"]) for r in paths)
+                "sym_eig": sum(sym_runs)}
+    log(f"[end] launches on the main paths (phases 4, 6, 8, 9, "
+        + ", ".join(benches) + ", each a whole run): lk_pyramid "
+        + ", ".join(map(str, lk_runs)) + "; sym_eig " + ", ".join(map(str, sym_runs))
         + f"; lk_pyramid_pallas (phase 6p) {run6p['launches']}; whole run "
         f"{time.perf_counter() - t_run + 0.0:.1f} s after the build")
 

@@ -227,7 +227,7 @@ def test_port_imports_nothing_of_the_jax_package():
                     "calib.intrinsic", "dist.sharding", "dist.marginalize", "dist.frame_step",
                     "native", "runtime.datasets", "runtime.panorama", "runtime.ar_demo",
                     "runtime.profiling", "dist.kf_axis", "dist.synthetic_traj",
-                    "dist.scaling_bench"):
+                    "dist.scaling_bench", "bench"):
             assert "lfvio_tpu_torch." + new in names, new
         for name in names:
             importlib.import_module(name)
