@@ -78,7 +78,18 @@ lines; any failure ends the run with a non-zero exit code:
      against the monolithic lm_solve, and equal to the same ranks on the
      CPU; f32 at the main path's window (11 keyframes, 256 slots a segment)
      through the scaling bench's rows at 1x1, 2x1 and 2x2;
- 14. the estimator's device programs: the eigensolver kernel against
+ 14. the estimator's device programs: the census of the captured graphs
+     (kernel nodes of the solve, MARGIN_OLD and SECOND_NEW graphs, and of
+     the f64 estimator's four, relocalization included; the card's ms per
+     replay at bench.py's window 10 / 256 slots (a) and window 20 / 384
+     slots (b); one eager solve's device time split by solver function;
+     8 rows, 8 assemble and 9 cost launches of the projection kernels a
+     solve replay at cap 8, one rows launch a MARGIN_OLD); the projection
+     kernels (csrc/proj_factor.cu) against their plain versions at (a)'s
+     and (b)'s solve inputs (f32) and on a dual-camera window (f64), a
+     bit-identical repeat, each mode's times behind a full queue and
+     launched alone beside its plain version's and its bound; the
+     eigensolver kernel against
      torch.linalg.eigh on the main path's inputs at 256 and 384 slots (the
      [256, 4, 4] and [384, 4, 4] DLT matrices of a triangulation, RANSAC's
      [100, 9, 9] / [1, 9, 9] and [100, 3, 3] / [1, 3, 3] over 256 and 384
@@ -103,7 +114,7 @@ lines; any failure ends the run with a non-zero exit code:
      12 s if it did not initialize within its 6 s, and must then initialize.
 
 The kernels line's launches add up the whole runs of phases 4, 6, 8, 9 and
-15, each counted from 0.
+15, each counted from 0 (the projection kernels' too).
 
 Prints one JSON line with each kernel's numbers, then the card's line, and
 last {"ok": true, "device": {...}}. Imports neither JAX nor the JAX package.
@@ -825,6 +836,7 @@ def run_full_scale(tag, rig, plain_calls, solve_lag, depth, profile=False, sync_
         if inner["count"]["n"]:
             raise AssertionError("the pipeline's process_image_arrays finalized a solve")
     launches, sym_launches = lk.launches, sym_eig.launches
+    proj = {k: w.launches for k, w in bench.PROJ_KERNELS.items()}
     n_timed = win.frames_timed
     fps = n_timed / win.seconds
     times = np.asarray(est.times)
@@ -838,7 +850,7 @@ def run_full_scale(tag, rig, plain_calls, solve_lag, depth, profile=False, sync_
         f"{klt_cuda.pyramidal_lk_pallas.launches}; one-level launches "
         f"{klt_cuda.lk_level.launches}; plain LK calls "
         f"{plain_calls['n']}; level images padded {padded['n']}; sym_eig launches {sym_launches}; "
-        f"graphs captured {n_graphs} in {capture_s:.2f} s")
+        f"projection kernels' launches {proj}; graphs captured {n_graphs} in {capture_s:.2f} s")
     for key, vals in host_ms.items():
         log(f"{tag} {key} after the warm-up, under set_sync_debug_mode({SYNC_CHECK!r}): n "
             f"{len(vals)}, host ms per call min {min(vals):.3f}, median "
@@ -852,6 +864,8 @@ def run_full_scale(tag, rig, plain_calls, solve_lag, depth, profile=False, sync_
         raise AssertionError("the main path's LK is not one fused launch per tracked frame")
     if sym_launches == 0:
         raise AssertionError("the main path did not launch the eigensolver kernel")
+    if not all(proj.values()):
+        raise AssertionError("the main path did not launch every projection kernel")
     if graphs and n_graphs == 0:
         raise AssertionError("the estimator's programs were not captured as CUDA graphs")
     if sync_check and len(host_ms.get("Estimator._dispatch_solve", [])) < 5:
@@ -861,7 +875,7 @@ def run_full_scale(tag, rig, plain_calls, solve_lag, depth, profile=False, sync_
     if n != len(times):
         raise AssertionError("not as many trajectory poses as solves")
     return dict(fe=fe, est=est, stages=stages, launches=launches, sym_launches=sym_launches,
-                fps=fps, ate=ate, host_ms=host_ms)
+                proj=proj, fps=fps, ate=ate, host_ms=host_ms)
 
 
 def phase_full_scale(rig, plain_calls, profile=False):
@@ -1212,6 +1226,7 @@ def phase_dual_pal(dev, plain_calls):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches, sym_launches = klt_cuda.lk_pyramid.launches, sym_eig.launches
+    proj = {k: w.launches for k, w in bench.PROJ_KERNELS.items()}
     ate, n = trajectory_ate(world, est)
     cams = est.fm.cam[est.fm.valid]
     ms = [m for m in solves["ms"] if m > 0.01]
@@ -1233,7 +1248,9 @@ def phase_dual_pal(dev, plain_calls):
         raise AssertionError("dual-PAL: the eigensolver kernel was not launched")
     if not (np.isfinite(ate) and ate < 0.25):
         raise AssertionError("dual-PAL accuracy gate failed")
-    return dict(launches=launches, sym_launches=sym_launches, fps=n_frames / dt, ate=ate,
+    if not all(proj.values()):
+        raise AssertionError("dual-PAL: not every projection kernel launched")
+    return dict(launches=launches, sym_launches=sym_launches, proj=proj, fps=n_frames / dt, ate=ate,
                 solve_ms=float(np.median(ms[1:])))
 
 
@@ -1350,6 +1367,7 @@ def phase_euroc(rig, plain_calls):
         torch.cuda.synchronize()
         t2 = time.perf_counter()
     launches, sym_launches = klt_cuda.lk_pyramid.launches, sym_eig.launches
+    proj = {k: w.launches for k, w in bench.PROJ_KERNELS.items()}
     n_timed = sum(1 for it in rest if it[0] == "frame")
     fps = n_timed / (t2 - t1)
     times, traj = np.asarray(est.times), np.asarray(est.traj_p)
@@ -1374,7 +1392,9 @@ def phase_euroc(rig, plain_calls):
         raise AssertionError("the EuRoC path's LK is not one fused launch per tracked frame")
     if sym_launches == 0:
         raise AssertionError("the EuRoC path did not launch the eigensolver kernel")
-    return dict(launches=launches, sym_launches=sym_launches, fps=fps, ate=ate)
+    if not all(proj.values()):
+        raise AssertionError("EuRoC: not every projection kernel launched")
+    return dict(launches=launches, sym_launches=sym_launches, proj=proj, fps=fps, ate=ate)
 
 
 # ------------------------------------------------ phase 10: tools
@@ -2042,6 +2062,10 @@ def phase_graphs_f64(dev):
                        float((g_res["relo_q"] - e_res["relo_q"]).abs().max()))
     torch.cuda.synchronize()
     n, cap_s = est.graph_stats()
+    log(f"[14] census, the f64 estimator (64 slots, window 10): nodes "
+        + "; ".join(f"{'_'.join(map(str, key))} " + ", ".join(
+            f"{k} {c}" for k, c in graph_nodes(p).items())
+                    for key, p in est._programs.items() if getattr(p, "graph", None) is not None))
     log(f"[14] f64 graph replay against eager on the same inputs (64 slots, cap {cap}): "
         + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
         + f" of the scale (bound {GRAPH_F64}); {n} graphs captured in {cap_s:.2f} s")
@@ -2163,6 +2187,430 @@ def phase_qr_information(dev):
     return out
 
 
+# ------------------------------------------------ phase 14: the census of the graphs
+# cuda.h's CUgraphNodeType values the census names; others count as "other".
+NODE_KINDS = {0: "kernel", 1: "memcpy", 2: "memset"}
+
+
+def graph_nodes(prog):
+    """The nodes of a DeviceProgram's CUDA graph by kind, with their total
+    under "all": its function captured once more on its static inputs, into
+    a graph of the census's own that keeps its cudaGraph_t
+    (``raw_cuda_graph()``) and is never replayed, read with cuGraphGetNodes
+    and cuGraphNodeGetType through libcuda. The launches the capture adds
+    to the wrappers' counts are taken off again."""
+    import ctypes
+
+    import torch
+    from lfvio_tpu_torch.device import KERNELS
+
+    before = [k.launches for k in KERNELS]
+    debug = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode(0)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    try:
+        with torch.cuda.graph(graph):
+            prog.fn(*prog.static_in)
+    finally:
+        torch.cuda.set_sync_debug_mode(debug)
+        for k, b in zip(KERNELS, before):
+            k.launches = b
+    cu = ctypes.CDLL("libcuda.so.1")
+    try:
+        g = ctypes.c_void_p(graph.raw_cuda_graph())
+        n = ctypes.c_size_t(0)
+        if cu.cuGraphGetNodes(g, None, ctypes.byref(n)) != 0:
+            raise RuntimeError("cuGraphGetNodes failed")
+        nodes = (ctypes.c_void_p * n.value)()
+        if n.value and cu.cuGraphGetNodes(g, nodes, ctypes.byref(n)) != 0:
+            raise RuntimeError("cuGraphGetNodes failed")
+        kinds = {"all": n.value}
+        t = ctypes.c_int(0)
+        for node in nodes:
+            if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t)) != 0:
+                raise RuntimeError("cuGraphNodeGetType failed")
+            name = NODE_KINDS.get(t.value, "other")
+            kinds[name] = kinds.get(name, 0) + 1
+    finally:
+        graph.reset()
+    return kinds
+
+
+# The parts of a solve. For a traced solve the functions of
+# backend/solver.py that make up the LM (and the estimator's lm_solve) are
+# wrapped in torch.profiler.record_function ranges named "solve::<name>";
+# an op's device time goes to the part of the innermost ranges above it.
+# Ops that assemble_normal_equations launches itself are the projection's
+# (its products) before its call of linearize_imu_rows starts, and the IMU
+# rows' and the prior's from then on.
+SOLVE_FUNCTIONS = ("assemble_normal_equations", "linearize_projection", "linearize_proj_rows",
+                   "proj_rows", "proj_assemble", "proj_cost", "linearize_imu_rows",
+                   "prior_residual", "total_cost", "_schur_solve")
+PROJECTION = ("linearize_projection", "linearize_proj_rows", "proj_rows", "proj_assemble")
+OUTSIDE_LM = "outside the LM (unpack, preintegration, triangulation, gauge, the gate)"
+# The projection kernels launch through ctypes, so the profiler links them to
+# no op: their device time goes to a part by the kernel's name (cost mode:
+# proj_rows_kernel<T, false>).
+KERNEL_PARTS = {"proj_rows_kernel<float, true>": "projection",
+                "proj_rows_kernel<double, true>": "projection",
+                "proj_rows_kernel<float, false>": "cost", "proj_rows_kernel<double, false>": "cost",
+                "proj_assemble_kernel": "projection"}
+
+
+class annotated_solver:
+    """Within the ``with``, the solver's functions (and the estimator's
+    lm_solve) run inside record_function ranges "solve::<name>"."""
+
+    def __enter__(self):
+        import torch
+        from lfvio_tpu_torch.backend import solver
+        from lfvio_tpu_torch.runtime import estimator
+
+        def wrap(name, fn):
+            def run(*a, **k):
+                with torch.profiler.record_function(f"solve::{name}"):
+                    return fn(*a, **k)
+            return run
+
+        self.saved = [(m, n, getattr(m, n)) for m, names in
+                      ((solver, SOLVE_FUNCTIONS), (estimator, ("lm_solve",)))
+                      for n in names if hasattr(m, n)]
+        for m, n, fn in self.saved:
+            setattr(m, n, wrap(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for m, n, fn in self.saved:
+            setattr(m, n, fn)
+
+
+def solve_part(e):
+    """The part of the solve a profiler op event belongs to."""
+    chain, below, p = [], e, e.cpu_parent
+    while p is not None:
+        if p.name.startswith("solve::"):
+            chain.append((p.name[7:], p, below))
+        below, p = p, p.cpu_parent
+    names = [n for n, _, _ in chain]
+    if not names:
+        return OUTSIDE_LM
+    if "total_cost" in names:
+        return "cost"
+    for name, p, below in chain:  # innermost first
+        if name in PROJECTION:
+            return "projection"
+        if name in ("linearize_imu_rows", "prior_residual"):
+            return "imu and prior"
+        if name == "assemble_normal_equations":
+            imu = [c for c in p.cpu_children if c.name == "solve::linearize_imu_rows"]
+            if imu and below.time_range.start >= imu[0].time_range.start:
+                return "imu and prior"
+            return "projection"
+        if name == "_schur_solve":
+            return "schur"
+    return "lm"
+
+
+def solve_shares(run):
+    """Run ``run()`` once under torch.profiler inside ``annotated_solver``;
+    returns ({part: µs}, µs attributed, µs of every device kernel): each
+    op's own device time summed by ``solve_part``, and the projection
+    kernels' by KERNEL_PARTS."""
+    import torch
+    from torch.autograd import DeviceType
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with annotated_solver(), torch.profiler.profile(activities=acts) as prof:
+        run()
+        torch.cuda.synchronize()
+    parts, attributed, total = {}, 0.0, 0.0
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU:
+            if e.name.startswith(("solve::", "proj_factor::")):
+                continue  # a range's span on the card's timeline, not a kernel
+            us = e.time_range.elapsed_us()
+            total += us
+            part = KERNEL_PARTS.get(next((k for k in KERNEL_PARTS if k in e.name), None))
+            if part is not None:  # a kernel launched through ctypes: no op above it
+                parts[part] = parts.get(part, 0.0) + us
+                attributed += us
+            continue
+        if e.name.startswith("proj_factor::"):
+            continue  # its kernel is counted by name above
+        us = e.self_device_time_total
+        if us > 0:
+            part = solve_part(e)
+            parts[part] = parts.get(part, 0.0) + us
+            attributed += us
+    return parts, attributed, total
+
+
+def launches_of(fn):
+    """The projection kernels' launches while ``fn()`` runs (a graph's are
+    counted at its replay)."""
+    ks = bench.PROJ_KERNELS
+    before = {k: w.launches for k, w in ks.items()}
+    fn()
+    return {k: w.launches - before[k] for k, w in ks.items()}
+
+
+def warm_estimator(dev, knobs):
+    """A synchronous (lag 1, depth 1) pipeline in bench.py's configuration
+    with ``knobs`` (bench.KNOBS), fed bench.workload's stream until its
+    estimator has solved twice and holds a prior; returns the estimator."""
+    import torch
+
+    wl = bench.workload(bench.config_from_env(knobs), dev)
+    _, est, pipe = wl.make(1, 1)
+    for it in wl.stream:
+        bench.feed(pipe, [it], wl.frames)
+        if it[0] == "frame" and len(est.times) >= 2 and est.prior is not None:
+            break
+    pipe.flush()
+    torch.cuda.synchronize()
+    if not (len(est.times) >= 2 and est.prior is not None):
+        raise AssertionError(f"the estimator at {knobs} did not solve twice")
+    return est
+
+
+def program_census(est, label, trace=True):
+    """The census of an estimator's programs (solve at its cap, MARGIN_OLD,
+    SECOND_NEW): nodes of each captured graph by kind, the card's ms per
+    replay (CUDA events, copying the inputs in included), the projection
+    kernels' launches in one replay of the solve and of MARGIN_OLD, and
+    (``trace``) the shares of one eager solve's device time by part
+    (``solve_shares``). Returns a dict."""
+    import torch
+
+    prior = est.prior if est.prior is not None else est._empty_prior()
+    chain = est._zero_chain()
+    packed = est._upload(est._pack_solve_buffer(est.Ps[0], est.Qs[0]))
+    cap = est.cfg.max_iterations
+    solve = est._program(("solve", cap))
+    res, grid = solve(packed, prior, chain)
+    marg_args = (res["out"], grid, res["pre"], res["sqrt_info"], res["imu_ok"], prior)
+    marg_old, marg_new = est._program(("marg_old",)), est._program(("marg_new",))
+    ms = {"solve": cuda_ms(lambda: solve(packed, prior, chain), n=5, warmup=1),
+          "marg_old": cuda_ms(lambda: marg_old(*marg_args), n=5, warmup=1),
+          "marg_new": cuda_ms(lambda: marg_new(res["out"], prior), n=5, warmup=1)}
+    per_replay = {"solve": launches_of(lambda: solve(packed, prior, chain)),
+                  "marg_old": launches_of(lambda: marg_old(*marg_args))}
+    nodes = {k: graph_nodes(est._programs[key]) for k, key in
+             (("solve", ("solve", cap)), ("marg_old", ("marg_old",)), ("marg_new", ("marg_new",)))}
+    F, W1 = grid.valid.shape
+    obs = F * W1
+    parts, attributed, total, trace_s = {}, 0.0, 0.0, 0.0
+    if trace:
+        run = lambda: est._solve_packed_impl(packed, prior, chain, max_iter=cap)
+        run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        parts, attributed, total = solve_shares(run)
+        trace_s = time.perf_counter() - t0
+    order = sorted(parts, key=lambda k: -parts[k])
+    log(f"[14] census {label}: {F} slots x {W1} frames = {obs} observations, cap {cap}; nodes "
+        + "; ".join(f"{k} " + ", ".join(f"{n} {c}" for n, c in v.items()) for k, v in nodes.items())
+        + "; ms per replay " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+        + "; projection kernels' launches per replay " + ", ".join(
+            f"{k} {v}" for k, v in per_replay.items()))
+    if trace:
+        log(f"[14] census {label}: one eager solve traced ({trace_s:.1f} s), {total / 1e3:.3f} ms "
+            f"of device kernels, {attributed / 1e3:.3f} ms attributed to ops: "
+            + ", ".join(f"{k} {parts[k] / 1e3:.3f} ms "
+                        f"({100 * parts[k] / max(attributed, 1e-9):.1f}%)" for k in order))
+    return dict(obs=obs, ms=ms, nodes=nodes, parts_us=parts, attributed_us=attributed,
+                device_us=total, per_replay=per_replay, est=est)
+
+
+# ------------------------------------------------ phase 14: the projection kernels
+# csrc/proj_factor.cu against its plain version (backend/proj_cuda.py) on
+# the same inputs, relative to each output's scale. The residual's is
+# sqrt_info: r = s B (u - m̂) is a difference of two terms of size s, so
+# either version rounds it to about eps s, however small r is (in f32 a
+# 1 px residual carries 6e-6 of itself). What is computed from r inherits
+# that scale: a cost term's is its value with |r| + s for |r|; the weight's
+# is s times its steepest slope in r, 2 / (3 sqrt(3) c); each sum's (H_pp,
+# b_p, H_pl, H_ll, b_l) is the largest sum of its terms' magnitudes, |J|
+# against |r| + s (the plain assembly of |J26| and |res| + s), which the
+# rounding of a sum in any order is relative to; the Jacobian's is its
+# largest magnitude. f32: rounding and sums in another order; f64: a few
+# roundings. (Held against |J| |r| alone, b_l missed 1e-5
+# in f32 on a window of 1 px residuals, at 1.37e-5.)
+PROJ_BOUNDS = {"float32": 1e-5, "float64": 1e-12}
+# Operations a kept observation costs each mode, reckoned from the kernel's
+# arithmetic: the rows (the four rotation matrices, the chain, the basis, G
+# and its four products, the four skew products, λ and td) about 750; the
+# cost mode about 330; the assembly of a row of 26 columns into JᵀJ, Jᵀr
+# and H_pl 4 (26² + 2 · 26).
+PROJ_FLOPS = {"proj_rows": 750, "proj_cost": 330, "proj_assemble": 4 * (26 * 26 + 2 * 26)}
+REPLACES.update({
+    "proj_rows": "lfvio_tpu/backend/solver.py:126 (linearize_projection: jacfwd + vmap; XLA, "
+                 "no Pallas kernel)",
+    "proj_assemble": "lfvio_tpu/backend/solver.py:184, :287 (linearize_proj_rows' dense rows and "
+                     "assemble_normal_equations' JᵀJ; XLA, no Pallas kernel)",
+    "proj_cost": "lfvio_tpu/backend/solver.py:326 (total_cost's projection term; XLA, no Pallas "
+                 "kernel)"})
+SOURCES.update({k: "lfvio_tpu_torch/csrc/proj_factor.cu"
+                for k in ("proj_rows", "proj_assemble", "proj_cost")})
+
+
+def solve_inputs(est):
+    """(state, grid, cfg) of the estimator's next solve, as its program
+    unpacks them on the card."""
+    packed = est._upload(est._pack_solve_buffer(est.Ps[0], est.Qs[0]))
+    state, grid = est._unpack(packed)[:2]
+    return state, grid, est.scfg
+
+
+def dual_camera_inputs(dev, n_slots=64):
+    """make_window_problem(64) in f64 turned into a two-camera window: a
+    second extrinsic, a random camera per observation (tracks mix cameras),
+    tracks of 5 frames from varied anchors, td and extrinsics estimated."""
+    import dataclasses as dc
+
+    import torch
+    from lfvio_tpu_torch.geom import so3_exp
+    from lfvio_tpu_torch.runtime.profiling import make_window_problem
+
+    pb = make_window_problem(n_slots, torch.float64, n_obs_frames=5, device=dev)
+    rng = np.random.default_rng(11)
+    tt = lambda a, dt=torch.float64: torch.as_tensor(a, dtype=dt, device=dev)
+    st, grid = pb["state"], pb["grid"]
+    state = dc.replace(st, tic=tt([[0.01, -0.02, 0.005], [-0.015, 0.03, -0.04]]),
+                       qic=so3_exp(tt(0.02 * rng.standard_normal((2, 3)))), td=tt(0.003))
+    cam = tt(rng.integers(0, 2, tuple(grid.valid.shape)), torch.int64)
+    return state, grid.replace(cam=cam), dc.replace(pb["cfg"], n_cams=2)
+
+
+def proj_outputs(state, grid, cfg, plain=False):
+    """Every output of the three modes, {name: tensor}: the kernels' or
+    (``plain``) their plain versions'."""
+    from lfvio_tpu_torch.backend import proj_cuda as pc
+    from lfvio_tpu_torch.backend.state import n_cams_of
+
+    C = n_cams_of(state)
+    if plain:
+        rows = pc.rows_plain(state, grid, cfg)
+        asm, cost = pc.assemble_plain(grid, rows, cfg, C), pc.cost_plain(state, grid, cfg)
+    else:
+        rows = pc.proj_rows(state, grid, cfg)
+        asm, cost = pc.proj_assemble(grid, rows, cfg, C), pc.proj_cost(state, grid, cfg)
+    return dict(zip(("res", "J26", "w", "cost terms", "H_pp", "H_pl", "H_ll", "b_p", "b_l",
+                     "cost mode"), (*rows, *asm, cost)))
+
+
+def proj_compare(state, grid, cfg):
+    """(errors relative to each output's scale, {mode: (largest absolute
+    error, largest relative error) of its outputs}, a repeat of the kernels
+    bit-identical)."""
+    import torch
+    from lfvio_tpu_torch.backend import proj_cuda as pc
+    from lfvio_tpu_torch.backend.state import n_cams_of
+
+    k, p = proj_outputs(state, grid, cfg), proj_outputs(state, grid, cfg, plain=True)
+    again = proj_outputs(state, grid, cfg)
+    identical = all(torch.equal(k[n], again[n]) for n in k)
+    s = float(cfg.proj_sqrt_info)
+    r_scale = p["res"].abs() + s
+    absum = dict(zip(("H_pp", "H_pl", "H_ll", "b_p", "b_l"), pc.assemble_plain(
+        grid, (r_scale, p["J26"].abs(), p["w"]), cfg, n_cams_of(state))))
+    top = lambda x: max(float(x.abs().max()), 1e-30) if x.numel() else 1.0
+    c2 = cfg.cauchy_c ** 2
+    cost_scale = top(c2 * torch.log1p((r_scale * r_scale).sum(-1) / c2))
+    w_scale = s * 2.0 / (3.0 * 3.0 ** 0.5 * cfg.cauchy_c)
+    scale = {"res": s, "w": w_scale, "cost terms": cost_scale, "cost mode": cost_scale,
+             **{n: top(absum[n]) for n in absum}}
+    errs, mode_err = {}, {}
+    for n in k:
+        d = float((k[n] - p[n]).abs().max()) if k[n].numel() else 0.0
+        errs[n] = d / scale.get(n, top(p[n]))
+        mode = ("proj_rows" if n in ("res", "J26", "w", "cost terms") else
+                "proj_cost" if n == "cost mode" else "proj_assemble")
+        a, r = mode_err.get(mode, (0.0, 0.0))
+        mode_err[mode] = (max(a, d), max(r, errs[n]))
+    return errs, mode_err, identical
+
+
+def proj_bound_ms(state, grid, mode):
+    """The least time of one launch of ``mode`` on an H100 at these inputs:
+    its inputs read once and its outputs written once at 3.35 TB/s, against
+    PROJ_FLOPS a kept observation at the float32 rate; (ms, by, bytes,
+    FLOP)."""
+    from lfvio_tpu_torch.backend.factors import residual_mask
+
+    F, W1 = grid.valid.shape
+    C = 1 if state.tic.ndim == 1 else state.tic.shape[0]
+    e = state.p.element_size()
+    D = 15 * W1 + 6 * C + 1
+    masks = F * W1 + F * 8 + F + (F * W1 * 8 if grid.cam is not None else 0)
+    if mode == "proj_assemble":
+        nbytes = masks + e * (F * W1 * 55 + D * D + D + D * F + 2 * F)
+    else:
+        state_in = e * (7 * W1 + 7 * C + 1 + F + F * W1 * 7)
+        out = F * W1 * (56 if mode == "proj_rows" else 1)
+        nbytes = masks + state_in + e * out
+    flops = PROJ_FLOPS[mode] * int(residual_mask(grid).sum())
+    t_b, t_o = 1e3 * nbytes / PEAK_BYTES_S, 1e3 * flops / PEAK_F32_FLOPS
+    return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations"), nbytes, flops
+
+
+def phase_proj_factor(dev, est_a, est_b):
+    """The projection kernels against their plain version at (a) phase 4's
+    estimator's solve inputs (256 slots, window 10, f32), (b) the
+    high-rate estimator's (384 slots, window 20, f32) and a dual-camera
+    window (64 slots, f64, td and extrinsics estimated), within PROJ_BOUNDS,
+    a repeat bit-identical; each mode's times behind a full queue and
+    launched alone, beside its plain version's and its bound, at (a) and
+    (b). Returns the kernels line's numbers: times at (a), bench.py's
+    default; errors the worst of (a) and (b), absolute and relative to each
+    output's scale, beside the f32 bound."""
+    import torch
+    from lfvio_tpu_torch.backend import proj_cuda as pc
+    from lfvio_tpu_torch.backend.state import n_cams_of
+
+    cases = {"(a) 256 slots, window 10, f32": solve_inputs(est_a),
+             "(b) 384 slots, window 20, f32": solve_inputs(est_b),
+             "dual-camera 64 slots, f64": dual_camera_inputs(dev)}
+    worst = {}
+    for label, (state, grid, cfg) in cases.items():
+        errs, mode_err, identical = proj_compare(state, grid, cfg)
+        bound = PROJ_BOUNDS[str(state.p.dtype).split(".")[-1]]
+        log(f"[14p] proj_factor {label} against the plain version, relative to each output's "
+            f"scale: " + ", ".join(f"{n} {v:.2e}" for n, v in errs.items())
+            + f" (bound {bound}); repeat bit-identical {identical}")
+        if not (identical and all(v <= bound for v in errs.values())):
+            raise AssertionError(f"proj_factor disagrees with its plain version at {label}")
+        if state.p.dtype == torch.float32:
+            for m, (a, r) in mode_err.items():
+                wa, wr = worst.get(m, (0.0, 0.0))
+                worst[m] = (max(wa, a), max(wr, r))
+    block = make_blocker(dev)
+    out = {}
+    for label, (state, grid, cfg) in list(cases.items())[:2]:
+        C = n_cams_of(state)
+        rows = pc.proj_rows(state, grid, cfg)
+        runs = {"proj_rows": (lambda: pc.proj_rows(state, grid, cfg),
+                              lambda: pc.rows_plain(state, grid, cfg)),
+                "proj_assemble": (lambda: pc.proj_assemble(grid, rows, cfg, C),
+                                  lambda: pc.assemble_plain(grid, rows, cfg, C)),
+                "proj_cost": (lambda: pc.proj_cost(state, grid, cfg),
+                              lambda: pc.cost_plain(state, grid, cfg))}
+        for mode, (kern, plain) in runs.items():
+            ms = cuda_ms(kern, reps=10, blocker=block)
+            alone = cuda_ms(kern)
+            plain_ms = cuda_ms(plain, reps=3, blocker=block)
+            bound, by, nbytes, flops = proj_bound_ms(state, grid, mode)
+            log(f"[14p] {mode} {label}: {ms:.4f} ms behind a full queue, {alone:.4f} ms launched "
+                f"alone; plain version {plain_ms:.4f} ms; bound {bound:.6f} ms by {by} "
+                f"({nbytes} B, {flops / 1e6:.3f} MFLOP); at {100 * bound / ms:.2f}% of it")
+            if label.startswith("(a)"):
+                out[mode] = dict(max_abs_err=worst[mode][0], max_rel_err=worst[mode][1],
+                                 rel_bound=PROJ_BOUNDS["float32"], ms=ms, ms_launched_alone=alone,
+                                 plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                                 library_ms=None)
+    return out
+
+
 def phase_programs(dev, rig, plain_calls, run4):
     """The eigensolver kernel, f64 graph replays against eager, phase 4's
     stream with eager programs, and the card's time per replay."""
@@ -2172,28 +2620,28 @@ def phase_programs(dev, rig, plain_calls, run4):
     eig = phase_sym_eig(dev)
     phase_graphs_f64(dev)
     est = run4["est"]
+    census = {"a": program_census(est, "(a) phase 4's estimator (f32, window 10)")}
     prior = est.prior
     chain = est._zero_chain()
     packed = est._upload(est._pack_solve_buffer(est.Ps[0], est.Qs[0]))
     cap = est.cfg.max_iterations
-    solve = est._program(("solve", cap))
-    res, grid = solve(packed, prior, chain)
-    marg_args = (res["out"], grid, res["pre"], res["sqrt_info"], res["imu_ok"], prior)
-    times = {
-        f"solve (cap {cap})": cuda_ms(lambda: solve(packed, prior, chain), n=5, warmup=1),
-        "marg_old": cuda_ms(lambda: est._program(("marg_old",))(*marg_args), n=5, warmup=1),
-        "marg_new": cuda_ms(lambda: est._program(("marg_new",))(res["out"], prior), n=5,
-                            warmup=1),
-        f"solve (cap {cap}), eager": cuda_ms(
-            lambda: est._solve_packed_impl(packed, prior, chain, max_iter=cap), n=3, warmup=1),
-    }
+    eager_ms = cuda_ms(lambda: est._solve_packed_impl(packed, prior, chain, max_iter=cap), n=3,
+                       warmup=1)
     n, cap_s = est.graph_stats()
-    log(f"[14] phase 4's estimator (f32, 256 slots), ms per call between CUDA events (a replay "
-        f"includes copying its inputs in): "
-        + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
-        + f"; {n} graphs captured in {cap_s:.2f} s in all ("
+    log(f"[14] phase 4's estimator: solve (cap {cap}) eager on the card {eager_ms:.3f} ms between "
+        f"CUDA events; {n} graphs captured in {cap_s:.2f} s in all ("
         + ", ".join(f"{k} {p.capture_s:.2f} s" for k, p in est._programs.items()
                     if hasattr(p, "capture_s")) + ")")
+    census["b"] = program_census(warm_estimator(dev, BENCH_HIGH_RATE),
+                                 "(b) high-rate (f32, window 20, 384 slots)", trace=False)
+    want = {"proj_rows": cap, "proj_assemble": cap, "proj_cost": cap + 1}
+    for key, c in census.items():
+        if c["per_replay"]["solve"] != want or c["per_replay"]["marg_old"] != dict(
+                want, proj_rows=1, proj_assemble=0, proj_cost=0):
+            raise AssertionError(f"census ({key}): a solve replay at cap {cap} did not launch "
+                                 f"{want}, or a MARGIN_OLD replay not one rows launch")
+    proj = phase_proj_factor(dev, est, census["b"]["est"])
+    times = dict(census=census, eager_ms=eager_ms, proj=proj)
     qr = phase_qr_information(dev)
     rec4, rec6 = {}, {}
     eager = run_full_scale("[14]", rig, plain_calls, 1, 1, graphs=False,
@@ -2250,6 +2698,8 @@ def run_bench(tag, knobs):
         raise AssertionError(f"{tag} the bench's LK is not one fused launch per tracked frame")
     if fig["sym_eig_launches"] == 0:
         raise AssertionError(f"{tag} the bench did not launch the eigensolver kernel")
+    if not all(fig["proj_launches"].values()):
+        raise AssertionError(f"{tag} the bench did not launch every projection kernel")
     if not fig["trajectory_finite"]:
         raise AssertionError(f"{tag} non-finite trajectory")
     if fig["initialized"] and not (fig["ate_m"] is not None and fig["ate_m"] < FULL_SCALE_ATE_M):
@@ -2333,7 +2783,8 @@ def main(argv):
     phase_profiling(dev)
     phase_dist()
     phase_kf_axis()
-    kernels["sym_eig"], _, _ = phase_programs(dev, rig, plain_calls, run4)
+    kernels["sym_eig"], times14, _ = phase_programs(dev, rig, plain_calls, run4)
+    kernels.update(times14["proj"])
     del rig
     benches = phase_bench()
     # Each run's counts were set to 0 just before it: the phases' by
@@ -2342,20 +2793,24 @@ def main(argv):
     lk_runs = [r["launches"] for r in paths] + [f["lk_launches_run"] for f in benches.values()]
     sym_runs = [r["sym_launches"] for r in paths] + [f["sym_eig_launches_run"]
                                                      for f in benches.values()]
+    proj_runs = {k: [r["proj"][k] for r in paths] + [f["proj_launches_run"][k]
+                                                     for f in benches.values()]
+                 for k in PROJ_FLOPS}
     launches = {"lk_pyramid": sum(lk_runs),
                 "lk_level": run4["level_launches"],
                 "lk_pyramid_pallas": run6p["launches"],
-                "sym_eig": sum(sym_runs)}
+                "sym_eig": sum(sym_runs), **{k: sum(v) for k, v in proj_runs.items()}}
     log(f"[end] launches on the main paths (phases 4, 6, 8, 9, "
         + ", ".join(benches) + ", each a whole run): lk_pyramid "
         + ", ".join(map(str, lk_runs)) + "; sym_eig " + ", ".join(map(str, sym_runs))
+        + "".join(f"; {k} " + ", ".join(map(str, v)) for k, v in proj_runs.items())
         + f"; lk_pyramid_pallas (phase 6p) {run6p['launches']}; whole run "
         f"{time.perf_counter() - t_run + 0.0:.1f} s after the build")
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
          "launches": launches[name], **kernels[name]}
-        for name in ("lk_pyramid", "lk_level", "lk_pyramid_pallas", "sym_eig")]}))
+        for name in ("lk_pyramid", "lk_level", "lk_pyramid_pallas", "sym_eig", *PROJ_FLOPS)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,15 +9,17 @@ Port of ``lfvio_tpu.backend.factors``:
   * marginalization prior (marginalization_factor.cpp:333-381).
 
 The residuals broadcast over leading dimensions, so one definition serves
-the whole [F, W+1] grid at once and, under ``torch.func.vmap``, the
-per-observation linearization of ``solver.py``.
+the whole [F, W+1] grid at once. ``projection_jacobian`` is the projection
+residual's analytic Jacobian over the 26 tangents of an observation, the
+plain version of ``csrc/proj_factor.cu``'s rows mode; the IMU residual is
+linearized by forward-mode autodiff in ``solver.py``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..geom import quat_box_minus, quat_conj, quat_rotate, tangent_basis
+from ..geom import quat_box_minus, quat_conj, quat_rotate, quat_to_mat, skew, tangent_basis
 from ..imu import imu_residual
 from .state import FeatureGrid, PriorFactor, WindowState, ex_2d
 
@@ -42,6 +44,76 @@ def projection_residual(p_i, q_i, p_j, q_j, tic_i, qic_i, tic_j, qic_j,
     m = torch.clamp(torch.linalg.norm(pts_j_td, dim=-1, keepdim=True), min=1e-12)
     err = pts_cam_j / n - pts_j_td / m
     return sqrt_info * (tangent_b @ err[..., None])[..., 0]
+
+
+def projection_jacobian(p_i, q_i, p_j, q_j, tic_i, qic_i, tic_j, qic_j,
+                        inv_dep, td, pts_i, pts_j, vel_i, vel_j,
+                        td_obs_i, td_obs_j, tangent_b, sqrt_info):
+    """``projection_residual`` (r [..., 2]) and its analytic Jacobian
+    J [..., 2, 26] with respect to [δpose_i, δpose_j, δex_i, δex_j, δλ, δtd]
+    (each pose and extrinsic (δp, δθ), rotations perturbed on the right,
+    q ⊗ exp(δθ)), over any leading shape; the arithmetic of
+    ``csrc/proj_factor.cu``'s rows mode, formula for formula.
+
+    The chain, R(q) the matrix of ``quat_rotate``:
+
+        ρ_i = pts_i − (td − td_obs_i) vel_i, λ̃ = λ (1e-8 where |λ| < 1e-8)
+        P_ci = ρ_i / λ̃, P_bi = R_ci P_ci + t_ci, P_w = R_i P_bi + p_i,
+        P_bj = R_jᵀ (P_w − p_j), P_cj = R_cjᵀ (P_bj − t_cj),
+        u = P_cj / n, m̂ = ρ_j / m (n, m the norms, clamped at 1e-12),
+        r = s B (u − m̂).
+
+    With G = s B N, N = (I − u uᵀ) / n, and A = R_cjᵀ R_jᵀ, the column
+    blocks are G times: A, −A R_i [P_bi]×, −A, R_cjᵀ [P_bj]×, A R_i,
+    −A R_i R_ci [P_ci]×, −R_cjᵀ, [P_cj]×, −A R_i R_ci ρ_i / λ̃² (0 where λ
+    is clamped), −A R_i R_ci vel_i / λ̃; the td column gains
+    s B (I − m̂ m̂ᵀ) vel_j / m. A clamped norm has no derivative (no u uᵀ,
+    m̂ m̂ᵀ term), as forward-mode autodiff of the clamp gives.
+
+    The λ column is evaluated in a form free of cancellation:
+    A R_i R_ci ρ_i / λ̃ = P_cj + R_cjᵀ t_cj + A (p_j − p_i − R_i t_ci), and
+    N P_cj = 0, so it is −G (R_cjᵀ t_cj + A (p_j − p_i − R_i t_ci)) / λ̃
+    (with −G P_cj / λ̃ added where n is clamped): only the baseline's part,
+    where the first form cancels terms depth / baseline times larger."""
+    T = lambda M: M.transpose(-1, -2)
+    mv = lambda M, v: torch.sum(M * v[..., None, :], dim=-1)  # promotes mixed dtypes
+    R_i, R_j, R_ci, R_cj = quat_to_mat(q_i), quat_to_mat(q_j), quat_to_mat(qic_i), quat_to_mat(qic_j)
+    rho_i = pts_i - (td - td_obs_i)[..., None] * vel_i
+    rho_j = pts_j - (td - td_obs_j)[..., None] * vel_j
+    small = torch.abs(inv_dep) < 1e-8
+    lam = torch.where(small, 1e-8, inv_dep)[..., None]
+    P_ci = rho_i / lam
+    P_bi = mv(R_ci, P_ci) + tic_i
+    P_w = mv(R_i, P_bi) + p_i
+    P_bj = mv(T(R_j), P_w - p_j)
+    P_cj = mv(T(R_cj), P_bj - tic_j)
+    n_raw = torch.linalg.norm(P_cj, dim=-1, keepdim=True)
+    n = torch.clamp(n_raw, min=1e-12)
+    m_raw = torch.linalg.norm(rho_j, dim=-1, keepdim=True)
+    m = torch.clamp(m_raw, min=1e-12)
+    u, mh = P_cj / n, rho_j / m
+    r = sqrt_info * mv(tangent_b, u - mh)
+
+    eye = torch.eye(3, dtype=u.dtype, device=u.device)
+    outer = lambda x, ok: torch.where(ok[..., None], x[..., :, None] * x[..., None, :], 0.0)
+    N = (eye - outer(u, n_raw >= 1e-12)) / n[..., None]
+    G = sqrt_info * (tangent_b @ N)
+    GRc = G @ T(R_cj)
+    GA = GRc @ T(R_j)
+    GAR = GA @ R_i
+    GARR = GAR @ R_ci
+    Mm = (eye - outer(mh, m_raw >= 1e-12)) / m[..., None]
+    col = lambda M, v: mv(M, v)[..., None]  # [..., 2, 1]
+    lam2 = lam[..., None]
+    base = col(GRc, tic_j) + col(GA, p_j - p_i - mv(R_i, tic_i))
+    base = base + torch.where((n_raw >= 1e-12)[..., None], 0.0, col(G, P_cj))
+    J = torch.cat([
+        GA, -(GAR @ skew(P_bi)), -GA, GRc @ skew(P_bj),
+        GAR, -(GARR @ skew(P_ci)), -GRc, G @ skew(P_cj),
+        torch.where(small[..., None, None], 0.0, -base / lam2),
+        -col(GARR, vel_i) / lam2 + sqrt_info * col(tangent_b, mv(Mm, vel_j)),
+    ], dim=-1)
+    return r, J
 
 
 def anchor_values(state: WindowState, grid: FeatureGrid):

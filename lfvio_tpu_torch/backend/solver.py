@@ -3,12 +3,15 @@
 Port of ``lfvio_tpu.backend.solver`` (the reference's Ceres DENSE_SCHUR
 solve, estimator.cpp:810-825):
 
-  1. Per-factor Jacobians by forward-mode autodiff on the tangent
-     perturbation (``torch.func.jacfwd``), vmapped over every observation of
-     the [F, W+1] grid and over the W IMU intervals.
+  1. Projection rows from their analytic Jacobian
+     (``factors.projection_jacobian``), and their sums into the normal
+     equations, by ``proj_cuda``'s wrappers: on the card the kernels of
+     ``csrc/proj_factor.cu`` (rows, assemble, cost), on the CPU their plain
+     versions. The IMU rows by forward-mode autodiff on the tangent
+     perturbation (``torch.func.jacfwd``), vmapped over the W intervals.
   2. Dense normal equations in the full local layout: H_pp [D, D],
-     H_pl [D, F] and the diagonal H_ll [F]. Each observation's extrinsic
-     blocks are scattered to its camera's columns with ``index_add_``.
+     H_pl [D, F] and the diagonal H_ll [F]. ``linearize_proj_rows`` gives
+     the dense projection rows that the QR marginalization stacks.
   3. Schur elimination of the inverse depths, one Cholesky of the reduced
      D×D system (``cholesky_ex`` and two triangular solves: a non-PD system
      gives a non-finite step, which LM rejects, as jnp.linalg.cholesky's
@@ -27,18 +30,10 @@ from functools import partial
 import torch
 from torch.func import jacfwd, vmap
 
-from ..geom import quat_mul, quat_normalize, so3_exp, tangent_basis
+from ..geom import quat_mul, quat_normalize, so3_exp
 from ..imu import Preintegration, imu_residual
-from .factors import (
-    anchor_values,
-    cauchy_corrector,
-    obs_extrinsics,
-    imu_residuals_window,
-    prior_residual,
-    projection_residual,
-    projection_residuals_grid,
-    residual_mask,
-)
+from .factors import imu_residuals_window, prior_residual, residual_mask
+from .proj_cuda import full_rows, proj_assemble, proj_cost, proj_rows
 from .state import (
     FeatureGrid,
     PriorFactor,
@@ -79,25 +74,6 @@ def apply_delta(state: WindowState, dx, dlam, cfg: SolverConfig):
     )
 
 
-def _proj_local_residual(d, p_i, q_i, p_j, q_j, tic_i, qic_i, tic_j, qic_j,
-                         inv_dep, td, pts_i, pts_j, vel_i, vel_j, td_obs_i,
-                         td_obs_j, tb, sqrt_info):
-    """One projection residual as a function of the 26-dim perturbation
-    [δpose_i(6), δpose_j(6), δex_i(6), δex_j(6), δλ(1), δtd(1)]. The anchor-
-    and observation-side extrinsics are perturbed separately; where both
-    observations come from one camera their blocks land in the same columns
-    and add (the total derivative)."""
-    r = projection_residual(
-        p_i + d[0:3], quat_mul(q_i, so3_exp(d[3:6])),
-        p_j + d[6:9], quat_mul(q_j, so3_exp(d[9:12])),
-        tic_i + d[12:15], quat_mul(qic_i, so3_exp(d[15:18])),
-        tic_j + d[18:21], quat_mul(qic_j, so3_exp(d[21:24])),
-        inv_dep + d[24], td + d[25],
-        pts_i, pts_j, vel_i, vel_j, td_obs_i, td_obs_j, tb, sqrt_info,
-    )
-    return r, r
-
-
 def _imu_local_residual(d, dp, dq, dv, jac, sum_dt, lba, lbg, si,
                         p0, q0, v0, ba0, bg0, p1, q1, v1, ba1, bg1, gravity):
     """One whitened IMU residual as a function of the 30-dim perturbation
@@ -115,46 +91,11 @@ def _imu_local_residual(d, dp, dq, dv, jac, sum_dt, lba, lbg, si,
 
 
 def linearize_projection(state: WindowState, grid: FeatureGrid, cfg: SolverConfig):
-    """Residuals and per-factor Jacobians over the whole grid.
+    """Residuals and per-factor Jacobians over the whole grid (``proj_rows``:
+    the rows kernel on the card, ``projection_jacobian`` on the CPU).
     Returns (res [F,W1,2], J26 [F,W1,2,26], valid [F,W1], w [F,W1,1])."""
-    F, W1 = grid.valid.shape
-    dtype = state.p.dtype
-    p_i, q_i, pts_i, vel_i, td_obs_i = anchor_values(state, grid)
-    tic_i, qic_i, tic_j, qic_j = obs_extrinsics(state, grid)
-
-    def per_obs(x, k):  # [F, ...] anchor-side or [W1, ...] frame-side -> [F*W1, ...]
-        x = x[:, None] if k == "f" else x[None]
-        return x.expand(F, W1, *x.shape[2:]).reshape(F * W1, *x.shape[2:])
-
-    args = (
-        per_obs(p_i, "f"), per_obs(q_i, "f"), per_obs(state.p, "w"),
-        per_obs(state.q, "w"),
-        per_obs(tic_i, "f"), per_obs(qic_i, "f"),
-        tic_j.reshape(F * W1, 3), qic_j.reshape(F * W1, 4),
-        per_obs(state.inv_depth, "f"),
-        per_obs(pts_i, "f"), grid.bearing.reshape(F * W1, 3),
-        per_obs(vel_i, "f"), grid.velocity.reshape(F * W1, 3),
-        per_obs(td_obs_i, "f"), grid.td_obs.reshape(F * W1),
-        tangent_basis(grid.bearing).reshape(F * W1, 2, 3),
-    )
-
-    def fn(d, p_i, q_i, p_j, q_j, tic_i, qic_i, tic_j, qic_j, lam,
-           pts_i, pts_j, vel_i, vel_j, tdo_i, tdo_j, tb):
-        return _proj_local_residual(
-            d, p_i, q_i, p_j, q_j, tic_i, qic_i, tic_j, qic_j, lam, state.td,
-            pts_i, pts_j, vel_i, vel_j, tdo_i, tdo_j, tb, cfg.proj_sqrt_info,
-        )
-
-    zero26 = torch.zeros(26, dtype=dtype, device=state.p.device)
-    J26, res = vmap(jacfwd(fn, has_aux=True), in_dims=(None,) + (0,) * len(args))(
-        zero26, *args
-    )
-    res = res.reshape(F, W1, 2)
-    J26 = J26.reshape(F, W1, 2, 26)
-    valid = residual_mask(grid)
-    res = torch.where(valid[..., None], res, 0.0)
-    J26 = torch.where(valid[..., None, None], J26, 0.0)
-    return res, J26, valid, cauchy_corrector(res, cfg.cauchy_c)
+    res, J26, w, _ = proj_rows(state, grid, cfg)
+    return res, J26, residual_mask(grid), w[..., None]
 
 
 def linearize_proj_rows(state: WindowState, grid: FeatureGrid, cfg: SolverConfig):
@@ -162,52 +103,10 @@ def linearize_proj_rows(state: WindowState, grid: FeatureGrid, cfg: SolverConfig
 
     Returns (res_w [F,W1,2], Jfull [F,W1,2,D], J_lam [F,W1,2], valid [F,W1],
     cost)."""
-    F, W1 = grid.valid.shape
-    dtype, dev = state.p.dtype, state.p.device
-    C = n_cams_of(state)
-    res, J26, valid, w = linearize_projection(state, grid, cfg)
-    sq = torch.sum(res * res, dim=-1)
-    c2 = cfg.cauchy_c**2
-    cost = 0.5 * torch.sum(torch.where(valid, c2 * torch.log1p(sq / c2), 0.0))
-    res_w = res * w
-    J26 = J26 * w[..., None]
-
-    J_pi, J_pj = J26[..., 0:6], J26[..., 6:12]
-    J_exi, J_exj = J26[..., 12:18], J26[..., 18:24]
-    J_lam, J_td = J26[..., 24], J26[..., 25]
-    if not cfg.estimate_extrinsic:
-        J_exi, J_exj = torch.zeros_like(J_exi), torch.zeros_like(J_exj)
-    if not cfg.estimate_td:
-        J_td = torch.zeros_like(J_td)
-
-    # One-hot anchors [F, W1] by comparison (one_hot checks its classes on the
-    # host off the card).
-    onehot = (grid.anchor[:, None] == torch.arange(W1, device=dev)).to(dtype)
-    eyeW = torch.eye(W1, dtype=dtype, device=dev)
-    Jpose = torch.einsum("fjac,jk->fjakc", J_pj, eyeW) + torch.einsum(
-        "fjac,fk->fjakc", J_pi, onehot
-    )
-    # Extrinsic columns (camera-major [C, 6]): the anchor-side block goes to
-    # the anchor observation's camera, the observation-side block to the
-    # observing camera; blocks of one camera add.
-    cam_j = grid.cam_index().reshape(-1)  # [F*W1]
-    cam_i = grid.cam_index()[torch.arange(F, device=dev), grid.anchor][:, None].expand(F, W1)
-    cam_i = cam_i.reshape(-1)
-    row = torch.arange(F * W1, device=dev) * C
-    Jex = torch.zeros((F * W1 * C, 2, 6), dtype=dtype, device=dev)
-    Jex.index_add_(0, row + cam_j, J_exj.reshape(F * W1, 2, 6))
-    Jex.index_add_(0, row + cam_i, J_exi.reshape(F * W1, 2, 6))
-    Jex = Jex.reshape(F, W1, C, 2, 6).permute(0, 1, 3, 2, 4).reshape(F, W1, 2, 6 * C)
-    Jfull = torch.cat(
-        [
-            Jpose.reshape(F, W1, 2, 6 * W1),
-            torch.zeros((F, W1, 2, 9 * W1), dtype=dtype, device=dev),
-            Jex,
-            J_td[..., None],
-        ],
-        dim=-1,
-    )
-    return res_w, Jfull, J_lam, valid, cost
+    res, J26, w, cost_terms = proj_rows(state, grid, cfg)
+    J26 = J26 * w[..., None, None]
+    Jfull = full_rows(J26, grid, cfg, n_cams_of(state))
+    return res * w[..., None], Jfull, J26[..., 24], residual_mask(grid), 0.5 * cost_terms.sum()
 
 
 def linearize_imu_rows(state: WindowState, pre: Preintegration, sqrt_info_imu,
@@ -256,16 +155,9 @@ def linearize_imu_rows(state: WindowState, pre: Preintegration, sqrt_info_imu,
 def assemble_normal_equations(state, grid, pre, sqrt_info_imu, imu_valid,
                               prior, gravity, cfg):
     """(H_pp, H_pl, H_ll, b_p, b_l, cost) at the current linearization."""
-    F, W1 = grid.valid.shape
-    D = pose_dim(W1, n_cams_of(state))
-    res_w, Jfull, J_lam, _, cost_proj = linearize_proj_rows(state, grid, cfg)
-    Jmat = Jfull.reshape(F * W1 * 2, D)
-    rvec = res_w.reshape(-1)
-    H_pp = Jmat.T @ Jmat
-    b_p = Jmat.T @ rvec
-    H_pl = torch.einsum("fjad,fja->df", Jfull, J_lam)
-    H_ll = torch.einsum("fja,fja->f", J_lam, J_lam)
-    b_l = torch.einsum("fja,fja->f", J_lam, res_w)
+    rows = proj_rows(state, grid, cfg)
+    H_pp, H_pl, H_ll, b_p, b_l = proj_assemble(grid, rows, cfg, n_cams_of(state))
+    cost_proj = 0.5 * torch.sum(rows[3])
 
     imu_res, Jimu, cost_imu = linearize_imu_rows(
         state, pre, sqrt_info_imu, imu_valid, gravity
@@ -283,10 +175,7 @@ def assemble_normal_equations(state, grid, pre, sqrt_info_imu, imu_valid,
 
 def total_cost(state, grid, pre, sqrt_info_imu, imu_valid, prior, gravity, cfg):
     """Robust total cost at a state (no Jacobians) — LM accept/reject."""
-    res, valid = projection_residuals_grid(state, grid, cfg.proj_sqrt_info)
-    sq = torch.sum(res * res, dim=-1)
-    c2 = cfg.cauchy_c**2
-    cost_proj = 0.5 * torch.sum(torch.where(valid, c2 * torch.log1p(sq / c2), 0.0))
+    cost_proj = 0.5 * torch.sum(proj_cost(state, grid, cfg))
     imu_res = imu_residuals_window(state, pre, sqrt_info_imu, gravity, imu_valid)
     rp = prior_residual(state, prior)
     return cost_proj + 0.5 * torch.sum(imu_res * imu_res) + 0.5 * torch.sum(rp * rp)

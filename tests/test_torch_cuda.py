@@ -3,7 +3,9 @@ launch per frame, one level step as a one-pass launch of the same kernel, and
 its Pallas-geometry mode (klt.pyramidal_lk_pallas).
 The eigensolver kernel (lfvio_tpu_torch/csrc/sym_eig.cu) against
 torch.linalg.eigh, and the estimator's programs as CUDA graphs against the
-same functions run eagerly.
+same functions run eagerly. The projection factor's kernels
+(lfvio_tpu_torch/csrc/proj_factor.cu: rows, assemble, cost) against their
+plain versions in backend/proj_cuda.py.
 
 Every test here needs the card: the kernel has no CPU mode, so they skip
 without one. This file imports neither JAX nor the JAX package, so it also
@@ -591,3 +593,123 @@ def test_estimator_graphs_match_eager_f64(dev):
     errs = chip_smoke.phase_graphs_f64(dev)
     assert set(errs) == {"solve", "marg_old", "marg_new", "relo"}
     assert max(errs.values()) <= 1e-9
+
+
+# ------------------------------------------------ csrc/proj_factor.cu
+def _proj_case(dev, dtype, n_cams, n_slots=32):
+    """make_window_problem's window at ``n_slots`` (tracks of 5 frames from
+    varied anchors, td and extrinsics estimated) on the card in ``dtype``;
+    with two cameras, chip_smoke's dual-camera form of it."""
+    import dataclasses
+
+    import chip_smoke
+    from lfvio_tpu_torch.runtime.profiling import make_window_problem
+
+    if n_cams == 2:
+        state, grid, cfg = chip_smoke.dual_camera_inputs(dev, n_slots)
+        cast = lambda x: x.to(dtype) if x.is_floating_point() else x
+        state = type(state)(**{f.name: cast(getattr(state, f.name))
+                                for f in dataclasses.fields(state)})
+        grid = type(grid)(**{f.name: None if getattr(grid, f.name) is None
+                             else cast(getattr(grid, f.name)) for f in dataclasses.fields(grid)})
+        return state, grid, cfg
+    pb = make_window_problem(n_slots, dtype, n_obs_frames=5, device=dev)
+    return pb["state"], pb["grid"], pb["cfg"]
+
+
+@pytest.mark.parametrize("dtype,bound", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+@pytest.mark.parametrize("n_cams", [1, 2])
+def test_proj_factor_matches_plain(dev, dtype, bound, n_cams):
+    """Rows, H_pp, H_pl, H_ll, b_p, b_l and the cost of the three kernels
+    against their plain versions on the same inputs, within 1e-5 (f32: sums
+    in another order) or 1e-12 (f64) of each output's scale
+    (chip_smoke.proj_compare), and a repeat bit-identical."""
+    import chip_smoke
+
+    errs, _, identical = chip_smoke.proj_compare(*_proj_case(dev, dtype, n_cams))
+    assert identical
+    assert max(errs.values()) <= bound, errs
+
+
+def test_proj_factor_flags_off_and_dropped_observations(dev):
+    """With both estimate flags off the extrinsic and td rows and columns
+    are exact zeros; an unused slot and a feature with |λ| < 1e-8 give
+    finite rows; every output still equals the plain version (f64)."""
+    import dataclasses
+
+    import chip_smoke
+    from lfvio_tpu_torch.backend import proj_cuda as pc
+
+    state, grid, cfg = _proj_case(dev, torch.float64, 1)
+    cfg = dataclasses.replace(cfg, estimate_td=False, estimate_extrinsic=False)
+    used = grid.used.clone()
+    used[3] = False
+    lam = state.inv_depth.clone()
+    lam[5] = 3e-9
+    state, grid = state.replace(inv_depth=lam), grid.replace(used=used)
+    errs, _, identical = chip_smoke.proj_compare(state, grid, cfg)
+    assert identical and max(errs.values()) <= 1e-12, errs
+    rows = pc.proj_rows(state, grid, cfg)
+    H_pp, H_pl, _, b_p, _ = pc.proj_assemble(grid, rows, cfg, 1)
+    W1 = grid.valid.shape[1]
+    assert bool((H_pp[15 * W1:] == 0).all()) and bool((H_pp[:, 15 * W1:] == 0).all())
+    assert bool((b_p[6 * W1:] == 0).all()) and bool((H_pl[6 * W1:] == 0).all())
+    assert bool(torch.isfinite(rows[1]).all()) and bool((rows[1][3] == 0).all())
+
+
+def test_proj_wrappers_reject_what_the_kernels_do_not_take(dev):
+    """Wrong dtype, shape, device mix or a strided input raise; nothing
+    falls back to the plain version."""
+    from lfvio_tpu_torch.backend import proj_cuda as pc
+
+    state, grid, cfg = _proj_case(dev, torch.float32, 1)
+    rows = pc.proj_rows(state, grid, cfg)
+    bad = [
+        (state.replace(p=state.p.to(torch.float16)), grid),
+        (state.replace(p=state.p[:-1]), grid),
+        (state, grid.replace(bearing=grid.bearing.cpu())),
+        (state, grid.replace(bearing=grid.bearing.transpose(0, 1).contiguous().transpose(0, 1))),
+        (state, grid.replace(anchor=grid.anchor.to(torch.int32))),
+        (state.replace(inv_depth=state.inv_depth.double()), grid),
+    ]
+    for s, g in bad:
+        for fn in (pc.proj_rows, pc.proj_cost):
+            with pytest.raises(ValueError):
+                fn(s, g, cfg)
+    with pytest.raises(ValueError):
+        pc.proj_assemble(grid, (rows[0].double(), *rows[1:]), cfg, 1)
+    with pytest.raises(ValueError):
+        pc.proj_assemble(grid, (rows[0], rows[1][:, :-1], *rows[2:]), cfg, 1)
+
+
+def test_proj_launches_counted_at_graph_replay(dev):
+    """assemble_normal_equations and total_cost as a DeviceProgram: each
+    replay counts one rows, one assemble and one cost launch."""
+    from lfvio_tpu_torch.backend import proj_cuda as pc
+    from lfvio_tpu_torch.backend.solver import assemble_normal_equations, total_cost
+    from lfvio_tpu_torch.device import DeviceProgram
+    from lfvio_tpu_torch.imu import preintegrate, whiten_covariance
+    from lfvio_tpu_torch.runtime.profiling import make_window_problem
+
+    pb = make_window_problem(32, torch.float32, n_obs_frames=5, device=dev)
+    st = pb["state"]
+    imu = [torch.as_tensor(pb[k], dtype=torch.float32, device=dev)
+           for k in ("dts", "accs", "gyrs", "a0", "g0")]
+    pre = preintegrate(*imu, st.ba[:-1], st.bg[:-1], pb["noise"])
+    si, ok = whiten_covariance(pre.covariance, torch.as_tensor(pb["imu_valid"], device=dev))
+    args = (pb["grid"], pre, si, ok, pb["prior"], pb["gravity"], pb["cfg"])
+
+    def step(s):
+        return assemble_normal_equations(s, *args)[:5], total_cost(s, *args)
+
+    prog = DeviceProgram(step)
+    eager = step(st)
+    prog(st)
+    before = [k.launches for k in (pc.proj_rows, pc.proj_assemble, pc.proj_cost)]
+    for _ in range(3):
+        out = prog(st)
+    torch.cuda.synchronize()
+    after = [k.launches for k in (pc.proj_rows, pc.proj_assemble, pc.proj_cost)]
+    assert [a - b for a, b in zip(after, before)] == [3, 3, 3]
+    for x, y in zip((*out[0], out[1]), (*eager[0], eager[1])):
+        assert float((x - y).abs().max()) <= 1e-5 * max(float(y.abs().max()), 1.0)
