@@ -83,12 +83,13 @@ lines; any failure ends the run with a non-zero exit code:
      the f64 estimator's four, relocalization included; the card's ms per
      replay at bench.py's window 10 / 256 slots (a) and window 20 / 384
      slots (b); one eager solve's device time split by solver function;
-     8 rows, 8 assemble and 9 cost launches of the projection kernels a
-     solve replay at cap 8, one rows launch a MARGIN_OLD); the projection
-     kernels (csrc/proj_factor.cu) against their plain versions at (a)'s
-     and (b)'s solve inputs (f32) and on a dual-camera window (f64), a
-     bit-identical repeat, each mode's times behind a full queue and
-     launched alone beside its plain version's and its bound; the
+     8 normal-equation and 9 cost launches of the projection kernels and
+     no rows launch a solve replay at cap 8, one rows launch a MARGIN_OLD);
+     the projection kernels (csrc/proj_factor.cu: rows, normal equations,
+     cost) against their plain versions at (a)'s and (b)'s solve inputs
+     (f32) and on a dual-camera window (f64), a bit-identical repeat, each
+     kernel's times behind a full queue and launched alone beside its plain
+     version's and its bound; the
      eigensolver kernel against
      torch.linalg.eigh on the main path's inputs at 256 and 384 slots (the
      [256, 4, 4] and [384, 4, 4] DLT matrices of a triangulation, RANSAC's
@@ -2244,9 +2245,9 @@ def graph_nodes(prog):
 # (its products) before its call of linearize_imu_rows starts, and the IMU
 # rows' and the prior's from then on.
 SOLVE_FUNCTIONS = ("assemble_normal_equations", "linearize_projection", "linearize_proj_rows",
-                   "proj_rows", "proj_assemble", "proj_cost", "linearize_imu_rows",
+                   "proj_rows", "proj_normal", "proj_cost", "linearize_imu_rows",
                    "prior_residual", "total_cost", "_schur_solve")
-PROJECTION = ("linearize_projection", "linearize_proj_rows", "proj_rows", "proj_assemble")
+PROJECTION = ("linearize_projection", "linearize_proj_rows", "proj_rows", "proj_normal")
 OUTSIDE_LM = "outside the LM (unpack, preintegration, triangulation, gauge, the gate)"
 # The projection kernels launch through ctypes, so the profiler links them to
 # no op: their device time goes to a part by the kernel's name (cost mode:
@@ -2254,7 +2255,7 @@ OUTSIDE_LM = "outside the LM (unpack, preintegration, triangulation, gauge, the 
 KERNEL_PARTS = {"proj_rows_kernel<float, true>": "projection",
                 "proj_rows_kernel<double, true>": "projection",
                 "proj_rows_kernel<float, false>": "cost", "proj_rows_kernel<double, false>": "cost",
-                "proj_assemble_kernel": "projection"}
+                "proj_normal_kernel": "projection"}
 
 
 class annotated_solver:
@@ -2437,21 +2438,21 @@ def program_census(est, label, trace=True):
 # roundings. (Held against |J| |r| alone, b_l missed 1e-5
 # in f32 on a window of 1 px residuals, at 1.37e-5.)
 PROJ_BOUNDS = {"float32": 1e-5, "float64": 1e-12}
-# Operations a kept observation costs each mode, reckoned from the kernel's
-# arithmetic: the rows (the four rotation matrices, the chain, the basis, G
-# and its four products, the four skew products, λ and td) about 750; the
-# cost mode about 330; the assembly of a row of 26 columns into JᵀJ, Jᵀr
-# and H_pl 4 (26² + 2 · 26).
-PROJ_FLOPS = {"proj_rows": 750, "proj_cost": 330, "proj_assemble": 4 * (26 * 26 + 2 * 26)}
+# Operations a kept observation costs each kernel, reckoned from the
+# kernel's arithmetic: the rows (the four rotation matrices, the chain, the
+# basis, G and its four products, the four skew products, λ and td) about
+# 750; the cost mode about 330; the normal equations the rows and their
+# assembly, a row of 26 columns into JᵀJ, Jᵀr and H_pl, 4 (26² + 2 · 26).
+PROJ_FLOPS = {"proj_rows": 750, "proj_normal": 750 + 4 * (26 * 26 + 2 * 26), "proj_cost": 330}
 REPLACES.update({
-    "proj_rows": "lfvio_tpu/backend/solver.py:126 (linearize_projection: jacfwd + vmap; XLA, "
-                 "no Pallas kernel)",
-    "proj_assemble": "lfvio_tpu/backend/solver.py:184, :287 (linearize_proj_rows' dense rows and "
-                     "assemble_normal_equations' JᵀJ; XLA, no Pallas kernel)",
+    "proj_rows": "lfvio_tpu/backend/solver.py:126, :184 (linearize_projection: jacfwd + vmap, "
+                 "and linearize_proj_rows' dense rows for MARGIN_OLD; XLA, no Pallas kernel)",
+    "proj_normal": "lfvio_tpu/backend/solver.py:287 (assemble_normal_equations' projection "
+                   "terms: the rows of :126 and their JᵀJ; XLA, no Pallas kernel)",
     "proj_cost": "lfvio_tpu/backend/solver.py:326 (total_cost's projection term; XLA, no Pallas "
                  "kernel)"})
 SOURCES.update({k: "lfvio_tpu_torch/csrc/proj_factor.cu"
-                for k in ("proj_rows", "proj_assemble", "proj_cost")})
+                for k in PROJ_FLOPS})
 
 
 def solve_inputs(est):
@@ -2483,33 +2484,35 @@ def dual_camera_inputs(dev, n_slots=64):
 
 
 def proj_outputs(state, grid, cfg, plain=False):
-    """Every output of the three modes, {name: tensor}: the kernels' or
+    """Every output of the three kernels, {name: tensor}: the kernels' or
     (``plain``) their plain versions'."""
     from lfvio_tpu_torch.backend import proj_cuda as pc
     from lfvio_tpu_torch.backend.state import n_cams_of
 
     C = n_cams_of(state)
     if plain:
-        rows = pc.rows_plain(state, grid, cfg)
-        asm, cost = pc.assemble_plain(grid, rows, cfg, C), pc.cost_plain(state, grid, cfg)
+        rows, normal = pc.rows_plain(state, grid, cfg), pc.normal_plain(state, grid, cfg, C)
+        cost = pc.cost_plain(state, grid, cfg)
     else:
-        rows = pc.proj_rows(state, grid, cfg)
-        asm, cost = pc.proj_assemble(grid, rows, cfg, C), pc.proj_cost(state, grid, cfg)
-    return dict(zip(("res", "J26", "w", "cost terms", "H_pp", "H_pl", "H_ll", "b_p", "b_l",
-                     "cost mode"), (*rows, *asm, cost)))
+        rows, normal = pc.proj_rows(state, grid, cfg), pc.proj_normal(state, grid, cfg, C)
+        cost = pc.proj_cost(state, grid, cfg)
+    return dict(zip(PROJ_OUTPUTS, (*rows, *normal, cost)))
 
 
-def proj_compare(state, grid, cfg):
-    """(errors relative to each output's scale, {mode: (largest absolute
-    error, largest relative error) of its outputs}, a repeat of the kernels
-    bit-identical)."""
+# The outputs of proj_outputs, and the kernel each comes from.
+PROJ_OUTPUTS = {"res": "proj_rows", "J26": "proj_rows", "w": "proj_rows",
+                "cost terms": "proj_rows", "H_pp": "proj_normal", "H_pl": "proj_normal",
+                "H_ll": "proj_normal", "b_p": "proj_normal", "b_l": "proj_normal",
+                "normal cost terms": "proj_normal", "cost mode": "proj_cost"}
+
+
+def proj_scales(state, grid, cfg, p):
+    """{output name: its scale} (the note above PROJ_BOUNDS) from the plain
+    versions' outputs ``p`` (proj_outputs(..., plain=True))."""
     import torch
     from lfvio_tpu_torch.backend import proj_cuda as pc
     from lfvio_tpu_torch.backend.state import n_cams_of
 
-    k, p = proj_outputs(state, grid, cfg), proj_outputs(state, grid, cfg, plain=True)
-    again = proj_outputs(state, grid, cfg)
-    identical = all(torch.equal(k[n], again[n]) for n in k)
     s = float(cfg.proj_sqrt_info)
     r_scale = p["res"].abs() + s
     absum = dict(zip(("H_pp", "H_pl", "H_ll", "b_p", "b_l"), pc.assemble_plain(
@@ -2518,24 +2521,36 @@ def proj_compare(state, grid, cfg):
     c2 = cfg.cauchy_c ** 2
     cost_scale = top(c2 * torch.log1p((r_scale * r_scale).sum(-1) / c2))
     w_scale = s * 2.0 / (3.0 * 3.0 ** 0.5 * cfg.cauchy_c)
-    scale = {"res": s, "w": w_scale, "cost terms": cost_scale, "cost mode": cost_scale,
-             **{n: top(absum[n]) for n in absum}}
+    return {"res": s, "J26": top(p["J26"]), "w": w_scale, "cost terms": cost_scale,
+            "normal cost terms": cost_scale, "cost mode": cost_scale,
+            **{n: top(absum[n]) for n in absum}}
+
+
+def proj_compare(state, grid, cfg):
+    """(errors relative to each output's scale, {kernel: (largest absolute
+    error, largest relative error) of its outputs}, a repeat of the kernels
+    bit-identical)."""
+    import torch
+
+    k, p = proj_outputs(state, grid, cfg), proj_outputs(state, grid, cfg, plain=True)
+    again = proj_outputs(state, grid, cfg)
+    identical = all(torch.equal(k[n], again[n]) for n in k)
+    scale = proj_scales(state, grid, cfg, p)
     errs, mode_err = {}, {}
     for n in k:
         d = float((k[n] - p[n]).abs().max()) if k[n].numel() else 0.0
-        errs[n] = d / scale.get(n, top(p[n]))
-        mode = ("proj_rows" if n in ("res", "J26", "w", "cost terms") else
-                "proj_cost" if n == "cost mode" else "proj_assemble")
+        errs[n] = d / scale[n]
+        mode = PROJ_OUTPUTS[n]
         a, r = mode_err.get(mode, (0.0, 0.0))
         mode_err[mode] = (max(a, d), max(r, errs[n]))
     return errs, mode_err, identical
 
 
 def proj_bound_ms(state, grid, mode):
-    """The least time of one launch of ``mode`` on an H100 at these inputs:
-    its inputs read once and its outputs written once at 3.35 TB/s, against
-    PROJ_FLOPS a kept observation at the float32 rate; (ms, by, bytes,
-    FLOP)."""
+    """The least time of one launch of ``mode`` (a key of PROJ_FLOPS) on an
+    H100 at these inputs: its inputs (the state, the grid and its masks)
+    read once and its outputs written once at 3.35 TB/s, against PROJ_FLOPS
+    a kept observation at the float32 rate; (ms, by, bytes, FLOP)."""
     from lfvio_tpu_torch.backend.factors import residual_mask
 
     F, W1 = grid.valid.shape
@@ -2543,12 +2558,10 @@ def proj_bound_ms(state, grid, mode):
     e = state.p.element_size()
     D = 15 * W1 + 6 * C + 1
     masks = F * W1 + F * 8 + F + (F * W1 * 8 if grid.cam is not None else 0)
-    if mode == "proj_assemble":
-        nbytes = masks + e * (F * W1 * 55 + D * D + D + D * F + 2 * F)
-    else:
-        state_in = e * (7 * W1 + 7 * C + 1 + F + F * W1 * 7)
-        out = F * W1 * (56 if mode == "proj_rows" else 1)
-        nbytes = masks + state_in + e * out
+    state_in = e * (7 * W1 + 7 * C + 1 + F + F * W1 * 7)
+    out = {"proj_rows": F * W1 * 56, "proj_cost": F * W1,
+           "proj_normal": D * D + D + D * F + 2 * F + F * W1}[mode]
+    nbytes = masks + state_in + e * out
     flops = PROJ_FLOPS[mode] * int(residual_mask(grid).sum())
     t_b, t_o = 1e3 * nbytes / PEAK_BYTES_S, 1e3 * flops / PEAK_F32_FLOPS
     return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations"), nbytes, flops
@@ -2559,13 +2572,15 @@ def phase_proj_factor(dev, est_a, est_b):
     estimator's solve inputs (256 slots, window 10, f32), (b) the
     high-rate estimator's (384 slots, window 20, f32) and a dual-camera
     window (64 slots, f64, td and extrinsics estimated), within PROJ_BOUNDS,
-    a repeat bit-identical; each mode's times behind a full queue and
+    a repeat bit-identical; each kernel's times behind a full queue and
     launched alone, beside its plain version's and its bound, at (a) and
-    (b). Returns the kernels line's numbers: times at (a), bench.py's
-    default; errors the worst of (a) and (b), absolute and relative to each
-    output's scale, beside the f32 bound."""
+    (b), and the anchors of (a)'s and (b)'s features, which proj_normal's
+    tiles enumerate. Returns the kernels line's numbers: times at (a),
+    bench.py's default; errors the worst of (a) and (b), absolute and
+    relative to each output's scale, beside the f32 bound."""
     import torch
     from lfvio_tpu_torch.backend import proj_cuda as pc
+    from lfvio_tpu_torch.backend.factors import residual_mask
     from lfvio_tpu_torch.backend.state import n_cams_of
 
     cases = {"(a) 256 slots, window 10, f32": solve_inputs(est_a),
@@ -2588,11 +2603,15 @@ def phase_proj_factor(dev, est_a, est_b):
     out = {}
     for label, (state, grid, cfg) in list(cases.items())[:2]:
         C = n_cams_of(state)
-        rows = pc.proj_rows(state, grid, cfg)
+        F, W1 = grid.valid.shape
+        kept = residual_mask(grid)
+        anchors = torch.bincount(grid.anchor[grid.used & (grid.anchor >= 0)], minlength=W1)
+        log(f"[14p] {label}: {int(grid.used.sum())} of {F} slots used, {int(kept.sum())} kept "
+            f"observations; used features by anchor frame {anchors.tolist()}")
         runs = {"proj_rows": (lambda: pc.proj_rows(state, grid, cfg),
                               lambda: pc.rows_plain(state, grid, cfg)),
-                "proj_assemble": (lambda: pc.proj_assemble(grid, rows, cfg, C),
-                                  lambda: pc.assemble_plain(grid, rows, cfg, C)),
+                "proj_normal": (lambda: pc.proj_normal(state, grid, cfg, C),
+                                lambda: pc.normal_plain(state, grid, cfg, C)),
                 "proj_cost": (lambda: pc.proj_cost(state, grid, cfg),
                               lambda: pc.cost_plain(state, grid, cfg))}
         for mode, (kern, plain) in runs.items():
@@ -2634,10 +2653,10 @@ def phase_programs(dev, rig, plain_calls, run4):
                     if hasattr(p, "capture_s")) + ")")
     census["b"] = program_census(warm_estimator(dev, BENCH_HIGH_RATE),
                                  "(b) high-rate (f32, window 20, 384 slots)", trace=False)
-    want = {"proj_rows": cap, "proj_assemble": cap, "proj_cost": cap + 1}
+    want = {"proj_rows": 0, "proj_normal": cap, "proj_cost": cap + 1}
     for key, c in census.items():
         if c["per_replay"]["solve"] != want or c["per_replay"]["marg_old"] != dict(
-                want, proj_rows=1, proj_assemble=0, proj_cost=0):
+                proj_rows=1, proj_normal=0, proj_cost=0):
             raise AssertionError(f"census ({key}): a solve replay at cap {cap} did not launch "
                                  f"{want}, or a MARGIN_OLD replay not one rows launch")
     proj = phase_proj_factor(dev, est, census["b"]["est"])

@@ -8,15 +8,17 @@ Three wrappers, each with its own ``launches`` count (registered with
     w [F, W1], cost [F, W1]): every observation's masked residual, its
     analytic Jacobian over [δpose_i, δpose_j, δex_i, δex_j, δλ, δtd], its
     Cauchy weight (held constant, IRLS) and its robust cost term
-    c² log1p(|r|²/c²) (0 where the mask drops it);
-  * ``proj_assemble(grid, rows, cfg, n_cams)`` -> (H_pp [D, D], H_pl [D, F],
-    H_ll [F], b_p [D], b_l [F]): the whitened rows summed into the normal
-    equations of the full local layout, without the dense rows;
+    c² log1p(|r|²/c²) (0 where the mask drops it); the dense rows that
+    MARGIN_OLD's QR stacks;
+  * ``proj_normal(state, grid, cfg, n_cams)`` -> (H_pp [D, D], H_pl [D, F],
+    H_ll [F], b_p [D], b_l [F], cost [F, W1]): one linearization's whitened
+    rows summed into the normal equations of the full local layout, and the
+    cost terms, in one launch that writes no row to memory (the LM solve's);
   * ``proj_cost(state, grid, cfg)`` -> cost [F, W1]: the cost terms alone.
 
 On CUDA tensors each launches its kernel on the current stream or raises;
 on CPU tensors each is its plain version (``rows_plain``,
-``assemble_plain``, ``cost_plain``). Everything the kernels read of the
+``normal_plain``, ``cost_plain``). Everything the kernels read of the
 state is read through device pointers, so they can sit inside a CUDA graph
 whose state changes between replays; the wrappers branch on shapes only.
 
@@ -137,6 +139,13 @@ def assemble_plain(grid, rows, cfg, n_cams):
     return H_pp, H_pl, H_ll, b_p, b_l
 
 
+def normal_plain(state, grid, cfg, n_cams):
+    """``proj_normal``'s plain version: the sums of ``rows_plain``'s rows
+    (``assemble_plain``) and its cost terms."""
+    rows = rows_plain(state, grid, cfg)
+    return (*assemble_plain(grid, rows, cfg, n_cams), rows[3])
+
+
 # ------------------------------------------------------------ the kernels
 def _library():
     from ..frontend.klt_cuda import library
@@ -179,6 +188,40 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _state_inputs(name, state, grid):
+    """The state's and grid's tensors the kernels read, checked; (dtype,
+    device, C, F, W1, their pointers in the launchers' order). Every one is
+    the state's or the grid's tensor or a view of it."""
+    dtype, dev = state.p.dtype, state.p.device
+    if dtype not in _DTYPES:
+        raise ValueError(f"{name}: takes float32 or float64, got {dtype}")
+    tics, qics = ex_2d(state.tic, state.qic)
+    C, W1s = tics.shape[0], state.p.shape[0]
+    F, W1, g = _grid_inputs(name, grid, dtype, dev)
+    floats = {"p": state.p, "q": state.q, "tic": tics, "qic": qics, "td": state.td,
+              "inv_depth": state.inv_depth, "bearing": grid.bearing,
+              "velocity": grid.velocity, "td_obs": grid.td_obs}
+    _check(name, {k: (v, None) for k, v in floats.items()}, dtype, dev)
+    for key, shape in (("p", (W1, 3)), ("q", (W1, 4)), ("tic", (C, 3)), ("qic", (C, 4)),
+                       ("td", ()), ("inv_depth", (F,)), ("bearing", (F, W1, 3)),
+                       ("velocity", (F, W1, 3)), ("td_obs", (F, W1))):
+        _shape(name, key, floats[key], shape)
+    if W1s != W1:
+        raise ValueError(f"{name}: the state has {W1s} frames, the grid {W1}")
+    tensors = [*floats.values(), g["valid"], g["anchor"], g["used"], g.get("cam")]
+    return dtype, dev, C, F, W1, [_ptr(t) for t in tensors]
+
+
+def _bind(name, argtypes):
+    fn = getattr(_library(), name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+_P, _I, _DBL = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+
+
 class ProjRowsKernel:
     """``proj_rows`` (``cost_only=False``) or ``proj_cost``: one launch of
     ``proj_rows_kernel`` in rows or cost mode."""
@@ -188,105 +231,66 @@ class ProjRowsKernel:
         self.launches = 0
         self._fn = None
 
-    def _launcher(self):
-        if self._fn is None:
-            fn = _library().proj_rows_launch
-            P, I, Dbl = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-            fn.argtypes = [P] * 13 + [I, I, I, Dbl, Dbl, I, I, P, P, P, P, P]
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        return self._fn
-
     def __call__(self, state, grid, cfg):
         if not state.p.is_cuda:
             return cost_plain(state, grid, cfg) if self.cost_only else rows_plain(state, grid, cfg)
         name = "proj_cost" if self.cost_only else "proj_rows"
-        dtype, dev = state.p.dtype, state.p.device
-        if dtype not in _DTYPES:
-            raise ValueError(f"{name}: takes float32 or float64, got {dtype}")
-        tics, qics = ex_2d(state.tic, state.qic)
-        C, W1s = tics.shape[0], state.p.shape[0]
-        F, W1, g = _grid_inputs(name, grid, dtype, dev)
-        floats = {"p": state.p, "q": state.q, "tic": tics, "qic": qics, "td": state.td,
-                  "inv_depth": state.inv_depth, "bearing": grid.bearing,
-                  "velocity": grid.velocity, "td_obs": grid.td_obs}
-        _check(name, {k: (v, None) for k, v in floats.items()}, dtype, dev)
-        for key, shape in (("p", (W1, 3)), ("q", (W1, 4)), ("tic", (C, 3)), ("qic", (C, 4)),
-                           ("td", ()), ("inv_depth", (F,)), ("bearing", (F, W1, 3)),
-                           ("velocity", (F, W1, 3)), ("td_obs", (F, W1))):
-            _shape(name, key, floats[key], shape)
-        if W1s != W1:
-            raise ValueError(f"{name}: the state has {W1s} frames, the grid {W1}")
+        dtype, dev, C, F, W1, ptrs = _state_inputs(name, state, grid)
         new = lambda *s: torch.empty(s, dtype=dtype, device=dev)
         cost = new(F, W1)
         res = J26 = w = None
         if not self.cost_only:
             res, J26, w = new(F, W1, 2), new(F, W1, 2, 26), new(F, W1)
         if F:
+            if self._fn is None:
+                self._fn = _bind("proj_rows_launch",
+                                 [_P] * 13 + [_I, _I, _I, _DBL, _DBL, _I, _I, _P, _P, _P, _P, _P])
             with torch.profiler.record_function(f"proj_factor::{name}"), torch.cuda.device(dev):
-                err = self._launcher()(
-                    *(floats[k].data_ptr() for k in ("p", "q", "tic", "qic", "td", "inv_depth",
-                                                     "bearing", "velocity", "td_obs")),
-                    g["valid"].data_ptr(), g["anchor"].data_ptr(), g["used"].data_ptr(),
-                    _ptr(g.get("cam")), F, W1, C, float(cfg.proj_sqrt_info),
-                    float(cfg.cauchy_c), 0 if self.cost_only else 1, _DTYPES[dtype],
-                    _ptr(res), _ptr(J26), _ptr(w), cost.data_ptr(),
-                    torch.cuda.current_stream(dev).cuda_stream)
+                err = self._fn(
+                    *ptrs, F, W1, C, float(cfg.proj_sqrt_info), float(cfg.cauchy_c),
+                    0 if self.cost_only else 1, _DTYPES[dtype], _ptr(res), _ptr(J26), _ptr(w),
+                    cost.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
             if err != 0:
                 raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
             self.launches += 1
         return cost if self.cost_only else (res, J26, w, cost)
 
 
-class ProjAssembleKernel:
-    """``proj_assemble``: one launch of ``proj_assemble_kernel``."""
+class ProjNormalKernel:
+    """``proj_normal``: one launch of ``proj_normal_kernel``."""
 
     def __init__(self):
         self.launches = 0
         self._fn = None
 
-    def _launcher(self):
-        if self._fn is None:
-            fn = _library().proj_assemble_launch
-            P, I = ctypes.c_void_p, ctypes.c_int
-            fn.argtypes = [P] * 7 + [I] * 6 + [P] * 6
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        return self._fn
-
-    def __call__(self, grid, rows, cfg, n_cams):
-        res, J26, w = rows[:3]
-        if not res.is_cuda:
-            return assemble_plain(grid, rows, cfg, n_cams)
-        name = "proj_assemble"
-        dtype, dev = res.dtype, res.device
-        if dtype not in _DTYPES:
-            raise ValueError(f"{name}: takes float32 or float64, got {dtype}")
-        F, W1, g = _grid_inputs(name, grid, dtype, dev)
-        _check(name, {"res": (res, None), "J26": (J26, None), "w": (w, None)}, dtype, dev)
-        _shape(name, "res", res, (F, W1, 2))
-        _shape(name, "J26", J26, (F, W1, 2, 26))
-        _shape(name, "w", w, (F, W1))
-        D = pose_dim(W1, n_cams)
-        new = lambda *s: torch.empty(s, dtype=dtype, device=dev)
+    def __call__(self, state, grid, cfg, n_cams):
+        if not state.p.is_cuda:
+            return normal_plain(state, grid, cfg, n_cams)
+        name = "proj_normal"
+        dtype, dev, C, F, W1, ptrs = _state_inputs(name, state, grid)
+        if C != n_cams:
+            raise ValueError(f"{name}: the state has {C} cameras, n_cams is {n_cams}")
+        D = pose_dim(W1, C)
         if not F:
             z = lambda *s: torch.zeros(s, dtype=dtype, device=dev)
-            return z(D, D), z(D, 0), z(0), z(D), z(0)
-        H_pp, b_p, H_pl, H_ll, b_l = new(D, D), new(D), new(D, F), new(F), new(F)
-        with torch.profiler.record_function("proj_factor::proj_assemble"), \
-                torch.cuda.device(dev):
-            err = self._launcher()(
-                res.data_ptr(), J26.data_ptr(), w.data_ptr(), g["valid"].data_ptr(),
-                g["anchor"].data_ptr(), g["used"].data_ptr(), _ptr(g.get("cam")), F, W1,
-                n_cams, int(cfg.estimate_extrinsic), int(cfg.estimate_td), _DTYPES[dtype],
+            return z(D, D), z(D, 0), z(0), z(D), z(0), z(0, W1)
+        new = lambda *s: torch.empty(s, dtype=dtype, device=dev)
+        H_pp, b_p, H_pl, H_ll, b_l, cost = new(D, D), new(D), new(D, F), new(F), new(F), new(F, W1)
+        if self._fn is None:
+            self._fn = _bind("proj_normal_launch", [_P] * 13 + [_I, _I, _I, _DBL, _DBL, _I, _I, _I]
+                             + [_P] * 7)
+        with torch.profiler.record_function("proj_factor::proj_normal"), torch.cuda.device(dev):
+            err = self._fn(
+                *ptrs, F, W1, C, float(cfg.proj_sqrt_info), float(cfg.cauchy_c),
+                int(cfg.estimate_extrinsic), int(cfg.estimate_td), _DTYPES[dtype],
                 H_pp.data_ptr(), b_p.data_ptr(), H_pl.data_ptr(), H_ll.data_ptr(),
-                b_l.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+                b_l.data_ptr(), cost.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
             raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
         self.launches += 1
-        return H_pp, H_pl, H_ll, b_p, b_l
+        return H_pp, H_pl, H_ll, b_p, b_l, cost
 
 
 proj_rows = register_kernel(ProjRowsKernel(cost_only=False))
 proj_cost = register_kernel(ProjRowsKernel(cost_only=True))
-proj_assemble = register_kernel(ProjAssembleKernel())
+proj_normal = register_kernel(ProjNormalKernel())

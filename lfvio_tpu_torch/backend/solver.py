@@ -6,8 +6,8 @@ solve, estimator.cpp:810-825):
   1. Projection rows from their analytic Jacobian
      (``factors.projection_jacobian``), and their sums into the normal
      equations, by ``proj_cuda``'s wrappers: on the card the kernels of
-     ``csrc/proj_factor.cu`` (rows, assemble, cost), on the CPU their plain
-     versions. The IMU rows by forward-mode autodiff on the tangent
+     ``csrc/proj_factor.cu`` (rows, normal equations, cost), on the CPU
+     their plain versions. The IMU rows by forward-mode autodiff on the tangent
      perturbation (``torch.func.jacfwd``), vmapped over the W intervals.
   2. Dense normal equations in the full local layout: H_pp [D, D],
      H_pl [D, F] and the diagonal H_ll [F]. ``linearize_proj_rows`` gives
@@ -33,7 +33,7 @@ from torch.func import jacfwd, vmap
 from ..geom import quat_mul, quat_normalize, so3_exp
 from ..imu import Preintegration, imu_residual
 from .factors import imu_residuals_window, prior_residual, residual_mask
-from .proj_cuda import full_rows, proj_assemble, proj_cost, proj_rows
+from .proj_cuda import full_rows, proj_cost, proj_normal, proj_rows
 from .state import (
     FeatureGrid,
     PriorFactor,
@@ -154,10 +154,10 @@ def linearize_imu_rows(state: WindowState, pre: Preintegration, sqrt_info_imu,
 
 def assemble_normal_equations(state, grid, pre, sqrt_info_imu, imu_valid,
                               prior, gravity, cfg):
-    """(H_pp, H_pl, H_ll, b_p, b_l, cost) at the current linearization."""
-    rows = proj_rows(state, grid, cfg)
-    H_pp, H_pl, H_ll, b_p, b_l = proj_assemble(grid, rows, cfg, n_cams_of(state))
-    cost_proj = 0.5 * torch.sum(rows[3])
+    """(H_pp, H_pl, H_ll, b_p, b_l, cost) at the current linearization (the
+    projection's terms: one ``proj_normal``)."""
+    H_pp, H_pl, H_ll, b_p, b_l, cost_terms = proj_normal(state, grid, cfg, n_cams_of(state))
+    cost_proj = 0.5 * torch.sum(cost_terms)
 
     imu_res, Jimu, cost_imu = linearize_imu_rows(
         state, pre, sqrt_info_imu, imu_valid, gravity

@@ -149,7 +149,7 @@ def log(msg):
     print(f"[bench +{time.perf_counter() - _T0:6.1f}s] {msg}", file=sys.stderr, flush=True)
 
 
-PROJ_KERNELS = {"proj_rows": proj_cuda.proj_rows, "proj_assemble": proj_cuda.proj_assemble,
+PROJ_KERNELS = {"proj_rows": proj_cuda.proj_rows, "proj_normal": proj_cuda.proj_normal,
                 "proj_cost": proj_cuda.proj_cost}
 
 

@@ -1,49 +1,85 @@
 // The projection factor of the sliding-window bundle adjustment on Hopper,
-// float32 or float64: per observation the unit-sphere + td residual and its
-// analytic 2 x 26 Jacobian (rows mode), or its robust cost term alone (cost
-// mode), and the sums of the whitened rows into the normal equations
-// H_pp [D, D], b_p [D], H_pl [D, F], H_ll [F] and b_l [F] (assemble).
+// float32 or float64: per observation the unit-sphere + td residual, its
+// analytic 2 x 26 Jacobian and its robust cost term (proj_rows_kernel, rows
+// mode; cost mode: the cost term alone), and the normal equations of one
+// linearization in one launch (proj_normal_kernel): the whitened rows summed
+// into H_pp [D, D], b_p [D], H_pl [D, F], H_ll [F] and b_l [F], beside the
+// cost terms [F, W1], with no row written to device memory.
 //
 // Replaces what XLA computes inside the JAX package's jitted solve and
 // MARGIN_OLD programs: lfvio_tpu/backend/solver.py:126 linearize_projection
 // (forward-mode autodiff over the 26 tangents, vmapped over the [F, W+1]
 // grid), :184 linearize_proj_rows (the dense [F, W+1, 2, D] rows) and :287
 // assemble_normal_equations (their Jᵀ J); there is no Pallas kernel behind
-// them. The port ran the same form as thousands of small kernels a solve.
+// them. The LM solve's linearization is proj_normal_kernel; MARGIN_OLD's QR
+// takes the dense rows of proj_rows_kernel; the LM's cost is the cost mode.
 //
 // The math is backend/factors.py::projection_jacobian's, formula for
 // formula (its docstring has the chain): with G = s B N (B the tangent
 // basis at the measured bearing, N = (I - u uᵀ)/n the normalization's
 // Jacobian), every column block is G times a 3 x 3 or 3 x 1 factor, formed
-// left to right as there.
+// left to right as there (lin_obs, shared by both kernels).
 //
-// What bounds it on an H100: latency. At bench.py's high-rate size (384
-// slots, window 20: 8064 observations, D = 322) the rows are about 1.3 MB
-// and 27 MFLOP, both far below a microsecond of the card. The design is
-// simple and deterministic:
+// What bounds it on an H100: latency, then bytes. At the high-rate solve's
+// inputs (384 slots, window 20, D = 322) a linearization reads and writes
+// about 1.2 MB (H_pl the largest part) and does about 21 MFLOP
+// (chip_smoke.proj_bound_ms), both far below a microsecond of the card;
+// what costs is the chain of dependent loads and sums a block walks. No
+// tensor cores: the products are 2 x 6 blocks, and in float32 only TF32
+// reaches them, which keeps about three digits against a bound of 1e-5 of
+// each output's scale.
 //
-//  * proj_rows_kernel: one thread per observation. Every state quantity is
-//    read through a device pointer (the kernels run inside CUDA graphs whose
-//    state changes between replays); only configuration constants are
-//    scalar arguments. An observation the mask drops (invalid, unused slot,
-//    the anchor itself) is skipped and written as exact zeros (weight 1).
-//  * proj_assemble_kernel: one launch, three kinds of blocks, no atomics,
-//    so a repeat is bit-identical. (1) One block per tile of H_pp over the
-//    active column blocks (a pose of each frame, an extrinsic of each
-//    camera, td), upper triangle, mirrored: each thread sums a fixed
-//    stride of the observations that touch the tile, then a fixed shuffle
-//    tree and the warps in order. The diagonal tiles also write b_p.
-//    (2) One block per feature: its H_pl column, H_ll and b_l, each entry
-//    summed over the frames in order. (3) One block per speed-bias row,
-//    which no projection touches: zeros in its row and column.
+// proj_normal_kernel: one launch, each output entry written once by one
+// block, no atomics and a fixed order of every sum, so a repeat is
+// bit-identical. A block evaluates the rows it needs from the state (an
+// observation that reaches three outputs is evaluated three times: cheaper
+// than a round trip through device memory and a second launch), with the
+// frames' and cameras' rotations and positions staged once in shared memory
+// (cp.async, then each quaternion's matrix) while it loads its first
+// anchors. A row is a long stream of dependent arithmetic that the SM's
+// schedulers issue for every block it holds, so it takes one reciprocal
+// each of λ̃, n and m in place of its divisions. The grid is clusters of 8
+// blocks; a block's job follows from its index (Layout):
+//
+//  * heavy tiles, a cluster each: the diagonal pose tiles (A, A) of H_pp
+//    (with b_p's pose block A) and, when the extrinsic or td is estimated,
+//    every tile with an extrinsic or td block. Rank r of the cluster takes
+//    features r, r + 8, ...; the ranks' sums meet in rank 0 through
+//    distributed shared memory, in rank order. Features anchored at one
+//    frame (nearly all of them at frame 0 on the bench's streams) thus
+//    spread over 8 SMs.
+//  * light tiles, a block each: the off-diagonal pose tiles (A, B), written
+//    with their mirror; row A = 0 first, whose tiles hold the most.
+//  * features, a warp each: its H_pl column (lane j the observation (f, j)),
+//    H_ll, b_l and its cost terms.
+//  * zeros: the rows and columns of H_pp and b_p that no projection
+//    reaches: speed-bias, and the extrinsic or td ones when their estimate
+//    is off.
+//
+// A tile block finds its observations through anchor[], not by scanning the
+// grid: a pass over its features (one a thread) counts each one's
+// candidates, a prefix sum in shared memory places them in a compact list,
+// and the block's threads take the list in strides. Off-diagonal (A, B):
+// (f, B) of the features anchored at A, (f, A) of those anchored at B.
+// Diagonal (A, A), and (A, e) with e an extrinsic or td block: (f, j != A)
+// of the features anchored at A, (f, A) of the others. Extrinsic and td
+// tiles alone: every (f, j != anchor). Each candidate then passes obs_mask
+// and touches, the rule of the dense layout (block_row), so an observation
+// is summed into exactly the tiles its dense row reaches. A block's sums
+// meet in a butterfly across each warp's lanes, then the warps in order.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int ROWS_THREADS = 128;
-constexpr int ASM_THREADS = 128;
-constexpr int ASM_WARPS = ASM_THREADS / 32;
+constexpr int NRM_THREADS = 128;
+constexpr int NRM_WARPS = NRM_THREADS / 32;
+constexpr int CLUSTER = 8;
+constexpr int ZERO_ROWS = 4;     // H_pp rows a warp of a zero block writes
 constexpr int NACC = 6 * 6 + 6;  // a tile's sums and its b_p part
 
 template <typename T>
@@ -71,7 +107,8 @@ __device__ __forceinline__ void tangent_basis(const T* a, T B[2][3]) {
   T b1[3];
   for (int k = 0; k < 3; ++k) b1[k] = tmp[k] - a[k] * d;
   const T nb = sqrt_t(b1[0] * b1[0] + b1[1] * b1[1] + b1[2] * b1[2]);
-  for (int k = 0; k < 3; ++k) B[0][k] = b1[k] / nb;
+  const T inb = T(1) / nb;
+  for (int k = 0; k < 3; ++k) B[0][k] = b1[k] * inb;
   B[1][0] = a[1] * B[0][2] - a[2] * B[0][1];
   B[1][1] = a[2] * B[0][0] - a[0] * B[0][2];
   B[1][2] = a[0] * B[0][1] - a[1] * B[0][0];
@@ -98,13 +135,134 @@ __device__ __forceinline__ void mul_skew(T X[2][3], const T v[3], T Y[2][3]) {
   mul23<T, false>(X, S, Y);
 }
 
-// out[0..2] of row r (stride 26 between the rows) = sign * X[r][:].
+// Columns col..col+2 of both rows of J = sign * X.
 template <typename T>
-__device__ __forceinline__ void put_block(T* J, int col, T X[2][3], T sign) {
+__device__ __forceinline__ void put_block(T J[2][26], int col, T X[2][3], T sign) {
 #pragma unroll
   for (int r = 0; r < 2; ++r)
 #pragma unroll
-    for (int b = 0; b < 3; ++b) J[r * 26 + col + b] = sign * X[r][b];
+    for (int b = 0; b < 3; ++b) J[r][col + b] = sign * X[r][b];
+}
+
+// One kept observation: anchor frame (R_i, p_i), observing frame (R_j,
+// p_j), the anchor's and the observer's cameras (R_ci, t_ci; R_cj, t_cj),
+// td, the raw inverse depth, the anchor's and the observer's bearing,
+// velocity and td_obs. Gives the residual (r0, r1), its Cauchy weight w
+// (held constant, IRLS), its robust cost term and (JAC) its Jacobian J over
+// [δpose_i, δpose_j, δex_i, δex_j, δλ, δtd].
+template <typename T, bool JAC>
+__device__ __forceinline__ void lin_obs(T Ri[3][3], T Rj[3][3], T Rci[3][3], T Rcj[3][3],
+                                        const T* pa, const T* pj, const T* tci, const T* tcj,
+                                        T tdv, T lam_raw,
+                                        const T* bi, const T* vi, T tdo_i, const T* bj,
+                                        const T* vj, T tdo_j, T s, T c, T& r0, T& r1, T& w,
+                                        T& cost, T J[2][26]) {
+  const T dti = tdv - tdo_i, dtj = tdv - tdo_j;
+  T rho_i[3], rho_j[3];
+  for (int k = 0; k < 3; ++k) {
+    rho_i[k] = bi[k] - dti * vi[k];
+    rho_j[k] = bj[k] - dtj * vj[k];
+  }
+  const bool small = fabs(lam_raw) < T(1e-8);
+  const T lam = small ? T(1e-8) : lam_raw;
+  T Pci[3], Pbi[3], Pw[3], Pbj[3], Pcj[3], t[3];
+  const T ilam = T(1) / lam;  // one division each for λ̃, n and m; products after
+  for (int k = 0; k < 3; ++k) Pci[k] = rho_i[k] * ilam;
+  for (int k = 0; k < 3; ++k)
+    Pbi[k] = (Rci[k][0] * Pci[0] + Rci[k][1] * Pci[1] + Rci[k][2] * Pci[2]) + tci[k];
+  for (int k = 0; k < 3; ++k)
+    Pw[k] = (Ri[k][0] * Pbi[0] + Ri[k][1] * Pbi[1] + Ri[k][2] * Pbi[2]) + pa[k];
+  for (int k = 0; k < 3; ++k) t[k] = Pw[k] - pj[k];
+  for (int k = 0; k < 3; ++k) Pbj[k] = Rj[0][k] * t[0] + Rj[1][k] * t[1] + Rj[2][k] * t[2];
+  for (int k = 0; k < 3; ++k) t[k] = Pbj[k] - tcj[k];
+  for (int k = 0; k < 3; ++k) Pcj[k] = Rcj[0][k] * t[0] + Rcj[1][k] * t[1] + Rcj[2][k] * t[2];
+  const T n_raw = sqrt_t(Pcj[0] * Pcj[0] + Pcj[1] * Pcj[1] + Pcj[2] * Pcj[2]);
+  const T n = n_raw >= T(1e-12) ? n_raw : T(1e-12);
+  const T m_raw = sqrt_t(rho_j[0] * rho_j[0] + rho_j[1] * rho_j[1] + rho_j[2] * rho_j[2]);
+  const T m = m_raw >= T(1e-12) ? m_raw : T(1e-12);
+  const T in = T(1) / n, im = T(1) / m;
+  T u[3], mh[3], e[3];
+  for (int k = 0; k < 3; ++k) {
+    u[k] = Pcj[k] * in;
+    mh[k] = rho_j[k] * im;
+    e[k] = u[k] - mh[k];
+  }
+  T B[2][3];
+  tangent_basis(bj, B);
+  r0 = s * (B[0][0] * e[0] + B[0][1] * e[1] + B[0][2] * e[2]);
+  r1 = s * (B[1][0] * e[0] + B[1][1] * e[1] + B[1][2] * e[2]);
+  const T sq = r0 * r0 + r1 * r1;
+  const T c2 = c * c;
+  const T sqc = sq / c2;
+  cost = c2 * log1p(sqc);
+  w = sqrt_t(T(1) / (T(1) + sqc));
+  if (!JAC) return;
+
+  // G = s (B N), N = (I - u uᵀ) / n (no uuᵀ where the norm is clamped).
+  const bool nu = n_raw >= T(1e-12);
+  T N[3][3];
+  for (int x = 0; x < 3; ++x)
+    for (int y = 0; y < 3; ++y) N[x][y] = ((x == y ? T(1) : T(0)) - (nu ? u[x] * u[y] : T(0))) * in;
+  T G[2][3];
+  mul23<T, false>(B, N, G);
+  for (int r = 0; r < 2; ++r)
+    for (int b = 0; b < 3; ++b) G[r][b] = s * G[r][b];
+  T GRc[2][3], GA[2][3], GAR[2][3], GARR[2][3], X[2][3];
+  mul23<T, true>(G, Rcj, GRc);      // G R_cjᵀ
+  mul23<T, true>(GRc, Rj, GA);      // G A, A = R_cjᵀ R_jᵀ
+  mul23<T, false>(GA, Ri, GAR);     // G A R_i
+  mul23<T, false>(GAR, Rci, GARR);  // G A R_i R_ci
+  put_block(J, 0, GA, T(1));
+  mul_skew(GAR, Pbi, X);
+  put_block(J, 3, X, T(-1));
+  put_block(J, 6, GA, T(-1));
+  mul_skew(GRc, Pbj, X);
+  put_block(J, 9, X, T(1));
+  put_block(J, 12, GAR, T(1));
+  mul_skew(GARR, Pci, X);
+  put_block(J, 15, X, T(-1));
+  put_block(J, 18, GRc, T(-1));
+  mul_skew(G, Pcj, X);
+  put_block(J, 21, X, T(1));
+  // δλ: -G A R_i R_ci ρ_i / λ̃² (0 where λ is clamped), as
+  // -G (R_cjᵀ t_cj + A (p_j - p_i - R_i t_ci)) / λ̃ (+ -G P_cj / λ̃ where n is
+  // clamped; else N P_cj = 0): the baseline's part alone, free of the
+  // cancellation of the first form (projection_jacobian's docstring).
+  // δtd: -G A R_i R_ci vel_i / λ̃ + s B (I - m̂ m̂ᵀ) vel_j / m.
+  T dd[3];
+  for (int k = 0; k < 3; ++k)
+    dd[k] = pj[k] - pa[k] - (Ri[k][0] * tci[0] + Ri[k][1] * tci[1] + Ri[k][2] * tci[2]);
+  const bool mu = m_raw >= T(1e-12);
+  T Mv[3];
+  for (int x = 0; x < 3; ++x) {
+    T acc = T(0);
+    for (int y = 0; y < 3; ++y)
+      acc += (((x == y) ? T(1) : T(0)) - (mu ? mh[x] * mh[y] : T(0))) * im * vj[y];
+    Mv[x] = acc;
+  }
+  for (int r = 0; r < 2; ++r) {
+    T gl = (GRc[r][0] * tcj[0] + GRc[r][1] * tcj[1] + GRc[r][2] * tcj[2]) +
+           (GA[r][0] * dd[0] + GA[r][1] * dd[1] + GA[r][2] * dd[2]);
+    if (!nu) gl += G[r][0] * Pcj[0] + G[r][1] * Pcj[1] + G[r][2] * Pcj[2];
+    J[r][24] = small ? T(0) : -gl * ilam;
+    const T gv = GARR[r][0] * vi[0] + GARR[r][1] * vi[1] + GARR[r][2] * vi[2];
+    const T h = s * (B[r][0] * Mv[0] + B[r][1] * Mv[1] + B[r][2] * Mv[2]);
+    J[r][25] = -gv * ilam + h;
+  }
+}
+
+// Is observation o = (f, j) kept (valid, a used slot, not the anchor
+// itself, anchor and cameras in range)? Gives its anchor and cameras.
+__device__ __forceinline__ bool obs_mask(int o, int f, int j, const bool* valid,
+                                         const int64_t* anchor, const bool* used,
+                                         const int64_t* cam, int W1, int C, int& a, int& ci,
+                                         int& cj) {
+  const int64_t a64 = anchor[f];
+  if (!(valid[o] && used[f] && a64 != j && a64 >= 0 && a64 < W1)) return false;
+  a = (int)a64;
+  ci = cam ? (int)cam[f * W1 + a] : 0;
+  cj = cam ? (int)cam[o] : 0;
+  return ci >= 0 && ci < C && cj >= 0 && cj < C;
 }
 
 template <typename T, bool ROWS>
@@ -117,17 +275,13 @@ proj_rows_kernel(const T* __restrict__ p, const T* __restrict__ q, const T* __re
                  const bool* __restrict__ used, const int64_t* __restrict__ cam, int F, int W1,
                  int C, T s, T c, T* __restrict__ res, T* __restrict__ J26,
                  T* __restrict__ w_out, T* __restrict__ cost) {
+  // One thread an observation; a dropped one is written as exact zeros
+  // (weight 1).
   const int o = blockIdx.x * blockDim.x + threadIdx.x;
   if (o >= F * W1) return;
   const int f = o / W1, j = o - f * W1;
-  const int64_t a64 = anchor[f];
-  const int a = (int)a64;
-  const int ia = f * W1 + a;
-  bool ok = valid[o] && used[f] && a64 != j && a64 >= 0 && a64 < W1;
-  const int ci = (ok && cam) ? (int)cam[ia] : 0;
-  const int cj = (ok && cam) ? (int)cam[o] : 0;
-  ok = ok && ci >= 0 && ci < C && cj >= 0 && cj < C;
-  if (!ok) {
+  int a, ci, cj;
+  if (!obs_mask(o, f, j, valid, anchor, used, cam, W1, C, a, ci, cj)) {
     if (ROWS) {
       res[2 * o] = T(0);
       res[2 * o + 1] = T(0);
@@ -142,107 +296,24 @@ proj_rows_kernel(const T* __restrict__ p, const T* __restrict__ q, const T* __re
   quat_mat(q + 4 * j, Rj);
   quat_mat(qic + 4 * ci, Rci);
   quat_mat(qic + 4 * cj, Rcj);
-  const T tdv = td[0];
-  const T* bi = bearing + 3 * ia;
-  const T* vi = velocity + 3 * ia;
-  const T* bj = bearing + 3 * o;
-  const T* vj = velocity + 3 * o;
-  const T dti = tdv - td_obs[ia], dtj = tdv - td_obs[o];
-  T rho_i[3], rho_j[3];
-  for (int k = 0; k < 3; ++k) {
-    rho_i[k] = bi[k] - dti * vi[k];
-    rho_j[k] = bj[k] - dtj * vj[k];
-  }
-  const T lam_raw = inv_depth[f];
-  const bool small = fabs(lam_raw) < T(1e-8);
-  const T lam = small ? T(1e-8) : lam_raw;
-  T Pci[3], Pbi[3], Pw[3], Pbj[3], Pcj[3], t[3];
-  for (int k = 0; k < 3; ++k) Pci[k] = rho_i[k] / lam;
-  for (int k = 0; k < 3; ++k)
-    Pbi[k] = (Rci[k][0] * Pci[0] + Rci[k][1] * Pci[1] + Rci[k][2] * Pci[2]) + tic[3 * ci + k];
-  for (int k = 0; k < 3; ++k)
-    Pw[k] = (Ri[k][0] * Pbi[0] + Ri[k][1] * Pbi[1] + Ri[k][2] * Pbi[2]) + p[3 * a + k];
-  for (int k = 0; k < 3; ++k) t[k] = Pw[k] - p[3 * j + k];
-  for (int k = 0; k < 3; ++k) Pbj[k] = Rj[0][k] * t[0] + Rj[1][k] * t[1] + Rj[2][k] * t[2];
-  for (int k = 0; k < 3; ++k) t[k] = Pbj[k] - tic[3 * cj + k];
-  for (int k = 0; k < 3; ++k) Pcj[k] = Rcj[0][k] * t[0] + Rcj[1][k] * t[1] + Rcj[2][k] * t[2];
-  const T n_raw = sqrt_t(Pcj[0] * Pcj[0] + Pcj[1] * Pcj[1] + Pcj[2] * Pcj[2]);
-  const T n = n_raw >= T(1e-12) ? n_raw : T(1e-12);
-  const T m_raw = sqrt_t(rho_j[0] * rho_j[0] + rho_j[1] * rho_j[1] + rho_j[2] * rho_j[2]);
-  const T m = m_raw >= T(1e-12) ? m_raw : T(1e-12);
-  T u[3], mh[3], e[3];
-  for (int k = 0; k < 3; ++k) {
-    u[k] = Pcj[k] / n;
-    mh[k] = rho_j[k] / m;
-    e[k] = u[k] - mh[k];
-  }
-  T B[2][3];
-  tangent_basis(bj, B);
-  const T r0 = s * (B[0][0] * e[0] + B[0][1] * e[1] + B[0][2] * e[2]);
-  const T r1 = s * (B[1][0] * e[0] + B[1][1] * e[1] + B[1][2] * e[2]);
-  const T sq = r0 * r0 + r1 * r1;
-  const T c2 = c * c;
-  cost[o] = c2 * log1p(sq / c2);
+  const int ia = f * W1 + a;
+  T r0, r1, w, cst, J[2][26];
+  lin_obs<T, ROWS>(Ri, Rj, Rci, Rcj, p + 3 * a, p + 3 * j, tic + 3 * ci, tic + 3 * cj, td[0],
+                   inv_depth[f], bearing + 3 * ia, velocity + 3 * ia, td_obs[ia],
+                   bearing + 3 * o, velocity + 3 * o, td_obs[o], s, c, r0, r1, w, cst, J);
+  cost[o] = cst;
   if (!ROWS) return;
   res[2 * o] = r0;
   res[2 * o + 1] = r1;
-  w_out[o] = sqrt_t(T(1) / (T(1) + sq / c2));
-
-  // G = s (B N), N = (I - u uᵀ) / n (no uuᵀ where the norm is clamped).
-  const bool nu = n_raw >= T(1e-12);
-  T N[3][3];
-  for (int x = 0; x < 3; ++x)
-    for (int y = 0; y < 3; ++y) N[x][y] = ((x == y ? T(1) : T(0)) - (nu ? u[x] * u[y] : T(0))) / n;
-  T G[2][3];
-  mul23<T, false>(B, N, G);
-  for (int r = 0; r < 2; ++r)
-    for (int b = 0; b < 3; ++b) G[r][b] = s * G[r][b];
-  T GRc[2][3], GA[2][3], GAR[2][3], GARR[2][3], X[2][3];
-  mul23<T, true>(G, Rcj, GRc);   // G R_cjᵀ
-  mul23<T, true>(GRc, Rj, GA);   // G A, A = R_cjᵀ R_jᵀ
-  mul23<T, false>(GA, Ri, GAR);  // G A R_i
-  mul23<T, false>(GAR, Rci, GARR);  // G A R_i R_ci
+  w_out[o] = w;
   T* Jo = J26 + 52 * o;
-  put_block(Jo, 0, GA, T(1));
-  mul_skew(GAR, Pbi, X);
-  put_block(Jo, 3, X, T(-1));
-  put_block(Jo, 6, GA, T(-1));
-  mul_skew(GRc, Pbj, X);
-  put_block(Jo, 9, X, T(1));
-  put_block(Jo, 12, GAR, T(1));
-  mul_skew(GARR, Pci, X);
-  put_block(Jo, 15, X, T(-1));
-  put_block(Jo, 18, GRc, T(-1));
-  mul_skew(G, Pcj, X);
-  put_block(Jo, 21, X, T(1));
-  // δλ: -G A R_i R_ci ρ_i / λ̃² (0 where λ is clamped), as
-  // -G (R_cjᵀ t_cj + A (p_j - p_i - R_i t_ci)) / λ̃ (+ -G P_cj / λ̃ where n is
-  // clamped; else N P_cj = 0): the baseline's part alone, free of the
-  // cancellation of the first form (projection_jacobian's docstring).
-  // δtd: -G A R_i R_ci vel_i / λ̃ + s B (I - m̂ m̂ᵀ) vel_j / m.
-  T dd[3];
-  for (int k = 0; k < 3; ++k)
-    dd[k] = p[3 * j + k] - p[3 * a + k] -
-            (Ri[k][0] * tic[3 * ci] + Ri[k][1] * tic[3 * ci + 1] + Ri[k][2] * tic[3 * ci + 2]);
-  const T* tcj = tic + 3 * cj;
-  const bool mu = m_raw >= T(1e-12);
-  T Mv[3];
-  for (int x = 0; x < 3; ++x) {
-    T acc = T(0);
-    for (int y = 0; y < 3; ++y)
-      acc += (((x == y) ? T(1) : T(0)) - (mu ? mh[x] * mh[y] : T(0))) / m * vj[y];
-    Mv[x] = acc;
-  }
-  for (int r = 0; r < 2; ++r) {
-    T gl = (GRc[r][0] * tcj[0] + GRc[r][1] * tcj[1] + GRc[r][2] * tcj[2]) +
-           (GA[r][0] * dd[0] + GA[r][1] * dd[1] + GA[r][2] * dd[2]);
-    if (!nu) gl += G[r][0] * Pcj[0] + G[r][1] * Pcj[1] + G[r][2] * Pcj[2];
-    Jo[r * 26 + 24] = small ? T(0) : -gl / lam;
-    const T gv = GARR[r][0] * vi[0] + GARR[r][1] * vi[1] + GARR[r][2] * vi[2];
-    const T h = s * (B[r][0] * Mv[0] + B[r][1] * Mv[1] + B[r][2] * Mv[2]);
-    Jo[r * 26 + 25] = -gv / lam + h;
-  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int k = 0; k < 26; ++k) Jo[26 * r + k] = J[r][k];
 }
+
+// ------------------------------------------------------------ proj_normal_kernel
 
 // The columns of an active block: W1 poses (6 each, at 6k), C extrinsics
 // (6 each, at 15 W1 + 6e), td (1, at D - 1).
@@ -267,20 +338,19 @@ __device__ __forceinline__ bool touches(const Block& b, int j, int a, int ci, in
   return tdf;
 }
 
-// The weighted row r of observation o in block b's columns (the dense
+// The weighted row Jr of an observation in block b's columns (the dense
 // layout of linearize_proj_rows: the anchor-side pose block at frame a, the
 // observer-side at j; the observer-side extrinsic block at cj plus the
 // anchor-side at ci).
 template <typename T>
-__device__ __forceinline__ void block_row(const Block& b, const T* Jr, T wv, int j, int a,
+__device__ __forceinline__ void block_row(const Block& b, const T Jr[26], T wv, int j, int a,
                                           int ci, int cj, bool ex, bool tdf, T out[6]) {
 #pragma unroll
   for (int k = 0; k < 6; ++k) out[k] = T(0);
   if (b.kind == 0) {
-    const int off = b.idx == j ? 6 : 0;
     if (b.idx == j || b.idx == a)
 #pragma unroll
-      for (int k = 0; k < 6; ++k) out[k] = Jr[off + k] * wv;
+      for (int k = 0; k < 6; ++k) out[k] = (b.idx == j ? Jr[6 + k] : Jr[k]) * wv;
   } else if (b.kind == 1) {
     if (!ex) return;
 #pragma unroll
@@ -295,150 +365,510 @@ __device__ __forceinline__ void block_row(const Block& b, const T* Jr, T wv, int
 }
 
 template <typename T>
-__device__ __forceinline__ bool obs_mask(int o, int f, int j, const bool* valid,
-                                         const int64_t* anchor, const bool* used,
-                                         const int64_t* cam, int W1, int C, int& a, int& ci,
-                                         int& cj) {
-  const int64_t a64 = anchor[f];
-  if (!(valid[o] && used[f] && a64 != j && a64 >= 0 && a64 < W1)) return false;
-  a = (int)a64;
-  ci = cam ? (int)cam[f * W1 + a] : 0;
-  cj = cam ? (int)cam[o] : 0;
-  return ci >= 0 && ci < C && cj >= 0 && cj < C;
+struct NormalArgs {
+  const T* p;
+  const T* q;
+  const T* tic;
+  const T* qic;
+  const T* td;
+  const T* inv_depth;
+  const T* bearing;
+  const T* velocity;
+  const T* td_obs;
+  const bool* valid;
+  const int64_t* anchor;
+  const bool* used;
+  const int64_t* cam;
+  int F, W1, C;
+  T s, c;
+  int ex, tdf;
+  T* H_pp;
+  T* b_p;
+  T* H_pl;
+  T* H_ll;
+  T* b_l;
+  T* cost;
+};
+
+// The launch's jobs, in the order of the blocks: `heavy` clusters of tile
+// jobs (the W1 diagonal pose tiles, then the tiles of the extrinsic and td
+// blocks whose estimates are on, `n_live` of them), then single blocks
+// (padded to whole clusters): `light_tiles` off-diagonal pose tiles, `feat`
+// blocks of NRM_WARPS features, `zero` blocks of the rows and columns no
+// projection reaches (speed-bias; extrinsic or td when off).
+struct Layout {
+  int D, n_live, heavy, light_tiles, feat, zero, grid;
+};
+
+__host__ __device__ __forceinline__ Layout layout(int F, int W1, int C, bool ex, bool tdf) {
+  Layout L;
+  L.D = 15 * W1 + 6 * C + 1;
+  L.n_live = (ex ? C : 0) + (tdf ? 1 : 0);
+  // Live block b (0-based) pairs with the W1 poses and live blocks 0..b.
+  L.heavy = W1 + L.n_live * (W1 + 1) + L.n_live * (L.n_live - 1) / 2;
+  L.light_tiles = W1 * (W1 - 1) / 2;
+  L.feat = (F + NRM_WARPS - 1) / NRM_WARPS;
+  L.zero = (L.D + NRM_WARPS * ZERO_ROWS - 1) / (NRM_WARPS * ZERO_ROWS);
+  const int light = L.light_tiles + L.feat + L.zero;
+  L.grid = CLUSTER * L.heavy + (light + CLUSTER - 1) / CLUSTER * CLUSTER;
+  return L;
+}
+
+// The active block of live extrinsic / td block b: the extrinsics first.
+__device__ __forceinline__ int live_block(int b, int W1, int C, bool ex) {
+  return ex && b < C ? W1 + b : W1 + C;
+}
+
+// Dynamic shared memory: the staged frames and cameras (16 W1 + 16 C + 1),
+// each warp's extrinsic sums of a feature (6 C), then the tile's list of
+// candidate observations (NRM_THREADS W1).
+template <typename T>
+__host__ __device__ __forceinline__ size_t stage_elems(int W1, int C) {
+  return (size_t)16 * W1 + 16 * C + 1 + (size_t)NRM_WARPS * 6 * C;
 }
 
 template <typename T>
-__global__ void __launch_bounds__(ASM_THREADS)
-proj_assemble_kernel(const T* __restrict__ res, const T* __restrict__ J26,
-                     const T* __restrict__ w, const bool* __restrict__ valid,
-                     const int64_t* __restrict__ anchor, const bool* __restrict__ used,
-                     const int64_t* __restrict__ cam, int F, int W1, int C, int ex_i, int td_i,
-                     T* __restrict__ H_pp, T* __restrict__ b_p, T* __restrict__ H_pl,
-                     T* __restrict__ H_ll, T* __restrict__ b_l) {
-  const bool ex = ex_i != 0, tdf = td_i != 0;
-  const int D = 15 * W1 + 6 * C + 1;
-  const int NA = W1 + C + 1;
-  const int n_tiles = NA * (NA + 1) / 2;
-  const int tid = threadIdx.x;
-  int blk = blockIdx.x;
+__host__ __device__ __forceinline__ size_t list_offset(int W1, int C) {
+  return (stage_elems<T>(W1, C) * sizeof(T) + 15) / 16 * 16;
+}
 
-  if (blk < n_tiles) {  // (1) a tile (A, B) of H_pp, A <= B
-    int A = 0;
-    while (blk >= NA - A) {
-      blk -= NA - A;
-      ++A;
+template <typename T>
+__host__ __device__ __forceinline__ size_t normal_smem(int W1, int C) {
+  return list_offset<T>(W1, C) + (size_t)NRM_THREADS * W1 * sizeof(int);
+}
+
+template <typename T>
+__device__ __forceinline__ void cp_async_t(T* dst_shared, const T* src_global) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst_shared);
+  if constexpr (sizeof(T) == 4)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src_global));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src_global));
+}
+
+// The block's copy of the state's frames and cameras.
+template <typename T>
+struct Stage {
+  const T* R;   // [W1][9] frame rotations
+  const T* P;   // [W1][3] frame positions
+  const T* Rc;  // [C][9] camera rotations
+  const T* Tc;  // [C][3] camera translations
+  T td;
+};
+
+// Staging in two halves: stage_issue starts the copies (p, q, tic, qic, td
+// into shared memory), stage_finish waits for them and forms the matrices;
+// a block loads what it needs next in between.
+template <typename T>
+__device__ __forceinline__ void stage_issue(const NormalArgs<T>& g, T* sm) {
+  const int tid = threadIdx.x, W1 = g.W1, C = g.C;
+  T* P = sm + 9 * W1;
+  T* Q = P + 3 * W1;
+  T* Tc = Q + 4 * W1 + 9 * C;
+  T* Qc = Tc + 3 * C;
+  for (int i = tid; i < 3 * W1; i += NRM_THREADS) cp_async_t(P + i, g.p + i);
+  for (int i = tid; i < 4 * W1; i += NRM_THREADS) cp_async_t(Q + i, g.q + i);
+  for (int i = tid; i < 3 * C; i += NRM_THREADS) cp_async_t(Tc + i, g.tic + i);
+  for (int i = tid; i < 4 * C; i += NRM_THREADS) cp_async_t(Qc + i, g.qic + i);
+  if (tid == 0) cp_async_t(Qc + 4 * C, g.td);
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <typename T>
+__device__ Stage<T> stage_finish(const NormalArgs<T>& g, T* sm) {
+  const int tid = threadIdx.x, W1 = g.W1, C = g.C;
+  T* R = sm;
+  T* P = R + 9 * W1;
+  T* Q = P + 3 * W1;
+  T* Rc = Q + 4 * W1;
+  T* Tc = Rc + 9 * C;
+  T* Qc = Tc + 3 * C;
+  T* TD = Qc + 4 * C;
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+  for (int k = tid; k < W1 + C; k += NRM_THREADS) {
+    T M[3][3];
+    quat_mat(k < W1 ? Q + 4 * k : Qc + 4 * (k - W1), M);
+    T* dst = k < W1 ? R + 9 * k : Rc + 9 * (k - W1);
+#pragma unroll
+    for (int x = 0; x < 3; ++x)
+#pragma unroll
+      for (int y = 0; y < 3; ++y) dst[3 * x + y] = M[x][y];
+  }
+  __syncthreads();
+  return {R, P, Rc, Tc, TD[0]};
+}
+
+template <typename T>
+__device__ __forceinline__ void load33(const T* src, T M[3][3]) {
+#pragma unroll
+  for (int x = 0; x < 3; ++x)
+#pragma unroll
+    for (int y = 0; y < 3; ++y) M[x][y] = src[3 * x + y];
+}
+
+// lin_obs of kept observation o = (f, j) from the staged frames.
+template <typename T>
+__device__ __forceinline__ void lin_staged(const NormalArgs<T>& g, const Stage<T>& S, int o,
+                                           int f, int j, int a, int ci, int cj, T& r0, T& r1,
+                                           T& w, T& cost, T J[2][26]) {
+  T Ri[3][3], Rj[3][3], Rci[3][3], Rcj[3][3];
+  load33(S.R + 9 * a, Ri);
+  load33(S.R + 9 * j, Rj);
+  load33(S.Rc + 9 * ci, Rci);
+  load33(S.Rc + 9 * cj, Rcj);
+  const int ia = f * g.W1 + a;
+  lin_obs<T, true>(Ri, Rj, Rci, Rcj, S.P + 3 * a, S.P + 3 * j, S.Tc + 3 * ci, S.Tc + 3 * cj,
+                   S.td, g.inv_depth[f], g.bearing + 3 * ia, g.velocity + 3 * ia,
+                   g.td_obs[ia], g.bearing + 3 * o, g.velocity + 3 * o, g.td_obs[o], g.s,
+                   g.c, r0, r1, w, cost, J);
+}
+
+// Exclusive prefix sum of v over the block; total gets the sum.
+__device__ __forceinline__ int block_scan(int v, int* wtot, int& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) wtot[warp] = x;
+  __syncthreads();
+  int base = 0;
+  total = 0;
+#pragma unroll
+  for (int w = 0; w < NRM_WARPS; ++w) {
+    if (w < warp) base += wtot[w];
+    total += wtot[w];
+  }
+  __syncthreads();
+  return base + x - v;
+}
+
+// Adds candidate o's terms to tile (A, B)'s sums (POSE: both pose blocks).
+template <typename T, bool POSE>
+__device__ __forceinline__ void tile_add(const NormalArgs<T>& g, const Stage<T>& S,
+                                         const Block& ba, const Block& bb, int o, T acc[NACC]) {
+  const int f = o / g.W1, j = o - f * g.W1;
+  const bool ex = g.ex != 0, tdf = g.tdf != 0;
+  int a, ci, cj;
+  if (!obs_mask(o, f, j, g.valid, g.anchor, g.used, g.cam, g.W1, g.C, a, ci, cj)) return;
+  if (!POSE && !(touches(ba, j, a, ci, cj, ex, tdf) && touches(bb, j, a, ci, cj, ex, tdf)))
+    return;
+  T r0, r1, w, cst, J[2][26];
+  lin_staged(g, S, o, f, j, a, ci, cj, r0, r1, w, cst, J);
+  T xa0[6], xa1[6], xb0[6], xb1[6];
+  if (POSE) {
+    const bool ia = ba.idx == a, ib = bb.idx == a;
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {
+      xa0[k] = (ia ? J[0][k] : J[0][6 + k]) * w;
+      xa1[k] = (ia ? J[1][k] : J[1][6 + k]) * w;
+      xb0[k] = (ib ? J[0][k] : J[0][6 + k]) * w;
+      xb1[k] = (ib ? J[1][k] : J[1][6 + k]) * w;
     }
-    const int Bi = A + blk;
-    const Block ba = active_block(A, W1, C), bb = active_block(Bi, W1, C);
-    T acc[NACC];
+  } else {
+    block_row(ba, J[0], w, j, a, ci, cj, ex, tdf, xa0);
+    block_row(ba, J[1], w, j, a, ci, cj, ex, tdf, xa1);
+    block_row(bb, J[0], w, j, a, ci, cj, ex, tdf, xb0);
+    block_row(bb, J[1], w, j, a, ci, cj, ex, tdf, xb1);
+  }
 #pragma unroll
-    for (int k = 0; k < NACC; ++k) acc[k] = T(0);
-    for (int o = tid; o < F * W1; o += ASM_THREADS) {
-      const int f = o / W1, j = o - f * W1;
-      int a, ci, cj;
-      if (!obs_mask<T>(o, f, j, valid, anchor, used, cam, W1, C, a, ci, cj)) continue;
-      if (!touches(ba, j, a, ci, cj, ex, tdf) || !touches(bb, j, a, ci, cj, ex, tdf)) continue;
-      const T wv = w[o];
-      const T* Jo = J26 + 52 * o;
-      T xa0[6], xa1[6], xb0[6], xb1[6];
-      block_row(ba, Jo, wv, j, a, ci, cj, ex, tdf, xa0);
-      block_row(ba, Jo + 26, wv, j, a, ci, cj, ex, tdf, xa1);
-      block_row(bb, Jo, wv, j, a, ci, cj, ex, tdf, xb0);
-      block_row(bb, Jo + 26, wv, j, a, ci, cj, ex, tdf, xb1);
+  for (int x = 0; x < 6; ++x)
 #pragma unroll
-      for (int x = 0; x < 6; ++x)
+    for (int y = 0; y < 6; ++y) acc[6 * x + y] += xa0[x] * xb0[y] + xa1[x] * xb1[y];
+  if (ba.col == bb.col) {
+    const T rw0 = r0 * w, rw1 = r1 * w;
 #pragma unroll
-        for (int y = 0; y < 6; ++y) acc[6 * x + y] += xa0[x] * xb0[y] + xa1[x] * xb1[y];
-      if (A == Bi) {
-        const T rw0 = res[2 * o] * wv, rw1 = res[2 * o + 1] * wv;
-#pragma unroll
-        for (int x = 0; x < 6; ++x) acc[36 + x] += xa0[x] * rw0 + xa1[x] * rw1;
-      }
-    }
-    // A fixed tree within each warp, then the warps in order.
-    __shared__ T part[ASM_WARPS][NACC];
-#pragma unroll
-    for (int k = 0; k < NACC; ++k) {
-      T v = acc[k];
-#pragma unroll
-      for (int sh = 16; sh > 0; sh >>= 1) v += __shfl_down_sync(0xffffffffu, v, sh);
-      if ((tid & 31) == 0) part[tid >> 5][k] = v;
+    for (int x = 0; x < 6; ++x) acc[36 + x] += xa0[x] * rw0 + xa1[x] * rw1;
+  }
+}
+
+// The sums of tile (A, B) over the features f0, f0 + step, ... (see the
+// note at the top for the candidates).
+template <typename T, bool POSE>
+__device__ void tile_sums(const NormalArgs<T>& g, T* sm, const Block& ba, const Block& bb,
+                          int f0, int step, int* list, int* wtot, T acc[NACC]) {
+  const int tid = threadIdx.x, W1 = g.W1;
+  const bool offdiag = POSE && ba.idx != bb.idx;
+  const bool pose_rule = ba.kind == 0;  // diagonal, or a pose block and another
+  const int nf = g.F > f0 ? (g.F - f0 + step - 1) / step : 0;
+  // Feature k's candidates (its anchor in a).
+  auto candidates = [&](int k, int& a) {
+    a = -1;
+    if (k >= nf) return 0;
+    const int f = f0 + k * step;
+    const int64_t a64 = g.anchor[f];
+    if (!g.used[f] || a64 < 0 || a64 >= W1) return 0;
+    a = (int)a64;
+    return offdiag ? (int)(a == ba.idx || a == bb.idx) : (pose_rule && a != ba.idx ? 1 : W1 - 1);
+  };
+  stage_issue(g, sm);
+  int a, cnt = candidates(tid, a);  // the first round's, loaded while the copies fly
+  const Stage<T> S = stage_finish(g, sm);
+  for (int k0 = 0; k0 < nf; k0 += NRM_THREADS) {
+    const int k = k0 + tid;
+    const int f = f0 + k * step;
+    if (k0) cnt = candidates(k, a);
+    int total;
+    const int off = block_scan(cnt, wtot, total);
+    if (cnt) {
+      int* d = list + off;
+      const int base = f * W1;
+      if (offdiag)
+        d[0] = base + (a == ba.idx ? bb.idx : ba.idx);
+      else if (pose_rule && a != ba.idx)
+        d[0] = base + ba.idx;
+      else
+        for (int j = 0, n = 0; j < W1; ++j)
+          if (j != a) d[n++] = base + j;
     }
     __syncthreads();
-    if (tid < NACC) {
-      T v = part[0][tid];
-      for (int wi = 1; wi < ASM_WARPS; ++wi) v += part[wi][tid];
-      if (tid < 36) {
-        const int x = tid / 6, y = tid - 6 * (tid / 6);
-        if (x < ba.size && y < bb.size) {
-          H_pp[(ba.col + x) * D + bb.col + y] = v;
-          if (A != Bi) H_pp[(bb.col + y) * D + ba.col + x] = v;
-        }
-      } else if (A == Bi && tid - 36 < ba.size) {
-        b_p[ba.col + tid - 36] = v;
-      }
+    for (int i = tid; i < total; i += NRM_THREADS) tile_add<T, POSE>(g, S, ba, bb, list[i], acc);
+    __syncthreads();
+  }
+}
+
+// Sum each of the block's NACC accumulators, into out: within each warp a
+// butterfly over the accumulators padded to 64, which at each of its five
+// steps (lane distance 16, 8, ..., 1) keeps half of a lane's entries and
+// adds its partner's copy of them (62 shuffles, where a tree for each
+// accumulator takes 5 NACC), leaving entries 2l and 2l + 1 in lane l; then
+// the warps in order.
+template <int O, typename T>
+__device__ __forceinline__ void butterfly_step(T v[64], int lane) {
+  const bool up = (lane & O) != 0;
+#pragma unroll
+  for (int i = 0; i < 2 * O; ++i) {
+    const T send = up ? v[i] : v[i + 2 * O];
+    const T keep = up ? v[i + 2 * O] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void block_sum(T acc[NACC], T (*part)[NACC], T* out) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  T v[64];
+#pragma unroll
+  for (int k = 0; k < 64; ++k) v[k] = k < NACC ? acc[k] : T(0);
+  butterfly_step<16>(v, lane);
+  butterfly_step<8>(v, lane);
+  butterfly_step<4>(v, lane);
+  butterfly_step<2>(v, lane);
+  butterfly_step<1>(v, lane);
+  if (2 * lane < NACC) part[warp][2 * lane] = v[0];
+  if (2 * lane + 1 < NACC) part[warp][2 * lane + 1] = v[1];
+  __syncthreads();
+  if (tid < NACC) {
+    T v = part[0][tid];
+    for (int wi = 1; wi < NRM_WARPS; ++wi) v += part[wi][tid];
+    out[tid] = v;
+  }
+  __syncthreads();
+}
+
+// Entry tid < NACC of tile (A, B) into H_pp (and its mirror) or b_p.
+template <typename T>
+__device__ __forceinline__ void tile_write(const NormalArgs<T>& g, int D, const Block& ba,
+                                           const Block& bb, int tid, T v) {
+  if (tid < 36) {
+    const int x = tid / 6, y = tid - 6 * (tid / 6);
+    if (x < ba.size && y < bb.size) {
+      g.H_pp[(size_t)(ba.col + x) * D + bb.col + y] = v;
+      if (ba.col != bb.col) g.H_pp[(size_t)(bb.col + y) * D + ba.col + x] = v;
     }
+  } else if (ba.col == bb.col && tid - 36 < ba.size) {
+    g.b_p[ba.col + tid - 36] = v;
+  }
+}
+
+// Tile (A, B) of H_pp: HEAVY, a cluster whose ranks split the features;
+// else one block.
+template <typename T, bool HEAVY>
+__device__ void tile_job(const NormalArgs<T>& g, const Layout& L, int A, int B, int f0,
+                         int step, T* sm, int* list, int* wtot, T (*part)[NACC], T* bsum) {
+  const Block ba = active_block(A, g.W1, g.C), bb = active_block(B, g.W1, g.C);
+  T acc[NACC];
+#pragma unroll
+  for (int k = 0; k < NACC; ++k) acc[k] = T(0);
+  if (ba.kind == 0 && bb.kind == 0)
+    tile_sums<T, true>(g, sm, ba, bb, f0, step, list, wtot, acc);
+  else
+    tile_sums<T, false>(g, sm, ba, bb, f0, step, list, wtot, acc);
+  block_sum(acc, part, bsum);
+  const int tid = threadIdx.x;
+  if (!HEAVY) {
+    if (tid < NACC) tile_write(g, L.D, ba, bb, tid, bsum[tid]);
     return;
   }
-  blk -= n_tiles;
-  if (blk < F) {  // (2) feature f: its H_pl column, H_ll and b_l
-    const int f = blk;
-    for (int d = tid; d < D; d += ASM_THREADS) {
-      Block b;
-      int k = 0;
-      bool sb = false;
-      if (d < 6 * W1) {
-        b = active_block(d / 6, W1, C);
-        k = d - 6 * (d / 6);
-      } else if (d < 15 * W1) {
-        sb = true;
-      } else if (d < D - 1) {
-        const int e = (d - 15 * W1) / 6;
-        b = active_block(W1 + e, W1, C);
-        k = d - 15 * W1 - 6 * e;
-      } else {
-        b = active_block(W1 + C, W1, C);
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();  // every rank's bsum is complete
+  if (cluster.block_rank() == 0 && tid < NACC) {
+    T v = bsum[tid];
+    for (int r = 1; r < CLUSTER; ++r) v += cluster.map_shared_rank(bsum, r)[tid];
+    tile_write(g, L.D, ba, bb, tid, v);
+  }
+  cluster.sync();  // no rank leaves while rank 0 reads its shared memory
+}
+
+// Feature f's H_pl column, H_ll, b_l and cost terms: a warp, lane j the
+// observation (f, j) (j + 32, ... where W1 > 32), every sum a fixed tree.
+template <typename T>
+__device__ void feature_job(const NormalArgs<T>& g, const Stage<T>& S, int D, int f, T* exs) {
+  const int lane = threadIdx.x & 31, W1 = g.W1, F = g.F, C = g.C;
+  const bool ex = g.ex != 0, tdf = g.tdf != 0;
+  const int64_t a64 = g.anchor[f];
+  const int a = a64 >= 0 && a64 < W1 ? (int)a64 : -1;
+  T sa[6], hll = T(0), bl = T(0), stdl = T(0);
+#pragma unroll
+  for (int k = 0; k < 6; ++k) sa[k] = T(0);
+  for (int j0 = 0; j0 < W1; j0 += 32) {
+    const int j = j0 + lane, o = f * W1 + j;
+    int aa = 0, ci = 0, cj = 0;
+    const bool kept = j < W1 && obs_mask(o, f, j, g.valid, g.anchor, g.used, g.cam, W1, C, aa,
+                                         ci, cj);
+    T hpl[6], J[2][26], w = T(0), l0 = T(0), l1 = T(0);
+#pragma unroll
+    for (int k = 0; k < 6; ++k) hpl[k] = T(0);
+    T cst = T(0);
+    if (kept) {
+      T r0, r1;
+      lin_staged(g, S, o, f, j, aa, ci, cj, r0, r1, w, cst, J);
+      l0 = J[0][24] * w;
+      l1 = J[1][24] * w;
+#pragma unroll
+      for (int k = 0; k < 6; ++k) {
+        sa[k] += (J[0][k] * w) * l0 + (J[1][k] * w) * l1;
+        hpl[k] = (J[0][6 + k] * w) * l0 + (J[1][6 + k] * w) * l1;
       }
-      T acc = T(0);
-      if (!sb) {
-        for (int j = 0; j < W1; ++j) {
-          const int o = f * W1 + j;
-          int a, ci, cj;
-          if (!obs_mask<T>(o, f, j, valid, anchor, used, cam, W1, C, a, ci, cj)) continue;
-          if (!touches(b, j, a, ci, cj, ex, tdf)) continue;
-          const T wv = w[o];
-          const T* Jo = J26 + 52 * o;
-          T x0[6], x1[6];
-          block_row(b, Jo, wv, j, a, ci, cj, ex, tdf, x0);
-          block_row(b, Jo + 26, wv, j, a, ci, cj, ex, tdf, x1);
-          acc += x0[k] * (Jo[24] * wv) + x1[k] * (Jo[26 + 24] * wv);
+      hll += l0 * l0 + l1 * l1;
+      bl += l0 * (r0 * w) + l1 * (r1 * w);
+      if (tdf) stdl += (J[0][25] * w) * l0 + (J[1][25] * w) * l1;
+    }
+    if (j < W1) {
+      g.cost[o] = cst;
+      if (j != a)
+#pragma unroll
+        for (int k = 0; k < 6; ++k) g.H_pl[(size_t)(6 * j + k) * F + f] = hpl[k];
+    }
+    if (ex) {
+      for (int e = 0; e < C; ++e) {
+#pragma unroll
+        for (int k = 0; k < 6; ++k) {
+          T v = T(0);
+          if (kept) {
+            const T xj0 = e == cj ? J[0][18 + k] * w : T(0);
+            const T xi0 = e == ci ? J[0][12 + k] * w : T(0);
+            const T xj1 = e == cj ? J[1][18 + k] * w : T(0);
+            const T xi1 = e == ci ? J[1][12 + k] * w : T(0);
+            v = (xj0 + xi0) * l0 + (xj1 + xi1) * l1;
+          }
+#pragma unroll
+          for (int sh = 16; sh > 0; sh >>= 1) v += __shfl_down_sync(0xffffffffu, v, sh);
+          if (lane == 0) exs[6 * e + k] = j0 == 0 ? v : exs[6 * e + k] + v;
         }
       }
-      H_pl[(size_t)d * F + f] = acc;
     }
-    if (tid == 0) {
-      T hll = T(0), bl = T(0);
-      for (int j = 0; j < W1; ++j) {
-        const int o = f * W1 + j;
-        int a, ci, cj;
-        if (!obs_mask<T>(o, f, j, valid, anchor, used, cam, W1, C, a, ci, cj)) continue;
-        const T wv = w[o];
-        const T l0 = J26[52 * o + 24] * wv, l1 = J26[52 * o + 26 + 24] * wv;
-        hll += l0 * l0 + l1 * l1;
-        bl += l0 * (res[2 * o] * wv) + l1 * (res[2 * o + 1] * wv);
+  }
+#pragma unroll
+  for (int sh = 16; sh > 0; sh >>= 1) {
+#pragma unroll
+    for (int k = 0; k < 6; ++k) sa[k] += __shfl_down_sync(0xffffffffu, sa[k], sh);
+    hll += __shfl_down_sync(0xffffffffu, hll, sh);
+    bl += __shfl_down_sync(0xffffffffu, bl, sh);
+    stdl += __shfl_down_sync(0xffffffffu, stdl, sh);
+  }
+  if (lane == 0) {
+    g.H_ll[f] = hll;
+    g.b_l[f] = bl;
+    g.H_pl[(size_t)(D - 1) * F + f] = tdf ? stdl : T(0);
+  }
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    const T v = __shfl_sync(0xffffffffu, sa[k], 0);
+    if (lane == k && a >= 0) g.H_pl[(size_t)(6 * a + k) * F + f] = v;
+  }
+  for (int d = 6 * W1 + lane; d < 15 * W1; d += 32) g.H_pl[(size_t)d * F + f] = T(0);
+  __syncwarp();
+  for (int d = lane; d < 6 * C; d += 32)
+    g.H_pl[(size_t)(15 * W1 + d) * F + f] = ex ? exs[d] : T(0);
+}
+
+// H_pp rows d of a zero block: a row no projection reaches (speed-bias;
+// extrinsic or td when its estimate is off) whole, and its b_p entry; any
+// other row's columns of those.
+template <typename T>
+__device__ void zero_job(const NormalArgs<T>& g, int D, int z) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, W1 = g.W1;
+  const bool ex = g.ex != 0, tdf = g.tdf != 0;
+  for (int r = 0; r < ZERO_ROWS; ++r) {
+    const int d = (z * NRM_WARPS + warp) * ZERO_ROWS + r;
+    if (d >= D) return;
+    T* row = g.H_pp + (size_t)d * D;
+    const bool off = (d >= 6 * W1 && d < 15 * W1) || (!ex && d >= 15 * W1 && d < D - 1) ||
+                     (!tdf && d == D - 1);
+    if (off) {
+      for (int x = lane; x < D; x += 32) row[x] = T(0);
+      if (lane == 0) g.b_p[d] = T(0);
+    } else {
+      for (int x = 6 * W1 + lane; x < 15 * W1; x += 32) row[x] = T(0);
+      for (int x = 15 * W1 + lane; !ex && x < D - 1; x += 32) row[x] = T(0);
+      if (!tdf && lane == 0) row[D - 1] = T(0);
+    }
+  }
+}
+
+template <typename T>
+__global__ void __cluster_dims__(CLUSTER, 1, 1)
+    __launch_bounds__(NRM_THREADS, sizeof(T) == 4 ? 3 : 2)
+    proj_normal_kernel(const NormalArgs<T> g) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ T part[NRM_WARPS][NACC];
+  __shared__ T bsum[NACC];
+  __shared__ int wtot[NRM_WARPS];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  T* exs = sm + 16 * g.W1 + 16 * g.C + 1;
+  int* list = reinterpret_cast<int*>(smem_raw + list_offset<T>(g.W1, g.C));
+  const Layout L = layout(g.F, g.W1, g.C, g.ex != 0, g.tdf != 0);
+  const int b = blockIdx.x, W1 = g.W1;
+  if (b < CLUSTER * L.heavy) {
+    const int h = b / CLUSTER, rank = b - CLUSTER * h;
+    int A = h, B = h;  // h < W1: the diagonal pose tile (h, h)
+    if (h >= W1) {     // (A, B): B the live block lb, A a pose or a live block up to lb
+      const bool ex = g.ex != 0;
+      int r = h - W1, lb = 0;
+      while (r >= W1 + lb + 1) {
+        r -= W1 + lb + 1;
+        ++lb;
       }
-      H_ll[f] = hll;
-      b_l[f] = bl;
+      B = live_block(lb, W1, g.C, ex);
+      A = r < W1 ? r : live_block(r - W1, W1, g.C, ex);
     }
+    tile_job<T, true>(g, L, A, B, rank, CLUSTER, sm, list, wtot, part, bsum);
     return;
   }
-  blk -= F;  // (3) speed-bias row 6 W1 + blk: zeros in its row and column
-  const int z = 6 * W1 + blk;
-  for (int d = tid; d < D; d += ASM_THREADS) {
-    H_pp[(size_t)z * D + d] = T(0);
-    if (d < 6 * W1 || d >= 15 * W1) H_pp[(size_t)d * D + z] = T(0);
+  int l = b - CLUSTER * L.heavy;
+  if (l < L.light_tiles) {  // an off-diagonal pose tile, A < B
+    int A = 0;
+    while (l >= W1 - 1 - A) {
+      l -= W1 - 1 - A;
+      ++A;
+    }
+    tile_job<T, false>(g, L, A, A + 1 + l, 0, 1, sm, list, wtot, part, bsum);
+    return;
   }
-  if (tid == 0) b_p[z] = T(0);
+  l -= L.light_tiles;
+  if (l < L.feat) {
+    stage_issue(g, sm);
+    const Stage<T> S = stage_finish(g, sm);
+    const int f = l * NRM_WARPS + (threadIdx.x >> 5);
+    if (f < g.F) feature_job(g, S, L.D, f, exs + (threadIdx.x >> 5) * 6 * g.C);
+    return;
+  }
+  l -= L.feat;
+  if (l < L.zero) zero_job(g, L.D, l);
 }
 
 template <typename T>
@@ -463,16 +893,25 @@ int launch_rows(const void* p, const void* q, const void* tic, const void* qic, 
 }
 
 template <typename T>
-int launch_assemble(const void* res, const void* J26, const void* w, const void* valid,
-                    const void* anchor, const void* used, const void* cam, int F, int W1, int C,
-                    int ex, int tdf, void* H_pp, void* b_p, void* H_pl, void* H_ll, void* b_l,
-                    cudaStream_t stream) {
-  const int NA = W1 + C + 1;
-  const int grid = NA * (NA + 1) / 2 + F + 9 * W1;
-  proj_assemble_kernel<T><<<grid, ASM_THREADS, 0, stream>>>(
-      (const T*)res, (const T*)J26, (const T*)w, (const bool*)valid, (const int64_t*)anchor,
-      (const bool*)used, (const int64_t*)cam, F, W1, C, ex, tdf, (T*)H_pp, (T*)b_p, (T*)H_pl,
-      (T*)H_ll, (T*)b_l);
+int launch_normal(const void* p, const void* q, const void* tic, const void* qic,
+                  const void* td, const void* inv_depth, const void* bearing,
+                  const void* velocity, const void* td_obs, const void* valid,
+                  const void* anchor, const void* used, const void* cam, int F, int W1, int C,
+                  double s, double c, int ex, int tdf, void* H_pp, void* b_p, void* H_pl,
+                  void* H_ll, void* b_l, void* cost, cudaStream_t stream) {
+  const NormalArgs<T> g{(const T*)p, (const T*)q, (const T*)tic, (const T*)qic, (const T*)td,
+                        (const T*)inv_depth, (const T*)bearing, (const T*)velocity,
+                        (const T*)td_obs, (const bool*)valid, (const int64_t*)anchor,
+                        (const bool*)used, (const int64_t*)cam, F, W1, C, (T)s, (T)c, ex, tdf,
+                        (T*)H_pp, (T*)b_p, (T*)H_pl, (T*)H_ll, (T*)b_l, (T*)cost};
+  const Layout L = layout(F, W1, C, ex != 0, tdf != 0);
+  const size_t smem = normal_smem<T>(W1, C);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        proj_normal_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  proj_normal_kernel<T><<<L.grid, NRM_THREADS, smem, stream>>>(g);
   return (int)cudaGetLastError();
 }
 
@@ -499,19 +938,25 @@ extern "C" int proj_rows_launch(const void* p, const void* q, const void* tic, c
                                     mode, res, J26, w, cost, (cudaStream_t)stream);
 }
 
-// H_pp [D, D], b_p [D], H_pl [D, F], H_ll [F], b_l [F], every entry
-// written; D = 15 W1 + 6 C + 1.
-extern "C" int proj_assemble_launch(const void* res, const void* J26, const void* w,
-                                    const void* valid, const void* anchor, const void* used,
-                                    const void* cam, int F, int W1, int C, int estimate_ex,
-                                    int estimate_td, int dtype, void* H_pp, void* b_p,
-                                    void* H_pl, void* H_ll, void* b_l, void* stream) {
+// The normal equations of one linearization: H_pp [D, D], b_p [D], H_pl [D,
+// F], H_ll [F], b_l [F] and the cost terms [F, W1], every entry written; D =
+// 15 W1 + 6 C + 1. Arguments as proj_rows_launch's.
+extern "C" int proj_normal_launch(const void* p, const void* q, const void* tic, const void* qic,
+                                  const void* td, const void* inv_depth, const void* bearing,
+                                  const void* velocity, const void* td_obs, const void* valid,
+                                  const void* anchor, const void* used, const void* cam, int F,
+                                  int W1, int C, double sqrt_info, double cauchy_c,
+                                  int estimate_ex, int estimate_td, int dtype, void* H_pp,
+                                  void* b_p, void* H_pl, void* H_ll, void* b_l, void* cost,
+                                  void* stream) {
   if (F < 0 || W1 < 1 || C < 1 || (dtype != 0 && dtype != 1)) return -1;
   if (F == 0) return 0;
-  return dtype ? launch_assemble<double>(res, J26, w, valid, anchor, used, cam, F, W1, C,
-                                         estimate_ex, estimate_td, H_pp, b_p, H_pl, H_ll, b_l,
-                                         (cudaStream_t)stream)
-               : launch_assemble<float>(res, J26, w, valid, anchor, used, cam, F, W1, C,
-                                        estimate_ex, estimate_td, H_pp, b_p, H_pl, H_ll, b_l,
-                                        (cudaStream_t)stream);
+  return dtype ? launch_normal<double>(p, q, tic, qic, td, inv_depth, bearing, velocity, td_obs,
+                                       valid, anchor, used, cam, F, W1, C, sqrt_info, cauchy_c,
+                                       estimate_ex, estimate_td, H_pp, b_p, H_pl, H_ll, b_l,
+                                       cost, (cudaStream_t)stream)
+               : launch_normal<float>(p, q, tic, qic, td, inv_depth, bearing, velocity, td_obs,
+                                      valid, anchor, used, cam, F, W1, C, sqrt_info, cauchy_c,
+                                      estimate_ex, estimate_td, H_pp, b_p, H_pl, H_ll, b_l, cost,
+                                      (cudaStream_t)stream);
 }

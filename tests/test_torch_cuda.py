@@ -620,9 +620,10 @@ def _proj_case(dev, dtype, n_cams, n_slots=32):
 @pytest.mark.parametrize("dtype,bound", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
 @pytest.mark.parametrize("n_cams", [1, 2])
 def test_proj_factor_matches_plain(dev, dtype, bound, n_cams):
-    """Rows, H_pp, H_pl, H_ll, b_p, b_l and the cost of the three kernels
-    against their plain versions on the same inputs, within 1e-5 (f32: sums
-    in another order) or 1e-12 (f64) of each output's scale
+    """The rows, the normal equations (H_pp, H_pl, H_ll, b_p, b_l and the
+    cost terms of proj_normal) and the cost of the three kernels against
+    their plain versions on the same inputs, within 1e-5 (f32: sums in
+    another order) or 1e-12 (f64) of each output's scale
     (chip_smoke.proj_compare), and a repeat bit-identical."""
     import chip_smoke
 
@@ -650,7 +651,7 @@ def test_proj_factor_flags_off_and_dropped_observations(dev):
     errs, _, identical = chip_smoke.proj_compare(state, grid, cfg)
     assert identical and max(errs.values()) <= 1e-12, errs
     rows = pc.proj_rows(state, grid, cfg)
-    H_pp, H_pl, _, b_p, _ = pc.proj_assemble(grid, rows, cfg, 1)
+    H_pp, H_pl, _, b_p, _, _ = pc.proj_normal(state, grid, cfg, 1)
     W1 = grid.valid.shape[1]
     assert bool((H_pp[15 * W1:] == 0).all()) and bool((H_pp[:, 15 * W1:] == 0).all())
     assert bool((b_p[6 * W1:] == 0).all()) and bool((H_pl[6 * W1:] == 0).all())
@@ -663,7 +664,6 @@ def test_proj_wrappers_reject_what_the_kernels_do_not_take(dev):
     from lfvio_tpu_torch.backend import proj_cuda as pc
 
     state, grid, cfg = _proj_case(dev, torch.float32, 1)
-    rows = pc.proj_rows(state, grid, cfg)
     bad = [
         (state.replace(p=state.p.to(torch.float16)), grid),
         (state.replace(p=state.p[:-1]), grid),
@@ -673,18 +673,54 @@ def test_proj_wrappers_reject_what_the_kernels_do_not_take(dev):
         (state.replace(inv_depth=state.inv_depth.double()), grid),
     ]
     for s, g in bad:
-        for fn in (pc.proj_rows, pc.proj_cost):
+        for fn in (pc.proj_rows, pc.proj_cost, lambda s, g, c: pc.proj_normal(s, g, c, 1)):
             with pytest.raises(ValueError):
                 fn(s, g, cfg)
-    with pytest.raises(ValueError):
-        pc.proj_assemble(grid, (rows[0].double(), *rows[1:]), cfg, 1)
-    with pytest.raises(ValueError):
-        pc.proj_assemble(grid, (rows[0], rows[1][:, :-1], *rows[2:]), cfg, 1)
+    with pytest.raises(ValueError):  # the state has one camera
+        pc.proj_normal(state, grid, cfg, 2)
+
+
+@pytest.mark.parametrize("n_cams", [1, 2])
+def test_proj_normal_enumeration_paths(dev, n_cams):
+    """proj_normal's tiles find their observations through the anchors; every
+    way of doing so against normal_plain in f64, within 1e-12 of each
+    output's scale, a repeat bit-identical, with both estimate flags on and
+    off: 37 slots (not a multiple of a block's 4 features or of a cluster's
+    8 ranks), every feature anchored at frame 0, every one at the last
+    frame, one feature with a single kept observation, and the anchors' own
+    observations marked valid (the mask drops them)."""
+    import dataclasses
+
+    import chip_smoke
+
+    state, grid, cfg = _proj_case(dev, torch.float64, n_cams, n_slots=37)
+    F, W1 = grid.valid.shape
+    every = torch.ones_like(grid.valid)
+    one = grid.valid.clone()
+    one[0] = False
+    one[0, (int(grid.anchor[0]) + 1) % W1] = True
+    own = grid.valid.clone()
+    own[torch.arange(F, device=dev), grid.anchor] = True
+    layouts = {
+        "every feature anchored at frame 0": grid.replace(
+            anchor=torch.zeros_like(grid.anchor), valid=every),
+        "every feature anchored at the last frame": grid.replace(
+            anchor=torch.full_like(grid.anchor, W1 - 1), valid=every),
+        "a feature with one kept observation": grid.replace(valid=one),
+        "the anchors' own observations valid": grid.replace(valid=own),
+    }
+    assert int((one[0] & (torch.arange(W1, device=dev) != grid.anchor[0])).sum()) == 1
+    for flags in (True, False):
+        c = dataclasses.replace(cfg, estimate_td=flags, estimate_extrinsic=flags)
+        for name, g in layouts.items():
+            errs, _, identical = chip_smoke.proj_compare(state, g, c)
+            assert identical and max(errs.values()) <= 1e-12, (name, flags, errs)
 
 
 def test_proj_launches_counted_at_graph_replay(dev):
     """assemble_normal_equations and total_cost as a DeviceProgram: each
-    replay counts one rows, one assemble and one cost launch."""
+    replay counts one normal-equation launch, one cost launch and no rows
+    launch."""
     from lfvio_tpu_torch.backend import proj_cuda as pc
     from lfvio_tpu_torch.backend.solver import assemble_normal_equations, total_cost
     from lfvio_tpu_torch.device import DeviceProgram
@@ -705,11 +741,12 @@ def test_proj_launches_counted_at_graph_replay(dev):
     prog = DeviceProgram(step)
     eager = step(st)
     prog(st)
-    before = [k.launches for k in (pc.proj_rows, pc.proj_assemble, pc.proj_cost)]
+    kernels = (pc.proj_rows, pc.proj_normal, pc.proj_cost)
+    before = [k.launches for k in kernels]
     for _ in range(3):
         out = prog(st)
     torch.cuda.synchronize()
-    after = [k.launches for k in (pc.proj_rows, pc.proj_assemble, pc.proj_cost)]
-    assert [a - b for a, b in zip(after, before)] == [3, 3, 3]
+    after = [k.launches for k in kernels]
+    assert [a - b for a, b in zip(after, before)] == [0, 3, 3]
     for x, y in zip((*out[0], out[1]), (*eager[0], eager[1])):
         assert float((x - y).abs().max()) <= 1e-5 * max(float(y.abs().max()), 1.0)

@@ -244,6 +244,19 @@ def test_assemble_normal_equations(name):
 
 
 @pytest.mark.parametrize("name", CASES)
+def test_normal_plain_is_the_assembled_rows(name):
+    """``proj_normal``'s plain version, which its wrapper runs on CPU
+    tensors, equals ``assemble_plain`` of ``rows_plain`` and its cost terms
+    bit for bit."""
+    _, (st, grid, *_, cfg) = case(name)
+    C = 1 if st.tic.ndim == 1 else st.tic.shape[0]
+    rows = proj_cuda.rows_plain(st, grid, cfg)
+    want = (*proj_cuda.assemble_plain(grid, rows, cfg, C), rows[3])
+    for got in (proj_cuda.normal_plain(st, grid, cfg, C), proj_cuda.proj_normal(st, grid, cfg, C)):
+        assert len(got) == 6 and all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+@pytest.mark.parametrize("name", CASES)
 def test_total_cost(name):
     j, tt_ = case(name)
     close(jax.jit(jsolver.total_cost, static_argnums=7)(*j), tsolver.total_cost(*tt_))
