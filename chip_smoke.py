@@ -84,12 +84,20 @@ lines; any failure ends the run with a non-zero exit code:
      replay at bench.py's window 10 / 256 slots (a) and window 20 / 384
      slots (b); one eager solve's device time split by solver function;
      8 normal-equation and 9 cost launches of the projection kernels and
-     no rows launch a solve replay at cap 8, one rows launch a MARGIN_OLD);
+     of the IMU kernels and no rows launch a solve replay at cap 8, one
+     rows launch of each a MARGIN_OLD);
      the projection kernels (csrc/proj_factor.cu: rows, normal equations,
      cost) against their plain versions at (a)'s and (b)'s solve inputs
      (f32) and on a dual-camera window (f64), a bit-identical repeat, each
      kernel's times behind a full queue and launched alone beside its plain
-     version's and its bound; the
+     version's and its bound ([14p] lines); the same for the IMU kernels
+     (csrc/imu_factor.cu: rows, normal equations, cost) at (a)'s and (b)'s
+     solve inputs, each also with its biases moved after the
+     preintegration, and on a two-camera f64 window whose biases lie off the
+     preintegration's linearization point, each cost output also against
+     Σ r_w² of the rows, and planted faults (a zero cost, a dropped
+     interval, r_q's sign flipped) that the check must reject ([14i]
+     lines); the
      eigensolver kernel against
      torch.linalg.eigh on the main path's inputs at 256 and 384 slots (the
      [256, 4, 4] and [384, 4, 4] DLT matrices of a triangulation, RANSAC's
@@ -115,7 +123,8 @@ lines; any failure ends the run with a non-zero exit code:
      12 s if it did not initialize within its 6 s, and must then initialize.
 
 The kernels line's launches add up the whole runs of phases 4, 6, 8, 9 and
-15, each counted from 0 (the projection kernels' too).
+15, each counted from 0 (the factor kernels' too; in each run every IMU
+kernel launches as often as its projection counterpart).
 
 Prints one JSON line with each kernel's numbers, then the card's line, and
 last {"ok": true, "device": {...}}. Imports neither JAX nor the JAX package.
@@ -744,6 +753,24 @@ def trajectory_ate(world, est):
 
 
 reset_launches = bench.reset_launches
+# Each IMU kernel launches where its projection counterpart does: the solve's
+# linearization and cost, MARGIN_OLD's rows.
+FACTOR_PAIRS = {"imu_normal": "proj_normal", "imu_cost": "proj_cost", "imu_rows": "proj_rows"}
+
+
+def factor_launches():
+    """The factor kernels' (bench.FACTOR_KERNELS) launch counts."""
+    return {k: w.launches for k, w in bench.FACTOR_KERNELS.items()}
+
+
+def check_factor_launches(counts, what):
+    """Raise unless every factor kernel launched and each IMU kernel as often
+    as its projection counterpart."""
+    if not all(counts.values()):
+        raise AssertionError(f"{what}: not every factor kernel launched: {counts}")
+    if any(counts[i] != counts[p] for i, p in FACTOR_PAIRS.items()):
+        raise AssertionError(f"{what}: the IMU kernels' launches differ from the projection "
+                             f"kernels': {counts}")
 
 
 def sync_checked(fn, rec, key):
@@ -837,7 +864,7 @@ def run_full_scale(tag, rig, plain_calls, solve_lag, depth, profile=False, sync_
         if inner["count"]["n"]:
             raise AssertionError("the pipeline's process_image_arrays finalized a solve")
     launches, sym_launches = lk.launches, sym_eig.launches
-    proj = {k: w.launches for k, w in bench.PROJ_KERNELS.items()}
+    factors = factor_launches()
     n_timed = win.frames_timed
     fps = n_timed / win.seconds
     times = np.asarray(est.times)
@@ -851,7 +878,7 @@ def run_full_scale(tag, rig, plain_calls, solve_lag, depth, profile=False, sync_
         f"{klt_cuda.pyramidal_lk_pallas.launches}; one-level launches "
         f"{klt_cuda.lk_level.launches}; plain LK calls "
         f"{plain_calls['n']}; level images padded {padded['n']}; sym_eig launches {sym_launches}; "
-        f"projection kernels' launches {proj}; graphs captured {n_graphs} in {capture_s:.2f} s")
+        f"factor kernels' launches {factors}; graphs captured {n_graphs} in {capture_s:.2f} s")
     for key, vals in host_ms.items():
         log(f"{tag} {key} after the warm-up, under set_sync_debug_mode({SYNC_CHECK!r}): n "
             f"{len(vals)}, host ms per call min {min(vals):.3f}, median "
@@ -865,8 +892,7 @@ def run_full_scale(tag, rig, plain_calls, solve_lag, depth, profile=False, sync_
         raise AssertionError("the main path's LK is not one fused launch per tracked frame")
     if sym_launches == 0:
         raise AssertionError("the main path did not launch the eigensolver kernel")
-    if not all(proj.values()):
-        raise AssertionError("the main path did not launch every projection kernel")
+    check_factor_launches(factors, f"{tag} the main path")
     if graphs and n_graphs == 0:
         raise AssertionError("the estimator's programs were not captured as CUDA graphs")
     if sync_check and len(host_ms.get("Estimator._dispatch_solve", [])) < 5:
@@ -876,7 +902,7 @@ def run_full_scale(tag, rig, plain_calls, solve_lag, depth, profile=False, sync_
     if n != len(times):
         raise AssertionError("not as many trajectory poses as solves")
     return dict(fe=fe, est=est, stages=stages, launches=launches, sym_launches=sym_launches,
-                proj=proj, fps=fps, ate=ate, host_ms=host_ms)
+                factors=factors, fps=fps, ate=ate, host_ms=host_ms)
 
 
 def phase_full_scale(rig, plain_calls, profile=False):
@@ -1227,7 +1253,7 @@ def phase_dual_pal(dev, plain_calls):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches, sym_launches = klt_cuda.lk_pyramid.launches, sym_eig.launches
-    proj = {k: w.launches for k, w in bench.PROJ_KERNELS.items()}
+    factors = factor_launches()
     ate, n = trajectory_ate(world, est)
     cams = est.fm.cam[est.fm.valid]
     ms = [m for m in solves["ms"] if m > 0.01]
@@ -1249,10 +1275,9 @@ def phase_dual_pal(dev, plain_calls):
         raise AssertionError("dual-PAL: the eigensolver kernel was not launched")
     if not (np.isfinite(ate) and ate < 0.25):
         raise AssertionError("dual-PAL accuracy gate failed")
-    if not all(proj.values()):
-        raise AssertionError("dual-PAL: not every projection kernel launched")
-    return dict(launches=launches, sym_launches=sym_launches, proj=proj, fps=n_frames / dt, ate=ate,
-                solve_ms=float(np.median(ms[1:])))
+    check_factor_launches(factors, "dual-PAL")
+    return dict(launches=launches, sym_launches=sym_launches, factors=factors, fps=n_frames / dt,
+                ate=ate, solve_ms=float(np.median(ms[1:])))
 
 
 # ------------------------------------------------ phase 9: EuRoC directory
@@ -1368,7 +1393,7 @@ def phase_euroc(rig, plain_calls):
         torch.cuda.synchronize()
         t2 = time.perf_counter()
     launches, sym_launches = klt_cuda.lk_pyramid.launches, sym_eig.launches
-    proj = {k: w.launches for k, w in bench.PROJ_KERNELS.items()}
+    factors = factor_launches()
     n_timed = sum(1 for it in rest if it[0] == "frame")
     fps = n_timed / (t2 - t1)
     times, traj = np.asarray(est.times), np.asarray(est.traj_p)
@@ -1393,9 +1418,8 @@ def phase_euroc(rig, plain_calls):
         raise AssertionError("the EuRoC path's LK is not one fused launch per tracked frame")
     if sym_launches == 0:
         raise AssertionError("the EuRoC path did not launch the eigensolver kernel")
-    if not all(proj.values()):
-        raise AssertionError("EuRoC: not every projection kernel launched")
-    return dict(launches=launches, sym_launches=sym_launches, proj=proj, fps=fps, ate=ate)
+    check_factor_launches(factors, "EuRoC")
+    return dict(launches=launches, sym_launches=sym_launches, factors=factors, fps=fps, ate=ate)
 
 
 # ------------------------------------------------ phase 10: tools
@@ -2242,20 +2266,26 @@ def graph_nodes(prog):
 # wrapped in torch.profiler.record_function ranges named "solve::<name>";
 # an op's device time goes to the part of the innermost ranges above it.
 # Ops that assemble_normal_equations launches itself are the projection's
-# (its products) before its call of linearize_imu_rows starts, and the IMU
-# rows' and the prior's from then on.
+# before its call of imu_normal starts, and the IMU's and the prior's from
+# then on.
 SOLVE_FUNCTIONS = ("assemble_normal_equations", "linearize_projection", "linearize_proj_rows",
-                   "proj_rows", "proj_normal", "proj_cost", "linearize_imu_rows",
+                   "proj_rows", "proj_normal", "proj_cost", "linearize_imu_rows", "imu_normal",
                    "prior_residual", "total_cost", "_schur_solve")
 PROJECTION = ("linearize_projection", "linearize_proj_rows", "proj_rows", "proj_normal")
 OUTSIDE_LM = "outside the LM (unpack, preintegration, triangulation, gauge, the gate)"
-# The projection kernels launch through ctypes, so the profiler links them to
-# no op: their device time goes to a part by the kernel's name (cost mode:
-# proj_rows_kernel<T, false>).
+# The factor kernels launch through ctypes, so the profiler links them to no
+# op: their device time goes to a part by the kernel's name (cost modes:
+# proj_rows_kernel<T, false>, imu_rows_kernel<T, false>).
 KERNEL_PARTS = {"proj_rows_kernel<float, true>": "projection",
                 "proj_rows_kernel<double, true>": "projection",
                 "proj_rows_kernel<float, false>": "cost", "proj_rows_kernel<double, false>": "cost",
-                "proj_normal_kernel": "projection"}
+                "proj_normal_kernel": "projection",
+                "imu_rows_kernel<float, true>": "imu and prior",
+                "imu_rows_kernel<double, true>": "imu and prior",
+                "imu_rows_kernel<float, false>": "cost", "imu_rows_kernel<double, false>": "cost",
+                "imu_normal_kernel": "imu and prior"}
+# The ranges the factor wrappers open around a launch (record_function).
+WRAPPER_RANGES = ("proj_factor::", "imu_factor::")
 
 
 class annotated_solver:
@@ -2300,10 +2330,10 @@ def solve_part(e):
     for name, p, below in chain:  # innermost first
         if name in PROJECTION:
             return "projection"
-        if name in ("linearize_imu_rows", "prior_residual"):
+        if name in ("linearize_imu_rows", "imu_normal", "prior_residual"):
             return "imu and prior"
         if name == "assemble_normal_equations":
-            imu = [c for c in p.cpu_children if c.name == "solve::linearize_imu_rows"]
+            imu = [c for c in p.cpu_children if c.name == "solve::imu_normal"]
             if imu and below.time_range.start >= imu[0].time_range.start:
                 return "imu and prior"
             return "projection"
@@ -2315,8 +2345,8 @@ def solve_part(e):
 def solve_shares(run):
     """Run ``run()`` once under torch.profiler inside ``annotated_solver``;
     returns ({part: µs}, µs attributed, µs of every device kernel): each
-    op's own device time summed by ``solve_part``, and the projection
-    kernels' by KERNEL_PARTS."""
+    op's own device time summed by ``solve_part``, and the factor kernels'
+    by KERNEL_PARTS."""
     import torch
     from torch.autograd import DeviceType
 
@@ -2327,7 +2357,7 @@ def solve_shares(run):
     parts, attributed, total = {}, 0.0, 0.0
     for e in prof.events():
         if e.device_type != DeviceType.CPU:
-            if e.name.startswith(("solve::", "proj_factor::")):
+            if e.name.startswith(("solve::", *WRAPPER_RANGES)):
                 continue  # a range's span on the card's timeline, not a kernel
             us = e.time_range.elapsed_us()
             total += us
@@ -2336,7 +2366,7 @@ def solve_shares(run):
                 parts[part] = parts.get(part, 0.0) + us
                 attributed += us
             continue
-        if e.name.startswith("proj_factor::"):
+        if e.name.startswith(WRAPPER_RANGES):
             continue  # its kernel is counted by name above
         us = e.self_device_time_total
         if us > 0:
@@ -2347,9 +2377,9 @@ def solve_shares(run):
 
 
 def launches_of(fn):
-    """The projection kernels' launches while ``fn()`` runs (a graph's are
+    """The factor kernels' launches while ``fn()`` runs (a graph's are
     counted at its replay)."""
-    ks = bench.PROJ_KERNELS
+    ks = bench.FACTOR_KERNELS
     before = {k: w.launches for k, w in ks.items()}
     fn()
     return {k: w.launches - before[k] for k, w in ks.items()}
@@ -2377,7 +2407,7 @@ def warm_estimator(dev, knobs):
 def program_census(est, label, trace=True):
     """The census of an estimator's programs (solve at its cap, MARGIN_OLD,
     SECOND_NEW): nodes of each captured graph by kind, the card's ms per
-    replay (CUDA events, copying the inputs in included), the projection
+    replay (CUDA events, copying the inputs in included), the factor
     kernels' launches in one replay of the solve and of MARGIN_OLD, and
     (``trace``) the shares of one eager solve's device time by part
     (``solve_shares``). Returns a dict."""
@@ -2412,7 +2442,7 @@ def program_census(est, label, trace=True):
     log(f"[14] census {label}: {F} slots x {W1} frames = {obs} observations, cap {cap}; nodes "
         + "; ".join(f"{k} " + ", ".join(f"{n} {c}" for n, c in v.items()) for k, v in nodes.items())
         + "; ms per replay " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
-        + "; projection kernels' launches per replay " + ", ".join(
+        + "; factor kernels' launches per replay " + ", ".join(
             f"{k} {v}" for k, v in per_replay.items()))
     if trace:
         log(f"[14] census {label}: one eager solve traced ({trace_s:.1f} s), {total / 1e3:.3f} ms "
@@ -2630,6 +2660,356 @@ def phase_proj_factor(dev, est_a, est_b):
     return out
 
 
+# ------------------------------------------------ phase 14: the IMU kernels
+# csrc/imu_factor.cu against its plain version (backend/imu_cuda.py) on the
+# same inputs, each output's error over its scale: the magnitude m such that
+# either version's rounding is about eps m. A raw residual row is a
+# difference of terms far larger than itself (r_p: R_iᵀ a - Δp', with a = ½ g
+# T² + p_j - p_i - v_i T; r_v likewise; r_q: 2 vec of a product of unit
+# quaternions), so either version rounds it to about eps times those terms'
+# magnitudes m; whitened, entry i to eps r_s,i with r_s = |sqrt_info| m. So
+# r_w is held entry by entry against r_s; interval w's |r_w|² (both cost
+# outputs) against Σ_i r_i² + 2 |r_i| r_s,i + eps r_s,i² (its own rounding,
+# the residual's carried through the square, and their product), interval by
+# interval; J30 against the largest entry of J_s = |sqrt_info| |J_raw|; H_pp
+# against the largest of J_sᵀ J_s over the dense rows; b_p against the
+# largest of |J|ᵀ r_s + J_sᵀ |r|. An entry whose scale is 0 (an invalid
+# interval) must be 0 in both. f32: rounding and sums in another order; f64:
+# a few roundings. ``imu_planted_faults`` holds the check against outputs a
+# faulty kernel would give (a zero cost, a dropped interval, r_q's sign
+# flipped), which it must reject.
+IMU_BOUNDS = {"float32": 2e-6, "float64": 1e-14}
+# Operations a valid interval costs each kernel, reckoned from the kernel's
+# arithmetic: the raw rows (the rotation, a and b, the bias-corrected deltas,
+# the quaternion products of r_q and its nine columns) about 500, and their
+# whitening by the lower-triangular sqrt_info (whiten_covariance: Linv D⁻¹,
+# 120 entries), 2 · 120 a column over 31 columns; the cost mode the raw
+# residual (about 300), its whitening and its square; the normal equations
+# the rows, the 465 distinct entries of the symmetric 30 x 30 JᵀJ over 15
+# rows and Jᵀr (30 · 2 · 15).
+IMU_FLOPS = {"imu_rows": 500 + 2 * 120 * 31, "imu_cost": 300 + 2 * 120 + 2 * 15,
+             "imu_normal": 500 + 2 * 120 * 31 + 465 * 2 * 15 + 30 * 2 * 15 + 2 * 15}
+REPLACES.update({
+    "imu_rows": "lfvio_tpu/backend/solver.py:241 (linearize_imu_rows: jacfwd + vmap of "
+                "_imu_local_residual :107, the dense rows MARGIN_OLD stacks; XLA, no Pallas "
+                "kernel)",
+    "imu_normal": "lfvio_tpu/backend/solver.py:308 (assemble_normal_equations' IMU terms: the "
+                  "rows of :241 and their JᵀJ; XLA, no Pallas kernel)",
+    "imu_cost": "lfvio_tpu/backend/solver.py:336 (total_cost's IMU term, factors.py:158 "
+                "imu_residuals_window; XLA, no Pallas kernel)"})
+SOURCES.update({k: "lfvio_tpu_torch/csrc/imu_factor.cu" for k in IMU_FLOPS})
+# The outputs of imu_outputs, and the kernel each comes from.
+IMU_OUTPUTS = {"r_w": "imu_rows", "J30": "imu_rows", "H_pp": "imu_normal", "b_p": "imu_normal",
+               "normal cost terms": "imu_normal", "cost mode": "imu_cost"}
+
+
+def imu_solve_inputs(est):
+    """(state, pre, sqrt_info, imu_valid, gravity) of the estimator's next
+    solve as its program computes them on the card (unpack, preintegrate at
+    the state's biases, whiten)."""
+    from lfvio_tpu_torch.imu import preintegrate, whiten_covariance
+
+    packed = est._upload(est._pack_solve_buffer(est.Ps[0], est.Qs[0]))
+    state, _, imu = est._unpack(packed)[:3]
+    pre = preintegrate(*imu[:5], state.ba[:-1], state.bg[:-1], est.cfg.imu_noise)
+    si, ok = whiten_covariance(pre.covariance, imu[5])
+    return state, pre, si, ok, est._gravity_t
+
+
+def imu_window(dev, dtype, W1, seed=0, invalid=1):
+    """A window of W1 frames along a curve on the card in ``dtype``: 16 IMU
+    samples an interval (200 Hz), preintegrated at biases 0.05 (ba) and 0.01
+    (bg) standard deviations away from the state's, so that the solve's
+    off-linearization case is exercised, and interval ``invalid`` invalid.
+    Returns (state, pre, sqrt_info, imu_valid, gravity)."""
+    import torch
+    from lfvio_tpu_torch.backend.state import WindowState
+    from lfvio_tpu_torch.geom import so3_exp
+    from lfvio_tpu_torch.imu import ImuNoise, preintegrate, whiten_covariance
+
+    rng = np.random.default_rng(seed)
+    tt = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+    t = np.linspace(0.0, 0.08 * (W1 - 1), W1)
+    p = np.stack([t, 0.2 * np.sin(t), 0.1 * t], -1) + 0.01 * rng.standard_normal((W1, 3))
+    theta = np.stack([0.05 * np.sin(3 * t), 0.1 * t, 0.1 * np.cos(2 * t)], -1)
+    S, W = 16, W1 - 1
+    ba, bg = 0.02 * rng.standard_normal((W1, 3)), 0.002 * rng.standard_normal((W1, 3))
+    state = WindowState(
+        p=tt(p), q=so3_exp(tt(theta)), v=tt(0.5 * rng.standard_normal((W1, 3))), ba=tt(ba),
+        bg=tt(bg), tic=tt(np.zeros(3)), qic=tt([1.0, 0.0, 0.0, 0.0]), td=tt(0.0),
+        inv_depth=tt(np.ones(4)))
+    accs = np.array([0.0, 0.0, 9.81]) + 0.2 * rng.standard_normal((W, S, 3))
+    gyrs = 0.1 * rng.standard_normal((W, S, 3))
+    lba = ba[:-1] + 0.05 * rng.standard_normal((W, 3))
+    lbg = bg[:-1] + 0.01 * rng.standard_normal((W, 3))
+    pre = preintegrate(tt(np.full((W, S), 0.005)), tt(accs), tt(gyrs), tt(accs[:, 0]),
+                       tt(gyrs[:, 0]), tt(lba), tt(lbg), ImuNoise(0.08, 0.004, 0.00004, 2e-6))
+    valid = torch.ones(W, dtype=torch.bool, device=dev)
+    valid[invalid] = False
+    si, ok = whiten_covariance(pre.covariance, valid)
+    return state, pre, si, ok, tt([0.0, 0.0, 9.81])
+
+
+def imu_outputs(args, plain=False):
+    """Every output of the three kernels at ``args`` (state, pre, sqrt_info,
+    imu_valid, gravity), {name: tensor}: the kernels' or (``plain``) their
+    plain versions'; imu_normal's sums added into zeros."""
+    import torch
+    from lfvio_tpu_torch.backend import imu_cuda as ic
+    from lfvio_tpu_torch.backend.state import n_cams_of, pose_dim
+
+    state = args[0]
+    D = pose_dim(state.p.shape[0], n_cams_of(state))
+    z = lambda *shape: torch.zeros(shape, dtype=state.p.dtype, device=state.p.device)
+    if plain:
+        rows, cost = ic.imu_rows_plain(*args), ic.imu_cost_plain(*args)
+        normal = ic.imu_normal_plain(z(D, D), z(D), *args)
+    else:
+        rows, cost = ic.imu_rows(*args), ic.imu_cost(*args)
+        normal = ic.imu_normal(z(D, D), z(D), *args)
+    return dict(zip(IMU_OUTPUTS, (*rows, *normal, cost)))
+
+
+def imu_raw(args):
+    """The plain version's raw (unwhitened) rows at ``args``: (r [W, 15],
+    J [W, 15, 30])."""
+    import torch
+    from lfvio_tpu_torch.backend.factors import imu_jacobian
+
+    state, pre, si, _, g = args
+    i, j = slice(None, -1), slice(1, None)
+    eye = torch.eye(15, dtype=si.dtype, device=si.device).expand_as(si)
+    return imu_jacobian(pre, eye, state.p[i], state.q[i], state.v[i], state.ba[i], state.bg[i],
+                        state.p[j], state.q[j], state.v[j], state.ba[j], state.bg[j], g)
+
+
+def imu_scales(args):
+    """{output name: its scale} (the note above IMU_BOUNDS) at ``args``: a
+    number, or a tensor for an output held entry by entry (r_w [W, 15])
+    or interval by interval (the cost outputs, [W])."""
+    import torch
+    from lfvio_tpu_torch.backend import imu_cuda as ic
+    from lfvio_tpu_torch.backend.state import n_cams_of, pose_dim
+    from lfvio_tpu_torch.imu.preintegration import bias_corrected_delta
+
+    state, pre, si, ok, g = args
+    i, j = slice(None, -1), slice(1, None)
+    n = lambda x: torch.linalg.norm(x, dim=-1, keepdim=True).expand(*x.shape[:-1], 3)
+    dt = pre.sum_dt[:, None]
+    dp, _, dv = bias_corrected_delta(pre, state.ba[i], state.bg[i])
+    mags = torch.cat([
+        n(0.5 * g * dt * dt) + n(state.p[j]) + n(state.p[i]) + n(state.v[i]) * dt + n(dp),
+        torch.full_like(dp, 2.0),
+        n(g * dt) + n(state.v[j]) + n(state.v[i]) + n(dv),
+        n(state.ba[j]) + n(state.ba[i]), n(state.bg[j]) + n(state.bg[i])], dim=-1)
+    _, J_raw = imu_raw(args)
+    r, J = ic.imu_rows_plain(*args)
+    keep = lambda x: torch.where(ok.reshape(-1, *[1] * (x.ndim - 1)), x, 0.0)
+    r_s = keep((si.abs() @ mags[..., None])[..., 0])
+    J_s = keep(si.abs() @ J_raw.abs())
+    D = pose_dim(state.p.shape[0], n_cams_of(state))
+    Jd, Ja = ic.dense_rows(J_s, D), ic.dense_rows(J.abs(), D)
+    top = lambda x: max(float(x.abs().max()), 1e-30)
+    eps = torch.finfo(r.dtype).eps
+    cost = (r * r + 2.0 * r.abs() * r_s + eps * r_s * r_s).sum(-1)
+    return {"r_w": r_s, "J30": top(J_s), "H_pp": top(Jd.T @ Jd),
+            "b_p": top(Ja.T @ r_s.reshape(-1) + Jd.T @ r.abs().reshape(-1)),
+            "normal cost terms": cost, "cost mode": cost}
+
+
+# The cost outputs held against the same run's rows as well: each interval's
+# cost against Σ r_w² of imu_rows' r_w, relative to that sum (the residual
+# is held against the plain version's above; this leaves the square and its
+# sum, which rounds to a few eps of it). {name: (cost output, its kernel)}.
+IMU_SELF = {"normal cost terms against the rows": ("normal cost terms", "imu_normal"),
+            "cost mode against the rows": ("cost mode", "imu_cost")}
+
+
+def imu_errors(outs, ref, scale):
+    """{output name: the largest |outs - ref| over its scale}: entry by entry
+    where the scale is a tensor (an entry of scale 0 must agree exactly);
+    then IMU_SELF's: each cost output of ``outs`` against Σ r_w² of its
+    r_w, interval by interval."""
+    import torch
+
+    def rel(x, y, s):
+        d = (x - y).abs()
+        if not isinstance(s, torch.Tensor):
+            return float(d.max()) / s
+        s = s.expand_as(d)
+        return float(torch.where(s > 0, d / torch.where(s > 0, s, 1.0),
+                                 torch.where(d > 0, np.inf, 0.0)).max())
+
+    errs = {name: rel(outs[name], ref[name], scale[name]) for name in ref}
+    rr = (outs["r_w"] * outs["r_w"]).sum(-1)
+    errs.update({name: rel(outs[of], rr, rr) for name, (of, _) in IMU_SELF.items()})
+    return errs
+
+
+def imu_compare(args):
+    """(errors relative to each output's scale, {kernel: (largest absolute
+    error, largest relative error) of its outputs}, a repeat of the kernels
+    bit-identical) at ``args`` (state, pre, sqrt_info, imu_valid, gravity)."""
+    import torch
+
+    k, p = imu_outputs(args), imu_outputs(args, plain=True)
+    again = imu_outputs(args)
+    identical = all(torch.equal(k[n], again[n]) for n in k)
+    errs = imu_errors(k, p, imu_scales(args))
+    mode_err = {}
+    for n in errs:
+        mode = IMU_OUTPUTS[n] if n in IMU_OUTPUTS else IMU_SELF[n][1]
+        d = float((k[n] - p[n]).abs().max()) if n in IMU_OUTPUTS else 0.0
+        a, r = mode_err.get(mode, (0.0, 0.0))
+        mode_err[mode] = (max(a, d), max(r, errs[n]))
+    return errs, mode_err, identical
+
+
+# A planted fault, and the outputs whose check must reject it on its own.
+IMU_FAULT_OUTPUTS = {"cost 0": tuple(IMU_SELF),
+                     "least-cost interval dropped": ("J30", "H_pp"),
+                     "r_q's sign flipped": ("r_w",)}
+
+
+def imu_planted_faults(args):
+    """{fault: {output name: its error over its scale}}: the plain
+    version's outputs at ``args`` against those a kernel with each fault of
+    IMU_FAULT_OUTPUTS would give (a zero cost; the valid interval of least
+    cost left out; the raw r_q rows negated before the whitening)."""
+    import torch
+    from lfvio_tpu_torch.backend import imu_cuda as ic
+    from lfvio_tpu_torch.backend.state import n_cams_of, pose_dim
+
+    state, pre, si, ok, g = args
+    p = imu_outputs(args, plain=True)
+    cost = p["cost mode"]
+    faults = {"cost 0": {**p, "normal cost terms": torch.zeros_like(cost),
+                         "cost mode": torch.zeros_like(cost)}}
+    drop = ok.clone()
+    drop[int(torch.where(ok, cost, np.inf).argmin())] = False
+    faults["least-cost interval dropped"] = imu_outputs((state, pre, si, drop, g), plain=True)
+    r_raw, _ = imu_raw(args)
+    flip = torch.ones(15, dtype=r_raw.dtype, device=r_raw.device)
+    flip[3:6] = -1.0
+    r_f = torch.where(ok[:, None], (si @ (flip * r_raw)[..., None])[..., 0], 0.0)
+    D = pose_dim(state.p.shape[0], n_cams_of(state))
+    c_f = (r_f * r_f).sum(-1)
+    faults["r_q's sign flipped"] = {**p, "r_w": r_f, "b_p": ic.dense_rows(p["J30"], D).T
+                                    @ r_f.reshape(-1), "normal cost terms": c_f, "cost mode": c_f}
+    scale = imu_scales(args)
+    return {name: imu_errors(f, p, scale) for name, f in faults.items()}
+
+
+def imu_bound_ms(args, mode):
+    """The least time of one launch of ``mode`` (a key of IMU_FLOPS) on an
+    H100 at ``args``: what the function needs read once and written once at
+    3.35 TB/s (the state; a interval's Δp, Δq, Δv, the 45 entries of the
+    preintegration's Jacobian the residual uses (J_p,ba, J_p,bg, J_v,ba,
+    J_v,bg, J_q,bg), Σdt, the linearization biases and the 120 entries of
+    the lower-triangular sqrt_info; gravity; imu_valid; imu_normal: the
+    entries of H_pp and b_p it adds to, read and written), against
+    IMU_FLOPS a valid interval at the float32 rate; (ms, by, bytes, FLOP)."""
+    state, ok = args[0], args[3]
+    W1 = state.p.shape[0]
+    W = W1 - 1
+    e = state.p.element_size()
+    ins = e * (16 * W1 + W * (3 + 4 + 3 + 45 + 1 + 3 + 3 + 120) + 3) + W
+    out = {"imu_rows": e * W * 15 * 31, "imu_cost": e * W,
+           "imu_normal": e * (2 * (225 * W1 + 2 * 225 * W + 15 * W1) + W)}[mode]
+    nbytes = ins + out
+    flops = IMU_FLOPS[mode] * int(ok.sum())
+    t_b, t_o = 1e3 * nbytes / PEAK_BYTES_S, 1e3 * flops / PEAK_F32_FLOPS
+    return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations"), nbytes, flops
+
+
+def moved_biases(args, seed=0):
+    """``args`` with the state's ba and bg moved after the preintegration,
+    as an LM step moves them inside a solve (0.05 and 0.01 standard
+    deviations), so that the bias correction's normalization term counts."""
+    import dataclasses as dc
+
+    import torch
+
+    state = args[0]
+    rng = np.random.default_rng(seed)
+    tt = lambda sd: torch.as_tensor(sd * rng.standard_normal(state.ba.shape),
+                                    dtype=state.ba.dtype, device=state.ba.device)
+    return (dc.replace(state, ba=state.ba + tt(0.05), bg=state.bg + tt(0.01)), *args[1:])
+
+
+def phase_imu_factor(dev, est_a, est_b):
+    """The IMU kernels against their plain version at (a) phase 4's
+    estimator's solve inputs (window 10, f32), (b) the high-rate estimator's
+    (window 20, f32), each also with its biases moved after the
+    preintegration (``moved_biases``), and a two-camera f64 window
+    (``imu_window`` with ``dual_camera_inputs``' extrinsics) with its biases
+    off the preintegration's linearization point and one interval invalid,
+    within IMU_BOUNDS, a repeat bit-identical; at each, the planted faults
+    of IMU_FAULT_OUTPUTS rejected by the outputs named there; each kernel's
+    times behind a full queue and launched alone, beside its plain
+    version's and its bound, at (a) and (b). Returns the kernels line's
+    numbers: times at (a); errors the worst of the f32 cases, absolute and
+    relative to each output's scale."""
+    import dataclasses as dc
+
+    import torch
+    from lfvio_tpu_torch.backend import imu_cuda as ic
+    from lfvio_tpu_torch.backend.state import n_cams_of, pose_dim
+
+    dual_state = dual_camera_inputs(dev)[0]
+    w_state, *w_rest = imu_window(dev, torch.float64, dual_state.p.shape[0])
+    a, b = imu_solve_inputs(est_a), imu_solve_inputs(est_b)
+    timed = {"(a) window 10, f32": a, "(b) window 20, f32": b}
+    cases = {**timed, "(a), biases moved": moved_biases(a), "(b), biases moved": moved_biases(b),
+             "two-camera window 10, f64, biases off the linearization point, interval 1 invalid":
+             (dc.replace(w_state, tic=dual_state.tic, qic=dual_state.qic), *w_rest)}
+    worst = {}
+    for label, args in cases.items():
+        errs, mode_err, identical = imu_compare(args)
+        bound = IMU_BOUNDS[str(args[0].p.dtype).split(".")[-1]]
+        log(f"[14i] imu_factor {label} against the plain version, relative to each output's "
+            f"scale: " + ", ".join(f"{n} {v:.2e}" for n, v in errs.items())
+            + f" (bound {bound}); repeat bit-identical {identical}; valid intervals "
+            f"{int(args[3].sum())} of {args[3].numel()}")
+        if not (identical and all(v <= bound for v in errs.values())):
+            raise AssertionError(f"imu_factor disagrees with its plain version at {label}")
+        for fault, fe in imu_planted_faults(args).items():
+            log(f"[14i] planted fault at {label}, {fault}: " + ", ".join(
+                f"{n} {v:.2e}" for n, v in fe.items()) + f" (must exceed {bound}: "
+                + ", ".join(IMU_FAULT_OUTPUTS[fault]) + ")")
+            if not all(fe[n] > bound for n in IMU_FAULT_OUTPUTS[fault]):
+                raise AssertionError(f"the IMU check does not see '{fault}' at {label}")
+        if args[0].p.dtype == torch.float32:
+            for m, (ae, re) in mode_err.items():
+                wa, wr = worst.get(m, (0.0, 0.0))
+                worst[m] = (max(wa, ae), max(wr, re))
+    block = make_blocker(dev)
+    out = {}
+    for label, args in timed.items():
+        state = args[0]
+        D = pose_dim(state.p.shape[0], n_cams_of(state))
+        H = torch.zeros((D, D), dtype=state.p.dtype, device=dev)
+        bp = torch.zeros(D, dtype=state.p.dtype, device=dev)
+        runs = {"imu_rows": (lambda: ic.imu_rows(*args), lambda: ic.imu_rows_plain(*args)),
+                "imu_normal": (lambda: ic.imu_normal(H, bp, *args),
+                               lambda: ic.imu_normal_plain(H, bp, *args)),
+                "imu_cost": (lambda: ic.imu_cost(*args), lambda: ic.imu_cost_plain(*args))}
+        for mode, (kern, plain) in runs.items():
+            ms = cuda_ms(kern, reps=10, blocker=block)
+            alone = cuda_ms(kern)
+            plain_ms = cuda_ms(plain, reps=3, blocker=block)
+            bound, by, nbytes, flops = imu_bound_ms(args, mode)
+            log(f"[14i] {mode} {label}: {ms:.4f} ms behind a full queue, {alone:.4f} ms launched "
+                f"alone; plain version {plain_ms:.4f} ms; bound {bound:.6f} ms by {by} "
+                f"({nbytes} B, {flops / 1e6:.3f} MFLOP); at {100 * bound / ms:.2f}% of it")
+            if label.startswith("(a)"):
+                out[mode] = dict(max_abs_err=worst[mode][0], max_rel_err=worst[mode][1],
+                                 rel_bound=IMU_BOUNDS["float32"], ms=ms, ms_launched_alone=alone,
+                                 plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                                 library_ms=None)
+    return out
+
+
 def phase_programs(dev, rig, plain_calls, run4):
     """The eigensolver kernel, f64 graph replays against eager, phase 4's
     stream with eager programs, and the card's time per replay."""
@@ -2653,14 +3033,16 @@ def phase_programs(dev, rig, plain_calls, run4):
                     if hasattr(p, "capture_s")) + ")")
     census["b"] = program_census(warm_estimator(dev, BENCH_HIGH_RATE),
                                  "(b) high-rate (f32, window 20, 384 slots)", trace=False)
-    want = {"proj_rows": 0, "proj_normal": cap, "proj_cost": cap + 1}
+    want = {"proj_rows": 0, "proj_normal": cap, "proj_cost": cap + 1,
+            "imu_rows": 0, "imu_normal": cap, "imu_cost": cap + 1}
+    want_marg = {k: int(k in ("proj_rows", "imu_rows")) for k in want}
     for key, c in census.items():
-        if c["per_replay"]["solve"] != want or c["per_replay"]["marg_old"] != dict(
-                proj_rows=1, proj_normal=0, proj_cost=0):
+        if c["per_replay"]["solve"] != want or c["per_replay"]["marg_old"] != want_marg:
             raise AssertionError(f"census ({key}): a solve replay at cap {cap} did not launch "
-                                 f"{want}, or a MARGIN_OLD replay not one rows launch")
+                                 f"{want}, or a MARGIN_OLD replay not {want_marg}")
     proj = phase_proj_factor(dev, est, census["b"]["est"])
-    times = dict(census=census, eager_ms=eager_ms, proj=proj)
+    imu = phase_imu_factor(dev, est, census["b"]["est"])
+    times = dict(census=census, eager_ms=eager_ms, proj=proj, imu=imu)
     qr = phase_qr_information(dev)
     rec4, rec6 = {}, {}
     eager = run_full_scale("[14]", rig, plain_calls, 1, 1, graphs=False,
@@ -2717,8 +3099,10 @@ def run_bench(tag, knobs):
         raise AssertionError(f"{tag} the bench's LK is not one fused launch per tracked frame")
     if fig["sym_eig_launches"] == 0:
         raise AssertionError(f"{tag} the bench did not launch the eigensolver kernel")
-    if not all(fig["proj_launches"].values()):
-        raise AssertionError(f"{tag} the bench did not launch every projection kernel")
+    if not all(fig["factor_launches"].values()):
+        raise AssertionError(f"{tag} the bench did not launch every factor kernel in its timed "
+                             f"window")
+    check_factor_launches(fig["factor_launches_run"], f"{tag} the bench")
     if not fig["trajectory_finite"]:
         raise AssertionError(f"{tag} non-finite trajectory")
     if fig["initialized"] and not (fig["ate_m"] is not None and fig["ate_m"] < FULL_SCALE_ATE_M):
@@ -2803,7 +3187,7 @@ def main(argv):
     phase_dist()
     phase_kf_axis()
     kernels["sym_eig"], times14, _ = phase_programs(dev, rig, plain_calls, run4)
-    kernels.update(times14["proj"])
+    kernels.update(times14["proj"], **times14["imu"])
     del rig
     benches = phase_bench()
     # Each run's counts were set to 0 just before it: the phases' by
@@ -2812,24 +3196,25 @@ def main(argv):
     lk_runs = [r["launches"] for r in paths] + [f["lk_launches_run"] for f in benches.values()]
     sym_runs = [r["sym_launches"] for r in paths] + [f["sym_eig_launches_run"]
                                                      for f in benches.values()]
-    proj_runs = {k: [r["proj"][k] for r in paths] + [f["proj_launches_run"][k]
-                                                     for f in benches.values()]
-                 for k in PROJ_FLOPS}
+    factor_runs = {k: [r["factors"][k] for r in paths] + [f["factor_launches_run"][k]
+                                                          for f in benches.values()]
+                   for k in bench.FACTOR_KERNELS}
     launches = {"lk_pyramid": sum(lk_runs),
                 "lk_level": run4["level_launches"],
                 "lk_pyramid_pallas": run6p["launches"],
-                "sym_eig": sum(sym_runs), **{k: sum(v) for k, v in proj_runs.items()}}
+                "sym_eig": sum(sym_runs), **{k: sum(v) for k, v in factor_runs.items()}}
     log(f"[end] launches on the main paths (phases 4, 6, 8, 9, "
         + ", ".join(benches) + ", each a whole run): lk_pyramid "
         + ", ".join(map(str, lk_runs)) + "; sym_eig " + ", ".join(map(str, sym_runs))
-        + "".join(f"; {k} " + ", ".join(map(str, v)) for k, v in proj_runs.items())
+        + "".join(f"; {k} " + ", ".join(map(str, v)) for k, v in factor_runs.items())
         + f"; lk_pyramid_pallas (phase 6p) {run6p['launches']}; whole run "
         f"{time.perf_counter() - t_run + 0.0:.1f} s after the build")
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
          "launches": launches[name], **kernels[name]}
-        for name in ("lk_pyramid", "lk_level", "lk_pyramid_pallas", "sym_eig", *PROJ_FLOPS)]}))
+        for name in ("lk_pyramid", "lk_level", "lk_pyramid_pallas", "sym_eig", *PROJ_FLOPS,
+                     *IMU_FLOPS)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

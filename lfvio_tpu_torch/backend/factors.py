@@ -11,16 +11,29 @@ Port of ``lfvio_tpu.backend.factors``:
 The residuals broadcast over leading dimensions, so one definition serves
 the whole [F, W+1] grid at once. ``projection_jacobian`` is the projection
 residual's analytic Jacobian over the 26 tangents of an observation, the
-plain version of ``csrc/proj_factor.cu``'s rows mode; the IMU residual is
-linearized by forward-mode autodiff in ``solver.py``.
+plain version of ``csrc/proj_factor.cu``'s rows mode; ``imu_jacobian`` is
+the IMU residual's over the 30 tangents of an interval, the plain version of
+``csrc/imu_factor.cu``'s rows.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..geom import quat_box_minus, quat_conj, quat_rotate, quat_to_mat, skew, tangent_basis
+from ..geom import (
+    quat_box_minus,
+    quat_conj,
+    quat_from_small_angle,
+    quat_left,
+    quat_mul,
+    quat_right,
+    quat_rotate,
+    quat_to_mat,
+    skew,
+    tangent_basis,
+)
 from ..imu import imu_residual
+from ..imu.preintegration import O_BA, O_BG, O_P, O_R, O_V
 from .state import FeatureGrid, PriorFactor, WindowState, ex_2d
 
 
@@ -176,6 +189,75 @@ def imu_residuals_window(state: WindowState, pre, sqrt_info, gravity, valid):
     )
     res = (sqrt_info @ r[..., None])[..., 0]
     return torch.where(valid[:, None], res, 0.0)
+
+
+def imu_jacobian(pre, sqrt_info, p_i, q_i, v_i, ba_i, bg_i, p_j, q_j, v_j, ba_j, bg_j,
+                 gravity):
+    """The whitened IMU residual (``imu.imu_residual``, r_w [..., 15]) and its
+    analytic Jacobian J [..., 15, 30] with respect to [δpose_i(6), δsb_i(9),
+    δpose_j(6), δsb_j(9)] (pose (δp, δθ), speed-bias (δv, δba, δbg),
+    rotations perturbed on the right, q ⊗ exp(δθ)), over any leading shape;
+    the arithmetic of ``csrc/imu_factor.cu``, formula for formula. The
+    whitening ``sqrt_info @`` is applied to both.
+
+    With T = Σdt, R_i the matrix of q_i, a = ½ g T² + p_j − p_i − v_i T,
+    b = g T + v_j − v_i and the bias-corrected deltas of
+    ``bias_corrected_delta`` (δba = ba_i − ba₀, δbg = bg_i − bg₀,
+    h = Δq ⊗ [1, ½ J_q,bg δbg], Δq' = h / |h|):
+
+        r_p = R_iᵀ a − Δp',  r_q = 2 vec(e),  e = Δq'* ⊗ f,  f = q_i* ⊗ q_j,
+        r_v = R_iᵀ b − Δv',  r_ba = ba_j − ba_i,  r_bg = bg_j − bg_i.
+
+    The nonzero blocks: r_p over (p_i, θ_i, v_i, ba_i, bg_i, p_j) is
+    (−R_iᵀ, [R_iᵀ a]×, −T R_iᵀ, −J_p,ba, −J_p,bg, R_iᵀ); r_v over
+    (θ_i, v_i, ba_i, bg_i, v_j) is ([R_iᵀ b]×, −R_iᵀ, −J_v,ba, −J_v,bg,
+    R_iᵀ); r_q over θ_j is vec(e ⊗ [0, δ]) = (e_w I + [e_v]×) δ, over θ_i
+    −vec(Δq'* ⊗ [0, δ] ⊗ f); the bias rows ∓I. r_q over bg_i differentiates
+    the normalization too: with dh = Δq ⊗ [0, ½ J_q,bg δ],
+    d e = (dh* ⊗ f) / |h| − e (h · dh) / |h|². VINS-Mono's closed form drops
+    the second term, which vanishes only where bg_i is the preintegration's
+    linearization point."""
+    mv = lambda M, x: (M @ x[..., None])[..., 0]
+    J = pre.jacobian
+    blk = lambda r, c: J[..., r:r + 3, c:c + 3]
+    dt = pre.sum_dt[..., None]
+    dba, dbg = ba_i - pre.linearized_ba, bg_i - pre.linearized_bg
+    dp = pre.delta_p + mv(blk(O_P, O_BA), dba) + mv(blk(O_P, O_BG), dbg)
+    dv = pre.delta_v + mv(blk(O_V, O_BA), dba) + mv(blk(O_V, O_BG), dbg)
+    J_qbg = blk(O_R, O_BG)
+    h = quat_mul(pre.delta_q, quat_from_small_angle(mv(J_qbg, dbg)))
+    nh = torch.linalg.norm(h, dim=-1, keepdim=True)
+    c = quat_conj(h / nh)
+    f = quat_mul(quat_conj(q_i), q_j)
+    e = quat_mul(c, f)
+    RiT = quat_to_mat(q_i).transpose(-1, -2)
+    RTa = mv(RiT, 0.5 * gravity * dt * dt + p_j - p_i - v_i * dt)
+    RTb = mv(RiT, gravity * dt + v_j - v_i)
+    r = torch.cat([RTa - dp, 2.0 * e[..., 1:4], RTb - dv, ba_j - ba_i, bg_j - bg_i], dim=-1)
+
+    Rf = quat_right(f)
+    Jq_i = -(Rf @ quat_left(c))[..., 1:, 1:]
+    Jq_j = quat_left(e)[..., 1:, 1:]
+    dH = quat_left(pre.delta_q)[..., :, 1:] @ (0.5 * J_qbg)  # [..., 4, 3]: dh per column
+    flip = torch.ones(4, dtype=dH.dtype, device=dH.device)
+    flip[1:].fill_(-1.0)  # dh* = flip · dh
+    dot = (h[..., None, :] @ dH)[..., 0, :]  # h · dh per column
+    nh2 = nh[..., None]
+    de = (Rf @ (flip[:, None] * dH)) / nh2 - e[..., :, None] * dot[..., None, :] / (nh2 * nh2)
+    Jq_bg = 2.0 * de[..., 1:, :]
+
+    Z = torch.zeros_like(RiT)
+    eye = torch.eye(3, dtype=RiT.dtype, device=RiT.device).expand_as(RiT)
+    rows = lambda *blocks: torch.cat(blocks, dim=-1)
+    Jraw = torch.cat([
+        rows(-RiT, skew(RTa), -dt[..., None] * RiT, -blk(O_P, O_BA), -blk(O_P, O_BG),
+             RiT, Z, Z, Z, Z),
+        rows(Z, Jq_i, Z, Z, Jq_bg, Z, Jq_j, Z, Z, Z),
+        rows(Z, skew(RTb), -RiT, -blk(O_V, O_BA), -blk(O_V, O_BG), Z, Z, RiT, Z, Z),
+        rows(Z, Z, Z, -eye, Z, Z, Z, Z, eye, Z),
+        rows(Z, Z, Z, Z, -eye, Z, Z, Z, Z, eye),
+    ], dim=-2)
+    return mv(sqrt_info, r), sqrt_info @ Jraw
 
 
 def state_box_minus(state: WindowState, prior: PriorFactor):

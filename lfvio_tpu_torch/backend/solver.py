@@ -7,11 +7,13 @@ solve, estimator.cpp:810-825):
      (``factors.projection_jacobian``), and their sums into the normal
      equations, by ``proj_cuda``'s wrappers: on the card the kernels of
      ``csrc/proj_factor.cu`` (rows, normal equations, cost), on the CPU
-     their plain versions. The IMU rows by forward-mode autodiff on the tangent
-     perturbation (``torch.func.jacfwd``), vmapped over the W intervals.
+     their plain versions. The IMU rows from theirs
+     (``factors.imu_jacobian``) by ``imu_cuda``'s wrappers, the kernels of
+     ``csrc/imu_factor.cu`` on the card.
   2. Dense normal equations in the full local layout: H_pp [D, D],
-     H_pl [D, F] and the diagonal H_ll [F]. ``linearize_proj_rows`` gives
-     the dense projection rows that the QR marginalization stacks.
+     H_pl [D, F] and the diagonal H_ll [F]. ``linearize_proj_rows`` and
+     ``linearize_imu_rows`` give the dense rows that the QR marginalization
+     stacks.
   3. Schur elimination of the inverse depths, one Cholesky of the reduced
      D×D system (``cholesky_ex`` and two triangular solves: a non-PD system
      gives a non-finite step, which LM rejects, as jnp.linalg.cholesky's
@@ -25,14 +27,13 @@ solve, estimator.cpp:810-825):
 from __future__ import annotations
 
 import dataclasses
-from functools import partial
 
 import torch
-from torch.func import jacfwd, vmap
 
 from ..geom import quat_mul, quat_normalize, so3_exp
-from ..imu import Preintegration, imu_residual
-from .factors import imu_residuals_window, prior_residual, residual_mask
+from ..imu import Preintegration
+from .factors import prior_residual, residual_mask
+from .imu_cuda import dense_rows, imu_cost, imu_normal, imu_rows
 from .proj_cuda import full_rows, proj_cost, proj_normal, proj_rows
 from .state import (
     FeatureGrid,
@@ -74,22 +75,6 @@ def apply_delta(state: WindowState, dx, dlam, cfg: SolverConfig):
     )
 
 
-def _imu_local_residual(d, dp, dq, dv, jac, sum_dt, lba, lbg, si,
-                        p0, q0, v0, ba0, bg0, p1, q1, v1, ba1, bg1, gravity):
-    """One whitened IMU residual as a function of the 30-dim perturbation
-    [δpose_i(6), δsb_i(9), δpose_j(6), δsb_j(9)]."""
-    pre = Preintegration(dp, dq, dv, jac, None, sum_dt, lba, lbg)
-    r = imu_residual(
-        pre,
-        p0 + d[0:3], quat_mul(q0, so3_exp(d[3:6])), v0 + d[6:9],
-        ba0 + d[9:12], bg0 + d[12:15],
-        p1 + d[15:18], quat_mul(q1, so3_exp(d[18:21])), v1 + d[21:24],
-        ba1 + d[24:27], bg1 + d[27:30], gravity,
-    )
-    r = si @ r
-    return r, r
-
-
 def linearize_projection(state: WindowState, grid: FeatureGrid, cfg: SolverConfig):
     """Residuals and per-factor Jacobians over the whole grid (``proj_rows``:
     the rows kernel on the card, ``projection_jacobian`` on the CPU).
@@ -111,74 +96,36 @@ def linearize_proj_rows(state: WindowState, grid: FeatureGrid, cfg: SolverConfig
 
 def linearize_imu_rows(state: WindowState, pre: Preintegration, sqrt_info_imu,
                        imu_valid, gravity):
-    """Whitened IMU rows in the full local layout.
+    """Whitened IMU rows in the full local layout (``imu_rows``: the rows
+    kernel on the card, ``imu_jacobian`` on the CPU).
     Returns (imu_res [W,15], Jimu [W*15, D], cost)."""
-    W1 = state.p.shape[0]
-    W = W1 - 1
-    C = n_cams_of(state)
-    D = pose_dim(W1, C)
-    dtype, dev = state.p.dtype, state.p.device
-    zero30 = torch.zeros(30, dtype=dtype, device=dev)
-    fn = partial(_imu_local_residual, gravity=gravity)
-    args = (
-        pre.delta_p, pre.delta_q, pre.delta_v, pre.jacobian, pre.sum_dt,
-        pre.linearized_ba, pre.linearized_bg, sqrt_info_imu,
-        state.p[:-1], state.q[:-1], state.v[:-1], state.ba[:-1], state.bg[:-1],
-        state.p[1:], state.q[1:], state.v[1:], state.ba[1:], state.bg[1:],
-    )
-    J30, imu_res = vmap(jacfwd(fn, has_aux=True), in_dims=(None,) + (0,) * len(args))(
-        zero30, *args
-    )
-    imu_res = torch.where(imu_valid[:, None], imu_res, 0.0)
-    J30 = torch.where(imu_valid[:, None, None], J30, 0.0)
-    cost = 0.5 * torch.sum(imu_res * imu_res)
-
-    eyeW = torch.eye(W1, dtype=dtype, device=dev)
-    eye_i, eye_j = eyeW[:W], eyeW[1:]  # interval w -> frames w, w+1
-    Jp = torch.einsum("wrc,wk->wrkc", J30[..., 0:6], eye_i) + torch.einsum(
-        "wrc,wk->wrkc", J30[..., 15:21], eye_j
-    )
-    Jsb = torch.einsum("wrc,wk->wrkc", J30[..., 6:15], eye_i) + torch.einsum(
-        "wrc,wk->wrkc", J30[..., 21:30], eye_j
-    )
-    Jimu = torch.cat(
-        [
-            Jp.reshape(W, 15, 6 * W1),
-            Jsb.reshape(W, 15, 9 * W1),
-            torch.zeros((W, 15, 6 * C + 1), dtype=dtype, device=dev),
-        ],
-        dim=-1,
-    ).reshape(W * 15, D)
-    return imu_res, Jimu, cost
+    imu_res, J30 = imu_rows(state, pre, sqrt_info_imu, imu_valid, gravity)
+    D = pose_dim(state.p.shape[0], n_cams_of(state))
+    return imu_res, dense_rows(J30, D), 0.5 * torch.sum(imu_res * imu_res)
 
 
 def assemble_normal_equations(state, grid, pre, sqrt_info_imu, imu_valid,
                               prior, gravity, cfg):
     """(H_pp, H_pl, H_ll, b_p, b_l, cost) at the current linearization (the
-    projection's terms: one ``proj_normal``)."""
-    H_pp, H_pl, H_ll, b_p, b_l, cost_terms = proj_normal(state, grid, cfg, n_cams_of(state))
-    cost_proj = 0.5 * torch.sum(cost_terms)
-
-    imu_res, Jimu, cost_imu = linearize_imu_rows(
-        state, pre, sqrt_info_imu, imu_valid, gravity
-    )
-    H_pp = H_pp + Jimu.T @ Jimu
-    b_p = b_p + Jimu.T @ imu_res.reshape(-1)
+    projection's terms: one ``proj_normal``; the IMU's added into its H_pp
+    and b_p in place: one ``imu_normal``)."""
+    H_pp, H_pl, H_ll, b_p, b_l, proj_terms = proj_normal(state, grid, cfg, n_cams_of(state))
+    H_pp, b_p, imu_terms = imu_normal(H_pp, b_p, state, pre, sqrt_info_imu, imu_valid, gravity)
 
     rp = prior_residual(state, prior)
     Jp = torch.where(prior.valid, prior.J, torch.zeros_like(prior.J))
     H_pp = H_pp + Jp.T @ Jp
     b_p = b_p + Jp.T @ rp
-    cost = cost_proj + cost_imu + 0.5 * torch.sum(rp * rp)
+    cost = 0.5 * torch.sum(proj_terms) + 0.5 * torch.sum(imu_terms) + 0.5 * torch.sum(rp * rp)
     return H_pp, H_pl, H_ll, b_p, b_l, cost
 
 
 def total_cost(state, grid, pre, sqrt_info_imu, imu_valid, prior, gravity, cfg):
     """Robust total cost at a state (no Jacobians) — LM accept/reject."""
     cost_proj = 0.5 * torch.sum(proj_cost(state, grid, cfg))
-    imu_res = imu_residuals_window(state, pre, sqrt_info_imu, gravity, imu_valid)
+    cost_imu = 0.5 * torch.sum(imu_cost(state, pre, sqrt_info_imu, imu_valid, gravity))
     rp = prior_residual(state, prior)
-    return cost_proj + 0.5 * torch.sum(imu_res * imu_res) + 0.5 * torch.sum(rp * rp)
+    return cost_proj + cost_imu + 0.5 * torch.sum(rp * rp)
 
 
 def _schur_solve(H_pp, H_pl, H_ll, b_p, b_l, lam, used, reduce=None):

@@ -55,7 +55,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from .backend import proj_cuda
+from .backend import imu_cuda, proj_cuda
 from .device import resolve_device
 from .frontend import klt_cuda
 from .geom.eigh_cuda import sym_eig
@@ -149,22 +149,24 @@ def log(msg):
     print(f"[bench +{time.perf_counter() - _T0:6.1f}s] {msg}", file=sys.stderr, flush=True)
 
 
-PROJ_KERNELS = {"proj_rows": proj_cuda.proj_rows, "proj_normal": proj_cuda.proj_normal,
-                "proj_cost": proj_cuda.proj_cost}
+# The solver's factor kernels: the projection's and the IMU's.
+FACTOR_KERNELS = {"proj_rows": proj_cuda.proj_rows, "proj_normal": proj_cuda.proj_normal,
+                  "proj_cost": proj_cuda.proj_cost, "imu_rows": imu_cuda.imu_rows,
+                  "imu_normal": imu_cuda.imu_normal, "imu_cost": imu_cuda.imu_cost}
 
 
 def reset_launches():
     """Set every kernel wrapper's launch count to 0."""
     klt_cuda.lk_pyramid.launches = klt_cuda.lk_level.launches = sym_eig.launches = 0
     klt_cuda.pyramidal_lk_pallas.launches = 0
-    for k in PROJ_KERNELS.values():
+    for k in FACTOR_KERNELS.values():
         k.launches = 0
 
 
 def _launches():
     return dict(lk=klt_cuda.lk_pyramid.launches,
                 lk_other=klt_cuda.pyramidal_lk_pallas.launches + klt_cuda.lk_level.launches,
-                sym_eig=sym_eig.launches, **{k: v.launches for k, v in PROJ_KERNELS.items()})
+                sym_eig=sym_eig.launches, **{k: v.launches for k, v in FACTOR_KERNELS.items()})
 
 
 class Window(NamedTuple):
@@ -255,8 +257,8 @@ def run(cfg: BenchConfig, device=None, width=1280, height=960) -> dict:
         sym_eig_launches=launches["sym_eig"],
         lk_launches_run=run_launches["lk"], lk_other_launches_run=run_launches["lk_other"],
         sym_eig_launches_run=run_launches["sym_eig"],
-        proj_launches={k: launches[k] for k in PROJ_KERNELS},
-        proj_launches_run={k: run_launches[k] for k in PROJ_KERNELS},
+        factor_launches={k: launches[k] for k in FACTOR_KERNELS},
+        factor_launches_run={k: run_launches[k] for k in FACTOR_KERNELS},
         graphs=graphs, graphs_captured_timed=graphs - at_split["graphs"], capture_s=capture_s,
         restarts_timed=pipe.n_restarts - at_split["restarts"],
         trajectory_finite=bool(np.isfinite(traj).all()),
@@ -268,8 +270,8 @@ def run(cfg: BenchConfig, device=None, width=1280, height=960) -> dict:
         f"{len(times)} ({figures['solves_timed']} timed); first solve at t = {first_solve} "
         f"(split {t_split:.2f} s); LK launches {launches['lk']} timed, {run_launches['lk']} in "
         f"the run; sym_eig launches {launches['sym_eig']} timed, {run_launches['sym_eig']} in "
-        f"the run; projection kernels' launches {figures['proj_launches']} timed, "
-        f"{figures['proj_launches_run']} in the run; ATE {ate} m over {n_ate} poses")
+        f"the run; factor kernels' launches {figures['factor_launches']} timed, "
+        f"{figures['factor_launches_run']} in the run; ATE {ate} m over {n_ate} poses")
     if figures["first_solve_in_timed_window"] or figures["graphs_captured_timed"]:
         log(f"NOTE: inside the timed window: first solve {figures['first_solve_in_timed_window']}, "
             f"graphs captured {figures['graphs_captured_timed']}")

@@ -33,7 +33,8 @@ import torch
 from . import klt
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = tuple(_PKG / "csrc" / f"{stem}.cu" for stem in ("lk_pyramid", "sym_eig", "proj_factor"))
+SOURCES = tuple(_PKG / "csrc" / f"{stem}.cu"
+                for stem in ("lk_pyramid", "sym_eig", "proj_factor", "imu_factor"))
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -170,9 +170,10 @@ def preintegrate(dts, accs, gyrs, acc0, gyr0, ba, bg, noise: ImuNoise):
     F, V = _midpoint_FV(R0, R1, un_gyr, acc0_c, acc1_c, dts)
     Q = V @ noise.noise_matrix(dtype, dev) @ V.transpose(-1, -2)
     Ftot, Qtot = _reduce_FQ(F, Q)
+    # Contiguous copies of the last step: the IMU kernels take dense inputs.
     return Preintegration(
-        delta_p, dq_prefix[..., -1, :], dv_prefix[..., -1, :], Ftot, Qtot,
-        torch.sum(dts, dim=-1), ba, bg,
+        delta_p, dq_prefix[..., -1, :].contiguous(), dv_prefix[..., -1, :].contiguous(), Ftot,
+        Qtot, torch.sum(dts, dim=-1), ba, bg,
     )
 
 
@@ -225,7 +226,9 @@ def whiten_covariance(cov, valid):
     Linv = torch.linalg.solve_triangular(L, eye.expand_as(L), upper=False)
     S = Linv * dinv[..., None, :]
     ok = valid & torch.isfinite(S).all(dim=-1).all(dim=-1)
-    return torch.where(ok[..., None, None], S, 0.0), ok
+    # Row-major (the triangular solve may return column-major matrices): the
+    # IMU kernels take dense inputs.
+    return torch.where(ok[..., None, None], S, 0.0).contiguous(), ok
 
 
 def propagate_state_midpoint(p, q, v, acc_0, gyr_0, acc_1, gyr_1, dt, ba, bg, gravity):

@@ -7,9 +7,9 @@ with CUDA events: one first call (its seconds are reported apart: lazy
 library handles, allocator growth), then ``n`` back-to-back calls between
 two events and one wait at the end. With ``chain_arg`` call k+1 consumes
 call k's output, so the calls are serialized by data. The events measure
-the stream's elapsed time per call: where a stage is host-bound (the
-solver's ``torch.func`` linearization) that includes the host's enqueue
-time, which is what a caller waits for.
+the stream's elapsed time per call: where a stage is host-bound (an eager
+solve's many small ops) that includes the host's enqueue time, which is
+what a caller waits for.
 
 Run on the card:  python -m lfvio_tpu_torch.runtime.profiling [--slots 256] [--iters 8] [--frontend]
 """

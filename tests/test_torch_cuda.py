@@ -4,8 +4,10 @@ its Pallas-geometry mode (klt.pyramidal_lk_pallas).
 The eigensolver kernel (lfvio_tpu_torch/csrc/sym_eig.cu) against
 torch.linalg.eigh, and the estimator's programs as CUDA graphs against the
 same functions run eagerly. The projection factor's kernels
-(lfvio_tpu_torch/csrc/proj_factor.cu: rows, assemble, cost) against their
-plain versions in backend/proj_cuda.py.
+(lfvio_tpu_torch/csrc/proj_factor.cu: rows, normal equations, cost) and the
+IMU factor's (lfvio_tpu_torch/csrc/imu_factor.cu: rows, normal equations,
+cost) against their plain versions in backend/proj_cuda.py and
+backend/imu_cuda.py.
 
 Every test here needs the card: the kernel has no CPU mode, so they skip
 without one. This file imports neither JAX nor the JAX package, so it also
@@ -750,3 +752,132 @@ def test_proj_launches_counted_at_graph_replay(dev):
     assert [a - b for a, b in zip(after, before)] == [0, 3, 3]
     for x, y in zip((*out[0], out[1]), (*eager[0], eager[1])):
         assert float((x - y).abs().max()) <= 1e-5 * max(float(y.abs().max()), 1.0)
+
+
+# ------------------------------------------------ csrc/imu_factor.cu
+def _imu_window(dev, dtype=torch.float64, W1=11):
+    """chip_smoke.imu_window: the biases off the preintegration's
+    linearization point, interval 1 invalid."""
+    import chip_smoke
+
+    return chip_smoke.imu_window(dev, dtype, W1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("W1", [11, 21])
+def test_imu_factor_matches_plain(dev, dtype, W1):
+    """The rows, the normal equations (H_pp, b_p and the cost terms of
+    imu_normal) and the cost of the three kernels against their plain
+    versions at window 10 and 20, the biases off the preintegration's
+    linearization point and interval 1 invalid, and each cost output against
+    Σ r_w² of the rows, within chip_smoke.IMU_BOUNDS (f32: sums in another
+    order; f64) of each output's scale (chip_smoke.imu_compare), and a
+    repeat bit-identical."""
+    import chip_smoke
+
+    bound = chip_smoke.IMU_BOUNDS[str(dtype).split(".")[-1]]
+    errs, _, identical = chip_smoke.imu_compare(_imu_window(dev, dtype, W1))
+    assert identical
+    assert max(errs.values()) <= bound, errs
+
+
+def test_imu_invalid_interval_and_in_place_sums(dev):
+    """An invalid interval's rows and cost are exact zeros; imu_normal adds
+    into the H_pp and b_p it is given, in place, and touches no extrinsic or
+    td row or column (f64)."""
+    from lfvio_tpu_torch.backend import imu_cuda as ic
+    from lfvio_tpu_torch.backend.state import n_cams_of, pose_dim
+
+    args = _imu_window(dev)
+    state = args[0]
+    W1 = state.p.shape[0]
+    r, J30 = ic.imu_rows(*args)
+    cost = ic.imu_cost(*args)
+    assert bool((r[1] == 0).all()) and bool((J30[1] == 0).all()) and float(cost[1]) == 0.0
+    D = pose_dim(W1, n_cams_of(state))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    H0 = torch.randn((D, D), dtype=torch.float64, device=dev, generator=gen)
+    b0 = torch.randn(D, dtype=torch.float64, device=dev, generator=gen)
+    H, b = H0.clone(), b0.clone()
+    out = ic.imu_normal(H, b, *args)
+    assert out[0].data_ptr() == H.data_ptr() and out[1].data_ptr() == b.data_ptr()
+    Hp, bp, cp = ic.imu_normal_plain(H0.clone(), b0.clone(), *args)
+    scale = float(Hp.abs().max())
+    assert float((H - Hp).abs().max()) <= 1e-13 * scale
+    assert float((b - bp).abs().max()) <= 1e-13 * float(bp.abs().max())
+    assert torch.equal(H[15 * W1:], H0[15 * W1:]) and torch.equal(H[:, 15 * W1:], H0[:, 15 * W1:])
+    assert torch.equal(b[15 * W1:], b0[15 * W1:])
+    assert float((out[2] - cp).abs().max()) <= 1e-13 * float(cp.abs().max())
+
+
+def test_imu_wrappers_reject_what_the_kernels_do_not_take(dev):
+    """Wrong dtype, shape, device mix or a strided input raise; nothing
+    falls back to the plain version."""
+    import dataclasses
+
+    from lfvio_tpu_torch.backend import imu_cuda as ic
+
+    state, pre, si, ok, g = _imu_window(dev, torch.float32)
+    D = 15 * state.p.shape[0] + 7
+    H = torch.zeros((D, D), device=dev)
+    b = torch.zeros(D, device=dev)
+    strided = pre.delta_q.transpose(0, 1).contiguous().transpose(0, 1)
+    bad = [
+        (state.replace(p=state.p.to(torch.float16)), pre, si, ok, g),
+        (state.replace(v=state.v[:-1]), pre, si, ok, g),
+        (state, dataclasses.replace(pre, delta_q=strided), si, ok, g),
+        (state, dataclasses.replace(pre, jacobian=pre.jacobian.cpu()), si, ok, g),
+        (state, pre, si.double(), ok, g),
+        (state, pre, si, ok.to(torch.int32), g),
+        (state, pre, si, ok, g[:2]),
+    ]
+    for args in bad:
+        for fn in (ic.imu_rows, ic.imu_cost, lambda *a: ic.imu_normal(H, b, *a)):
+            with pytest.raises(ValueError):
+                fn(*args)
+    with pytest.raises(ValueError):  # H_pp of a two-camera layout
+        ic.imu_normal(torch.zeros((D + 6, D + 6), device=dev), b, state, pre, si, ok, g)
+
+
+def test_imu_launches_counted_at_graph_replay(dev):
+    """lm_solve at cap 8 and marginalize_old_qr as DevicePrograms (f64): each
+    solve replay counts 8 imu_normal and 9 imu_cost launches and no rows
+    launch, each MARGIN_OLD replay one imu_rows launch and nothing else; the
+    replays equal the eager functions within 1e-9 of the scale
+    (test_estimator_graphs_match_eager_f64's bound)."""
+    from lfvio_tpu_torch.backend import imu_cuda as ic
+    from lfvio_tpu_torch.backend.marginalize import marginalize_old_qr
+    from lfvio_tpu_torch.backend.solver import lm_solve
+    from lfvio_tpu_torch.device import DeviceProgram
+    from lfvio_tpu_torch.imu import preintegrate, whiten_covariance
+    from lfvio_tpu_torch.runtime.profiling import make_window_problem
+
+    pb = make_window_problem(32, torch.float64, n_obs_frames=5, device=dev)
+    st = pb["state"]
+    imu = [torch.as_tensor(pb[k], dtype=torch.float64, device=dev)
+           for k in ("dts", "accs", "gyrs", "a0", "g0")]
+    pre = preintegrate(*imu, st.ba[:-1], st.bg[:-1], pb["noise"])
+    si, ok = whiten_covariance(pre.covariance, torch.as_tensor(pb["imu_valid"], device=dev))
+    cfg = pb["cfg"]
+    assert cfg.max_iterations == 8
+    solve = lambda s: lm_solve(s, pb["grid"], pre, si, ok, pb["prior"], pb["gravity"], cfg)[0]
+    marg = lambda s: marginalize_old_qr(s, pb["grid"], pre, si, ok, pb["prior"], pb["gravity"],
+                                        cfg)
+    kernels = (ic.imu_rows, ic.imu_normal, ic.imu_cost)
+    for fn, want in ((solve, [0, 8, 9]), (marg, [1, 0, 0])):
+        prog = DeviceProgram(fn)
+        eager = fn(st)
+        prog(st)
+        before = [k.launches for k in kernels]
+        for _ in range(2):
+            out = prog(st)
+        torch.cuda.synchronize()
+        assert [k.launches - b for k, b in zip(kernels, before)] == [2 * w for w in want]
+        for x, y in zip(_leaves(out), _leaves(eager)):
+            assert float((x - y).abs().max()) <= 1e-9 * max(float(y.abs().max()), 1.0)
+
+
+def _leaves(x):
+    from lfvio_tpu_torch.device import _leaves as leaves
+
+    return [t for t in leaves(x, []) if t.is_floating_point()]

@@ -1,0 +1,217 @@
+#!/usr/bin/env python3
+"""Two versions of the solver timed in turns on one CUDA card, within one
+call (host-timed numbers move by up to 25% between calls, the solve
+replay by up to 2.9 ms, so two versions are compared only inside one).
+
+    python3 turns.py tree OTHER_TREE                 (beside chip_smoke.py)
+    python3 turns.py proj EARLIER_PROJ_FACTOR_CU
+
+``tree``: OTHER_TREE is another checkout (for example ``git archive
+<commit>`` unpacked under ``_archive/``, which ``.gitignore`` lists). In the
+order OTHER, this, this, OTHER each tree runs, in processes of its own from
+its own root (so each builds and imports its own package): its
+``chip_smoke.program_census`` of the solve, MARGIN_OLD and SECOND_NEW graphs
+of an estimator warmed up in bench.py's default configuration (a) and in
+its high-rate one (b) (kernel nodes and the card's ms per replay, CUDA
+events), then ``python -m lfvio_tpu_torch.bench`` in (a) and (b)
+(frames/s). Prints a line per run, the card's ``nvidia-smi`` line, and
+last one JSON object with every run's numbers.
+
+``proj``: the LM solve's projection linearization as this tree launches it
+(one ``proj_normal`` launch) against the rows + assemble pair of an earlier
+``csrc/proj_factor.cu`` (one with ``proj_rows_launch`` and
+``proj_assemble_launch``). Builds the given source with this tree's nvcc
+flags into a library of its own, warms up an estimator in (a) and in (b)
+(``chip_smoke.warm_estimator``), and at each one's next solve inputs (f32)
+times, behind a full queue (``chip_smoke.cuda_ms`` with its blocker), the
+pair (a rows launch, then an assemble launch over its rows, every output
+allocated per call as the earlier wrappers did) and ``proj_normal``, in
+turns pair, normal, normal, pair; then each launched alone. Both are held
+against the plain version within ``chip_smoke.PROJ_BOUNDS`` of each
+output's scale first. Prints the card's line, one line a time and one JSON
+line of all of them last.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+CENSUS = r"""
+import json, torch
+import chip_smoke as c
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+dev = torch.device("cuda", 0)
+out = {}
+for key, knobs in (("a", {}), ("b", c.BENCH_HIGH_RATE)):
+    cen = c.program_census(c.warm_estimator(dev, knobs), f"({key})", trace=False)
+    out[key] = dict(ms=cen["ms"], kernel_nodes={k: v.get("kernel") for k, v in
+                                                cen["nodes"].items()})
+print("TURNS " + json.dumps(out))
+"""
+HIGH_RATE = {"LFVIO_BENCH_FRAME_RATE": "30", "LFVIO_BENCH_MAX_CNT": "300",
+             "LFVIO_BENCH_WINDOW": "20", "LFVIO_BENCH_SLOTS": "384"}
+TIMEOUT_S = 600
+
+
+def run(tree, args, env=None):
+    """stdout of ``python args`` run from ``tree``'s root; raises on failure."""
+    res = subprocess.run([sys.executable, *args], cwd=tree, capture_output=True, text=True,
+                         env={**os.environ, **(env or {})}, timeout=TIMEOUT_S)
+    if res.returncode != 0:
+        raise RuntimeError(f"{tree}: {args[:2]} exited {res.returncode}:\n{res.stderr[-4000:]}")
+    return res.stdout
+
+
+def one_turn(tree):
+    """The census and the bench's frames/s of one tree, {...}."""
+    out = run(tree, ["-c", CENSUS])
+    rec = json.loads(out.split("TURNS ", 1)[1].splitlines()[0])
+    for key, knobs in (("a", {}), ("b", HIGH_RATE)):
+        line = run(tree, ["-m", "lfvio_tpu_torch.bench"], knobs).strip().splitlines()[-1]
+        rec[key]["frames_per_s"] = json.loads(line)["value"]
+    return rec
+
+
+def tree_main(argv):
+    """``tree OTHER_TREE``: the two trees' census and bench in turns."""
+    if len(argv) != 1 or not os.path.exists(os.path.join(argv[0], "chip_smoke.py")):
+        print(f"usage: {sys.argv[0]} tree OTHER_TREE (a checkout holding chip_smoke.py)",
+              file=sys.stderr)
+        return 2
+    here = os.path.dirname(os.path.abspath(__file__))
+    other = os.path.abspath(argv[0])
+    runs = []
+    for name, tree in (("other", other), ("this", here), ("this", here), ("other", other)):
+        rec = one_turn(tree)
+        runs.append(dict(tree=name, **rec))
+        print(f"[turns] {name}: " + "; ".join(
+            f"({k}) solve {rec[k]['ms']['solve']:.3f} ms, marg_old {rec[k]['ms']['marg_old']:.3f} "
+            f"ms, solve nodes {rec[k]['kernel_nodes']['solve']}, marg_old nodes "
+            f"{rec[k]['kernel_nodes']['marg_old']}, {rec[k]['frames_per_s']:.3f} frames/s"
+            for k in ("a", "b")), flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    print(smi)
+    print(json.dumps({"other": other, "runs": runs}))
+    return 0
+
+
+def build_earlier(src):
+    """The earlier source built into a library of its own; its two
+    launchers, bound."""
+    from lfvio_tpu_torch.frontend import klt_cuda
+
+    lib = klt_cuda.BUILD_DIR / "libproj_factor_earlier.so"
+    klt_cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([klt_cuda.nvcc_path(), *klt_cuda.NVCC_FLAGS, "-o", str(lib), str(src)],
+                   check=True)
+    so = ctypes.CDLL(str(lib))
+    P, I, Dbl = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    rows, asm = so.proj_rows_launch, so.proj_assemble_launch
+    rows.argtypes = [P] * 13 + [I, I, I, Dbl, Dbl, I, I, P, P, P, P, P]
+    asm.argtypes = [P] * 7 + [I] * 6 + [P] * 6
+    rows.restype = asm.restype = I
+    return rows, asm
+
+
+def pair_fn(rows_launch, asm_launch, state, grid, cfg):
+    """One linearization through the earlier pair: (H_pp, H_pl, H_ll, b_p,
+    b_l, cost terms)."""
+    import torch
+    from lfvio_tpu_torch.backend import proj_cuda as pc
+    from lfvio_tpu_torch.backend.state import pose_dim
+
+    dtype, dev, C, F, W1, ptrs = pc._state_inputs("pair", state, grid)
+    D = pose_dim(W1, C)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    new = lambda *s: torch.empty(s, dtype=dtype, device=dev)
+    dt = pc._DTYPES[dtype]
+
+    def run():
+        res, J26, w, cost = new(F, W1, 2), new(F, W1, 2, 26), new(F, W1), new(F, W1)
+        err = rows_launch(*ptrs, F, W1, C, float(cfg.proj_sqrt_info), float(cfg.cauchy_c), 1,
+                          dt, res.data_ptr(), J26.data_ptr(), w.data_ptr(), cost.data_ptr(),
+                          stream)
+        H_pp, b_p, H_pl, H_ll, b_l = new(D, D), new(D), new(D, F), new(F), new(F)
+        err = err or asm_launch(res.data_ptr(), J26.data_ptr(), w.data_ptr(), *ptrs[9:13], F,
+                                W1, C, int(cfg.estimate_extrinsic), int(cfg.estimate_td), dt,
+                                H_pp.data_ptr(), b_p.data_ptr(), H_pl.data_ptr(),
+                                H_ll.data_ptr(), b_l.data_ptr(), stream)
+        if err:
+            raise RuntimeError(f"the earlier pair's launch failed: cudaError {err}")
+        return H_pp, H_pl, H_ll, b_p, b_l, cost
+
+    return run
+
+
+def proj_main(argv):
+    """``proj EARLIER_PROJ_FACTOR_CU``: the earlier pair against ``proj_normal`` in turns."""
+    import torch
+
+    import chip_smoke
+    from lfvio_tpu_torch.backend import proj_cuda as pc
+    from lfvio_tpu_torch.backend.state import n_cams_of
+
+    if not torch.cuda.is_available():
+        print("turns.py proj: no CUDA device", file=sys.stderr)
+        return 2
+    if len(argv) != 1:
+        print(f"usage: {sys.argv[0]} proj EARLIER_PROJ_FACTOR_CU", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = chip_smoke.smi_line()
+    print(smi, flush=True)
+    rows_launch, asm_launch = build_earlier(Path(argv[0]))
+    names = ("H_pp", "H_pl", "H_ll", "b_p", "b_l", "normal cost terms")
+    block = chip_smoke.make_blocker(dev)
+    out = {}
+    for label, knobs in (("a", {}), ("b", chip_smoke.BENCH_HIGH_RATE)):
+        state, grid, cfg = chip_smoke.solve_inputs(chip_smoke.warm_estimator(dev, knobs))
+        C = n_cams_of(state)
+        F, W1 = grid.valid.shape
+        anchors = torch.bincount(grid.anchor[grid.used & (grid.anchor >= 0)], minlength=W1)
+        print(f"({label}) {F} slots, {W1} frames, {int(grid.used.sum())} used; used features by "
+              f"anchor frame {anchors.tolist()}", flush=True)
+        pair = pair_fn(rows_launch, asm_launch, state, grid, cfg)
+        normal = lambda: pc.proj_normal(state, grid, cfg, C)
+        plain = chip_smoke.proj_outputs(state, grid, cfg, plain=True)
+        scale = chip_smoke.proj_scales(state, grid, cfg, plain)
+        bound = chip_smoke.PROJ_BOUNDS["float32"]
+        for who, fn in (("pair", pair), ("proj_normal", normal)):
+            errs = {n: float((x - plain[n]).abs().max()) / scale[n] for n, x in zip(names, fn())}
+            print(f"({label}) {who} against the plain version, relative to each output's scale: "
+                  + ", ".join(f"{n} {v:.2e}" for n, v in errs.items()), flush=True)
+            if max(errs.values()) > bound:
+                raise AssertionError(f"({label}) {who} is not within {bound} of the plain version")
+        turns = []
+        for who, fn in (("pair", pair), ("proj_normal", normal), ("proj_normal", normal),
+                        ("pair", pair)):
+            turns.append((who, chip_smoke.cuda_ms(fn, reps=10, blocker=block)))
+            print(f"({label}) {who}: {turns[-1][1]:.4f} ms behind a full queue", flush=True)
+        alone = {who: chip_smoke.cuda_ms(fn) for who, fn in (("pair", pair),
+                                                              ("proj_normal", normal))}
+        print(f"({label}) launched alone: pair {alone['pair']:.4f} ms, proj_normal "
+              f"{alone['proj_normal']:.4f} ms", flush=True)
+        out[label] = dict(turns=turns, alone=alone, slots=F, frames=W1)
+    print(json.dumps({"card": smi, "times_ms": out}))
+    return 0
+
+
+def main(argv):
+    modes = {"tree": tree_main, "proj": proj_main}
+    if not argv or argv[0] not in modes:
+        print(f"usage: {sys.argv[0]} tree OTHER_TREE | proj EARLIER_PROJ_FACTOR_CU",
+              file=sys.stderr)
+        return 2
+    return modes[argv[0]](argv[1:])
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
