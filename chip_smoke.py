@@ -96,8 +96,9 @@ lines; any failure ends the run with a non-zero exit code:
      preintegration, and on a two-camera f64 window whose biases lie off the
      preintegration's linearization point, each cost output also against
      Σ r_w² of the rows, and planted faults (a zero cost, a dropped
-     interval, r_q's sign flipped) that the check must reject ([14i]
-     lines); the
+     interval, r_q's sign flipped) that the check must reject, and each
+     IMU launch's latency floor (an empty kernel with its grid, block and
+     launch path) beside its times ([14i] lines); the
      eigensolver kernel against
      torch.linalg.eigh on the main path's inputs at 256 and 384 slots (the
      [256, 4, 4] and [384, 4, 4] DLT matrices of a triangulation, RANSAC's
@@ -2720,7 +2721,8 @@ def imu_window(dev, dtype, W1, seed=0, invalid=1):
     """A window of W1 frames along a curve on the card in ``dtype``: 16 IMU
     samples an interval (200 Hz), preintegrated at biases 0.05 (ba) and 0.01
     (bg) standard deviations away from the state's, so that the solve's
-    off-linearization case is exercised, and interval ``invalid`` invalid.
+    off-linearization case is exercised, and interval ``invalid`` invalid
+    (None: every interval valid).
     Returns (state, pre, sqrt_info, imu_valid, gravity)."""
     import torch
     from lfvio_tpu_torch.backend.state import WindowState
@@ -2745,15 +2747,17 @@ def imu_window(dev, dtype, W1, seed=0, invalid=1):
     pre = preintegrate(tt(np.full((W, S), 0.005)), tt(accs), tt(gyrs), tt(accs[:, 0]),
                        tt(gyrs[:, 0]), tt(lba), tt(lbg), ImuNoise(0.08, 0.004, 0.00004, 2e-6))
     valid = torch.ones(W, dtype=torch.bool, device=dev)
-    valid[invalid] = False
+    if invalid is not None:
+        valid[invalid] = False
     si, ok = whiten_covariance(pre.covariance, valid)
     return state, pre, si, ok, tt([0.0, 0.0, 9.81])
 
 
-def imu_outputs(args, plain=False):
+def imu_outputs(args, plain=False, kernels=None):
     """Every output of the three kernels at ``args`` (state, pre, sqrt_info,
-    imu_valid, gravity), {name: tensor}: the kernels' or (``plain``) their
-    plain versions'; imu_normal's sums added into zeros."""
+    imu_valid, gravity), {name: tensor}: the kernels' (``kernels``: other
+    wrappers, {"imu_rows", "imu_cost", "imu_normal": callable}) or
+    (``plain``) their plain versions'; imu_normal's sums added into zeros."""
     import torch
     from lfvio_tpu_torch.backend import imu_cuda as ic
     from lfvio_tpu_torch.backend.state import n_cams_of, pose_dim
@@ -2765,8 +2769,10 @@ def imu_outputs(args, plain=False):
         rows, cost = ic.imu_rows_plain(*args), ic.imu_cost_plain(*args)
         normal = ic.imu_normal_plain(z(D, D), z(D), *args)
     else:
-        rows, cost = ic.imu_rows(*args), ic.imu_cost(*args)
-        normal = ic.imu_normal(z(D, D), z(D), *args)
+        k = kernels or {"imu_rows": ic.imu_rows, "imu_cost": ic.imu_cost,
+                        "imu_normal": ic.imu_normal}
+        rows, cost = k["imu_rows"](*args), k["imu_cost"](*args)
+        normal = k["imu_normal"](z(D, D), z(D), *args)
     return dict(zip(IMU_OUTPUTS, (*rows, *normal, cost)))
 
 
@@ -2846,14 +2852,15 @@ def imu_errors(outs, ref, scale):
     return errs
 
 
-def imu_compare(args):
+def imu_compare(args, kernels=None):
     """(errors relative to each output's scale, {kernel: (largest absolute
     error, largest relative error) of its outputs}, a repeat of the kernels
-    bit-identical) at ``args`` (state, pre, sqrt_info, imu_valid, gravity)."""
+    bit-identical) at ``args`` (state, pre, sqrt_info, imu_valid, gravity);
+    ``kernels`` as ``imu_outputs``'."""
     import torch
 
-    k, p = imu_outputs(args), imu_outputs(args, plain=True)
-    again = imu_outputs(args)
+    k, p = imu_outputs(args, kernels=kernels), imu_outputs(args, plain=True)
+    again = imu_outputs(args, kernels=kernels)
     identical = all(torch.equal(k[n], again[n]) for n in k)
     errs = imu_errors(k, p, imu_scales(args))
     mode_err = {}
@@ -2946,8 +2953,9 @@ def phase_imu_factor(dev, est_a, est_b):
     off the preintegration's linearization point and one interval invalid,
     within IMU_BOUNDS, a repeat bit-identical; at each, the planted faults
     of IMU_FAULT_OUTPUTS rejected by the outputs named there; each kernel's
-    times behind a full queue and launched alone, beside its plain
-    version's and its bound, at (a) and (b). Returns the kernels line's
+    times behind a full queue and launched alone, beside its latency floor
+    (``imu_cuda.latency_floor``), its plain version's and its bound, at (a)
+    and (b). Returns the kernels line's
     numbers: times at (a); errors the worst of the f32 cases, absolute and
     relative to each output's scale."""
     import dataclasses as dc
@@ -2997,15 +3005,19 @@ def phase_imu_factor(dev, est_a, est_b):
         for mode, (kern, plain) in runs.items():
             ms = cuda_ms(kern, reps=10, blocker=block)
             alone = cuda_ms(kern)
+            empty = lambda: ic.latency_floor(mode, *args)
+            floor, floor_alone = cuda_ms(empty, reps=10, blocker=block), cuda_ms(empty)
             plain_ms = cuda_ms(plain, reps=3, blocker=block)
             bound, by, nbytes, flops = imu_bound_ms(args, mode)
             log(f"[14i] {mode} {label}: {ms:.4f} ms behind a full queue, {alone:.4f} ms launched "
-                f"alone; plain version {plain_ms:.4f} ms; bound {bound:.6f} ms by {by} "
-                f"({nbytes} B, {flops / 1e6:.3f} MFLOP); at {100 * bound / ms:.2f}% of it")
+                f"alone; latency floor (the empty kernel, same grid, block and launch path) "
+                f"{floor:.4f} ms behind a full queue, {floor_alone:.4f} ms alone; plain version "
+                f"{plain_ms:.4f} ms; bound {bound:.6f} ms by {by} ({nbytes} B, "
+                f"{flops / 1e6:.3f} MFLOP); at {100 * bound / ms:.2f}% of it")
             if label.startswith("(a)"):
                 out[mode] = dict(max_abs_err=worst[mode][0], max_rel_err=worst[mode][1],
                                  rel_bound=IMU_BOUNDS["float32"], ms=ms, ms_launched_alone=alone,
-                                 plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                                 floor_ms=floor, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                                  library_ms=None)
     return out
 

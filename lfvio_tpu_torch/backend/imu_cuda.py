@@ -18,6 +18,10 @@ W = W1 - 1 intervals of a window (interval w joins frames w and w + 1):
   * ``imu_cost(state, pre, sqrt_info, imu_valid, gravity)`` -> cost [W]:
     each interval's |r_w|² alone (0 where invalid), for the LM's cost.
 
+``latency_floor(name, ...)`` launches the source's empty kernel with the
+grid, block and arguments of one of the three launches, the part of its
+time that no design of the kernel removes (card only, counted nowhere).
+
 On CUDA tensors each launches its kernel on the current stream or raises;
 on CPU tensors each is its plain version (``imu_rows_plain``,
 ``imu_normal_plain``, ``imu_cost_plain``). The kernels read the whole state
@@ -200,6 +204,31 @@ class ImuNormalKernel:
                 b_p.data_ptr(), cost.data_ptr())
         self.launches += 1
         return H_pp, b_p, cost
+
+
+# The empty kernel's mode for each launch whose grid and block it takes.
+_EMPTY_MODES = {"imu_cost": 0, "imu_rows": 1, "imu_normal": 2}
+_empty_fn = None
+
+
+def latency_floor(name, state, pre, sqrt_info, imu_valid, gravity):
+    """One launch of ``csrc/imu_factor.cu``'s empty kernel with the grid,
+    block and arguments of ``name``'s launch ("imu_cost", "imu_rows" or
+    "imu_normal") at these inputs, through the wrappers' ctypes path and
+    allocating the outputs the wrapper allocates (returned): the part of
+    that launch's time that no design of its kernel removes. Card only;
+    adds to no ``launches``."""
+    global _empty_fn
+    if not state.p.is_cuda:
+        raise ValueError("latency_floor: times a launch on the card; the inputs lie on the CPU")
+    dtype, dev, W1, ptrs = _inputs(name, state, pre, sqrt_info, imu_valid, gravity)
+    W = W1 - 1
+    shapes = {"imu_cost": [(W,)], "imu_rows": [(W, 15), (W, 15, 30)], "imu_normal": [(W,)]}[name]
+    outs = [torch.empty(s, dtype=dtype, device=dev) for s in shapes]
+    if _empty_fn is None:
+        _empty_fn = _bind("imu_empty_launch", [_P] * _N_IN + [_I, _I, _I, _P])
+    _launch(_empty_fn, name, dev, *ptrs, W1, _EMPTY_MODES[name], _DTYPES[dtype])
+    return outs
 
 
 imu_rows = register_kernel(ImuRowsKernel(cost_only=False))

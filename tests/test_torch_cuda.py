@@ -757,22 +757,23 @@ def test_proj_launches_counted_at_graph_replay(dev):
 # ------------------------------------------------ csrc/imu_factor.cu
 def _imu_window(dev, dtype=torch.float64, W1=11):
     """chip_smoke.imu_window: the biases off the preintegration's
-    linearization point, interval 1 invalid."""
+    linearization point, interval 1 invalid (none at W1 = 2, whose one
+    interval is valid)."""
     import chip_smoke
 
-    return chip_smoke.imu_window(dev, dtype, W1)
+    return chip_smoke.imu_window(dev, dtype, W1, invalid=1 if W1 > 2 else None)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("W1", [11, 21])
+@pytest.mark.parametrize("W1", [2, 11, 21, 41])
 def test_imu_factor_matches_plain(dev, dtype, W1):
     """The rows, the normal equations (H_pp, b_p and the cost terms of
     imu_normal) and the cost of the three kernels against their plain
-    versions at window 10 and 20, the biases off the preintegration's
-    linearization point and interval 1 invalid, and each cost output against
-    Σ r_w² of the rows, within chip_smoke.IMU_BOUNDS (f32: sums in another
-    order; f64) of each output's scale (chip_smoke.imu_compare), and a
-    repeat bit-identical."""
+    versions at window 1, 10, 20 and 40, the biases off the preintegration's
+    linearization point and interval 1 invalid (at window 1 none), and each
+    cost output against Σ r_w² of the rows, within chip_smoke.IMU_BOUNDS
+    (f32: sums in another order; f64) of each output's scale
+    (chip_smoke.imu_compare), and a repeat bit-identical."""
     import chip_smoke
 
     bound = chip_smoke.IMU_BOUNDS[str(dtype).split(".")[-1]]
@@ -808,6 +809,35 @@ def test_imu_invalid_interval_and_in_place_sums(dev):
     assert torch.equal(H[15 * W1:], H0[15 * W1:]) and torch.equal(H[:, 15 * W1:], H0[:, 15 * W1:])
     assert torch.equal(b[15 * W1:], b0[15 * W1:])
     assert float((out[2] - cp).abs().max()) <= 1e-13 * float(cp.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_imu_kernels_repeat_bit_identical_at_window_40(dev, dtype):
+    """At W1 = 41 five launches of each kernel on the same inputs give the
+    same bits (no atomics, a fixed order of every sum), and imu_normal adds
+    into H_pp and b_p entries of the window's own scale in place: an addend
+    dropped or written twice would be of that scale."""
+    from lfvio_tpu_torch.backend import imu_cuda as ic
+    from lfvio_tpu_torch.backend.state import n_cams_of, pose_dim
+
+    args = _imu_window(dev, dtype, 41)
+    D = pose_dim(41, n_cams_of(args[0]))
+    zeros = lambda: (torch.zeros((D, D), dtype=dtype, device=dev),
+                     torch.zeros(D, dtype=dtype, device=dev))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    Hs, bs, _ = ic.imu_normal_plain(*zeros(), *args)
+    H0 = float(Hs.abs().max()) * torch.randn((D, D), dtype=dtype, device=dev, generator=gen)
+    b0 = float(bs.abs().max()) * torch.randn(D, dtype=dtype, device=dev, generator=gen)
+    runs = {"imu_rows": lambda: ic.imu_rows(*args), "imu_cost": lambda: (ic.imu_cost(*args),),
+            "imu_normal": lambda: ic.imu_normal(H0.clone(), b0.clone(), *args)}
+    for name, fn in runs.items():
+        first = fn()
+        for _ in range(4):
+            assert all(torch.equal(x, y) for x, y in zip(first, fn())), name
+    H, b, _ = runs["imu_normal"]()
+    bound = 1e-13 if dtype == torch.float64 else 1e-5
+    assert float((H - (H0 + Hs)).abs().max()) <= bound * float(Hs.abs().max())
+    assert float((b - (b0 + bs)).abs().max()) <= bound * float(bs.abs().max())
 
 
 def test_imu_wrappers_reject_what_the_kernels_do_not_take(dev):

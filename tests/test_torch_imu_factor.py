@@ -176,16 +176,18 @@ def test_solve_and_marginalization_run_no_forward_ad():
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("W1", [11, 21])
+@pytest.mark.parametrize("W1", [2, 11, 21, 41])
 def test_imu_check_rejects_planted_faults(dtype, W1):
     """chip_smoke's check of the IMU kernels, run on the CPU (where the
-    wrappers are their plain versions): the plain version passes it, each
-    cost output agrees with Σ r_w² of the rows, and each planted fault
-    (a zero cost, the least-cost interval dropped, r_q's sign flipped)
-    exceeds IMU_BOUNDS on the outputs that must reject it."""
+    wrappers are their plain versions) at window 1, 10, 20 and 40: the plain
+    version passes it, each cost output agrees with Σ r_w² of the rows, and
+    each planted fault (a zero cost, the least-cost interval dropped, r_q's
+    sign flipped) exceeds IMU_BOUNDS on the outputs that must reject it.
+    Interval 1 is invalid, except at W1 = 2, whose one interval is valid."""
     import chip_smoke
 
-    args = chip_smoke.imu_window(torch.device("cpu"), dtype, W1)
+    args = chip_smoke.imu_window(torch.device("cpu"), dtype, W1,
+                                 invalid=1 if W1 > 2 else None)
     bound = chip_smoke.IMU_BOUNDS[str(dtype).split(".")[-1]]
     errs, _, identical = chip_smoke.imu_compare(args)
     assert identical

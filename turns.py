@@ -5,6 +5,7 @@ replay by up to 2.9 ms, so two versions are compared only inside one).
 
     python3 turns.py tree OTHER_TREE                 (beside chip_smoke.py)
     python3 turns.py proj EARLIER_PROJ_FACTOR_CU
+    python3 turns.py imu EARLIER_IMU_FACTOR_CU
 
 ``tree``: OTHER_TREE is another checkout (for example ``git archive
 <commit>`` unpacked under ``_archive/``, which ``.gitignore`` lists). In the
@@ -30,6 +31,18 @@ turns pair, normal, normal, pair; then each launched alone. Both are held
 against the plain version within ``chip_smoke.PROJ_BOUNDS`` of each
 output's scale first. Prints the card's line, one line a time and one JSON
 line of all of them last.
+
+``imu``: the three launches of an earlier ``csrc/imu_factor.cu`` (one with
+the same ``imu_rows_launch`` and ``imu_normal_launch``) against this
+tree's. Builds the given source with this tree's nvcc flags into a library
+of its own and binds it behind ``imu_cuda``'s wrapper classes (the same
+checks, allocations and ctypes path), warms up an estimator in (a) and in
+(b), holds both sources against the plain version at each one's next solve
+inputs (f32), also with the biases moved (``chip_smoke.moved_biases``),
+within ``chip_smoke.IMU_BOUNDS`` of each output's scale and with a repeat
+bit-identical, then times ``imu_normal``, ``imu_cost`` and ``imu_rows``
+behind a full queue in turns earlier, this, this, earlier, and each
+launched alone. Prints as ``proj`` does.
 """
 
 from __future__ import annotations
@@ -204,11 +217,92 @@ def proj_main(argv):
     return 0
 
 
+def build_earlier_imu(src):
+    """The earlier IMU source built into a library of its own, behind
+    ``imu_cuda``'s wrapper classes: {"imu_rows", "imu_cost", "imu_normal":
+    wrapper}."""
+    from lfvio_tpu_torch.backend import imu_cuda as ic
+    from lfvio_tpu_torch.frontend import klt_cuda
+
+    lib = klt_cuda.BUILD_DIR / "libimu_factor_earlier.so"
+    klt_cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([klt_cuda.nvcc_path(), *klt_cuda.NVCC_FLAGS, "-o", str(lib), str(src)],
+                   check=True)
+    so = ctypes.CDLL(str(lib))
+    rows, normal = so.imu_rows_launch, so.imu_normal_launch
+    rows.argtypes = normal.argtypes = [ic._P] * ic._N_IN + [ic._I] * 3 + [ic._P] * 4
+    rows.restype = normal.restype = ctypes.c_int
+    kernels = {"imu_rows": ic.ImuRowsKernel(cost_only=False),
+               "imu_cost": ic.ImuRowsKernel(cost_only=True), "imu_normal": ic.ImuNormalKernel()}
+    kernels["imu_rows"]._fn = kernels["imu_cost"]._fn = rows
+    kernels["imu_normal"]._fn = normal
+    return kernels
+
+
+def imu_main(argv):
+    """``imu EARLIER_IMU_FACTOR_CU``: the earlier source's launches against
+    this tree's in turns."""
+    import torch
+
+    import chip_smoke
+    from lfvio_tpu_torch.backend import imu_cuda as ic
+    from lfvio_tpu_torch.backend.state import n_cams_of, pose_dim
+
+    if not torch.cuda.is_available():
+        print("turns.py imu: no CUDA device", file=sys.stderr)
+        return 2
+    if len(argv) != 1:
+        print(f"usage: {sys.argv[0]} imu EARLIER_IMU_FACTOR_CU", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = chip_smoke.smi_line()
+    print(smi, flush=True)
+    sources = {"earlier": build_earlier_imu(Path(argv[0])),
+               "this": {"imu_rows": ic.imu_rows, "imu_cost": ic.imu_cost,
+                        "imu_normal": ic.imu_normal}}
+    block = chip_smoke.make_blocker(dev)
+    bound = chip_smoke.IMU_BOUNDS["float32"]
+    out = {}
+    for label, knobs in (("a", {}), ("b", chip_smoke.BENCH_HIGH_RATE)):
+        args = chip_smoke.imu_solve_inputs(chip_smoke.warm_estimator(dev, knobs))
+        W1 = args[0].p.shape[0]
+        for who, kernels in sources.items():
+            for case, a in (("", args), (", biases moved", chip_smoke.moved_biases(args))):
+                errs, _, identical = chip_smoke.imu_compare(a, kernels=kernels)
+                print(f"({label}{case}) {who} against the plain version, relative to each "
+                      f"output's scale: " + ", ".join(f"{n} {v:.2e}" for n, v in errs.items())
+                      + f"; repeat bit-identical {identical}", flush=True)
+                if not (identical and max(errs.values()) <= bound):
+                    raise AssertionError(f"({label}{case}) {who} is not within {bound} of the "
+                                         "plain version, or a repeat differs")
+        D = pose_dim(W1, n_cams_of(args[0]))
+        H = torch.zeros((D, D), dtype=args[0].p.dtype, device=dev)
+        b = torch.zeros(D, dtype=args[0].p.dtype, device=dev)
+        calls = {who: {"imu_normal": lambda k=k: k["imu_normal"](H, b, *args),
+                       "imu_cost": lambda k=k: k["imu_cost"](*args),
+                       "imu_rows": lambda k=k: k["imu_rows"](*args)}
+                 for who, k in sources.items()}
+        out[label] = dict(frames=W1)
+        for name in ("imu_normal", "imu_cost", "imu_rows"):
+            turns = []
+            for who in ("earlier", "this", "this", "earlier"):
+                turns.append((who, chip_smoke.cuda_ms(calls[who][name], reps=10, blocker=block)))
+                print(f"({label}) {name}, {who}: {turns[-1][1]:.4f} ms behind a full queue",
+                      flush=True)
+            alone = {who: chip_smoke.cuda_ms(calls[who][name]) for who in sources}
+            print(f"({label}) {name} launched alone: earlier {alone['earlier']:.4f} ms, this "
+                  f"{alone['this']:.4f} ms", flush=True)
+            out[label][name] = dict(turns=turns, alone=alone)
+    print(json.dumps({"card": smi, "times_ms": out}))
+    return 0
+
+
 def main(argv):
-    modes = {"tree": tree_main, "proj": proj_main}
+    modes = {"tree": tree_main, "proj": proj_main, "imu": imu_main}
     if not argv or argv[0] not in modes:
-        print(f"usage: {sys.argv[0]} tree OTHER_TREE | proj EARLIER_PROJ_FACTOR_CU",
-              file=sys.stderr)
+        print(f"usage: {sys.argv[0]} tree OTHER_TREE | proj EARLIER_PROJ_FACTOR_CU | "
+              "imu EARLIER_IMU_FACTOR_CU", file=sys.stderr)
         return 2
     return modes[argv[0]](argv[1:])
 
