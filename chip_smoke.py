@@ -1936,13 +1936,6 @@ def eig_bound_ms(inputs):
     return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations"), nbytes, ops
 
 
-# The shared-memory warp kernel that csrc/sym_eig.cu's 5..9 path replaced
-# (commit 58a6b94), ms per launch behind a full queue at the main path's
-# inputs on an H100 80GB HBM3 at 700 W (PERF.md §6).
-SHARED_MEMORY_EIG_MS = {(256, 4, 4): 0.0096, (100, 9, 9): 0.0662, (100, 3, 3): 0.0048,
-                        (9, 9): 0.0547, (3, 3): 0.0039}
-
-
 def log_sweeps(inputs, label):
     """Each main-path input's histogram of Jacobi sweeps a matrix (f32), and
     how many matrices stopped at the cap."""
@@ -1961,6 +1954,7 @@ def phase_sym_eig(dev):
     on the main path's inputs at 256 and 384 slots, in f32 and f64, and its
     times at 256 slots (with the [384, 4, 4] launch's beside them)."""
     import torch
+    from lfvio_tpu_torch.geom import eigh_cuda
     from lfvio_tpu_torch.geom.eigh_cuda import sym_eig
 
     inputs = main_path_eig_inputs(dev)
@@ -1994,42 +1988,52 @@ def phase_sym_eig(dev):
         pass
     # A published frame's launches (RANSAC's four, the solve's triangulation)
     # behind a full queue, and the library's eigh on the same five inputs,
-    # its wait for the card included.
+    # its wait for the card included; then each input's launch (and the
+    # high-rate configuration's triangulation) beside its latency floor, its
+    # bound and the library's call.
     block = make_blocker(dev)
 
     def frame():
         for A in inputs:
             sym_eig(A)
 
-    def library():
-        for A in inputs:
-            torch.linalg.eigh(A)
-        torch.cuda.synchronize()
+    def host_ms(fn, reps=10):
+        """Median host ms of fn() and a synchronize (the library's eigh waits
+        for the card in any case)."""
+        t = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            t.append(1e3 * (time.perf_counter() - t0))
+        return float(np.median(t))
 
-    per_shape = [cuda_ms(lambda A=A: sym_eig(A), reps=10, blocker=block) for A in inputs]
-    log("[14] sym_eig ms per launch behind a full queue, beside the shared-memory kernel's on an "
-        "H100 80GB HBM3 at 700 W: " + ", ".join(f"{sh} {t:.4f} [{SHARED_MEMORY_EIG_MS[sh]}]"
-                                      for sh, t in zip(shapes, per_shape))
-        + f"; a published frame {sum(per_shape):.4f} [{sum(SHARED_MEMORY_EIG_MS.values()):.4f}]"
-        f"; the high-rate configuration's triangulation {tuple(inputs384[0].shape)} "
-        f"{cuda_ms(lambda: sym_eig(inputs384[0]), reps=10, blocker=block):.4f}")
     ms = cuda_ms(frame, reps=10, blocker=block)
     alone = cuda_ms(frame)
-    lib = []
-    for _ in range(10):
-        t0 = time.perf_counter()
-        library()
-        lib.append(1e3 * (time.perf_counter() - t0))
-    lib_ms = float(np.median(lib))
+    lib_ms = host_ms(lambda: [torch.linalg.eigh(A) for A in inputs])
+    per_shape, floors = [], []
+    for A in inputs + inputs384[:1]:
+        t = cuda_ms(lambda: sym_eig(A), reps=10, blocker=block)
+        empty = lambda: eigh_cuda.latency_floor(A)
+        fl = cuda_ms(empty, reps=10, blocker=block)
+        b, by_s = eig_bound_ms([A])[:2]
+        log(f"[14] sym_eig {tuple(A.shape)} f32: {t:.4f} ms behind a full queue, "
+            f"{cuda_ms(lambda: sym_eig(A)):.4f} ms launched alone; latency floor (the empty "
+            f"kernel, same grid, block and launch path) {fl:.4f} ms behind a full queue, "
+            f"{cuda_ms(empty):.4f} ms alone; bound {b:.7f} ms by {by_s}; torch.linalg.eigh "
+            f"{host_ms(lambda: torch.linalg.eigh(A)):.4f} ms with its wait")
+        if len(per_shape) < len(inputs):
+            per_shape.append(t)
+            floors.append(fl)
     bound, by, nbytes, ops = eig_bound_ms(inputs)
     log(f"[14] sym_eig per published frame ({', '.join(map(str, shapes))}; f32): "
         f"{ms:.4f} ms on the card behind a full queue (per shape "
         + ", ".join(f"{t:.4f}" for t in per_shape)
-        + f"), {alone:.4f} ms launched alone, host cost included; torch.linalg.eigh on the same "
-        f"inputs {lib_ms:.4f} ms with its wait (median of 10 host-timed); bound {bound:.6f} ms "
-        f"by {by} ({nbytes} B, {ops / 1e6:.3f} MFLOP)")
-    return dict(max_abs_err=worst, ms=ms, ms_launched_alone=alone, plain_ms=lib_ms,
-                bound_ms=bound, bound_by=by, library_ms=lib_ms)
+        + f"; their floors {sum(floors):.4f}), {alone:.4f} ms launched alone, host cost "
+        f"included; torch.linalg.eigh on the same inputs {lib_ms:.4f} ms with its wait (median "
+        f"of 10 host-timed); bound {bound:.6f} ms by {by} ({nbytes} B, {ops / 1e6:.3f} MFLOP)")
+    return dict(max_abs_err=worst, ms=ms, ms_launched_alone=alone, floor_ms=sum(floors),
+                plain_ms=lib_ms, bound_ms=bound, bound_by=by, library_ms=lib_ms)
 
 
 def info_err(a, b):
@@ -2514,9 +2518,10 @@ def dual_camera_inputs(dev, n_slots=64):
     return state, grid.replace(cam=cam), dc.replace(pb["cfg"], n_cams=2)
 
 
-def proj_outputs(state, grid, cfg, plain=False):
-    """Every output of the three kernels, {name: tensor}: the kernels' or
-    (``plain``) their plain versions'."""
+def proj_outputs(state, grid, cfg, plain=False, kernels=None):
+    """Every output of the three kernels, {name: tensor}: the kernels' (with
+    ``kernels``, {"proj_rows", "proj_cost": callable}, other wrappers of the
+    rows and cost launches) or (``plain``) their plain versions'."""
     from lfvio_tpu_torch.backend import proj_cuda as pc
     from lfvio_tpu_torch.backend.state import n_cams_of
 
@@ -2525,8 +2530,9 @@ def proj_outputs(state, grid, cfg, plain=False):
         rows, normal = pc.rows_plain(state, grid, cfg), pc.normal_plain(state, grid, cfg, C)
         cost = pc.cost_plain(state, grid, cfg)
     else:
-        rows, normal = pc.proj_rows(state, grid, cfg), pc.proj_normal(state, grid, cfg, C)
-        cost = pc.proj_cost(state, grid, cfg)
+        k = kernels or {"proj_rows": pc.proj_rows, "proj_cost": pc.proj_cost}
+        rows, normal = k["proj_rows"](state, grid, cfg), pc.proj_normal(state, grid, cfg, C)
+        cost = k["proj_cost"](state, grid, cfg)
     return dict(zip(PROJ_OUTPUTS, (*rows, *normal, cost)))
 
 
@@ -2557,14 +2563,15 @@ def proj_scales(state, grid, cfg, p):
             **{n: top(absum[n]) for n in absum}}
 
 
-def proj_compare(state, grid, cfg):
+def proj_compare(state, grid, cfg, kernels=None):
     """(errors relative to each output's scale, {kernel: (largest absolute
     error, largest relative error) of its outputs}, a repeat of the kernels
-    bit-identical)."""
+    bit-identical); ``kernels`` as ``proj_outputs``'."""
     import torch
 
-    k, p = proj_outputs(state, grid, cfg), proj_outputs(state, grid, cfg, plain=True)
-    again = proj_outputs(state, grid, cfg)
+    k = proj_outputs(state, grid, cfg, kernels=kernels)
+    p = proj_outputs(state, grid, cfg, plain=True)
+    again = proj_outputs(state, grid, cfg, kernels=kernels)
     identical = all(torch.equal(k[n], again[n]) for n in k)
     scale = proj_scales(state, grid, cfg, p)
     errs, mode_err = {}, {}
@@ -2648,6 +2655,13 @@ def phase_proj_factor(dev, est_a, est_b):
         for mode, (kern, plain) in runs.items():
             ms = cuda_ms(kern, reps=10, blocker=block)
             alone = cuda_ms(kern)
+            floor = {}
+            if mode != "proj_normal":
+                empty = lambda: pc.latency_floor(mode, state, grid, cfg)
+                floor = dict(floor_ms=cuda_ms(empty, reps=10, blocker=block))
+                log(f"[14p] {mode} {label}: latency floor (the empty kernel, same grid, block and "
+                    f"launch path) {floor['floor_ms']:.4f} ms behind a full queue, "
+                    f"{cuda_ms(empty):.4f} ms alone")
             plain_ms = cuda_ms(plain, reps=3, blocker=block)
             bound, by, nbytes, flops = proj_bound_ms(state, grid, mode)
             log(f"[14p] {mode} {label}: {ms:.4f} ms behind a full queue, {alone:.4f} ms launched "
@@ -2656,7 +2670,7 @@ def phase_proj_factor(dev, est_a, est_b):
             if label.startswith("(a)"):
                 out[mode] = dict(max_abs_err=worst[mode][0], max_rel_err=worst[mode][1],
                                  rel_bound=PROJ_BOUNDS["float32"], ms=ms, ms_launched_alone=alone,
-                                 plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                                 **floor, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                                  library_ms=None)
     return out
 

@@ -16,6 +16,11 @@ Three wrappers, each with its own ``launches`` count (registered with
     cost terms, in one launch that writes no row to memory (the LM solve's);
   * ``proj_cost(state, grid, cfg)`` -> cost [F, W1]: the cost terms alone.
 
+``latency_floor(name, state, grid, cfg)`` launches the source's empty kernel
+with the grid, block, shared memory and arguments of the rows or the cost
+launch, the part of its time that no design of the kernel removes (card
+only, counted nowhere).
+
 On CUDA tensors each launches its kernel on the current stream or raises;
 on CPU tensors each is its plain version (``rows_plain``,
 ``normal_plain``, ``cost_plain``). Everything the kernels read of the
@@ -222,6 +227,33 @@ def _bind(name, argtypes):
 _P, _I, _DBL = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 
 
+_ROWS_ARGTYPES = [_P] * 13 + [_I, _I, _I, _DBL, _DBL, _I, _I, _P, _P, _P, _P, _P]
+
+
+def _rows_launch(fn, name, state, grid, cfg):
+    """One call of ``fn`` (``proj_rows_launch`` or ``proj_empty_launch``,
+    which take the same arguments) in the rows mode or (``name`` is
+    "proj_cost") the cost mode, on outputs allocated here: (cost, or (res,
+    J26, w, cost); whether it launched: an empty grid launches nothing)."""
+    cost_only = name == "proj_cost"
+    dtype, dev, C, F, W1, ptrs = _state_inputs(name, state, grid)
+    new = lambda *s: torch.empty(s, dtype=dtype, device=dev)
+    cost = new(F, W1)
+    res = J26 = w = None
+    if not cost_only:
+        res, J26, w = new(F, W1, 2), new(F, W1, 2, 26), new(F, W1)
+    out = cost if cost_only else (res, J26, w, cost)
+    if not F:
+        return out, False
+    with torch.profiler.record_function(f"proj_factor::{name}"), torch.cuda.device(dev):
+        err = fn(*ptrs, F, W1, C, float(cfg.proj_sqrt_info), float(cfg.cauchy_c),
+                 0 if cost_only else 1, _DTYPES[dtype], _ptr(res), _ptr(J26), _ptr(w),
+                 cost.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    return out, True
+
+
 class ProjRowsKernel:
     """``proj_rows`` (``cost_only=False``) or ``proj_cost``: one launch of
     ``proj_rows_kernel`` in rows or cost mode."""
@@ -234,26 +266,12 @@ class ProjRowsKernel:
     def __call__(self, state, grid, cfg):
         if not state.p.is_cuda:
             return cost_plain(state, grid, cfg) if self.cost_only else rows_plain(state, grid, cfg)
-        name = "proj_cost" if self.cost_only else "proj_rows"
-        dtype, dev, C, F, W1, ptrs = _state_inputs(name, state, grid)
-        new = lambda *s: torch.empty(s, dtype=dtype, device=dev)
-        cost = new(F, W1)
-        res = J26 = w = None
-        if not self.cost_only:
-            res, J26, w = new(F, W1, 2), new(F, W1, 2, 26), new(F, W1)
-        if F:
-            if self._fn is None:
-                self._fn = _bind("proj_rows_launch",
-                                 [_P] * 13 + [_I, _I, _I, _DBL, _DBL, _I, _I, _P, _P, _P, _P, _P])
-            with torch.profiler.record_function(f"proj_factor::{name}"), torch.cuda.device(dev):
-                err = self._fn(
-                    *ptrs, F, W1, C, float(cfg.proj_sqrt_info), float(cfg.cauchy_c),
-                    0 if self.cost_only else 1, _DTYPES[dtype], _ptr(res), _ptr(J26), _ptr(w),
-                    cost.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-            if err != 0:
-                raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-            self.launches += 1
-        return cost if self.cost_only else (res, J26, w, cost)
+        if self._fn is None:
+            self._fn = _bind("proj_rows_launch", _ROWS_ARGTYPES)
+        out, launched = _rows_launch(self._fn, "proj_cost" if self.cost_only else "proj_rows",
+                                     state, grid, cfg)
+        self.launches += launched
+        return out
 
 
 class ProjNormalKernel:
@@ -294,3 +312,23 @@ class ProjNormalKernel:
 proj_rows = register_kernel(ProjRowsKernel(cost_only=False))
 proj_cost = register_kernel(ProjRowsKernel(cost_only=True))
 proj_normal = register_kernel(ProjNormalKernel())
+
+
+_empty_fn = None
+
+
+def latency_floor(name, state, grid, cfg):
+    """One launch of ``csrc/proj_factor.cu``'s empty kernel with the grid,
+    block, shared memory and arguments of ``name``'s launch ("proj_rows" or
+    "proj_cost") at these inputs, through the wrappers' ctypes path and
+    allocating the outputs the wrapper allocates (returned): the part of
+    that launch's time that no design of its kernel removes. Card only;
+    adds to no ``launches``."""
+    global _empty_fn
+    if name not in ("proj_rows", "proj_cost"):
+        raise ValueError(f"latency_floor: takes 'proj_rows' or 'proj_cost', got {name!r}")
+    if not state.p.is_cuda:
+        raise ValueError("latency_floor: times a launch on the card; the inputs lie on the CPU")
+    if _empty_fn is None:
+        _empty_fn = _bind("proj_empty_launch", _ROWS_ARGTYPES)
+    return _rows_launch(_empty_fn, name, state, grid, cfg)[0]

@@ -18,7 +18,8 @@
 // formula (its docstring has the chain): with G = s B N (B the tangent
 // basis at the measured bearing, N = (I - u uᵀ)/n the normalization's
 // Jacobian), every column block is G times a 3 x 3 or 3 x 1 factor, formed
-// left to right as there (lin_obs, shared by both kernels).
+// left to right as there (lin_obs). Every launch evaluates an observation
+// the one way, lin_staged: from the frames and cameras its block staged.
 //
 // What bounds it on an H100: latency, then bytes. At the high-rate solve's
 // inputs (384 slots, window 20, D = 322) a linearization reads and writes
@@ -28,6 +29,23 @@
 // tensor cores: the products are 2 x 6 blocks, and in float32 only TF32
 // reaches them, which keeps about three digits against a bound of 1e-5 of
 // each output's scale.
+//
+// proj_rows_kernel, rows and cost modes: a thread an observation, 64-thread
+// blocks (the 2,816 observations of a window-10, 256-slot solve spread over
+// 44 SMs; 32 and 128 measured no better). A block stages the frames' and
+// cameras' rotations and positions once (stage_issue / stage_finish, as
+// proj_normal_kernel does). A thread issues every load that does not need
+// its anchor at once (obs_mask has no branch between its loads: a
+// short-circuit waits for each in turn), and its anchor's values while the
+// block waits for the copies and forms the rotations. What bounds a cost
+// launch is then its latency floor (proj_empty_kernel, nothing with the same
+// grid, block, shared memory and arguments: 60% of it on an H100) and one
+// thread's chain of about 330 dependent operations; the cost mode takes
+// 1 / c² from the host in place of a division. The rows mode's 56 outputs an
+// observation (J 52, res 2, w, cost) are 224 B, 208 B of them J: a warp's
+// 52 stores of J, 208 B apart, are 32 sector writes each, and those bounded
+// the launch. Each thread puts its values into shared memory (14 KB a block
+// in float32), and the block writes its four ranges with 16-byte stores.
 //
 // proj_normal_kernel: one launch, each output entry written once by one
 // block, no atomics and a fixed order of every sum, so a repeat is
@@ -75,7 +93,8 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int ROWS_THREADS = 128;
+constexpr int ROWS_THREADS = 64;
+constexpr int OUT_PER_OBS = 56;  // a rows-mode observation's outputs: J 52, res 2, w, cost
 constexpr int NRM_THREADS = 128;
 constexpr int NRM_WARPS = NRM_THREADS / 32;
 constexpr int CLUSTER = 8;
@@ -147,16 +166,17 @@ __device__ __forceinline__ void put_block(T J[2][26], int col, T X[2][3], T sign
 // One kept observation: anchor frame (R_i, p_i), observing frame (R_j,
 // p_j), the anchor's and the observer's cameras (R_ci, t_ci; R_cj, t_cj),
 // td, the raw inverse depth, the anchor's and the observer's bearing,
-// velocity and td_obs. Gives the residual (r0, r1), its Cauchy weight w
-// (held constant, IRLS), its robust cost term and (JAC) its Jacobian J over
-// [δpose_i, δpose_j, δex_i, δex_j, δλ, δtd].
+// velocity and td_obs. Gives the residual (r0, r1), its robust cost term
+// and (JAC) its Cauchy weight w (held constant, IRLS) and its Jacobian J
+// over [δpose_i, δpose_j, δex_i, δex_j, δλ, δtd]. ic2 = 1 / c², which the
+// cost mode multiplies by in place of dividing by c².
 template <typename T, bool JAC>
 __device__ __forceinline__ void lin_obs(T Ri[3][3], T Rj[3][3], T Rci[3][3], T Rcj[3][3],
                                         const T* pa, const T* pj, const T* tci, const T* tcj,
                                         T tdv, T lam_raw,
                                         const T* bi, const T* vi, T tdo_i, const T* bj,
-                                        const T* vj, T tdo_j, T s, T c, T& r0, T& r1, T& w,
-                                        T& cost, T J[2][26]) {
+                                        const T* vj, T tdo_j, T s, T c, T ic2, T& r0, T& r1,
+                                        T& w, T& cost, T J[2][26]) {
   const T dti = tdv - tdo_i, dtj = tdv - tdo_j;
   T rho_i[3], rho_j[3];
   for (int k = 0; k < 3; ++k) {
@@ -193,10 +213,10 @@ __device__ __forceinline__ void lin_obs(T Ri[3][3], T Rj[3][3], T Rci[3][3], T R
   r1 = s * (B[1][0] * e[0] + B[1][1] * e[1] + B[1][2] * e[2]);
   const T sq = r0 * r0 + r1 * r1;
   const T c2 = c * c;
-  const T sqc = sq / c2;
+  const T sqc = JAC ? sq / c2 : sq * ic2;
   cost = c2 * log1p(sqc);
-  w = sqrt_t(T(1) / (T(1) + sqc));
   if (!JAC) return;
+  w = sqrt_t(T(1) / (T(1) + sqc));
 
   // G = s (B N), N = (I - u uᵀ) / n (no uuᵀ where the norm is clamped).
   const bool nu = n_raw >= T(1e-12);
@@ -252,66 +272,252 @@ __device__ __forceinline__ void lin_obs(T Ri[3][3], T Rj[3][3], T Rci[3][3], T R
 }
 
 // Is observation o = (f, j) kept (valid, a used slot, not the anchor
-// itself, anchor and cameras in range)? Gives its anchor and cameras.
+// itself, anchor and cameras in range)? Gives its anchor (0 where out of
+// range) and cameras (meaningful where kept). Every load is issued at once,
+// with no branch between them: a short-circuit would wait for each in turn.
 __device__ __forceinline__ bool obs_mask(int o, int f, int j, const bool* valid,
                                          const int64_t* anchor, const bool* used,
                                          const int64_t* cam, int W1, int C, int& a, int& ci,
                                          int& cj) {
   const int64_t a64 = anchor[f];
-  if (!(valid[o] && used[f] && a64 != j && a64 >= 0 && a64 < W1)) return false;
-  a = (int)a64;
-  ci = cam ? (int)cam[f * W1 + a] : 0;
+  const bool vo = valid[o], uf = used[f];
   cj = cam ? (int)cam[o] : 0;
-  return ci >= 0 && ci < C && cj >= 0 && cj < C;
+  const bool in = a64 >= 0 && a64 < W1;
+  a = in ? (int)a64 : 0;
+  ci = cam ? (int)cam[f * W1 + a] : 0;
+  return vo && uf && in && a64 != j && ci >= 0 && ci < C && cj >= 0 && cj < C;
 }
 
+// ------------------------------------------------------------ the state, staged per block
+
+// What every kernel reads: the state, the grid and its masks, the factor's
+// constants.
+template <typename T>
+struct ProjInputs {
+  const T* p;
+  const T* q;
+  const T* tic;
+  const T* qic;
+  const T* td;
+  const T* inv_depth;
+  const T* bearing;
+  const T* velocity;
+  const T* td_obs;
+  const bool* valid;
+  const int64_t* anchor;
+  const bool* used;
+  const int64_t* cam;
+  int F, W1, C;
+  T s, c, ic2;  // sqrt_info, the Cauchy c, 1 / c²
+};
+
+template <typename T>
+__device__ __forceinline__ void cp_async_t(T* dst_shared, const T* src_global) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst_shared);
+  if constexpr (sizeof(T) == 4)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src_global));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src_global));
+}
+
+// The block's copy of the state's frames and cameras: 16 W1 + 16 C + 1
+// values at the start of its dynamic shared memory.
+template <typename T>
+struct Stage {
+  const T* R;   // [W1][9] frame rotations
+  const T* P;   // [W1][3] frame positions
+  const T* Rc;  // [C][9] camera rotations
+  const T* Tc;  // [C][3] camera translations
+  T td;
+};
+
+__host__ __device__ __forceinline__ size_t stage_values(int W1, int C) {
+  return (size_t)16 * W1 + 16 * C + 1;
+}
+
+// Staging in two halves, by the block's NT threads: stage_issue starts the
+// copies (p, q, tic, qic, td into shared memory), stage_finish waits for
+// them and forms the matrices; a block loads what it needs next in between.
+template <typename T, int NT>
+__device__ __forceinline__ void stage_issue(const ProjInputs<T>& g, T* sm) {
+  const int tid = threadIdx.x, W1 = g.W1, C = g.C;
+  T* P = sm + 9 * W1;
+  T* Q = P + 3 * W1;
+  T* Tc = Q + 4 * W1 + 9 * C;
+  T* Qc = Tc + 3 * C;
+  for (int i = tid; i < 3 * W1; i += NT) cp_async_t(P + i, g.p + i);
+  for (int i = tid; i < 4 * W1; i += NT) cp_async_t(Q + i, g.q + i);
+  for (int i = tid; i < 3 * C; i += NT) cp_async_t(Tc + i, g.tic + i);
+  for (int i = tid; i < 4 * C; i += NT) cp_async_t(Qc + i, g.qic + i);
+  if (tid == 0) cp_async_t(Qc + 4 * C, g.td);
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <typename T, int NT>
+__device__ Stage<T> stage_finish(const ProjInputs<T>& g, T* sm) {
+  const int tid = threadIdx.x, W1 = g.W1, C = g.C;
+  T* R = sm;
+  T* P = R + 9 * W1;
+  T* Q = P + 3 * W1;
+  T* Rc = Q + 4 * W1;
+  T* Tc = Rc + 9 * C;
+  T* Qc = Tc + 3 * C;
+  T* TD = Qc + 4 * C;
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+  for (int k = tid; k < W1 + C; k += NT) {
+    T M[3][3];
+    quat_mat(k < W1 ? Q + 4 * k : Qc + 4 * (k - W1), M);
+    T* dst = k < W1 ? R + 9 * k : Rc + 9 * (k - W1);
+#pragma unroll
+    for (int x = 0; x < 3; ++x)
+#pragma unroll
+      for (int y = 0; y < 3; ++y) dst[3 * x + y] = M[x][y];
+  }
+  __syncthreads();
+  return {R, P, Rc, Tc, TD[0]};
+}
+
+template <typename T>
+__device__ __forceinline__ void load33(const T* src, T M[3][3]) {
+#pragma unroll
+  for (int x = 0; x < 3; ++x)
+#pragma unroll
+    for (int y = 0; y < 3; ++y) M[x][y] = src[3 * x + y];
+}
+
+// A kept observation o = (f, j): its frames and cameras, and what it reads
+// of the grid beside the staged state (its anchor's and its own bearing,
+// velocity and td_obs; the feature's inverse depth).
+template <typename T>
+struct Obs {
+  int a, j, ci, cj;
+  T lam, tdo_i, tdo_j;
+  T bi[3], vi[3], bj[3], vj[3];
+};
+
+template <typename T>
+__device__ __forceinline__ Obs<T> load_obs(const ProjInputs<T>& g, int o, int f, int j, int a,
+                                           int ci, int cj) {
+  Obs<T> x;
+  x.a = a;
+  x.j = j;
+  x.ci = ci;
+  x.cj = cj;
+  const int ia = f * g.W1 + a;
+  x.lam = g.inv_depth[f];
+  x.tdo_i = g.td_obs[ia];
+  x.tdo_j = g.td_obs[o];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    x.bi[k] = g.bearing[3 * ia + k];
+    x.vi[k] = g.velocity[3 * ia + k];
+    x.bj[k] = g.bearing[3 * o + k];
+    x.vj[k] = g.velocity[3 * o + k];
+  }
+  return x;
+}
+
+// lin_obs of a kept observation from the staged frames: the one
+// per-observation path of every kernel here (JAC: the rows mode and
+// proj_normal_kernel; else the cost mode).
+template <typename T, bool JAC>
+__device__ __forceinline__ void lin_staged(const ProjInputs<T>& g, const Stage<T>& S,
+                                           const Obs<T>& x, T& r0, T& r1, T& w, T& cost,
+                                           T J[2][26]) {
+  T Ri[3][3], Rj[3][3], Rci[3][3], Rcj[3][3];
+  load33(S.R + 9 * x.a, Ri);
+  load33(S.R + 9 * x.j, Rj);
+  load33(S.Rc + 9 * x.ci, Rci);
+  load33(S.Rc + 9 * x.cj, Rcj);
+  lin_obs<T, JAC>(Ri, Rj, Rci, Rcj, S.P + 3 * x.a, S.P + 3 * x.j, S.Tc + 3 * x.ci,
+                  S.Tc + 3 * x.cj, S.td, x.lam, x.bi, x.vi, x.tdo_i, x.bj, x.vj, x.tdo_j, g.s,
+                  g.c, g.ic2, r0, r1, w, cost, J);
+}
+
+// ------------------------------------------------------------ proj_rows_kernel
+
+template <typename T>
+struct RowsArgs : ProjInputs<T> {
+  T* res;
+  T* J26;
+  T* w;
+  T* cost;
+};
+
+// Dynamic shared memory of a rows or cost block: the staged state, then
+// (rows) the block's outputs, J [ROWS_THREADS][52], res [ROWS_THREADS][2],
+// w and cost, each range 16-byte aligned.
+template <typename T>
+__host__ __device__ __forceinline__ size_t rows_out_offset(int W1, int C) {
+  return (stage_values(W1, C) * sizeof(T) + 15) / 16 * 16;
+}
+
+template <typename T>
+__host__ __device__ __forceinline__ size_t rows_smem(int W1, int C, bool rows) {
+  return rows_out_offset<T>(W1, C) + (rows ? (size_t)OUT_PER_OBS * ROWS_THREADS * sizeof(T) : 0);
+}
+
+// count values from shared memory to device memory, both 16-byte aligned,
+// by the block's threads: 16-byte stores, then what is left a value a thread.
+template <typename T>
+__device__ __forceinline__ void store_range(T* __restrict__ dst, const T* src, int count) {
+  constexpr int V = 16 / sizeof(T);
+  const int nv = count / V;
+  for (int i = threadIdx.x; i < nv; i += ROWS_THREADS)
+    reinterpret_cast<float4*>(dst)[i] = reinterpret_cast<const float4*>(src)[i];
+  for (int i = nv * V + threadIdx.x; i < count; i += ROWS_THREADS) dst[i] = src[i];
+}
+
+// A thread an observation o; a dropped one is written as exact zeros
+// (weight 1). The state's copies, the masks, the anchor and the
+// observation's own values load at once; its anchor's values load when
+// the anchor is in, while the block waits for the copies and forms the
+// rotations. Threads past the grid's end load the last observation and
+// write nothing.
 template <typename T, bool ROWS>
-__global__ void __launch_bounds__(ROWS_THREADS)
-proj_rows_kernel(const T* __restrict__ p, const T* __restrict__ q, const T* __restrict__ tic,
-                 const T* __restrict__ qic, const T* __restrict__ td,
-                 const T* __restrict__ inv_depth, const T* __restrict__ bearing,
-                 const T* __restrict__ velocity, const T* __restrict__ td_obs,
-                 const bool* __restrict__ valid, const int64_t* __restrict__ anchor,
-                 const bool* __restrict__ used, const int64_t* __restrict__ cam, int F, int W1,
-                 int C, T s, T c, T* __restrict__ res, T* __restrict__ J26,
-                 T* __restrict__ w_out, T* __restrict__ cost) {
-  // One thread an observation; a dropped one is written as exact zeros
-  // (weight 1).
-  const int o = blockIdx.x * blockDim.x + threadIdx.x;
-  if (o >= F * W1) return;
-  const int f = o / W1, j = o - f * W1;
+__global__ void __launch_bounds__(ROWS_THREADS) proj_rows_kernel(const RowsArgs<T> g) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  const int tid = threadIdx.x, W1 = g.W1, n = g.F * W1;
+  const int o0 = blockIdx.x * ROWS_THREADS, o = o0 + tid, oc = min(o, n - 1);
+  stage_issue<T, ROWS_THREADS>(g, sm);
+  const int f = oc / W1, j = oc - f * W1;
   int a, ci, cj;
-  if (!obs_mask(o, f, j, valid, anchor, used, cam, W1, C, a, ci, cj)) {
-    if (ROWS) {
-      res[2 * o] = T(0);
-      res[2 * o + 1] = T(0);
-      for (int k = 0; k < 52; ++k) J26[52 * o + k] = T(0);
-      w_out[o] = T(1);
-    }
-    cost[o] = T(0);
+  const bool kept =
+      obs_mask(oc, f, j, g.valid, g.anchor, g.used, g.cam, W1, g.C, a, ci, cj) && o < n;
+  const Obs<T> x = load_obs(g, oc, f, j, a, ci, cj);
+  const Stage<T> S = stage_finish<T, ROWS_THREADS>(g, sm);
+  T r0 = T(0), r1 = T(0), w = T(1), cost = T(0), J[2][26] = {};
+  if (kept) lin_staged<T, ROWS>(g, S, x, r0, r1, w, cost, J);
+  if (!ROWS) {
+    if (o < n) g.cost[o] = cost;
     return;
   }
-  T Ri[3][3], Rj[3][3], Rci[3][3], Rcj[3][3];
-  quat_mat(q + 4 * a, Ri);
-  quat_mat(q + 4 * j, Rj);
-  quat_mat(qic + 4 * ci, Rci);
-  quat_mat(qic + 4 * cj, Rcj);
-  const int ia = f * W1 + a;
-  T r0, r1, w, cst, J[2][26];
-  lin_obs<T, ROWS>(Ri, Rj, Rci, Rcj, p + 3 * a, p + 3 * j, tic + 3 * ci, tic + 3 * cj, td[0],
-                   inv_depth[f], bearing + 3 * ia, velocity + 3 * ia, td_obs[ia],
-                   bearing + 3 * o, velocity + 3 * o, td_obs[o], s, c, r0, r1, w, cst, J);
-  cost[o] = cst;
-  if (!ROWS) return;
-  res[2 * o] = r0;
-  res[2 * o + 1] = r1;
-  w_out[o] = w;
-  T* Jo = J26 + 52 * o;
+  T* oJ = reinterpret_cast<T*>(smem_raw + rows_out_offset<T>(W1, g.C));
+  T* oR = oJ + 52 * ROWS_THREADS;
+  T* oW = oR + 2 * ROWS_THREADS;
+  T* oC = oW + ROWS_THREADS;
 #pragma unroll
   for (int r = 0; r < 2; ++r)
 #pragma unroll
-    for (int k = 0; k < 26; ++k) Jo[26 * r + k] = J[r][k];
+    for (int k = 0; k < 26; ++k) oJ[52 * tid + 26 * r + k] = J[r][k];
+  oR[2 * tid] = r0;
+  oR[2 * tid + 1] = r1;
+  oW[tid] = w;
+  oC[tid] = cost;
+  __syncthreads();
+  const int cnt = min(ROWS_THREADS, n - o0);
+  store_range(g.J26 + (size_t)52 * o0, oJ, 52 * cnt);
+  store_range(g.res + (size_t)2 * o0, oR, 2 * cnt);
+  store_range(g.w + o0, oW, cnt);
+  store_range(g.cost + o0, oC, cnt);
 }
+
+// The latency floor of a rows or cost launch: nothing, with that launch's
+// grid, block, shared memory and arguments.
+template <typename T>
+__global__ void proj_empty_kernel(const RowsArgs<T> g) {}
 
 // ------------------------------------------------------------ proj_normal_kernel
 
@@ -365,22 +571,7 @@ __device__ __forceinline__ void block_row(const Block& b, const T Jr[26], T wv, 
 }
 
 template <typename T>
-struct NormalArgs {
-  const T* p;
-  const T* q;
-  const T* tic;
-  const T* qic;
-  const T* td;
-  const T* inv_depth;
-  const T* bearing;
-  const T* velocity;
-  const T* td_obs;
-  const bool* valid;
-  const int64_t* anchor;
-  const bool* used;
-  const int64_t* cam;
-  int F, W1, C;
-  T s, c;
+struct NormalArgs : ProjInputs<T> {
   int ex, tdf;
   T* H_pp;
   T* b_p;
@@ -419,12 +610,12 @@ __device__ __forceinline__ int live_block(int b, int W1, int C, bool ex) {
   return ex && b < C ? W1 + b : W1 + C;
 }
 
-// Dynamic shared memory: the staged frames and cameras (16 W1 + 16 C + 1),
+// Dynamic shared memory: the staged frames and cameras (stage_values),
 // each warp's extrinsic sums of a feature (6 C), then the tile's list of
 // candidate observations (NRM_THREADS W1).
 template <typename T>
 __host__ __device__ __forceinline__ size_t stage_elems(int W1, int C) {
-  return (size_t)16 * W1 + 16 * C + 1 + (size_t)NRM_WARPS * 6 * C;
+  return stage_values(W1, C) + (size_t)NRM_WARPS * 6 * C;
 }
 
 template <typename T>
@@ -435,93 +626,6 @@ __host__ __device__ __forceinline__ size_t list_offset(int W1, int C) {
 template <typename T>
 __host__ __device__ __forceinline__ size_t normal_smem(int W1, int C) {
   return list_offset<T>(W1, C) + (size_t)NRM_THREADS * W1 * sizeof(int);
-}
-
-template <typename T>
-__device__ __forceinline__ void cp_async_t(T* dst_shared, const T* src_global) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst_shared);
-  if constexpr (sizeof(T) == 4)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src_global));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src_global));
-}
-
-// The block's copy of the state's frames and cameras.
-template <typename T>
-struct Stage {
-  const T* R;   // [W1][9] frame rotations
-  const T* P;   // [W1][3] frame positions
-  const T* Rc;  // [C][9] camera rotations
-  const T* Tc;  // [C][3] camera translations
-  T td;
-};
-
-// Staging in two halves: stage_issue starts the copies (p, q, tic, qic, td
-// into shared memory), stage_finish waits for them and forms the matrices;
-// a block loads what it needs next in between.
-template <typename T>
-__device__ __forceinline__ void stage_issue(const NormalArgs<T>& g, T* sm) {
-  const int tid = threadIdx.x, W1 = g.W1, C = g.C;
-  T* P = sm + 9 * W1;
-  T* Q = P + 3 * W1;
-  T* Tc = Q + 4 * W1 + 9 * C;
-  T* Qc = Tc + 3 * C;
-  for (int i = tid; i < 3 * W1; i += NRM_THREADS) cp_async_t(P + i, g.p + i);
-  for (int i = tid; i < 4 * W1; i += NRM_THREADS) cp_async_t(Q + i, g.q + i);
-  for (int i = tid; i < 3 * C; i += NRM_THREADS) cp_async_t(Tc + i, g.tic + i);
-  for (int i = tid; i < 4 * C; i += NRM_THREADS) cp_async_t(Qc + i, g.qic + i);
-  if (tid == 0) cp_async_t(Qc + 4 * C, g.td);
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <typename T>
-__device__ Stage<T> stage_finish(const NormalArgs<T>& g, T* sm) {
-  const int tid = threadIdx.x, W1 = g.W1, C = g.C;
-  T* R = sm;
-  T* P = R + 9 * W1;
-  T* Q = P + 3 * W1;
-  T* Rc = Q + 4 * W1;
-  T* Tc = Rc + 9 * C;
-  T* Qc = Tc + 3 * C;
-  T* TD = Qc + 4 * C;
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-  __syncthreads();
-  for (int k = tid; k < W1 + C; k += NRM_THREADS) {
-    T M[3][3];
-    quat_mat(k < W1 ? Q + 4 * k : Qc + 4 * (k - W1), M);
-    T* dst = k < W1 ? R + 9 * k : Rc + 9 * (k - W1);
-#pragma unroll
-    for (int x = 0; x < 3; ++x)
-#pragma unroll
-      for (int y = 0; y < 3; ++y) dst[3 * x + y] = M[x][y];
-  }
-  __syncthreads();
-  return {R, P, Rc, Tc, TD[0]};
-}
-
-template <typename T>
-__device__ __forceinline__ void load33(const T* src, T M[3][3]) {
-#pragma unroll
-  for (int x = 0; x < 3; ++x)
-#pragma unroll
-    for (int y = 0; y < 3; ++y) M[x][y] = src[3 * x + y];
-}
-
-// lin_obs of kept observation o = (f, j) from the staged frames.
-template <typename T>
-__device__ __forceinline__ void lin_staged(const NormalArgs<T>& g, const Stage<T>& S, int o,
-                                           int f, int j, int a, int ci, int cj, T& r0, T& r1,
-                                           T& w, T& cost, T J[2][26]) {
-  T Ri[3][3], Rj[3][3], Rci[3][3], Rcj[3][3];
-  load33(S.R + 9 * a, Ri);
-  load33(S.R + 9 * j, Rj);
-  load33(S.Rc + 9 * ci, Rci);
-  load33(S.Rc + 9 * cj, Rcj);
-  const int ia = f * g.W1 + a;
-  lin_obs<T, true>(Ri, Rj, Rci, Rcj, S.P + 3 * a, S.P + 3 * j, S.Tc + 3 * ci, S.Tc + 3 * cj,
-                   S.td, g.inv_depth[f], g.bearing + 3 * ia, g.velocity + 3 * ia,
-                   g.td_obs[ia], g.bearing + 3 * o, g.velocity + 3 * o, g.td_obs[o], g.s,
-                   g.c, r0, r1, w, cost, J);
 }
 
 // Exclusive prefix sum of v over the block; total gets the sum.
@@ -557,7 +661,7 @@ __device__ __forceinline__ void tile_add(const NormalArgs<T>& g, const Stage<T>&
   if (!POSE && !(touches(ba, j, a, ci, cj, ex, tdf) && touches(bb, j, a, ci, cj, ex, tdf)))
     return;
   T r0, r1, w, cst, J[2][26];
-  lin_staged(g, S, o, f, j, a, ci, cj, r0, r1, w, cst, J);
+  lin_staged<T, true>(g, S, load_obs(g, o, f, j, a, ci, cj), r0, r1, w, cst, J);
   T xa0[6], xa1[6], xb0[6], xb1[6];
   if (POSE) {
     const bool ia = ba.idx == a, ib = bb.idx == a;
@@ -604,9 +708,9 @@ __device__ void tile_sums(const NormalArgs<T>& g, T* sm, const Block& ba, const 
     a = (int)a64;
     return offdiag ? (int)(a == ba.idx || a == bb.idx) : (pose_rule && a != ba.idx ? 1 : W1 - 1);
   };
-  stage_issue(g, sm);
+  stage_issue<T, NRM_THREADS>(g, sm);
   int a, cnt = candidates(tid, a);  // the first round's, loaded while the copies fly
-  const Stage<T> S = stage_finish(g, sm);
+  const Stage<T> S = stage_finish<T, NRM_THREADS>(g, sm);
   for (int k0 = 0; k0 < nf; k0 += NRM_THREADS) {
     const int k = k0 + tid;
     const int f = f0 + k * step;
@@ -735,7 +839,7 @@ __device__ void feature_job(const NormalArgs<T>& g, const Stage<T>& S, int D, in
     T cst = T(0);
     if (kept) {
       T r0, r1;
-      lin_staged(g, S, o, f, j, aa, ci, cj, r0, r1, w, cst, J);
+      lin_staged<T, true>(g, S, load_obs(g, o, f, j, aa, ci, cj), r0, r1, w, cst, J);
       l0 = J[0][24] * w;
       l1 = J[1][24] * w;
 #pragma unroll
@@ -829,7 +933,7 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1)
   __shared__ T bsum[NACC];
   __shared__ int wtot[NRM_WARPS];
   T* sm = reinterpret_cast<T*>(smem_raw);
-  T* exs = sm + 16 * g.W1 + 16 * g.C + 1;
+  T* exs = sm + stage_values(g.W1, g.C);
   int* list = reinterpret_cast<int*>(smem_raw + list_offset<T>(g.W1, g.C));
   const Layout L = layout(g.F, g.W1, g.C, g.ex != 0, g.tdf != 0);
   const int b = blockIdx.x, W1 = g.W1;
@@ -861,8 +965,8 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1)
   }
   l -= L.light_tiles;
   if (l < L.feat) {
-    stage_issue(g, sm);
-    const Stage<T> S = stage_finish(g, sm);
+    stage_issue<T, NRM_THREADS>(g, sm);
+    const Stage<T> S = stage_finish<T, NRM_THREADS>(g, sm);
     const int f = l * NRM_WARPS + (threadIdx.x >> 5);
     if (f < g.F) feature_job(g, S, L.D, f, exs + (threadIdx.x >> 5) * 6 * g.C);
     return;
@@ -871,39 +975,50 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1)
   if (l < L.zero) zero_job(g, L.D, l);
 }
 
+#define PROJ_IN_PARAMS                                                                      \
+  const void *p, const void *q, const void *tic, const void *qic, const void *td,           \
+      const void *inv_depth, const void *bearing, const void *velocity, const void *td_obs, \
+      const void *valid, const void *anchor, const void *used, const void *cam, int F, int W1, \
+      int C, double sqrt_info, double cauchy_c
+#define PROJ_IN_ARGS                                                                          \
+  p, q, tic, qic, td, inv_depth, bearing, velocity, td_obs, valid, anchor, used, cam, F, W1, C, \
+      sqrt_info, cauchy_c
+
 template <typename T>
-int launch_rows(const void* p, const void* q, const void* tic, const void* qic, const void* td,
-                const void* inv_depth, const void* bearing, const void* velocity,
-                const void* td_obs, const void* valid, const void* anchor, const void* used,
-                const void* cam, int F, int W1, int C, double s, double c, int rows, void* res,
-                void* J26, void* w, void* cost, cudaStream_t stream) {
-  const int n = F * W1;
-  const int grid = (n + ROWS_THREADS - 1) / ROWS_THREADS;
-#define PROJ_ROWS_ARGS                                                                      \
-  (const T*)p, (const T*)q, (const T*)tic, (const T*)qic, (const T*)td, (const T*)inv_depth, \
-      (const T*)bearing, (const T*)velocity, (const T*)td_obs, (const bool*)valid,           \
-      (const int64_t*)anchor, (const bool*)used, (const int64_t*)cam, F, W1, C, (T)s, (T)c,  \
-      (T*)res, (T*)J26, (T*)w, (T*)cost
-  if (rows)
-    proj_rows_kernel<T, true><<<grid, ROWS_THREADS, 0, stream>>>(PROJ_ROWS_ARGS);
-  else
-    proj_rows_kernel<T, false><<<grid, ROWS_THREADS, 0, stream>>>(PROJ_ROWS_ARGS);
-#undef PROJ_ROWS_ARGS
+ProjInputs<T> proj_inputs(PROJ_IN_PARAMS) {
+  return {(const T*)p, (const T*)q, (const T*)tic, (const T*)qic, (const T*)td,
+          (const T*)inv_depth, (const T*)bearing, (const T*)velocity, (const T*)td_obs,
+          (const bool*)valid, (const int64_t*)anchor, (const bool*)used, (const int64_t*)cam,
+          F, W1, C, (T)sqrt_info, (T)cauchy_c, (T)(1.0 / (cauchy_c * cauchy_c))};
+}
+
+// One launch of proj_rows_kernel in rows mode (rows != 0) or cost mode, or
+// (empty) of proj_empty_kernel with that launch's grid, block and shared
+// memory. The rows mode's outputs must be 16-byte aligned (as every
+// allocation of the caching allocator is).
+template <typename T>
+int launch_rows(PROJ_IN_PARAMS, int rows, bool empty, void* res, void* J26, void* w, void* cost,
+                cudaStream_t stream) {
+  const RowsArgs<T> g{proj_inputs<T>(PROJ_IN_ARGS), (T*)res, (T*)J26, (T*)w, (T*)cost};
+  if (rows && ((uintptr_t)res | (uintptr_t)J26 | (uintptr_t)w | (uintptr_t)cost) % 16) return -1;
+  const int grid = (F * W1 + ROWS_THREADS - 1) / ROWS_THREADS;
+  const size_t smem = rows_smem<T>(W1, C, rows != 0);
+  void (*kernel)(const RowsArgs<T>) =
+      empty ? proj_empty_kernel<T> : rows ? proj_rows_kernel<T, true> : proj_rows_kernel<T, false>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<grid, ROWS_THREADS, smem, stream>>>(g);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_normal(const void* p, const void* q, const void* tic, const void* qic,
-                  const void* td, const void* inv_depth, const void* bearing,
-                  const void* velocity, const void* td_obs, const void* valid,
-                  const void* anchor, const void* used, const void* cam, int F, int W1, int C,
-                  double s, double c, int ex, int tdf, void* H_pp, void* b_p, void* H_pl,
-                  void* H_ll, void* b_l, void* cost, cudaStream_t stream) {
-  const NormalArgs<T> g{(const T*)p, (const T*)q, (const T*)tic, (const T*)qic, (const T*)td,
-                        (const T*)inv_depth, (const T*)bearing, (const T*)velocity,
-                        (const T*)td_obs, (const bool*)valid, (const int64_t*)anchor,
-                        (const bool*)used, (const int64_t*)cam, F, W1, C, (T)s, (T)c, ex, tdf,
-                        (T*)H_pp, (T*)b_p, (T*)H_pl, (T*)H_ll, (T*)b_l, (T*)cost};
+int launch_normal(PROJ_IN_PARAMS, int ex, int tdf, void* H_pp, void* b_p, void* H_pl, void* H_ll,
+                  void* b_l, void* cost, cudaStream_t stream) {
+  const NormalArgs<T> g{proj_inputs<T>(PROJ_IN_ARGS), ex, tdf, (T*)H_pp, (T*)b_p, (T*)H_pl,
+                        (T*)H_ll, (T*)b_l, (T*)cost};
   const Layout L = layout(F, W1, C, ex != 0, tdf != 0);
   const size_t smem = normal_smem<T>(W1, C);
   if (smem > 48 * 1024) {
@@ -920,43 +1035,41 @@ int launch_normal(const void* p, const void* q, const void* tic, const void* qic
 // mode 1: rows (res [F, W1, 2], J26 [F, W1, 2, 26], w [F, W1], cost [F,
 // W1]); mode 0: cost alone (res, J26 and w may be null). cam may be null
 // (every observation from camera 0). dtype 0 float32, 1 float64.
-extern "C" int proj_rows_launch(const void* p, const void* q, const void* tic, const void* qic,
-                                const void* td, const void* inv_depth, const void* bearing,
-                                const void* velocity, const void* td_obs, const void* valid,
-                                const void* anchor, const void* used, const void* cam, int F,
-                                int W1, int C, double sqrt_info, double cauchy_c, int mode,
-                                int dtype, void* res, void* J26, void* w, void* cost,
-                                void* stream) {
+extern "C" int proj_rows_launch(PROJ_IN_PARAMS, int mode, int dtype, void* res, void* J26,
+                                void* w, void* cost, void* stream) {
   if (F < 0 || W1 < 1 || C < 1 || (mode != 0 && mode != 1) || (dtype != 0 && dtype != 1))
     return -1;
   if (F == 0) return 0;
-  return dtype ? launch_rows<double>(p, q, tic, qic, td, inv_depth, bearing, velocity, td_obs,
-                                     valid, anchor, used, cam, F, W1, C, sqrt_info, cauchy_c,
-                                     mode, res, J26, w, cost, (cudaStream_t)stream)
-               : launch_rows<float>(p, q, tic, qic, td, inv_depth, bearing, velocity, td_obs,
-                                    valid, anchor, used, cam, F, W1, C, sqrt_info, cauchy_c,
-                                    mode, res, J26, w, cost, (cudaStream_t)stream);
+  return dtype ? launch_rows<double>(PROJ_IN_ARGS, mode, false, res, J26, w, cost,
+                                     (cudaStream_t)stream)
+               : launch_rows<float>(PROJ_IN_ARGS, mode, false, res, J26, w, cost,
+                                    (cudaStream_t)stream);
+}
+
+// proj_empty_kernel with the grid, block, shared memory and arguments of
+// proj_rows_launch's launch in the same mode (the latency floor of that
+// launch).
+extern "C" int proj_empty_launch(PROJ_IN_PARAMS, int mode, int dtype, void* res, void* J26,
+                                 void* w, void* cost, void* stream) {
+  if (F < 0 || W1 < 1 || C < 1 || (mode != 0 && mode != 1) || (dtype != 0 && dtype != 1))
+    return -1;
+  if (F == 0) return 0;
+  return dtype ? launch_rows<double>(PROJ_IN_ARGS, mode, true, res, J26, w, cost,
+                                     (cudaStream_t)stream)
+               : launch_rows<float>(PROJ_IN_ARGS, mode, true, res, J26, w, cost,
+                                    (cudaStream_t)stream);
 }
 
 // The normal equations of one linearization: H_pp [D, D], b_p [D], H_pl [D,
 // F], H_ll [F], b_l [F] and the cost terms [F, W1], every entry written; D =
 // 15 W1 + 6 C + 1. Arguments as proj_rows_launch's.
-extern "C" int proj_normal_launch(const void* p, const void* q, const void* tic, const void* qic,
-                                  const void* td, const void* inv_depth, const void* bearing,
-                                  const void* velocity, const void* td_obs, const void* valid,
-                                  const void* anchor, const void* used, const void* cam, int F,
-                                  int W1, int C, double sqrt_info, double cauchy_c,
-                                  int estimate_ex, int estimate_td, int dtype, void* H_pp,
-                                  void* b_p, void* H_pl, void* H_ll, void* b_l, void* cost,
-                                  void* stream) {
+extern "C" int proj_normal_launch(PROJ_IN_PARAMS, int estimate_ex, int estimate_td, int dtype,
+                                  void* H_pp, void* b_p, void* H_pl, void* H_ll, void* b_l,
+                                  void* cost, void* stream) {
   if (F < 0 || W1 < 1 || C < 1 || (dtype != 0 && dtype != 1)) return -1;
   if (F == 0) return 0;
-  return dtype ? launch_normal<double>(p, q, tic, qic, td, inv_depth, bearing, velocity, td_obs,
-                                       valid, anchor, used, cam, F, W1, C, sqrt_info, cauchy_c,
-                                       estimate_ex, estimate_td, H_pp, b_p, H_pl, H_ll, b_l,
-                                       cost, (cudaStream_t)stream)
-               : launch_normal<float>(p, q, tic, qic, td, inv_depth, bearing, velocity, td_obs,
-                                      valid, anchor, used, cam, F, W1, C, sqrt_info, cauchy_c,
-                                      estimate_ex, estimate_td, H_pp, b_p, H_pl, H_ll, b_l, cost,
-                                      (cudaStream_t)stream);
+  return dtype ? launch_normal<double>(PROJ_IN_ARGS, estimate_ex, estimate_td, H_pp, b_p, H_pl,
+                                       H_ll, b_l, cost, (cudaStream_t)stream)
+               : launch_normal<float>(PROJ_IN_ARGS, estimate_ex, estimate_td, H_pp, b_p, H_pl,
+                                      H_ll, b_l, cost, (cudaStream_t)stream);
 }

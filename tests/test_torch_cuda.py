@@ -440,11 +440,15 @@ def _spread_spd(rng, B, n, dtype, dev):
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
-@pytest.mark.parametrize("shape", [(256, 4), (101, 9), (101, 3)])
+@pytest.mark.parametrize("shape", [(256, 4), (101, 9), (101, 3), (384, 4), (1, 3), (1, 4),
+                                   (13, 4)])
 def test_sym_eig_matches_eigh(dev, shape, dtype, tol):
-    """The main path's three shapes: eigenvalues ascending and within tol of
-    the library's, every eigenvector parallel to the library's
-    (|vᵀv_ref| within tol of 1) and unit length."""
+    """The main path's shapes (the triangulation's at 256 and 384 slots, a
+    RANSAC refit's single matrices) and batches that fill no whole block of
+    the 4-lane path (eight matrices) or of the 16-lane one (eight):
+    eigenvalues ascending and within tol of the library's, every
+    eigenvector parallel to the library's (|vᵀv_ref| within tol of 1) and
+    unit length."""
     from lfvio_tpu_torch.geom.eigh_cuda import sym_eig
 
     B, n = shape
@@ -530,29 +534,118 @@ def test_sym_eig_eight_point_rank8(dev, B):
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
-@pytest.mark.parametrize("n", [5, 6, 7, 8, 9])
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 6, 7, 8, 9])
 def test_sym_eig_special_matrices(dev, n, dtype, tol):
-    """Each order of the group path on a repeated eigenvalue (a threefold one
-    in a random basis), a diagonal matrix, the zero matrix and a random
-    symmetric one: residuals and eigenvalues within tol of the largest; a
-    diagonal or zero input takes no rotation (0 sweeps) and comes back exact."""
+    """Each order of both group paths (4 lanes for n <= 4, 16 above) on a
+    repeated eigenvalue (a threefold one in a random basis; all equal for
+    n < 3), a random symmetric matrix, a rank-deficient one (B Bᵀ with B n x
+    (n - 1)), at n = 3 the rank-2 EᵀE of an essential matrix [t]x R (as
+    RANSAC's projection of E hands it), a diagonal matrix and the zero
+    matrix: residuals and eigenvalues within tol of the largest; a diagonal
+    or zero input takes no rotation (0 sweeps) and comes back exact."""
     from lfvio_tpu_torch.geom.eigh_cuda import MAX_SWEEPS, sym_eig
 
     rng = np.random.default_rng(n)
     Q = np.linalg.qr(rng.standard_normal((n, n)))[0]
-    rep = Q @ np.diag([1.0, 1.0, 1.0] + list(np.linspace(2.0, 3.0, n - 3))) @ Q.T
+    rep = Q @ np.diag(([1.0, 1.0, 1.0] + list(np.linspace(2.0, 3.0, max(n - 3, 0))))[:n]) @ Q.T
     B = rng.standard_normal((n, n))
+    low = rng.standard_normal((n, n - 1))
+    checked = [rep, B + B.T, low @ low.T]
+    if n == 3:
+        t = rng.standard_normal(3)
+        R = np.linalg.qr(rng.standard_normal((3, 3)))[0]
+        E = np.array([[0.0, -t[2], t[1]], [t[2], 0.0, -t[0]], [-t[1], t[0], 0.0]]) @ R
+        checked.append(E.T @ E)
     diag = np.diag(rng.standard_normal(n))
-    A = torch.as_tensor(np.stack([rep, B + B.T, diag, np.zeros((n, n))]), dtype=dtype, device=dev)
+    A = torch.as_tensor(np.stack(checked + [diag, np.zeros((n, n))]), dtype=dtype, device=dev)
+    k = len(checked)
     w, V, sweeps = sym_eig(A, sweeps=True)
     torch.cuda.synchronize()
-    _eig_check(A[:2], w[:2], V[:2], tol)
-    assert int(sweeps[:2].max()) < MAX_SWEEPS
-    assert sweeps[2:].tolist() == [0, 0]
-    d = torch.sort(torch.diagonal(A[2]))[0]
-    assert torch.equal(w[2], d) and torch.equal(w[3], torch.zeros_like(w[3]))
-    assert float((V[2].abs().sum(0) - 1).abs().max()) == 0.0
-    assert torch.equal(V[3].abs().sum(0), torch.ones(n, dtype=dtype, device=dev))
+    _eig_check(A[:k], w[:k], V[:k], tol)
+    assert int(sweeps[:k].max()) < MAX_SWEEPS
+    assert sweeps[k:].tolist() == [0, 0]
+    d = torch.sort(torch.diagonal(A[k]))[0]
+    assert torch.equal(w[k], d) and torch.equal(w[k + 1], torch.zeros_like(w[k + 1]))
+    assert float((V[k].abs().sum(0) - 1).abs().max()) == 0.0
+    assert torch.equal(V[k + 1].abs().sum(0), torch.ones(n, dtype=dtype, device=dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_redesigned_kernels_repeat_bit_identical(dev, dtype):
+    """Five launches of sym_eig on the main path's 4 x 4 and 3 x 3 inputs
+    (the 4-lane path) and of proj_rows and proj_cost at window 10 are each
+    bit-identical: no atomics, every sum in a fixed order."""
+    import chip_smoke
+    from lfvio_tpu_torch.backend import proj_cuda as pc
+    from lfvio_tpu_torch.geom.eigh_cuda import sym_eig
+
+    calls = [lambda A=A.to(dtype): sym_eig(A, sweeps=True)
+             for A in chip_smoke.main_path_eig_inputs(dev) if A.shape[-1] <= 4]
+    state, grid, cfg = _proj_case(dev, dtype, 1, n_slots=37)
+    calls += [lambda: pc.proj_rows(state, grid, cfg), lambda: (pc.proj_cost(state, grid, cfg),)]
+    assert len(calls) == 5
+    for call in calls:
+        first = call()
+        for _ in range(4):
+            assert all(torch.equal(x, y) for x, y in zip(first, call()))
+
+
+def _proj_window(dev, dtype, W1, F, seed=0):
+    """A window of W1 frames along a curve and F features seen from it, one
+    camera, on the card in ``dtype``: each feature anchored at a random
+    frame, its bearings those of its point from every frame (plus 1e-3
+    noise), 85% of the observations valid, 90% of the slots used, td and
+    extrinsics estimated. (state, grid, cfg)."""
+    import dataclasses
+
+    from lfvio_tpu_torch.backend import FeatureGrid, WindowState
+    from lfvio_tpu_torch.geom import quat_to_mat, so3_exp
+    from lfvio_tpu_torch.runtime.profiling import make_window_problem
+
+    rng = np.random.default_rng(seed)
+    tt = lambda a, dt=dtype: torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
+    t = np.linspace(0.0, 0.08 * (W1 - 1), W1)
+    p = np.stack([t, 0.2 * np.sin(t), 0.1 * t], -1)
+    q = so3_exp(torch.as_tensor(np.stack([0.05 * np.sin(3 * t), 0.1 * t, 0.1 * np.cos(2 * t)],
+                                         -1))).numpy()
+    R = quat_to_mat(torch.as_tensor(q)).numpy()
+    tic, qic = np.array([0.01, -0.02, 0.005]), so3_exp(torch.as_tensor([0.02, -0.01, 0.03])).numpy()
+    Rc = quat_to_mat(torch.as_tensor(qic)).numpy()
+    dirs = rng.standard_normal((F, 3))
+    X = p.mean(0) + dirs / np.linalg.norm(dirs, axis=-1, keepdims=True) * rng.uniform(3, 8, (F, 1))
+    Pc = np.einsum("jba,fjb->fja", R, X[:, None] - p[None])  # R_jᵀ (X - p_j)
+    Pc = np.einsum("ba,fjb->fja", Rc, Pc - tic)  # R_cᵀ (P_b - t_c)
+    depth = np.linalg.norm(Pc, axis=-1)
+    bearing = Pc / depth[..., None] + 1e-3 * rng.standard_normal((F, W1, 3))
+    bearing /= np.linalg.norm(bearing, axis=-1, keepdims=True)
+    anchor = rng.integers(0, W1, F)
+    state = WindowState(
+        p=tt(p), q=tt(q), v=tt(np.zeros((W1, 3))), ba=tt(np.zeros((W1, 3))),
+        bg=tt(np.zeros((W1, 3))), tic=tt(tic), qic=tt(qic), td=tt(0.002),
+        inv_depth=tt(1.0 / depth[np.arange(F), anchor]))
+    grid = FeatureGrid(
+        bearing=tt(bearing), velocity=tt(1e-3 * rng.standard_normal((F, W1, 3))),
+        td_obs=tt(1e-3 * rng.standard_normal((F, W1))),
+        valid=tt(rng.random((F, W1)) < 0.85, torch.bool), anchor=tt(anchor, torch.int64),
+        used=tt(rng.random(F) < 0.9, torch.bool))
+    cfg = make_window_problem(8, dtype, device=dev)["cfg"]
+    return state, grid, dataclasses.replace(cfg, estimate_td=True, estimate_extrinsic=True)
+
+
+@pytest.mark.parametrize("dtype,bound", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+@pytest.mark.parametrize("W1,F", [(41, 37), (11, 5)])
+def test_proj_rows_and_cost_at_window_40_and_a_partial_block(dev, W1, F, dtype, bound):
+    """proj_rows and proj_cost (and proj_normal beside them) against their
+    plain versions within 1e-5 (f32) or 1e-12 (f64) of each output's scale
+    (chip_smoke.proj_compare), a repeat bit-identical: at window 40 (37
+    slots, 1,517 observations: 23 blocks of 64 and 45 more), and at 5 slots
+    of window 10 (55 observations, part of one block)."""
+    import chip_smoke
+
+    state, grid, cfg = _proj_window(dev, dtype, W1, F)
+    errs, _, identical = chip_smoke.proj_compare(state, grid, cfg)
+    assert identical
+    assert max(errs.values()) <= bound, errs
 
 
 def test_sym_eig_sweeps_below_the_cap_at_the_main_path_inputs(dev):

@@ -306,6 +306,16 @@ def test_sym_eig_on_the_cpu_is_the_plain_version():
         eigh_cuda.sym_eig(A, sweeps=True)
 
 
+def test_sym_eig_latency_floor_is_card_only():
+    """``eigh_cuda.latency_floor`` times a launch of the empty kernel on the
+    card: on a CPU tensor it raises and adds to no ``launches``."""
+    A = torch.eye(4, dtype=torch.float64).expand(3, 4, 4)
+    before = eigh_cuda.sym_eig.launches
+    with pytest.raises(ValueError, match="on the card"):
+        eigh_cuda.latency_floor(A)
+    assert eigh_cuda.sym_eig.launches == before
+
+
 # ------------------------------------------------- the programs read nothing
 _SYNCING = {"_local_scalar_dense", "item", "nonzero", "masked_select", "linalg_eigh",
             "_linalg_eigh", "linalg_svd", "_linalg_svd", "cholesky_solve", "linalg_solve",

@@ -298,3 +298,18 @@ def test_projection_jacobian_against_jacfwd(name):
     close(torch.where(keep[..., None, None], J_ad.reshape(F, W1, 2, 26), 0.0).numpy(), J26)
     assert bool(torch.isfinite(J26).all()) and bool((w[~keep] == 1).all())
     assert bool((cost[~keep] == 0).all())
+
+
+@pytest.mark.parametrize("name", ["proj_rows", "proj_cost"])
+def test_latency_floor_is_card_only(name):
+    """``proj_cuda.latency_floor`` times a launch of the empty kernel on the
+    card: on CPU inputs it raises, as it does for a launch it does not take
+    ("proj_normal"), and it adds to no wrapper's ``launches``."""
+    _, (st, grid, *_, cfg) = case("dual")
+    kernels = (proj_cuda.proj_rows, proj_cuda.proj_cost, proj_cuda.proj_normal)
+    before = [k.launches for k in kernels]
+    with pytest.raises(ValueError, match="on the card"):
+        proj_cuda.latency_floor(name, st, grid, cfg)
+    with pytest.raises(ValueError, match="proj_rows' or 'proj_cost"):
+        proj_cuda.latency_floor("proj_normal", st, grid, cfg)
+    assert [k.launches for k in kernels] == before

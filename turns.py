@@ -6,6 +6,8 @@ replay by up to 2.9 ms, so two versions are compared only inside one).
     python3 turns.py tree OTHER_TREE                 (beside chip_smoke.py)
     python3 turns.py proj EARLIER_PROJ_FACTOR_CU
     python3 turns.py imu EARLIER_IMU_FACTOR_CU
+    python3 turns.py rows EARLIER_PROJ_FACTOR_CU
+    python3 turns.py eig EARLIER_SYM_EIG_CU
 
 ``tree``: OTHER_TREE is another checkout (for example ``git archive
 <commit>`` unpacked under ``_archive/``, which ``.gitignore`` lists). In the
@@ -43,6 +45,23 @@ within ``chip_smoke.IMU_BOUNDS`` of each output's scale and with a repeat
 bit-identical, then times ``imu_normal``, ``imu_cost`` and ``imu_rows``
 behind a full queue in turns earlier, this, this, earlier, and each
 launched alone. Prints as ``proj`` does.
+
+``rows``: the rows and cost launches of an earlier ``csrc/proj_factor.cu``
+(one with the same ``proj_rows_launch``) against this tree's, as ``imu``
+does for its three: the earlier source behind ``proj_cuda``'s wrapper
+class, both held against the plain version at (a) and (b) within
+``chip_smoke.PROJ_BOUNDS`` with a repeat bit-identical, then ``proj_rows``
+and ``proj_cost`` timed in turns at (a) and (b), beside this tree's latency
+floor of each launch (``proj_cuda.latency_floor``).
+
+``eig``: an earlier ``csrc/sym_eig.cu`` (one with the same
+``sym_eig_launch``) behind ``eigh_cuda``'s wrapper class against this
+tree's: both held against ``torch.linalg.eigh`` within
+``chip_smoke.EIG_BOUNDS`` at the main path's inputs at 256 and 384 slots
+(``chip_smoke.main_path_eig_inputs``) in f32 and f64, with each one's
+sweep histogram and a repeat bit-identical, then each of the five inputs
+at 256 slots and the [384, 4, 4] triangulation timed in turns, beside
+this tree's latency floor of the launch (``eigh_cuda.latency_floor``).
 """
 
 from __future__ import annotations
@@ -115,16 +134,22 @@ def tree_main(argv):
     return 0
 
 
-def build_earlier(src):
-    """The earlier source built into a library of its own; its two
-    launchers, bound."""
+def build_earlier_lib(src, stem):
+    """The earlier source built with this tree's nvcc flags into a library
+    of its own, loaded."""
     from lfvio_tpu_torch.frontend import klt_cuda
 
-    lib = klt_cuda.BUILD_DIR / "libproj_factor_earlier.so"
+    lib = klt_cuda.BUILD_DIR / f"lib{stem}_earlier.so"
     klt_cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     subprocess.run([klt_cuda.nvcc_path(), *klt_cuda.NVCC_FLAGS, "-o", str(lib), str(src)],
                    check=True)
-    so = ctypes.CDLL(str(lib))
+    return ctypes.CDLL(str(lib))
+
+
+def build_earlier(src):
+    """The earlier source built into a library of its own; its two
+    launchers, bound."""
+    so = build_earlier_lib(src, "proj_factor")
     P, I, Dbl = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     rows, asm = so.proj_rows_launch, so.proj_assemble_launch
     rows.argtypes = [P] * 13 + [I, I, I, Dbl, Dbl, I, I, P, P, P, P, P]
@@ -222,13 +247,8 @@ def build_earlier_imu(src):
     ``imu_cuda``'s wrapper classes: {"imu_rows", "imu_cost", "imu_normal":
     wrapper}."""
     from lfvio_tpu_torch.backend import imu_cuda as ic
-    from lfvio_tpu_torch.frontend import klt_cuda
 
-    lib = klt_cuda.BUILD_DIR / "libimu_factor_earlier.so"
-    klt_cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    subprocess.run([klt_cuda.nvcc_path(), *klt_cuda.NVCC_FLAGS, "-o", str(lib), str(src)],
-                   check=True)
-    so = ctypes.CDLL(str(lib))
+    so = build_earlier_lib(src, "imu_factor")
     rows, normal = so.imu_rows_launch, so.imu_normal_launch
     rows.argtypes = normal.argtypes = [ic._P] * ic._N_IN + [ic._I] * 3 + [ic._P] * 4
     rows.restype = normal.restype = ctypes.c_int
@@ -298,11 +318,152 @@ def imu_main(argv):
     return 0
 
 
+def in_turns(label, name, calls, block):
+    """``calls`` {"earlier", "this": callable} timed behind a full queue in
+    turns earlier, this, this, earlier, then each launched alone; printed,
+    and returned as {"turns": [(who, ms)], "alone": {who: ms}}."""
+    import chip_smoke
+
+    turns = []
+    for who in ("earlier", "this", "this", "earlier"):
+        turns.append((who, chip_smoke.cuda_ms(calls[who], reps=10, blocker=block)))
+        print(f"({label}) {name}, {who}: {turns[-1][1]:.4f} ms behind a full queue", flush=True)
+    alone = {who: chip_smoke.cuda_ms(fn) for who, fn in calls.items()}
+    print(f"({label}) {name} launched alone: earlier {alone['earlier']:.4f} ms, this "
+          f"{alone['this']:.4f} ms", flush=True)
+    return dict(turns=turns, alone=alone)
+
+
+def floor_ms(label, name, fn, block):
+    """This tree's latency floor of a launch: ``fn`` launches its empty
+    kernel; behind a full queue and alone, printed; {"queued", "alone"}."""
+    import chip_smoke
+
+    out = dict(queued=chip_smoke.cuda_ms(fn, reps=10, blocker=block),
+               alone=chip_smoke.cuda_ms(fn))
+    print(f"({label}) {name}, latency floor of this tree's launch (its empty kernel): "
+          f"{out['queued']:.4f} ms behind a full queue, {out['alone']:.4f} ms alone", flush=True)
+    return out
+
+
+def card_or_usage(mode, argv, what):
+    """The card, or None after printing why not (no card, wrong arguments)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print(f"turns.py {mode}: no CUDA device", file=sys.stderr)
+        return None
+    if len(argv) != 1:
+        print(f"usage: {sys.argv[0]} {mode} {what}", file=sys.stderr)
+        return None
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def rows_main(argv):
+    """``rows EARLIER_PROJ_FACTOR_CU``: the earlier source's rows and cost
+    launches against this tree's in turns."""
+    import chip_smoke
+    from lfvio_tpu_torch.backend import proj_cuda as pc
+
+    dev = card_or_usage("rows", argv, "EARLIER_PROJ_FACTOR_CU")
+    if dev is None:
+        return 2
+    smi = chip_smoke.smi_line()
+    print(smi, flush=True)
+    earlier_fn = build_earlier_lib(Path(argv[0]), "proj_factor").proj_rows_launch
+    earlier_fn.argtypes, earlier_fn.restype = pc._ROWS_ARGTYPES, ctypes.c_int
+    earlier = {"proj_rows": pc.ProjRowsKernel(cost_only=False),
+               "proj_cost": pc.ProjRowsKernel(cost_only=True)}
+    for k in earlier.values():
+        k._fn = earlier_fn
+    sources = {"earlier": earlier, "this": {"proj_rows": pc.proj_rows, "proj_cost": pc.proj_cost}}
+    block = chip_smoke.make_blocker(dev)
+    bound = chip_smoke.PROJ_BOUNDS["float32"]
+    out = {}
+    for label, knobs in (("a", {}), ("b", chip_smoke.BENCH_HIGH_RATE)):
+        state, grid, cfg = chip_smoke.solve_inputs(chip_smoke.warm_estimator(dev, knobs))
+        for who, kernels in sources.items():
+            errs, _, identical = chip_smoke.proj_compare(state, grid, cfg, kernels=kernels)
+            print(f"({label}) {who} against the plain version, relative to each output's "
+                  f"scale: " + ", ".join(f"{n} {v:.2e}" for n, v in errs.items())
+                  + f"; repeat bit-identical {identical}", flush=True)
+            if not (identical and max(errs.values()) <= bound):
+                raise AssertionError(f"({label}) {who} is not within {bound} of the plain "
+                                     "version, or a repeat differs")
+        out[label] = dict(slots=grid.valid.shape[0], frames=grid.valid.shape[1])
+        for name in ("proj_rows", "proj_cost"):
+            calls = {who: lambda k=k: k[name](state, grid, cfg) for who, k in sources.items()}
+            out[label][name] = in_turns(label, name, calls, block)
+            out[label][name]["floor"] = floor_ms(
+                label, name, lambda: pc.latency_floor(name, state, grid, cfg), block)
+    print(json.dumps({"card": smi, "times_ms": out}))
+    return 0
+
+
+def eig_main(argv):
+    """``eig EARLIER_SYM_EIG_CU``: the earlier source's eigensolver against
+    this tree's in turns."""
+    import numpy as np
+    import torch
+
+    import chip_smoke
+    from lfvio_tpu_torch.geom import eigh_cuda
+
+    dev = card_or_usage("eig", argv, "EARLIER_SYM_EIG_CU")
+    if dev is None:
+        return 2
+    smi = chip_smoke.smi_line()
+    print(smi, flush=True)
+    earlier = eigh_cuda.SymEigKernel()
+    earlier._fn = build_earlier_lib(Path(argv[0]), "sym_eig").sym_eig_launch
+    earlier._fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    earlier._fn.restype = ctypes.c_int
+    sources = {"earlier": earlier, "this": eigh_cuda.sym_eig}
+    inputs = {256: chip_smoke.main_path_eig_inputs(dev), 384: chip_smoke.main_path_eig_inputs(
+        dev, 384)}
+    for dtype in (torch.float32, torch.float64):
+        ew_b, er_b, ev_b, gap = chip_smoke.EIG_BOUNDS[str(dtype).split(".")[-1]]
+        for slots, seen in inputs.items():
+            for A in seen:
+                A = A.to(dtype)
+                w_ref, V_ref = torch.linalg.eigh(A)
+                for who, eig in sources.items():
+                    w, V, sweeps = eig(A, sweeps=True)
+                    again = eig(A, sweeps=True)
+                    identical = all(torch.equal(x, y) for x, y in zip((w, V, sweeps), again))
+                    ew, er, ev, share = chip_smoke.eig_errors(A, w, V, w_ref, V_ref, gap)
+                    counts = sweeps.reshape(-1).cpu().numpy()
+                    hist = dict(zip(*np.unique(counts, return_counts=True)))
+                    print(f"{who} {dtype} {tuple(A.shape)} ({slots} slots): eigenvalues "
+                          f"{ew:.2e}, residuals {er:.2e}, smallest eigenvector {ev:.2e} on the "
+                          f"{100 * share:.0f}% well posed (bounds {ew_b}, {er_b}, {ev_b}); "
+                          f"repeat bit-identical {identical}; sweeps "
+                          + ", ".join(f"{int(k)}: {int(v)}" for k, v in sorted(hist.items())),
+                          flush=True)
+                    if not (identical and ew <= ew_b and er <= er_b and ev <= ev_b):
+                        raise AssertionError(f"{who} disagrees with torch.linalg.eigh at "
+                                             f"{tuple(A.shape)} {dtype}, or a repeat differs")
+    block = chip_smoke.make_blocker(dev)
+    out = {}
+    for A in inputs[256] + inputs[384][:1]:
+        label = "x".join(map(str, A.shape))
+        calls = {who: lambda eig=eig: eig(A) for who, eig in sources.items()}
+        out[label] = in_turns(label, "sym_eig", calls, block)
+        out[label]["floor"] = floor_ms(label, "sym_eig", lambda: eigh_cuda.latency_floor(A),
+                                       block)
+    print(json.dumps({"card": smi, "times_ms": out}))
+    return 0
+
+
 def main(argv):
-    modes = {"tree": tree_main, "proj": proj_main, "imu": imu_main}
+    modes = {"tree": tree_main, "proj": proj_main, "imu": imu_main, "rows": rows_main,
+             "eig": eig_main}
     if not argv or argv[0] not in modes:
         print(f"usage: {sys.argv[0]} tree OTHER_TREE | proj EARLIER_PROJ_FACTOR_CU | "
-              "imu EARLIER_IMU_FACTOR_CU", file=sys.stderr)
+              "imu EARLIER_IMU_FACTOR_CU | rows EARLIER_PROJ_FACTOR_CU | "
+              "eig EARLIER_SYM_EIG_CU", file=sys.stderr)
         return 2
     return modes[argv[0]](argv[1:])
 
