@@ -51,7 +51,17 @@ lines; any failure ends the run with a non-zero exit code:
      as solves, ATE < 0.5 m; frames/s beside phase 4's; then phase 4's
      configuration and stream with FrontEnd(use_pallas=True) (6p): one
      launch of the Pallas-geometry mode per tracked frame, ATE < 0.1 m,
-     frames/s beside phase 4's;
+     frames/s beside phase 4's; then relocalization at full width (6r):
+     phase 6's configuration and stream with one loop closure armed
+     through Estimator.set_relo_frame once 5 solves are finalized (window
+     frame WIN - 2 seen again, the pose graph carrying it with a drift of
+     yaw 12 deg and (0.4, -0.3, 0.1) m): |relo_relative_t| < 0.25 m,
+     |relo_relative_yaw| < 5 deg, the drift correction's yaw within 5 deg
+     of the planted one (plus the VIO world's yaw against the truth), the
+     match consumed, ATE < 0.5 m, both relo kernels launched; the first
+     relo solve's wall ms (warm-up, capture, replay), the relo and solve
+     replays' card ms and nodes, and cap relo_normal + cap + 1 relo_cost
+     launches a relo replay;
   7. the estimator's capabilities on the card, bearing-level (a stub front
      end serves analytic bearings; 64 slots, f64 solver): td recovery,
      online extrinsic rotation, relocalization, window 20, solve lag 3, the
@@ -98,7 +108,13 @@ lines; any failure ends the run with a non-zero exit code:
      Σ r_w² of the rows, and planted faults (a zero cost, a dropped
      interval, r_q's sign flipped) that the check must reject, and each
      IMU launch's latency floor (an empty kernel with its grid, block and
-     launch path) beside its times ([14i] lines); the
+     launch path) beside its times ([14i] lines); the relocalization
+     launches (csrc/proj_factor.cu: relo_normal, relo_cost) against their
+     plain versions at phase 6r's inputs (f32) and on a two-camera window
+     (f64 and f32), a bit-identical repeat, planted faults (a zero cost, a
+     dropped match, the loop side's extrinsic block in the anchor camera's
+     columns) rejected, and each launch's times, latency floor, plain
+     version's time and bound ([14r] lines); the
      eigensolver kernel against
      torch.linalg.eigh on the main path's inputs at 256 and 384 slots (the
      [256, 4, 4] and [384, 4, 4] DLT matrices of a triangulation, RANSAC's
@@ -125,7 +141,8 @@ lines; any failure ends the run with a non-zero exit code:
 
 The kernels line's launches add up the whole runs of phases 4, 6, 8, 9 and
 15, each counted from 0 (the factor kernels' too; in each run every IMU
-kernel launches as often as its projection counterpart).
+kernel launches as often as its projection counterpart); the relocalization
+kernels' are phase 6r's run, counted from 0.
 
 Prints one JSON line with each kernel's numbers, then the card's line, and
 last {"ok": true, "device": {...}}. Imports neither JAX nor the JAX package.
@@ -757,6 +774,9 @@ reset_launches = bench.reset_launches
 # Each IMU kernel launches where its projection counterpart does: the solve's
 # linearization and cost, MARGIN_OLD's rows.
 FACTOR_PAIRS = {"imu_normal": "proj_normal", "imu_cost": "proj_cost", "imu_rows": "proj_rows"}
+# The relocalization kernels launch only in a solve with an armed loop
+# closure (phase 6r), so the runs without one count them apart.
+RELO_KERNELS = ("relo_normal", "relo_cost")
 
 
 def factor_launches():
@@ -765,9 +785,9 @@ def factor_launches():
 
 
 def check_factor_launches(counts, what):
-    """Raise unless every factor kernel launched and each IMU kernel as often
-    as its projection counterpart."""
-    if not all(counts.values()):
+    """Raise unless every factor kernel but the relocalization ones launched
+    and each IMU kernel as often as its projection counterpart."""
+    if not all(v for k, v in counts.items() if k not in RELO_KERNELS):
         raise AssertionError(f"{what}: not every factor kernel launched: {counts}")
     if any(counts[i] != counts[p] for i, p in FACTOR_PAIRS.items()):
         raise AssertionError(f"{what}: the IMU kernels' launches differ from the projection "
@@ -951,6 +971,181 @@ def phase_pallas_frontend(rig, plain_calls, run4):
     if not run["ate"] < PALLAS_ATE_M:
         raise AssertionError(f"use_pallas=True ATE is not below {PALLAS_ATE_M} m")
     return run
+
+
+# Phase 6r: one loop closure on bench.py's configuration, planted as
+# tests/test_capabilities.py::test_relocalization_drift_estimate plants it:
+# the pose graph carries the loop frame with a drift of yaw 12° and
+# (0.4, -0.3, 0.1) m, which the drift correction must recover. The drift
+# correction maps the VIO world into the pose graph's; the bearing harness's
+# VIO world has the true world's yaw, this stream's does not (its
+# initialization fixes another gauge), so the yaw it must recover is the
+# planted one plus the VIO world's yaw against the truth, which the
+# trajectory's alignment to the ground truth (Umeyama, as ATE's) measures.
+RELO_DRIFT_YPR_DEG = (12.0, 0.0, 0.0)
+RELO_DRIFT_T = (0.4, -0.3, 0.1)
+RELO_REL_T_M = 0.25
+RELO_REL_YAW_DEG = 5.0
+RELO_DRIFT_YAW_DEG = 5.0
+# Solves the estimator finalizes before the loop closure is armed.
+RELO_ARM_SOLVES = 5
+
+
+def _wrap_deg(a):
+    return (a + 180.0) % 360.0 - 180.0
+
+
+def vio_gauge_yaw(world, est):
+    """The yaw (deg) of the rotation that aligns the estimator's trajectory
+    to the ground truth (runtime/evaluation.py's Umeyama, as ATE's): the
+    VIO world's yaw against the true world's."""
+    from lfvio_tpu_torch.geom import host as hg
+    from lfvio_tpu_torch.runtime.evaluation import align_umeyama
+
+    gt = np.stack([world.pose(tt)[0] for tt in est.times])
+    _, R, _ = align_umeyama(np.asarray(est.traj_p), gt)
+    return float(hg.R_to_ypr_deg(R)[0])
+
+
+def arm_loop_closure(est, world):
+    """Arm one loop closure on ``est`` (initialized): window frame WIN - 2
+    seen again (every slot with an observation at that frame, with its
+    bearing there), its true pose carried by the pose graph with the planted
+    drift (RELO_DRIFT_YPR_DEG, RELO_DRIFT_T). Returns (t_loop, matches,
+    |relo_relative_t| and relo_relative_yaw of set_relo_frame's PnP seed);
+    raises if set_relo_frame refuses the match."""
+    from lfvio_tpu_torch.geom import host as hg
+
+    idx = est.WIN - 2
+    t_loop = float(est.headers[idx])
+    fm = est.fm
+    slots = np.nonzero(fm.valid[:, idx] & (fm.feature_id >= 0))[0]
+    p_true, q_true = world.pose(t_loop)
+    R = hg.ypr_deg_to_R(list(RELO_DRIFT_YPR_DEG))
+    prev_p = R @ np.asarray(p_true) + np.asarray(RELO_DRIFT_T)
+    prev_q = hg.mat_to_quat(R @ hg.quat_to_mat(np.asarray(q_true)))
+    if not est.set_relo_frame(t_loop, fm.feature_id[slots], fm.bearing[slots, idx], prev_p,
+                              prev_q):
+        raise AssertionError(f"set_relo_frame refused the loop frame at t = {t_loop}")
+    return t_loop, len(slots), float(np.linalg.norm(est.relo_relative_t)), est.relo_relative_yaw
+
+
+def phase_relo_full_scale(rig, plain_calls):
+    """Relocalization at full width: phase 6's configuration and stream
+    (bench.py's: 1280x960, 256 slots, window 10, f32, solve lag 2, device
+    chain, depth 3) through a fresh pipeline, with one loop closure armed
+    (arm_loop_closure) once the estimator has initialized and finalized
+    RELO_ARM_SOLVES solves; the following frames run the relo solve (chain
+    off) and finalize it in the frame loop. The launch counts are set to 0
+    just before the stream and read just after it. Passes only with
+    |relo_relative_t| < RELO_REL_T_M, |relo_relative_yaw| <
+    RELO_REL_YAW_DEG, the drift correction's yaw within RELO_DRIFT_YAW_DEG
+    of the planted one, the loop match consumed, ATE < FULL_SCALE_ATE_M,
+    both relo kernels launched, and, armed once more on the final window,
+    one replay of the relo graph launching cap relo_normal and cap + 1
+    relo_cost (as many as the projection's and the IMU's normal and cost
+    launches). Logs the first relo solve's wall ms (synchronized around its
+    dispatch) with its warm-up, capture and replay, the relo and solve
+    replays' card ms and their graphs' nodes. Returns dict(launches, args:
+    the relo program's (state, grid, cfg, relo) inputs on the final window,
+    and the numbers logged)."""
+    import torch
+    from lfvio_tpu_torch.geom import host as hg
+
+    fe, est, pipe = rig.make(2, 3)
+    first = {}
+    dispatch = est._dispatch_solve
+
+    def timed_dispatch(*a, **k):
+        if est._relo_active is None or first:
+            return dispatch(*a, **k)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = dispatch(*a, **k)
+        torch.cuda.synchronize()
+        first.update(wall_ms=1e3 * (time.perf_counter() - t0), t=float(a[0]))
+        return out
+
+    est._dispatch_solve = timed_dispatch
+    reset_launches()
+    plain_calls["n"] = 0
+    armed = None
+    t0 = time.perf_counter()
+    for it in rig.stream:
+        bench.feed(pipe, [it], rig.frames)
+        if (armed is None and it[0] == "frame" and est.solver_flag == est.NON_LINEAR
+                and len(est.times) >= RELO_ARM_SOLVES):
+            armed = arm_loop_closure(est, rig.world)
+    pipe.flush()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    del est._dispatch_solve
+    launches = factor_launches()
+    if armed is None or not first:
+        raise AssertionError("[6r] the loop closure was not armed, or its solve did not run")
+    t_loop, n_match, pnp_t, pnp_yaw = armed
+    rel_t = float(np.linalg.norm(est.relo_relative_t))
+    rel_yaw = float(est.relo_relative_yaw)
+    drift_yaw = float(hg.R_to_ypr_deg(est.drift_correct_r)[0])
+    ate, n = trajectory_ate(rig.world, est)
+    gauge_yaw = vio_gauge_yaw(rig.world, est)
+    want_yaw = RELO_DRIFT_YPR_DEG[0] + gauge_yaw
+    log(f"[6r] loop closure armed after {RELO_ARM_SOLVES} solves: loop frame t = {t_loop:.4f} s "
+        f"(window frame {est.WIN - 2}), {n_match} matched slots, planted drift yaw "
+        f"{RELO_DRIFT_YPR_DEG[0]} deg and {RELO_DRIFT_T} m; PnP seed |relo_relative_t| "
+        f"{pnp_t:.4f} m, relo_relative_yaw {pnp_yaw:.3f} deg")
+    log(f"[6r] after the relo solve of the frame at t = {first['t']:.4f} s: |relo_relative_t| "
+        f"{rel_t:.4f} m (< {RELO_REL_T_M}), relo_relative_yaw {rel_yaw:.3f} deg (|.| < "
+        f"{RELO_REL_YAW_DEG}), drift correction yaw {drift_yaw:.3f} deg (the planted "
+        f"{RELO_DRIFT_YPR_DEG[0]} + the VIO world's yaw against the truth {gauge_yaw:.3f} = "
+        f"{want_yaw:.3f}, within {RELO_DRIFT_YAW_DEG}); loop match consumed "
+        f"{est._relo_active is None}; ATE {ate:.4f} m over {n} poses (< {FULL_SCALE_ATE_M}); "
+        f"{len(est.times)} solves, stream {wall_s:.1f} s; factor kernels' launches {launches}")
+    if not (rel_t < RELO_REL_T_M and abs(rel_yaw) < RELO_REL_YAW_DEG
+            and abs(_wrap_deg(drift_yaw - want_yaw)) < RELO_DRIFT_YAW_DEG
+            and est._relo_active is None and ate < FULL_SCALE_ATE_M and n == len(est.times)):
+        raise AssertionError("[6r] relocalization at full width missed a bound")
+    if not (launches["relo_normal"] and launches["relo_cost"]):
+        raise AssertionError("[6r] the relo solve did not launch both relo kernels")
+    check_factor_launches(launches, "[6r] the main path")
+    if plain_calls["n"]:
+        raise AssertionError("[6r] the front end ran the plain LK")
+
+    cap = est.cfg.max_iterations
+    prog = est._programs[("relo", cap)]
+    warm_ms, capture_ms = 1e3 * prog.warmup_s, 1e3 * (prog.capture_s - prog.warmup_s)
+    # Armed once more on the final window: the relo program's inputs.
+    arm_loop_closure(est, rig.world)
+    relo = dict(est._relo_active,
+                mask=est._relo_active["mask"] & (est.fm.feature_id == est._relo_active["snap_ids"]))
+    est._relo_active = None
+    prior = est.prior if est.prior is not None else est._empty_prior()
+    packed_r = est._upload(est._pack_solve_buffer(est.Ps[0], est.Qs[0], relo=relo))
+    packed = est._upload(est._pack_solve_buffer(est.Ps[0], est.Qs[0]))
+    chain = est._zero_chain()
+    solve = est._program(("solve", cap))
+    per_replay = launches_of(lambda: prog(packed_r, prior))
+    ms = {"relo": cuda_ms(lambda: prog(packed_r, prior), n=5, warmup=1),
+          "solve": cuda_ms(lambda: solve(packed, prior, chain), n=5, warmup=1)}
+    nodes = {"relo": graph_nodes(prog), "solve": graph_nodes(solve)}
+    log(f"[6r] the first relo solve (cap {cap}): {first['wall_ms']:.1f} ms of wall time around "
+        f"its synchronized dispatch (pack, upload, the relo program's first call, the "
+        f"marginalization's replay, the fetch): the program's eager warm-up {warm_ms:.1f} ms, "
+        f"its capture {capture_ms:.1f} ms, a replay {ms['relo']:.3f} ms on the card")
+    log(f"[6r] relo solve replay (cap {cap}) {ms['relo']:.3f} ms on the card beside the solve "
+        f"replay's {ms['solve']:.3f} ms; nodes relo " + ", ".join(
+            f"{k} {v}" for k, v in nodes["relo"].items()) + "; solve " + ", ".join(
+            f"{k} {v}" for k, v in nodes["solve"].items())
+        + "; factor kernels' launches per relo replay " + ", ".join(
+            f"{k} {v}" for k, v in per_replay.items()))
+    want = {"proj_rows": 0, "proj_normal": cap, "proj_cost": cap + 1, "imu_rows": 0,
+            "imu_normal": cap, "imu_cost": cap + 1, "relo_normal": cap, "relo_cost": cap + 1}
+    if per_replay != want:
+        raise AssertionError(f"[6r] a relo replay at cap {cap} did not launch {want}")
+    state, grid, _, _, relo_t = est._unpack(packed_r.clone())[:5]
+    return dict(launches=launches, args=(state, grid, est.scfg, relo_t), first=first,
+                warm_ms=warm_ms, capture_ms=capture_ms, ms=ms, nodes=nodes, rel_t=rel_t,
+                rel_yaw=rel_yaw, drift_yaw=drift_yaw, want_yaw=want_yaw, ate=ate)
 
 
 def phase_five_launch_path(fe, frames, stages):
@@ -3036,9 +3231,269 @@ def phase_imu_factor(dev, est_a, est_b):
     return out
 
 
-def phase_programs(dev, rig, plain_calls, run4):
+# ------------------------------------------------ phase 14: the relocalization kernels
+# csrc/proj_factor.cu's relo launches against their plain version
+# (backend/relo_cuda.py) on the same inputs, relative to each output's scale
+# as PROJ_BOUNDS holds the projection's (a relo row is a projection row):
+# each sum's scale is the largest sum of its terms' magnitudes, |J| against
+# |r| + s (relo_sums of |J25| and |res| + s), a cost term's its value with
+# |r| + s for |r|. The sums start from zero, so each output is the relo
+# rows' part alone.
+RELO_BOUNDS = PROJ_BOUNDS
+# Operations a kept feature costs each launch: the row (PROJ_FLOPS' rows)
+# and, for relo_normal, its 24 columns into H6, b6 and H_pl6 and its λ
+# column into H_ll and b_l, two residual rows each: 4 (24² + 2 · 24) + 8.
+RELO_FLOPS = {"relo_normal": PROJ_FLOPS["proj_rows"] + 4 * (24 * 24 + 2 * 24) + 8,
+              "relo_cost": PROJ_FLOPS["proj_cost"]}
+REPLACES.update({
+    "relo_normal": "lfvio_tpu/backend/relo.py:75 (linearize_relo_rows: jacfwd :108 + vmap) and "
+                   ":181-202 (lm_solve_relo's sums into the D+6 system; XLA, no Pallas kernel)",
+    "relo_cost": "lfvio_tpu/backend/relo.py:209 (lm_solve_relo's cost: linearize_relo_rows' "
+                 "cost; XLA, no Pallas kernel)"})
+SOURCES.update({k: "lfvio_tpu_torch/csrc/proj_factor.cu" for k in RELO_FLOPS})
+# The outputs of relo_outputs, and the launch each comes from.
+RELO_OUTPUTS = {"H6": "relo_normal", "H_pl6": "relo_normal", "H_ll": "relo_normal",
+                "b6": "relo_normal", "b_l": "relo_normal", "cost terms": "relo_cost"}
+# A planted fault, and the outputs whose check must reject it on its own
+# (the last only where the anchor and loop cameras differ).
+RELO_FAULT_OUTPUTS = {"cost 0": ("cost terms",),
+                      "least-cost match dropped": ("H6", "H_pl6", "H_ll"),
+                      "loop side in the anchor camera's columns": ("H6", "H_pl6")}
+
+
+def relo_window(dev, dtype, n_cams, n_slots=64):
+    """make_window_problem's window (f64, tracks of 5 frames from varied
+    anchors, td and extrinsics estimated; with two cameras
+    ``dual_camera_inputs``' form, anchors on both) with a loop closure:
+    window frame 3 seen again through camera 0 with 3e-3 bearing noise,
+    from a pose 3 cm off, a quarter of the matches masked; cast to
+    ``dtype``. Returns (state, grid, cfg, (relo_p, relo_q, relo_bearing,
+    relo_mask))."""
+    import dataclasses as dc
+
+    import torch
+    from lfvio_tpu_torch.runtime.profiling import make_window_problem
+
+    if n_cams == 2:
+        state, grid, cfg = dual_camera_inputs(dev, n_slots)
+    else:
+        pb = make_window_problem(n_slots, torch.float64, n_obs_frames=5, device=dev)
+        state, grid, cfg = pb["state"], pb["grid"], pb["cfg"]
+    rng = np.random.default_rng(17)
+    tt = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)
+    b = grid.bearing[:, 3] + tt(3e-3 * rng.standard_normal((n_slots, 3)))
+    relo = (state.p[3] + tt(0.03 * rng.standard_normal(3)), state.q[3].clone(), b,
+            torch.as_tensor(rng.random(n_slots) < 0.75, device=dev))
+    cast = lambda x: x.to(dtype).contiguous() if x is not None and x.is_floating_point() else x
+    state = type(state)(**{f.name: cast(getattr(state, f.name)) for f in dc.fields(state)})
+    grid = type(grid)(**{f.name: cast(getattr(grid, f.name)) for f in dc.fields(grid)})
+    return state, grid, cfg, tuple(cast(x) for x in relo)
+
+
+def relo_outputs(args, plain=False, mask=None):
+    """Every output of the two relo launches on zero sums, {name: tensor}:
+    the kernels' or (``plain``) their plain versions' (``mask`` in place of
+    the match mask)."""
+    import torch
+    from lfvio_tpu_torch.backend import relo_cuda as rc
+    from lfvio_tpu_torch.backend.state import n_cams_of, pose_dim
+
+    state, grid, cfg, relo = args
+    if mask is not None:
+        relo = (*relo[:3], mask)
+    F, W1 = grid.valid.shape
+    D6 = pose_dim(W1, n_cams_of(state)) + 6
+    z = lambda *s: torch.zeros(s, dtype=state.p.dtype, device=state.p.device)
+    sums = (z(D6, D6), z(D6, F), z(F), z(D6), z(F))
+    normal = rc.relo_normal_plain if plain else rc.relo_normal
+    cost = rc.relo_cost_plain if plain else rc.relo_cost
+    return dict(zip(RELO_OUTPUTS, (*normal(*sums, state, grid, *relo, cfg),
+                                   cost(state, grid, *relo, cfg))))
+
+
+def relo_scales(args):
+    """{output name: its scale} (the note above RELO_BOUNDS)."""
+    import torch
+    from lfvio_tpu_torch.backend import relo_cuda as rc
+    from lfvio_tpu_torch.backend.state import n_cams_of
+
+    state, grid, cfg, relo = args
+    res, J25, w, valid, _ = rc.relo_jacobian(state, grid, *relo, cfg)
+    r_scale = torch.where(valid[:, None], res.abs() + float(cfg.proj_sqrt_info), 0.0)
+    absum = rc.relo_sums(r_scale * w[:, None], J25.abs() * w[:, None, None], grid, cfg,
+                         n_cams_of(state))
+    top = lambda x: max(float(x.abs().max()), 1e-30) if x.numel() else 1.0
+    c2 = cfg.cauchy_c ** 2
+    return {**{n: top(a) for n, a in zip(RELO_OUTPUTS, absum)},
+            "cost terms": top(c2 * torch.log1p((r_scale * r_scale).sum(-1) / c2))}
+
+
+def relo_errors(outs, ref, scale):
+    return {n: (float((outs[n] - ref[n]).abs().max()) if ref[n].numel() else 0.0) / scale[n]
+            for n in ref}
+
+
+def relo_compare(args):
+    """(errors relative to each output's scale, {launch: (largest absolute
+    error, largest relative error) of its outputs}, a repeat of the kernels
+    bit-identical)."""
+    import torch
+
+    k, again = relo_outputs(args), relo_outputs(args)
+    p = relo_outputs(args, plain=True)
+    identical = all(torch.equal(k[n], again[n]) for n in k)
+    errs = relo_errors(k, p, relo_scales(args))
+    mode_err = {}
+    for n, e in errs.items():
+        a, r = mode_err.get(RELO_OUTPUTS[n], (0.0, 0.0))
+        mode_err[RELO_OUTPUTS[n]] = (max(a, float((k[n] - p[n]).abs().max())), max(r, e))
+    return errs, mode_err, identical
+
+
+def relo_planted_faults(args):
+    """{fault: {output name: its error over its scale}}: the plain
+    version's outputs at ``args`` against those a kernel with each fault of
+    RELO_FAULT_OUTPUTS would give (a zero cost; the kept match of least cost
+    left out; where some kept feature's anchor camera is not camera 0 and
+    the extrinsic is estimated, the loop side's extrinsic block added into
+    the anchor camera's columns)."""
+    import torch
+    from lfvio_tpu_torch.backend import relo_cuda as rc
+    from lfvio_tpu_torch.backend.state import n_cams_of
+
+    state, grid, cfg, relo = args
+    p = relo_outputs(args, plain=True)
+    faults = {"cost 0": {**p, "cost terms": torch.zeros_like(p["cost terms"])}}
+    res, J25, w, valid, terms = rc.relo_jacobian(state, grid, *relo, cfg)
+    drop = relo[3].clone()
+    drop[int(torch.where(valid, terms, np.inf).argmin())] = False
+    faults["least-cost match dropped"] = relo_outputs(args, plain=True, mask=drop)
+    F = valid.shape[0]
+    cam_i = grid.cam_index()[torch.arange(F, device=valid.device), grid.anchor]
+    if cfg.estimate_extrinsic and bool((valid & (cam_i != 0)).any()):
+        J = J25 * w[:, None, None]
+        J = torch.cat([J[..., :12], J[..., 12:18] + J[..., 18:24], torch.zeros_like(J[..., 18:24]),
+                       J[..., 24:]], dim=-1)
+        terms_f = rc.relo_sums(res * w[:, None], J, grid, cfg, n_cams_of(state))
+        faults["loop side in the anchor camera's columns"] = {
+            **p, **dict(zip(("H6", "H_pl6", "H_ll", "b6", "b_l"), terms_f))}
+    scale = relo_scales(args)
+    return {name: relo_errors(f, p, scale) for name, f in faults.items()}
+
+
+def relo_bound_ms(args, mode):
+    """The least time of one launch of ``mode`` (a key of RELO_FLOPS) on an
+    H100 at ``args``: what the function needs read once and written once at
+    3.35 TB/s (the frames' and cameras' poses, the loop pose; a feature's
+    inverse depth, anchor observation's bearing, loop bearing and masks;
+    relo_cost: a cost term a feature; relo_normal: the entries of H6, b6,
+    H_pl6, H_ll and b_l its kept features reach, read and written), against
+    RELO_FLOPS a kept feature at the float32 rate; (ms, by, bytes, FLOP)."""
+    import torch
+
+    state, grid, cfg, relo = args
+    F, W1 = grid.valid.shape
+    C = 1 if state.tic.ndim == 1 else state.tic.shape[0]
+    e = state.p.element_size()
+    valid = relo[3] & grid.used
+    n = int(valid.sum())
+    masks = 2 * F + 8 * F + (8 * F if grid.cam is not None else 0)
+    ins = e * (7 * W1 + 7 * C + 7 + F * (1 + 3 + 3)) + masks
+    if mode == "relo_cost":
+        out = e * F
+    else:
+        ex = 6 * C if cfg.estimate_extrinsic else 0
+        n_pose = int(torch.unique(grid.anchor[valid]).numel())
+        # H6: each reached pose tile, its tiles with the loop pose (both
+        # mirrors), the loop pose's own, the extrinsic rows' and columns';
+        # b6 the blocks; H_pl6 a kept feature's 12 + extrinsic entries.
+        h6 = n_pose * (36 + 2 * 36) + 36 + (2 * ex * (6 * n_pose + 6) + ex * ex if ex else 0)
+        out = 2 * e * (h6 + 6 * n_pose + 6 + ex + n * (12 + min(ex, 12) + 2))
+    nbytes = ins + out
+    flops = RELO_FLOPS[mode] * n
+    t_b, t_o = 1e3 * nbytes / PEAK_BYTES_S, 1e3 * flops / PEAK_F32_FLOPS
+    return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations"), nbytes, flops
+
+
+def phase_relo_factor(dev, full_args):
+    """The relo launches against their plain version at (r) phase 6r's
+    relocalization inputs (256 slots, window 10, f32, bench.py's
+    configuration) and on the two-camera window of ``relo_window`` in f64
+    and f32, within RELO_BOUNDS, a repeat bit-identical, the planted faults
+    of RELO_FAULT_OUTPUTS rejected; each launch's times behind a full queue
+    and launched alone, beside its latency floor
+    (``relo_cuda.latency_floor``), its plain version's and its bound, at
+    (r). Returns the kernels line's numbers: errors the worst of the f32
+    cases."""
+    import torch
+    from lfvio_tpu_torch.backend import relo_cuda as rc
+    from lfvio_tpu_torch.backend.state import n_cams_of, pose_dim
+
+    label_r = "(r) phase 6r's relo solve, 256 slots, window 10, f32"
+    cases = {label_r: full_args,
+             "two-camera 64 slots, f64": relo_window(dev, torch.float64, 2),
+             "two-camera 64 slots, f32": relo_window(dev, torch.float32, 2)}
+    worst = {}
+    for label, args in cases.items():
+        errs, mode_err, identical = relo_compare(args)
+        bound = RELO_BOUNDS[str(args[0].p.dtype).split(".")[-1]]
+        state, grid, cfg, relo = args
+        valid = relo[3] & grid.used
+        cam_i = grid.cam_index()[torch.arange(valid.shape[0], device=dev), grid.anchor]
+        log(f"[14r] relo {label} against the plain version, relative to each output's scale: "
+            + ", ".join(f"{n} {v:.2e}" for n, v in errs.items())
+            + f" (bound {bound}); repeat bit-identical {identical}; kept matches "
+            f"{int(valid.sum())} of {valid.numel()} slots ({int((valid & (cam_i != 0)).sum())} "
+            f"anchored on a camera other than 0)")
+        if not (identical and all(v <= bound for v in errs.values())):
+            raise AssertionError(f"the relo kernels disagree with their plain version at {label}")
+        faults = relo_planted_faults(args)
+        for fault, fe in faults.items():
+            log(f"[14r] planted fault at {label}, {fault}: " + ", ".join(
+                f"{n} {v:.2e}" for n, v in fe.items()) + f" (must exceed {bound}: "
+                + ", ".join(RELO_FAULT_OUTPUTS[fault]) + ")")
+            if not all(fe[n] > bound for n in RELO_FAULT_OUTPUTS[fault]):
+                raise AssertionError(f"the relo check does not see '{fault}' at {label}")
+        if n_cams_of(state) == 2 and len(faults) != len(RELO_FAULT_OUTPUTS):
+            raise AssertionError(f"{label}: no kept match anchored on camera 1")
+        if state.p.dtype == torch.float32:
+            for m, (a, r) in mode_err.items():
+                wa, wr = worst.get(m, (0.0, 0.0))
+                worst[m] = (max(wa, a), max(wr, r))
+    block = make_blocker(dev)
+    state, grid, cfg, relo = full_args
+    F, W1 = grid.valid.shape
+    D6 = pose_dim(W1, n_cams_of(state)) + 6
+    z = lambda *s: torch.zeros(s, dtype=state.p.dtype, device=dev)
+    sums = (z(D6, D6), z(D6, F), z(F), z(D6), z(F))
+    runs = {"relo_normal": (lambda: rc.relo_normal(*sums, state, grid, *relo, cfg),
+                            lambda: rc.relo_normal_plain(*sums, state, grid, *relo, cfg)),
+            "relo_cost": (lambda: rc.relo_cost(state, grid, *relo, cfg),
+                          lambda: rc.relo_cost_plain(state, grid, *relo, cfg))}
+    out = {}
+    for mode, (kern, plain) in runs.items():
+        ms, alone = cuda_ms(kern, reps=10, blocker=block), cuda_ms(kern)
+        empty = lambda: rc.latency_floor(mode, state, grid, *relo, cfg)
+        floor, floor_alone = cuda_ms(empty, reps=10, blocker=block), cuda_ms(empty)
+        plain_ms = cuda_ms(plain, reps=3, blocker=block)
+        bound, by, nbytes, flops = relo_bound_ms(full_args, mode)
+        log(f"[14r] {mode} {label_r}: {ms:.4f} ms behind a full queue, {alone:.4f} ms launched "
+            f"alone; latency floor (the empty kernel, same grid, block and launch path) "
+            f"{floor:.4f} ms behind a full queue, {floor_alone:.4f} ms alone; plain version "
+            f"{plain_ms:.4f} ms; bound {bound:.6f} ms by {by} ({nbytes} B, {flops / 1e6:.3f} "
+            f"MFLOP); at {100 * bound / ms:.2f}% of it; no PyTorch call computes this function")
+        out[mode] = dict(max_abs_err=worst[mode][0], max_rel_err=worst[mode][1],
+                         rel_bound=RELO_BOUNDS["float32"], ms=ms, ms_launched_alone=alone,
+                         floor_ms=floor, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                         library_ms=None)
+    return out
+
+
+def phase_programs(dev, rig, plain_calls, run4, relo6):
     """The eigensolver kernel, f64 graph replays against eager, phase 4's
-    stream with eager programs, and the card's time per replay."""
+    stream with eager programs, and the card's time per replay; the factor
+    kernels against their plain versions (the relo ones at phase 6r's
+    inputs, ``relo6``)."""
     import torch
 
     t0 = time.perf_counter()
@@ -3060,7 +3515,8 @@ def phase_programs(dev, rig, plain_calls, run4):
     census["b"] = program_census(warm_estimator(dev, BENCH_HIGH_RATE),
                                  "(b) high-rate (f32, window 20, 384 slots)", trace=False)
     want = {"proj_rows": 0, "proj_normal": cap, "proj_cost": cap + 1,
-            "imu_rows": 0, "imu_normal": cap, "imu_cost": cap + 1}
+            "imu_rows": 0, "imu_normal": cap, "imu_cost": cap + 1, "relo_normal": 0,
+            "relo_cost": 0}
     want_marg = {k: int(k in ("proj_rows", "imu_rows")) for k in want}
     for key, c in census.items():
         if c["per_replay"]["solve"] != want or c["per_replay"]["marg_old"] != want_marg:
@@ -3068,7 +3524,8 @@ def phase_programs(dev, rig, plain_calls, run4):
                                  f"{want}, or a MARGIN_OLD replay not {want_marg}")
     proj = phase_proj_factor(dev, est, census["b"]["est"])
     imu = phase_imu_factor(dev, est, census["b"]["est"])
-    times = dict(census=census, eager_ms=eager_ms, proj=proj, imu=imu)
+    relo = phase_relo_factor(dev, relo6["args"])
+    times = dict(census=census, eager_ms=eager_ms, proj=proj, imu=imu, relo=relo)
     qr = phase_qr_information(dev)
     rec4, rec6 = {}, {}
     eager = run_full_scale("[14]", rig, plain_calls, 1, 1, graphs=False,
@@ -3125,7 +3582,7 @@ def run_bench(tag, knobs):
         raise AssertionError(f"{tag} the bench's LK is not one fused launch per tracked frame")
     if fig["sym_eig_launches"] == 0:
         raise AssertionError(f"{tag} the bench did not launch the eigensolver kernel")
-    if not all(fig["factor_launches"].values()):
+    if not all(v for k, v in fig["factor_launches"].items() if k not in RELO_KERNELS):
         raise AssertionError(f"{tag} the bench did not launch every factor kernel in its timed "
                              f"window")
     check_factor_launches(fig["factor_launches_run"], f"{tag} the bench")
@@ -3205,6 +3662,7 @@ def main(argv):
     phase_e2e_gate(dev)
     run6 = phase_bench_configuration(rig, plain_calls, run4)
     run6p = phase_pallas_frontend(rig, plain_calls, run4)
+    relo6 = phase_relo_full_scale(rig, plain_calls)
     phase_capabilities(dev)
     dual = phase_dual_pal(dev, plain_calls)
     euroc = phase_euroc(rig, plain_calls)
@@ -3212,8 +3670,8 @@ def main(argv):
     phase_profiling(dev)
     phase_dist()
     phase_kf_axis()
-    kernels["sym_eig"], times14, _ = phase_programs(dev, rig, plain_calls, run4)
-    kernels.update(times14["proj"], **times14["imu"])
+    kernels["sym_eig"], times14, _ = phase_programs(dev, rig, plain_calls, run4, relo6)
+    kernels.update(times14["proj"], **times14["imu"], **times14["relo"])
     del rig
     benches = phase_bench()
     # Each run's counts were set to 0 just before it: the phases' by
@@ -3224,23 +3682,25 @@ def main(argv):
                                                      for f in benches.values()]
     factor_runs = {k: [r["factors"][k] for r in paths] + [f["factor_launches_run"][k]
                                                           for f in benches.values()]
-                   for k in bench.FACTOR_KERNELS}
+                   for k in bench.FACTOR_KERNELS if k not in RELO_KERNELS}
     launches = {"lk_pyramid": sum(lk_runs),
                 "lk_level": run4["level_launches"],
                 "lk_pyramid_pallas": run6p["launches"],
-                "sym_eig": sum(sym_runs), **{k: sum(v) for k, v in factor_runs.items()}}
+                "sym_eig": sum(sym_runs), **{k: sum(v) for k, v in factor_runs.items()},
+                **{k: relo6["launches"][k] for k in RELO_KERNELS}}
     log(f"[end] launches on the main paths (phases 4, 6, 8, 9, "
         + ", ".join(benches) + ", each a whole run): lk_pyramid "
         + ", ".join(map(str, lk_runs)) + "; sym_eig " + ", ".join(map(str, sym_runs))
         + "".join(f"; {k} " + ", ".join(map(str, v)) for k, v in factor_runs.items())
-        + f"; lk_pyramid_pallas (phase 6p) {run6p['launches']}; whole run "
+        + f"; lk_pyramid_pallas (phase 6p) {run6p['launches']}; relo_normal, relo_cost (phase "
+        f"6r) {relo6['launches']['relo_normal']}, {relo6['launches']['relo_cost']}; whole run "
         f"{time.perf_counter() - t_run + 0.0:.1f} s after the build")
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
          "launches": launches[name], **kernels[name]}
         for name in ("lk_pyramid", "lk_level", "lk_pyramid_pallas", "sym_eig", *PROJ_FLOPS,
-                     *IMU_FLOPS)]}))
+                     *IMU_FLOPS, *RELO_FLOPS)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

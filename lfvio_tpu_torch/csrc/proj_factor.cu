@@ -74,6 +74,25 @@
 //    reaches: speed-bias, and the extrinsic or td ones when their estimate
 //    is off.
 //
+// The relocalization rows (backend/relo_cuda.py) replace what XLA computes
+// in the JAX package's relo solve: lfvio_tpu/backend/relo.py:75
+// linearize_relo_rows (forward-mode autodiff, :108, vmapped over the
+// features), its sums into the augmented [D + 6] system (:181-202) and its
+// cost (:209). A relo row is a projection row whose observer is the loop
+// pose seen through camera 0, with td = td_obs = 0 and zero velocities, so
+// both launches evaluate it through lin_obs (relo_lin). relo_cost_kernel is
+// a thread a feature. relo_normal_kernel adds one linearization's rows into
+// the sums in place: a 128-thread block a tile of H6 (the W1 anchor-pose
+// diagonal tiles, then each live block's, the loop pose and the estimated
+// extrinsics, with the poses and the live blocks up to it; a feature reaches
+// one pose block only), each thread walking every feature and evaluating
+// the kept ones that reach both blocks, the sums meeting in block_sum's
+// order; then blocks of 128 features, a thread adding its feature's H_pl6
+// column, H_ll and b_l. No atomics: a repeat is bit-identical. What bounds
+// them on an H100: latency (a launch a few µs against a bound below 0.1 µs
+// at the bench's 256 slots); each tile walking all F features is the first
+// thing to take out.
+//
 // A tile block finds its observations through anchor[], not by scanning the
 // grid: a pass over its features (one a thread) counts each one's
 // candidates, a prefix sum in shared memory places them in a compact list,
@@ -975,6 +994,284 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1)
   if (l < L.zero) zero_job(g, L.D, l);
 }
 
+// ------------------------------------------------------------ the relocalization rows
+
+// What the relo kernels read beside ProjInputs (of which they use the frames,
+// the cameras, the inverse depths, the anchor observations' bearings and the
+// masks): the loop pose (relo_p [3], relo_q [4]), the loop frame's bearings
+// [F, 3] (normalized here) and its match mask [F]; relo_normal adds into the
+// augmented system [D6 = D + 6] in place, relo_cost writes cost [F].
+template <typename T>
+struct ReloArgs : ProjInputs<T> {
+  const T* relo_p;
+  const T* relo_q;
+  const T* relo_bearing;
+  const bool* relo_mask;
+  int ex, D6;
+  T* H6;
+  T* b6;
+  T* H_pl6;
+  T* H_ll;
+  T* b_l;
+  T* cost;
+};
+
+// Dynamic shared memory of a relo block: the staged frames and cameras, then
+// the loop pose's position (3), quaternion (4) and matrix (9).
+__host__ __device__ __forceinline__ size_t relo_values(int W1, int C) {
+  return stage_values(W1, C) + 16;
+}
+
+// Stages the frames, the cameras and the loop pose (as stage_issue /
+// stage_finish, the loop pose's copies in the same group); returns the
+// loop pose's 16 values.
+template <typename T, int NT>
+__device__ const T* relo_stage(const ReloArgs<T>& g, T* sm, Stage<T>& S) {
+  T* rl = sm + stage_values(g.W1, g.C);
+  const int tid = threadIdx.x;
+  if (tid < 3)
+    cp_async_t(rl + tid, g.relo_p + tid);
+  else if (tid < 7)
+    cp_async_t(rl + tid, g.relo_q + tid - 3);
+  stage_issue<T, NT>(g, sm);  // commits the loop pose's copies too
+  S = stage_finish<T, NT>(g, sm);
+  if (tid == 0) {
+    T M[3][3];
+    quat_mat(rl + 3, M);
+#pragma unroll
+    for (int x = 0; x < 3; ++x)
+#pragma unroll
+      for (int y = 0; y < 3; ++y) rl[7 + 3 * x + y] = M[x][y];
+  }
+  __syncthreads();
+  return rl;
+}
+
+// A matched feature: its anchor frame and camera, inverse depth, the anchor
+// observation's bearing and the loop bearing, normalized as
+// backend/relo.py does (b / max(|b|, 1e-12)).
+template <typename T>
+struct ReloObs {
+  int a, ci;
+  T lam;
+  T bi[3], bl[3];
+};
+
+// Loads feature f; is it kept (matched, a used slot, anchor and its camera
+// in range)? Every load is issued before the test.
+template <typename T>
+__device__ __forceinline__ bool relo_load(const ReloArgs<T>& g, int f, ReloObs<T>& x) {
+  const int64_t a64 = g.anchor[f];
+  const bool matched = g.relo_mask[f], uf = g.used[f];
+  const bool in = a64 >= 0 && a64 < g.W1;
+  x.a = in ? (int)a64 : 0;
+  const int ia = f * g.W1 + x.a;
+  x.ci = g.cam ? (int)g.cam[ia] : 0;
+  x.lam = g.inv_depth[f];
+  T b[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    b[k] = g.relo_bearing[3 * f + k];
+    x.bi[k] = g.bearing[3 * ia + k];
+  }
+  const T nb = sqrt_t(b[0] * b[0] + b[1] * b[1] + b[2] * b[2]);
+  const T nbc = nb >= T(1e-12) ? nb : T(1e-12);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) x.bl[k] = b[k] / nbc;
+  return matched && uf && in && x.ci >= 0 && x.ci < g.C;
+}
+
+// lin_obs of a relo residual: the observer is the loop pose seen through
+// camera 0 (the loop image is the primary camera's), td = td_obs = 0 and
+// zero velocities, the loop bearing in place of pts_j. J's first 25 columns
+// are [δpose_i, δrelo, δex_anchor, δex_cam0, δλ]; its td column is 0.
+template <typename T, bool JAC>
+__device__ __forceinline__ void relo_lin(const ReloArgs<T>& g, const Stage<T>& S, const T* rl,
+                                         const ReloObs<T>& x, T& r0, T& r1, T& w, T& cost,
+                                         T J[2][26]) {
+  T Ri[3][3], Rj[3][3], Rci[3][3], Rcj[3][3];
+  load33(S.R + 9 * x.a, Ri);
+  load33(rl + 7, Rj);
+  load33(S.Rc + 9 * x.ci, Rci);
+  load33(S.Rc, Rcj);
+  const T z3[3] = {T(0), T(0), T(0)};
+  lin_obs<T, JAC>(Ri, Rj, Rci, Rcj, S.P + 3 * x.a, rl, S.Tc + 3 * x.ci, S.Tc, T(0), x.lam,
+                  x.bi, z3, T(0), x.bl, z3, T(0), g.s, g.c, g.ic2, r0, r1, w, cost, J);
+}
+
+// A 6-column block of the augmented layout a relo row reaches: pose k (at
+// 6k), the loop pose (at D) or extrinsic e (at 15 W1 + 6e).
+struct ReloBlock {
+  int kind;  // 0 pose, 1 loop pose, 2 extrinsic
+  int idx;
+  int col;
+};
+
+// Block X of a relo_normal tile: the W1 poses, then the live blocks (the
+// loop pose, then the C extrinsics when they are estimated).
+__device__ __forceinline__ ReloBlock relo_block(int X, int W1, int D) {
+  if (X < W1) return {0, X, 6 * X};
+  if (X == W1) return {1, 0, D};
+  return {2, X - W1 - 1, 15 * W1 + 6 * (X - W1 - 1)};
+}
+
+__device__ __forceinline__ bool relo_touches(const ReloBlock& b, int a, int ci) {
+  return b.kind == 0 ? b.idx == a : b.kind == 1 || b.idx == ci || b.idx == 0;
+}
+
+// Residual row Jr (weight w) of a feature in block b's columns: the
+// anchor-side pose block at frame a, the loop pose's block, and the
+// anchor-side extrinsic block at camera ci plus the loop side's at camera 0
+// (added where they coincide, as backend/relo.py's layout adds them).
+template <typename T>
+__device__ __forceinline__ void relo_block_row(const ReloBlock& b, const T Jr[26], T w, int a,
+                                               int ci, T out[6]) {
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    if (b.kind == 0)
+      out[k] = b.idx == a ? Jr[k] * w : T(0);
+    else if (b.kind == 1)
+      out[k] = Jr[6 + k] * w;
+    else
+      out[k] = (b.idx == ci ? Jr[12 + k] * w : T(0)) + (b.idx == 0 ? Jr[18 + k] * w : T(0));
+  }
+}
+
+// Tiles of relo_normal: the W1 diagonal pose tiles, then for each live block
+// L (n_live of them) its tiles with the W1 poses and with live blocks 0..L.
+// A feature reaches one pose block only, so no off-diagonal pose tile has a
+// relo term.
+__host__ __device__ __forceinline__ int relo_tiles(int W1, int n_live) {
+  return W1 + n_live * W1 + n_live * (n_live + 1) / 2;
+}
+
+// Tile (X, Y), X <= Y, of H6 (and b6's block X where X == Y): every thread
+// walks the features f = tid, tid + NRM_THREADS, ... and sums the terms of
+// the kept ones that reach both blocks; the block's sums meet in block_sum's
+// fixed order and are added in place, into (X, Y) and its mirror.
+template <typename T>
+__device__ void relo_tile(const ReloArgs<T>& g, const Stage<T>& S, const T* rl, int X, int Y,
+                          T (*part)[NACC], T* bsum) {
+  const int D = g.D6 - 6, tid = threadIdx.x;
+  const ReloBlock bx = relo_block(X, g.W1, D), by = relo_block(Y, g.W1, D);
+  T acc[NACC];
+#pragma unroll
+  for (int k = 0; k < NACC; ++k) acc[k] = T(0);
+  for (int f = tid; f < g.F; f += NRM_THREADS) {
+    ReloObs<T> x;
+    if (!relo_load(g, f, x) || !relo_touches(bx, x.a, x.ci) || !relo_touches(by, x.a, x.ci))
+      continue;
+    T r0, r1, w, cst, J[2][26];
+    relo_lin<T, true>(g, S, rl, x, r0, r1, w, cst, J);
+    T xa0[6], xa1[6], xb0[6], xb1[6];
+    relo_block_row(bx, J[0], w, x.a, x.ci, xa0);
+    relo_block_row(bx, J[1], w, x.a, x.ci, xa1);
+    relo_block_row(by, J[0], w, x.a, x.ci, xb0);
+    relo_block_row(by, J[1], w, x.a, x.ci, xb1);
+#pragma unroll
+    for (int i = 0; i < 6; ++i)
+#pragma unroll
+      for (int j = 0; j < 6; ++j) acc[6 * i + j] += xa0[i] * xb0[j] + xa1[i] * xb1[j];
+    if (X == Y) {
+      const T rw0 = r0 * w, rw1 = r1 * w;
+#pragma unroll
+      for (int i = 0; i < 6; ++i) acc[36 + i] += xa0[i] * rw0 + xa1[i] * rw1;
+    }
+  }
+  block_sum(acc, part, bsum);
+  if (tid < 36) {
+    const int i = tid / 6, j = tid - 6 * (tid / 6);
+    g.H6[(size_t)(bx.col + i) * g.D6 + by.col + j] += bsum[tid];
+    if (X != Y) g.H6[(size_t)(by.col + j) * g.D6 + bx.col + i] += bsum[tid];
+  } else if (X == Y && tid < NACC) {
+    g.b6[bx.col + tid - 36] += bsum[tid];
+  }
+}
+
+// What kept feature f owns, added in place: its H_pl6 column (at its anchor
+// pose, the loop pose and, when estimated, the extrinsics of its anchor
+// camera and of camera 0), H_ll[f] and b_l[f]. A thread a feature.
+template <typename T>
+__device__ void relo_feature(const ReloArgs<T>& g, const Stage<T>& S, const T* rl, int f) {
+  ReloObs<T> x;
+  if (!relo_load(g, f, x)) return;
+  T r0, r1, w, cst, J[2][26];
+  relo_lin<T, true>(g, S, rl, x, r0, r1, w, cst, J);
+  const T l0 = J[0][24] * w, l1 = J[1][24] * w;
+  const int D = g.D6 - 6, F = g.F, W1 = g.W1;
+  T* col = g.H_pl6 + f;
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    col[(size_t)(6 * x.a + k) * F] += (J[0][k] * w) * l0 + (J[1][k] * w) * l1;
+    col[(size_t)(D + k) * F] += (J[0][6 + k] * w) * l0 + (J[1][6 + k] * w) * l1;
+  }
+  if (g.ex) {
+    for (int e = 0; e < g.C; ++e) {
+      if (e != x.ci && e != 0) continue;
+      const ReloBlock b{2, e, 15 * W1 + 6 * e};
+      T x0[6], x1[6];
+      relo_block_row(b, J[0], w, x.a, x.ci, x0);
+      relo_block_row(b, J[1], w, x.a, x.ci, x1);
+#pragma unroll
+      for (int k = 0; k < 6; ++k) col[(size_t)(b.col + k) * F] += x0[k] * l0 + x1[k] * l1;
+    }
+  }
+  g.H_ll[f] += l0 * l0 + l1 * l1;
+  g.b_l[f] += l0 * (r0 * w) + l1 * (r1 * w);
+}
+
+// One linearization's relo rows added into the augmented normal equations:
+// relo_tiles blocks of tiles, then blocks of NRM_THREADS features. Each
+// entry is added to by one thread of one block, in a fixed order: no atomics,
+// a repeat is bit-identical.
+template <typename T>
+__global__ void __launch_bounds__(NRM_THREADS) relo_normal_kernel(const ReloArgs<T> g) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ T part[NRM_WARPS][NACC];
+  __shared__ T bsum[NACC];
+  Stage<T> S;
+  const T* rl = relo_stage<T, NRM_THREADS>(g, reinterpret_cast<T*>(smem_raw), S);
+  const int W1 = g.W1, n_live = 1 + (g.ex ? g.C : 0);
+  const int n_tiles = relo_tiles(W1, n_live);
+  const int h = blockIdx.x;
+  if (h >= n_tiles) {
+    const int f = (h - n_tiles) * NRM_THREADS + threadIdx.x;
+    if (f < g.F) relo_feature(g, S, rl, f);
+    return;
+  }
+  int X = h, Y = h;  // h < W1: the diagonal pose tile (h, h)
+  if (h >= W1) {     // (X, Y): Y the live block lb, X a pose or a live block up to lb
+    int r = h - W1, lb = 0;
+    while (r >= W1 + lb + 1) {
+      r -= W1 + lb + 1;
+      ++lb;
+    }
+    Y = W1 + lb;
+    X = r;  // r < W1: pose r; else live block r - W1, at W1 + (r - W1)
+  }
+  relo_tile(g, S, rl, X, Y, part, bsum);
+}
+
+// The robust cost term of every feature, c² log1p(|r|² / c²) (0 where not
+// kept): a thread a feature, ROWS_THREADS a block.
+template <typename T>
+__global__ void __launch_bounds__(ROWS_THREADS) relo_cost_kernel(const ReloArgs<T> g) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Stage<T> S;
+  const T* rl = relo_stage<T, ROWS_THREADS>(g, reinterpret_cast<T*>(smem_raw), S);
+  const int f = blockIdx.x * ROWS_THREADS + threadIdx.x;
+  if (f >= g.F) return;
+  ReloObs<T> x;
+  T r0 = T(0), r1 = T(0), w = T(1), cost = T(0), J[2][26];
+  if (relo_load(g, f, x)) relo_lin<T, false>(g, S, rl, x, r0, r1, w, cost, J);
+  g.cost[f] = cost;
+}
+
+// The latency floor of a relo launch: nothing, with its grid, block, shared
+// memory and arguments.
+template <typename T>
+__global__ void relo_empty_kernel(const ReloArgs<T> g) {}
+
 #define PROJ_IN_PARAMS                                                                      \
   const void *p, const void *q, const void *tic, const void *qic, const void *td,           \
       const void *inv_depth, const void *bearing, const void *velocity, const void *td_obs, \
@@ -1030,6 +1327,32 @@ int launch_normal(PROJ_IN_PARAMS, int ex, int tdf, void* H_pp, void* b_p, void* 
   return (int)cudaGetLastError();
 }
 
+// One launch of relo_normal_kernel (normal != 0) or relo_cost_kernel, or
+// (empty) of relo_empty_kernel with that launch's grid, block and shared
+// memory.
+template <typename T>
+int launch_relo(PROJ_IN_PARAMS, const void* relo_p, const void* relo_q, const void* relo_bearing,
+                const void* relo_mask, int ex, int normal, bool empty, void* H6, void* b6,
+                void* H_pl6, void* H_ll, void* b_l, void* cost, cudaStream_t stream) {
+  const int D6 = 15 * W1 + 6 * C + 1 + 6;
+  const ReloArgs<T> g{proj_inputs<T>(PROJ_IN_ARGS), (const T*)relo_p, (const T*)relo_q,
+                      (const T*)relo_bearing, (const bool*)relo_mask, ex, D6, (T*)H6, (T*)b6,
+                      (T*)H_pl6, (T*)H_ll, (T*)b_l, (T*)cost};
+  const size_t smem = relo_values(W1, C) * sizeof(T);
+  const int threads = normal ? NRM_THREADS : ROWS_THREADS;
+  const int grid = normal ? relo_tiles(W1, 1 + (ex ? C : 0)) + (F + NRM_THREADS - 1) / NRM_THREADS
+                          : (F + ROWS_THREADS - 1) / ROWS_THREADS;
+  void (*kernel)(const ReloArgs<T>) =
+      empty ? relo_empty_kernel<T> : normal ? relo_normal_kernel<T> : relo_cost_kernel<T>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<grid, threads, smem, stream>>>(g);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // mode 1: rows (res [F, W1, 2], J26 [F, W1, 2, 26], w [F, W1], cost [F,
@@ -1072,4 +1395,27 @@ extern "C" int proj_normal_launch(PROJ_IN_PARAMS, int estimate_ex, int estimate_
                                        H_ll, b_l, cost, (cudaStream_t)stream)
                : launch_normal<float>(PROJ_IN_ARGS, estimate_ex, estimate_td, H_pp, b_p, H_pl,
                                       H_ll, b_l, cost, (cudaStream_t)stream);
+}
+
+// The relocalization rows (backend/relo_cuda.py). mode 1: relo_normal, adding
+// one linearization's relo rows into H6 [D6, D6], b6 [D6], H_pl6 [D6, F],
+// H_ll [F] and b_l [F] in place (D6 = 15 W1 + 6 C + 7; the extrinsic terms
+// only where estimate_ex); mode 0: relo_cost, the cost terms cost [F] (the
+// sums may be null). empty != 0: relo_empty_kernel with that launch's grid,
+// block and shared memory. The state's arguments as proj_rows_launch's;
+// relo_p [3], relo_q [4], relo_bearing [F, 3] of the state's dtype,
+// relo_mask [F] bool.
+extern "C" int relo_launch(PROJ_IN_PARAMS, const void* relo_p, const void* relo_q,
+                           const void* relo_bearing, const void* relo_mask, int estimate_ex,
+                           int mode, int empty, int dtype, void* H6, void* b6, void* H_pl6,
+                           void* H_ll, void* b_l, void* cost, void* stream) {
+  if (F < 0 || W1 < 1 || C < 1 || (mode != 0 && mode != 1) || (dtype != 0 && dtype != 1))
+    return -1;
+  if (F == 0) return 0;
+  return dtype ? launch_relo<double>(PROJ_IN_ARGS, relo_p, relo_q, relo_bearing, relo_mask,
+                                     estimate_ex, mode, empty != 0, H6, b6, H_pl6, H_ll, b_l,
+                                     cost, (cudaStream_t)stream)
+               : launch_relo<float>(PROJ_IN_ARGS, relo_p, relo_q, relo_bearing, relo_mask,
+                                    estimate_ex, mode, empty != 0, H6, b6, H_pl6, H_ll, b_l,
+                                    cost, (cudaStream_t)stream);
 }

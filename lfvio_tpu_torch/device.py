@@ -128,7 +128,8 @@ class DeviceProgram:
         self.graph = None
         self.static_in = None
         self.static_out = None
-        self.capture_s = 0.0
+        self.capture_s = 0.0  # the first call's set-up: cloning, warm-up and capture
+        self.warmup_s = 0.0  # its part up to the warm-up's end
         self._launches = []
 
     def __call__(self, *args):
@@ -160,6 +161,8 @@ class DeviceProgram:
         debug = torch.cuda.get_sync_debug_mode()
         torch.cuda.set_sync_debug_mode(0)
         try:
+            side.synchronize()  # the warm-up's end (the capture synchronizes anyway)
+            self.warmup_s = time.perf_counter() - t0
             with torch.cuda.graph(graph, pool=self.pool):
                 self.static_out = self.fn(*self.static_in)
         except Exception as e:

@@ -8,8 +8,8 @@ Port of ``lfvio_tpu.geom.rotations`` with the same conventions:
   * Euler helpers use yaw-pitch-roll (ZYX) in degrees.
 
 Every function broadcasts over leading batch dimensions and keeps the input
-dtype and device. All of them are composable with ``torch.func`` (the
-relocalization rows linearize through ``so3_exp`` with ``jacfwd``).
+dtype and device. The solver's factors differentiate none of them: their
+Jacobians are analytic (``backend/factors.py``).
 """
 
 from __future__ import annotations

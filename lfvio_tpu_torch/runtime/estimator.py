@@ -235,6 +235,10 @@ class Estimator:
         self.relo_relative_yaw = None
         self.relo_frame_stamp = None
         self._relo_active = None  # armed loop match for the next solve
+        # Under a solve lag: the landmarks of the last finalized solve,
+        # (feature ids [F], world points [F, 3], which are known [F]), the
+        # points set_relo_frame seeds its PnP from (see there).
+        self._solved_points = None
 
     def _tic0(self):
         """Primary camera's extrinsic translation: the host geometry paths
@@ -720,7 +724,16 @@ class Estimator:
         outputs); the next frame's solve takes the loop pose as a free
         6-dim block with one relo row per matched feature (backend/relo.py),
         and the refined outputs land at that solve's finalize. Returns True
-        when a drift estimate was produced."""
+        when a drift estimate was produced.
+
+        The landmarks: at solve lag 1 the host depths at the anchors (the
+        reference's); under a solve lag, the last finalized solve's points
+        (``_landmarks``). A lagged write-back keeps no solved depth of a
+        feature re-anchored since its dispatch (a MARGIN_OLD slide
+        re-anchors every feature of frame 0, and with one every frame none
+        is ever written back), so those host depths stay the re-anchored
+        initial ones: at 640x480 on the bench's stream a median 0.13 of the
+        solved depths, which PnP cannot fit."""
         idx = self._header_index(frame_stamp, self.WIN)
         if idx is None or self.solver_flag != self.NON_LINEAR:
             return False
@@ -729,13 +742,22 @@ class Estimator:
         relo_bearing = np.zeros((self.cfg.n_feature_slots, 3))
         relo_mask = np.zeros(self.cfg.n_feature_slots, bool)
         match_bearings = np.asarray(match_bearings, np.float64)
+        solved = None
+        if self.cfg.solve_lag > 1 and self._solved_points is not None:
+            ids, pts, known = self._solved_points
+            solved = {int(i): x for i, x in zip(ids[known], pts[known])}
         for fid, b_old in zip(np.asarray(match_ids, np.int64), match_bearings):
             s = self.fm._id2slot.get(int(fid), -1)
             if s < 0 or self.fm.depth[s] <= 0:
                 continue
-            a = int(self.fm.anchor[s])
-            p_cam = self.fm.bearing[s, a] * self.fm.depth[s]
-            pw.append(hg.quat_to_mat(self.Qs[a]) @ (ric @ p_cam + tic0) + self.Ps[a])
+            if solved is None:
+                a = int(self.fm.anchor[s])
+                p_cam = self.fm.bearing[s, a] * self.fm.depth[s]
+                pw.append(hg.quat_to_mat(self.Qs[a]) @ (ric @ p_cam + tic0) + self.Ps[a])
+            elif int(fid) in solved:
+                pw.append(solved[int(fid)])
+            else:
+                continue
             b_u = b_old / max(np.linalg.norm(b_old), 1e-12)
             bb.append(b_u)
             relo_bearing[s] = b_u
@@ -905,6 +927,9 @@ class Estimator:
             snap_anchor=self.fm.anchor.copy(),
             snap_used=np.asarray(self.fm.used_mask()).copy(),
         )
+        if lagged:  # each slot's anchor bearing, for the solve's landmarks
+            pend["snap_bearing"] = self.fm.bearing[np.arange(len(self.fm.anchor)),
+                                                   self.fm.anchor].copy()
         self._pending_q.append(pend)
         if lagged:
             # Slide now with the propagated (pre-solve) mirrors, so the next
@@ -930,6 +955,7 @@ class Estimator:
         state_host, (rn, rvalid, relo_p, relo_q) = host[:9], host[9:]
         if pend["eager_slid"]:
             self._write_back_lagged(pend, state_host)
+            self._solved_points = self._landmarks(pend, state_host)
         else:
             self._write_back(*state_host)
         if relo_p is not None and pend["relo"] is not None:
@@ -1009,6 +1035,19 @@ class Estimator:
             & (self.fm.anchor == pend["snap_anchor"] - n_old)
         )
         self.fm.mark_solved_depths(inv_depth, applicable)
+
+    def _landmarks(self, pend, state_host):
+        """The world points of a lagged solve's features: each used slot's
+        solved inverse depth along its anchor bearing at dispatch, from its
+        solved anchor pose (camera 0's extrinsic, as set_relo_frame's
+        points). Returns (feature ids, points [F, 3], known [F])."""
+        p, q, inv_depth = state_host[0], state_host[1], state_host[8]
+        a = pend["snap_anchor"]
+        known = pend["snap_used"] & (pend["snap_id"] >= 0) & (inv_depth > 0)
+        depth = np.where(known, 1.0 / np.where(known, inv_depth, 1.0), 0.0)
+        p_imu = (pend["snap_bearing"] * depth[:, None]) @ self._ric0().T + self._tic0()
+        pts = np.einsum("fij,fj->fi", hg.quat_to_mat(q[a]), p_imu) + p[a]
+        return pend["snap_id"].copy(), pts, known
 
     def _propagate_slot(self, j):
         """Midpoint-propagate mirror slot j from slot j-1 over its buffered

@@ -1004,3 +1004,126 @@ def _leaves(x):
     from lfvio_tpu_torch.device import _leaves as leaves
 
     return [t for t in leaves(x, []) if t.is_floating_point()]
+
+
+# ------------------------------------------------ csrc/proj_factor.cu: the relo rows
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n_cams,n_slots", [(1, 256), (2, 64)])
+def test_relo_kernels_match_plain(dev, dtype, n_cams, n_slots):
+    """relo_normal (H6, H_pl6, H_ll, b6, b_l on zero sums) and relo_cost
+    against their plain versions on chip_smoke.relo_window (256 slots,
+    window 10, mono; 64 slots with anchors on both cameras), within 1e-5
+    (f32) or 1e-12 (f64) of each output's scale, a repeat bit-identical, and
+    the planted faults (a zero cost, a dropped match, the loop side's
+    extrinsic block in the anchor camera's columns) rejected."""
+    import chip_smoke
+
+    args = chip_smoke.relo_window(dev, dtype, n_cams, n_slots)
+    bound = chip_smoke.RELO_BOUNDS[str(dtype).split(".")[-1]]
+    errs, _, identical = chip_smoke.relo_compare(args)
+    assert identical
+    assert max(errs.values()) <= bound, errs
+    faults = chip_smoke.relo_planted_faults(args)
+    assert len(faults) == (3 if n_cams == 2 else 2)
+    for fault, fe in faults.items():
+        assert all(fe[n] > bound for n in chip_smoke.RELO_FAULT_OUTPUTS[fault]), (fault, fe)
+
+
+@pytest.mark.parametrize("estimate_extrinsic", [True, False])
+def test_relo_normal_adds_in_place(dev, estimate_extrinsic):
+    """relo_normal adds into the sums it is given and returns them: on a
+    random base, kernel = base + the plain version's terms (f64, two
+    cameras); with the extrinsic not estimated its rows and columns keep the
+    base's values exactly."""
+    import dataclasses
+
+    import chip_smoke
+    from lfvio_tpu_torch.backend import relo_cuda as rc
+
+    state, grid, cfg, relo = chip_smoke.relo_window(dev, torch.float64, 2)
+    cfg = dataclasses.replace(cfg, estimate_extrinsic=estimate_extrinsic)
+    F, W1 = grid.valid.shape
+    D6 = 15 * W1 + 12 + 1 + 6
+    g = torch.Generator(device=dev).manual_seed(0)
+    base = [torch.randn(s, dtype=torch.float64, device=dev, generator=g)
+            for s in ((D6, D6), (D6, F), (F,), (D6,), (F,))]
+    sums = [b.clone() for b in base]
+    out = rc.relo_normal(*sums, state, grid, *relo, cfg)
+    assert all(o is s for o, s in zip(out, sums))
+    zeros = [torch.zeros_like(b) for b in base]
+    terms = rc.relo_normal_plain(*zeros, state, grid, *relo, cfg)
+    for o, b, term in zip(out, base, terms):
+        assert float((o - (b + term)).abs().max()) <= 1e-12 * max(float(term.abs().max()), 1.0)
+    ex = slice(15 * W1, 15 * W1 + 12)
+    if not estimate_extrinsic:
+        assert torch.equal(out[0][ex], base[0][ex]) and torch.equal(out[0][:, ex], base[0][:, ex])
+        assert torch.equal(out[1][ex], base[1][ex]) and torch.equal(out[3][ex], base[3][ex])
+
+
+def test_relo_wrappers_reject_what_the_kernels_do_not_take(dev):
+    """Wrong dtype, shape, device mix or a strided input raise; nothing
+    falls back to the plain version."""
+    import chip_smoke
+    from lfvio_tpu_torch.backend import relo_cuda as rc
+
+    state, grid, cfg, (rp, rq, rb, rm) = chip_smoke.relo_window(dev, torch.float32, 1, 32)
+    F, W1 = grid.valid.shape
+    D6 = 15 * W1 + 6 + 1 + 6
+    z = lambda *s: torch.zeros(s, device=dev)
+    sums = (z(D6, D6), z(D6, F), z(F), z(D6), z(F))
+    bad = [(rp.double(), rq, rb, rm), (rp, rq, rb[:-1], rm), (rp, rq, rb, rm.float()),
+           (rp.cpu(), rq, rb, rm), (rp, rq, torch.zeros((3, F), device=dev).T, rm)]
+    for relo in bad:
+        with pytest.raises(ValueError):
+            rc.relo_cost(state, grid, *relo, cfg)
+        with pytest.raises(ValueError):
+            rc.relo_normal(*sums, state, grid, *relo, cfg)
+    with pytest.raises(ValueError):  # the sums of the un-augmented layout
+        rc.relo_normal(z(D6 - 6, D6 - 6), *sums[1:], state, grid, rp, rq, rb, rm, cfg)
+    with pytest.raises(ValueError):  # a strided H6
+        rc.relo_normal(z(D6, D6).T, *sums[1:], state, grid, rp, rq, rb, rm, cfg)
+
+
+def test_relo_launches_counted_at_graph_replay(dev):
+    """lm_solve_relo at cap 8 as a DeviceProgram (f64, two cameras): each
+    replay counts 8 relo_normal and 9 relo_cost launches, as many as the
+    projection's normal and cost launches; the replay equals the eager
+    function within 1e-9 of the scale, and another loop pose copied into
+    its static inputs gives the eager result at that pose."""
+    import chip_smoke
+    from lfvio_tpu_torch.backend import proj_cuda as pc
+    from lfvio_tpu_torch.backend import relo_cuda as rc
+    from lfvio_tpu_torch.backend.relo import lm_solve_relo
+    from lfvio_tpu_torch.backend.state import PriorFactor
+    from lfvio_tpu_torch.device import DeviceProgram
+    from lfvio_tpu_torch.imu import preintegrate, whiten_covariance
+    from lfvio_tpu_torch.runtime.profiling import make_window_problem
+
+    state, grid, cfg, relo = chip_smoke.relo_window(dev, torch.float64, 2)
+    pb = make_window_problem(64, torch.float64, n_obs_frames=5, device=dev)
+    imu = [torch.as_tensor(pb[k], dtype=torch.float64, device=dev)
+           for k in ("dts", "accs", "gyrs", "a0", "g0")]
+    pre = preintegrate(*imu, state.ba[:-1], state.bg[:-1], pb["noise"])
+    si, ok = whiten_covariance(pre.covariance, torch.as_tensor(pb["imu_valid"], device=dev))
+    prior = PriorFactor.empty(torch.float64, grid.valid.shape[1], dev, n_cams=2)
+    assert cfg.max_iterations == 8
+
+    def solve(rp, rq):
+        return lm_solve_relo(state, grid, pre, si, ok, prior, pb["gravity"], cfg, rp, rq,
+                             *relo[2:])[:3]
+
+    kernels = (rc.relo_normal, rc.relo_cost, pc.proj_normal, pc.proj_cost)
+    prog = DeviceProgram(solve)
+    eager = solve(*relo[:2])
+    prog(*relo[:2])
+    before = [k.launches for k in kernels]
+    for _ in range(2):
+        out = prog(*relo[:2])
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(kernels, before)] == [16, 18, 16, 18]
+    for x, y in zip(_leaves(out), _leaves(eager)):
+        assert float((x - y).abs().max()) <= 1e-9 * max(float(y.abs().max()), 1.0)
+    rp2 = relo[0] + 0.02
+    out2, eager2 = _leaves(prog(rp2, relo[1])), _leaves(solve(rp2, relo[1]))
+    for x, y in zip(out2, eager2):
+        assert float((x - y).abs().max()) <= 1e-9 * max(float(y.abs().max()), 1.0)
