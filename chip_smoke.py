@@ -58,10 +58,12 @@ lines; any failure ends the run with a non-zero exit code:
      yaw 12 deg and (0.4, -0.3, 0.1) m): |relo_relative_t| < 0.25 m,
      |relo_relative_yaw| < 5 deg, the drift correction's yaw within 5 deg
      of the planted one (plus the VIO world's yaw against the truth), the
-     match consumed, ATE < 0.5 m, both relo kernels launched; the first
-     relo solve's wall ms (warm-up, capture, replay), the relo and solve
-     replays' card ms and nodes, and cap relo_normal + cap + 1 relo_cost
-     launches a relo replay;
+     match consumed, ATE < 0.5 m, both relo kernels launched; the relo
+     graph captured at the first solve (its warm-up, capture and
+     max_memory_allocated before and after), the first relo solve within
+     50 ms of wall time, the relo and solve replays' card ms and nodes (at
+     most 4,596 kernel nodes in the relo graph), and cap relo_normal + cap
+     + 1 relo_cost launches a relo replay;
   7. the estimator's capabilities on the card, bearing-level (a stub front
      end serves analytic bearings; 64 slots, f64 solver): td recovery,
      online extrinsic rotation, relocalization, window 20, solve lag 3, the
@@ -114,7 +116,8 @@ lines; any failure ends the run with a non-zero exit code:
      (f64 and f32), a bit-identical repeat, planted faults (a zero cost, a
      dropped match, the loop side's extrinsic block in the anchor camera's
      columns) rejected, and each launch's times, latency floor, plain
-     version's time and bound ([14r] lines); the
+     version's time and bound at phase 6r's inputs and on the two-camera
+     f32 window ([14r] lines); the
      eigensolver kernel against
      torch.linalg.eigh on the main path's inputs at 256 and 384 slots (the
      [256, 4, 4] and [384, 4, 4] DLT matrices of a triangulation, RANSAC's
@@ -151,6 +154,7 @@ last {"ok": true, "device": {...}}. Imports neither JAX nor the JAX package.
 from __future__ import annotations
 
 import datetime
+import gc
 import json
 import os
 import struct
@@ -989,6 +993,13 @@ RELO_REL_YAW_DEG = 5.0
 RELO_DRIFT_YAW_DEG = 5.0
 # Solves the estimator finalizes before the loop closure is armed.
 RELO_ARM_SOLVES = 5
+# The first relo solve's wall time around its synchronized dispatch: its
+# graph is captured at the first solve, so the loop closure replays it
+# (captured at the loop closure instead, it took 304.4 ms on an H100).
+RELO_FIRST_WALL_MS = 50.0
+# The relo graph's kernel nodes at full width: 8 relo_normal and 9
+# relo_cost launches a replay beside the solve's, as they have always been.
+RELO_MAX_NODES = 4596
 
 
 def _wrap_deg(a):
@@ -1044,8 +1055,12 @@ def phase_relo_full_scale(rig, plain_calls):
     both relo kernels launched, and, armed once more on the final window,
     one replay of the relo graph launching cap relo_normal and cap + 1
     relo_cost (as many as the projection's and the IMU's normal and cost
-    launches). Logs the first relo solve's wall ms (synchronized around its
-    dispatch) with its warm-up, capture and replay, the relo and solve
+    launches), at most RELO_MAX_NODES kernel nodes in its graph, that graph
+    captured at the first solve's dispatch (Estimator._capture_relo) and
+    the first relo solve within RELO_FIRST_WALL_MS of wall time
+    (synchronized around its dispatch). Logs that first solve's dispatch
+    with the relo program's warm-up, capture and max_memory_allocated
+    before and after it, the first relo solve's wall ms, the relo and solve
     replays' card ms and their graphs' nodes. Returns dict(launches, args:
     the relo program's (state, grid, cfg, relo) inputs on the final window,
     and the numbers logged)."""
@@ -1053,20 +1068,33 @@ def phase_relo_full_scale(rig, plain_calls):
     from lfvio_tpu_torch.geom import host as hg
 
     fe, est, pipe = rig.make(2, 3)
-    first = {}
-    dispatch = est._dispatch_solve
+    first, first_solve, early = {}, {}, {}
+    dispatch, capture_relo = est._dispatch_solve, est._capture_relo
 
     def timed_dispatch(*a, **k):
-        if est._relo_active is None or first:
+        rec = (first_solve if not first_solve else
+               first if est._relo_active is not None and not first else None)
+        if rec is None:
             return dispatch(*a, **k)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = dispatch(*a, **k)
         torch.cuda.synchronize()
-        first.update(wall_ms=1e3 * (time.perf_counter() - t0), t=float(a[0]))
+        rec.update(wall_ms=1e3 * (time.perf_counter() - t0), t=float(a[0]))
         return out
 
-    est._dispatch_solve = timed_dispatch
+    def timed_capture(packed, prior, cap):
+        if any(key[0] == "relo" for key in est._programs):
+            return capture_relo(packed, prior, cap)
+        torch.cuda.synchronize()
+        mem0 = (torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated())
+        capture_relo(packed, prior, cap)
+        torch.cuda.synchronize()
+        early.update(first_solve=not first_solve, cap=cap, prog=est._programs.get(("relo", cap)),
+                     mem_before=mem0, mem_after=(torch.cuda.memory_allocated(),
+                                                 torch.cuda.max_memory_allocated()))
+
+    est._dispatch_solve, est._capture_relo = timed_dispatch, timed_capture
     reset_launches()
     plain_calls["n"] = 0
     armed = None
@@ -1079,7 +1107,7 @@ def phase_relo_full_scale(rig, plain_calls):
     pipe.flush()
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    del est._dispatch_solve
+    del est._dispatch_solve, est._capture_relo
     launches = factor_launches()
     if armed is None or not first:
         raise AssertionError("[6r] the loop closure was not armed, or its solve did not run")
@@ -1114,6 +1142,19 @@ def phase_relo_full_scale(rig, plain_calls):
     cap = est.cfg.max_iterations
     prog = est._programs[("relo", cap)]
     warm_ms, capture_ms = 1e3 * prog.warmup_s, 1e3 * (prog.capture_s - prog.warmup_s)
+    mib = lambda b: b / 2**20
+    if not early:
+        raise AssertionError("[6r] the relo program was not captured before the loop closure")
+    (m0, p0), (m1, p1) = early["mem_before"], early["mem_after"]
+    log(f"[6r] the relo program (cap {early['cap']}) captured at the first solve's dispatch "
+        f"(t = {first_solve['t']:.4f} s): its eager warm-up {warm_ms:.1f} "
+        f"ms, its capture {capture_ms:.1f} ms; that dispatch {first_solve['wall_ms']:.1f} ms of "
+        f"wall time (synchronized; its solve's and marginalization's captures too); "
+        f"max_memory_allocated {mib(p0):.1f} MiB before the relo capture, {mib(p1):.1f} MiB "
+        f"after; memory_allocated {mib(m0):.1f} -> {mib(m1):.1f} MiB")
+    if not (early["first_solve"] and early["prog"] is prog and prog.graph is not None):
+        raise AssertionError("[6r] the relo graph the loop closure replayed was not captured at "
+                             "the first solve")
     # Armed once more on the final window: the relo program's inputs.
     arm_loop_closure(est, rig.world)
     relo = dict(est._relo_active,
@@ -1129,9 +1170,9 @@ def phase_relo_full_scale(rig, plain_calls):
           "solve": cuda_ms(lambda: solve(packed, prior, chain), n=5, warmup=1)}
     nodes = {"relo": graph_nodes(prog), "solve": graph_nodes(solve)}
     log(f"[6r] the first relo solve (cap {cap}): {first['wall_ms']:.1f} ms of wall time around "
-        f"its synchronized dispatch (pack, upload, the relo program's first call, the "
-        f"marginalization's replay, the fetch): the program's eager warm-up {warm_ms:.1f} ms, "
-        f"its capture {capture_ms:.1f} ms, a replay {ms['relo']:.3f} ms on the card")
+        f"its synchronized dispatch (pack, upload, a replay of the relo graph captured at the "
+        f"first solve, the marginalization's replay, the fetch; bound {RELO_FIRST_WALL_MS} ms); "
+        f"a replay {ms['relo']:.3f} ms on the card")
     log(f"[6r] relo solve replay (cap {cap}) {ms['relo']:.3f} ms on the card beside the solve "
         f"replay's {ms['solve']:.3f} ms; nodes relo " + ", ".join(
             f"{k} {v}" for k, v in nodes["relo"].items()) + "; solve " + ", ".join(
@@ -1142,10 +1183,16 @@ def phase_relo_full_scale(rig, plain_calls):
             "imu_normal": cap, "imu_cost": cap + 1, "relo_normal": cap, "relo_cost": cap + 1}
     if per_replay != want:
         raise AssertionError(f"[6r] a relo replay at cap {cap} did not launch {want}")
+    if nodes["relo"].get("kernel", 0) > RELO_MAX_NODES:
+        raise AssertionError(f"[6r] the relo graph has more than {RELO_MAX_NODES} kernel nodes")
+    if first["wall_ms"] > RELO_FIRST_WALL_MS:
+        raise AssertionError(f"[6r] the first relo solve took {first['wall_ms']:.1f} ms of wall "
+                             f"time, above {RELO_FIRST_WALL_MS}")
     state, grid, _, _, relo_t = est._unpack(packed_r.clone())[:5]
     return dict(launches=launches, args=(state, grid, est.scfg, relo_t), first=first,
-                warm_ms=warm_ms, capture_ms=capture_ms, ms=ms, nodes=nodes, rel_t=rel_t,
-                rel_yaw=rel_yaw, drift_yaw=drift_yaw, want_yaw=want_yaw, ate=ate)
+                first_solve=first_solve, warm_ms=warm_ms, capture_ms=capture_ms,
+                mem_mib=(mib(p0), mib(p1)), ms=ms, nodes=nodes, rel_t=rel_t, rel_yaw=rel_yaw,
+                drift_yaw=drift_yaw, want_yaw=want_yaw, ate=ate)
 
 
 def phase_five_launch_path(fe, frames, stages):
@@ -2433,10 +2480,14 @@ def graph_nodes(prog):
     debug = torch.cuda.get_sync_debug_mode()
     torch.cuda.set_sync_debug_mode(0)
     graph = torch.cuda.CUDAGraph(keep_graph=True)
+    gc_on = gc.isenabled()
+    gc.disable()  # as DeviceProgram captures: no graph destroyed mid-capture
     try:
         with torch.cuda.graph(graph):
             prog.fn(*prog.static_in)
     finally:
+        if gc_on:
+            gc.enable()
         torch.cuda.set_sync_debug_mode(debug)
         for k, b in zip(KERNELS, before):
             k.launches = b
@@ -3290,10 +3341,74 @@ def relo_window(dev, dtype, n_cams, n_slots=64):
     return state, grid, cfg, tuple(cast(x) for x in relo)
 
 
-def relo_outputs(args, plain=False, mask=None):
+# The anchor layouts of relo_layout: the main path's (96-97% of the used
+# features anchored at frame 0 on the bench's streams) and anchors spread
+# evenly over the window's first W1 - 2 frames.
+RELO_LAYOUTS = {"front": 0.96, "spread": None}
+
+
+def relo_layout(dev, dtype, W1, n_slots, n_cams, layout, seed=0):
+    """Relo inputs of any window length, slot count and anchor layout (a key
+    of RELO_LAYOUTS), made with numpy from ``seed``: W1 frames along a
+    curve (2 m over the window), points 3-8 m away seen from every frame (through a random camera
+    of ``n_cams`` a observation), inverse depths 5% off, a tenth of the slots
+    unused, the loop frame a pose 3 cm off window frame 3 seen through
+    camera 0 with 3e-3 bearing noise, a quarter of the matches masked; one
+    camera without the extrinsic estimated (the main path's), two with it.
+    Returns (state, grid, cfg, (relo_p, relo_q, relo_bearing, relo_mask))
+    in ``dtype``."""
+    import torch
+    from lfvio_tpu_torch.backend import FeatureGrid, SolverConfig, WindowState
+    from lfvio_tpu_torch.geom import host as hg
+
+    rng = np.random.default_rng(seed)
+    F, C = n_slots, n_cams
+    t = np.linspace(0.0, 1.0, W1)
+    p = np.stack([2.0 * t, 0.3 * np.sin(3 * t), 0.1 * t], -1)
+    q = np.stack([hg.so3_exp(np.array([0.05 * np.sin(2 * s), 0.1 * s, 0.3 * s])) for s in t])
+    R = hg.quat_to_mat(q)
+    tic = np.array([[0.01, -0.02, 0.005], [-0.015, 0.03, -0.04]])[:C]
+    qic = np.stack([hg.so3_exp(0.02 * rng.standard_normal(3)) for _ in range(C)])
+    Ric = hg.quat_to_mat(qic)
+    dirs = rng.standard_normal((F, 3))
+    pts = p.mean(0) + dirs / np.linalg.norm(dirs, axis=-1, keepdims=True) * rng.uniform(3, 8, (F, 1))
+    front = RELO_LAYOUTS[layout]
+    spread = rng.integers(0, max(W1 - 2, 1), F)
+    anchor = (spread if front is None else
+              np.where(rng.random(F) < front, 0, rng.integers(1, max(W1 - 2, 2), F)))
+    cam = rng.integers(0, C, (F, W1))
+
+    def bearing(Rw, pw, c, X):  # X seen from the body pose (Rw, pw) through camera c
+        b = np.einsum("...k,...kl->...l", np.einsum("...k,...kl->...l", X - pw, Rw) - tic[c],
+                      Ric[c])
+        return b / np.linalg.norm(b, axis=-1, keepdims=True)
+
+    bear = bearing(R[None], p[None], cam, pts[:, None])
+    fi = np.arange(F)
+    pc = np.einsum("fk,fkl->fl", np.einsum("fk,fkl->fl", pts - p[anchor], R[anchor])
+                   - tic[cam[fi, anchor]], Ric[cam[fi, anchor]])
+    inv_depth = rng.uniform(0.95, 1.05, F) / np.linalg.norm(pc, axis=-1)
+    rp = p[3] + 0.03 * rng.standard_normal(3)
+    rb = bearing(R[3], rp, np.zeros(F, int), pts) + 3e-3 * rng.standard_normal((F, 3))
+    tt = lambda a, dt=dtype: torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
+    state = WindowState(p=tt(p), q=tt(q), v=tt(np.zeros((W1, 3))), ba=tt(np.zeros((W1, 3))),
+                        bg=tt(np.zeros((W1, 3))), tic=tt(tic[0] if C == 1 else tic),
+                        qic=tt(qic[0] if C == 1 else qic), td=tt(0.0), inv_depth=tt(inv_depth))
+    grid = FeatureGrid(bearing=tt(bear), velocity=tt(0.01 * rng.standard_normal((F, W1, 3))),
+                       td_obs=tt(np.zeros((F, W1))), valid=tt(np.ones((F, W1), bool), torch.bool),
+                       anchor=tt(anchor, torch.int64),
+                       used=tt(rng.random(F) < 0.9, torch.bool),
+                       cam=tt(cam, torch.int64) if C > 1 else None)
+    cfg = SolverConfig(n_cams=C, estimate_extrinsic=C > 1)
+    relo = (tt(rp), tt(q[3]), tt(rb), tt(rng.random(F) < 0.75, torch.bool))
+    return state, grid, cfg, relo
+
+
+def relo_outputs(args, plain=False, mask=None, kernels=None):
     """Every output of the two relo launches on zero sums, {name: tensor}:
-    the kernels' or (``plain``) their plain versions' (``mask`` in place of
-    the match mask)."""
+    the kernels' (with ``kernels``, {"relo_normal", "relo_cost": callable},
+    other wrappers of the two launches) or (``plain``) their plain
+    versions' (``mask`` in place of the match mask)."""
     import torch
     from lfvio_tpu_torch.backend import relo_cuda as rc
     from lfvio_tpu_torch.backend.state import n_cams_of, pose_dim
@@ -3305,8 +3420,9 @@ def relo_outputs(args, plain=False, mask=None):
     D6 = pose_dim(W1, n_cams_of(state)) + 6
     z = lambda *s: torch.zeros(s, dtype=state.p.dtype, device=state.p.device)
     sums = (z(D6, D6), z(D6, F), z(F), z(D6), z(F))
-    normal = rc.relo_normal_plain if plain else rc.relo_normal
-    cost = rc.relo_cost_plain if plain else rc.relo_cost
+    kernels = kernels or {"relo_normal": rc.relo_normal, "relo_cost": rc.relo_cost}
+    normal = rc.relo_normal_plain if plain else kernels["relo_normal"]
+    cost = rc.relo_cost_plain if plain else kernels["relo_cost"]
     return dict(zip(RELO_OUTPUTS, (*normal(*sums, state, grid, *relo, cfg),
                                    cost(state, grid, *relo, cfg))))
 
@@ -3333,13 +3449,13 @@ def relo_errors(outs, ref, scale):
             for n in ref}
 
 
-def relo_compare(args):
+def relo_compare(args, kernels=None):
     """(errors relative to each output's scale, {launch: (largest absolute
     error, largest relative error) of its outputs}, a repeat of the kernels
-    bit-identical)."""
+    bit-identical); ``kernels`` as relo_outputs takes them."""
     import torch
 
-    k, again = relo_outputs(args), relo_outputs(args)
+    k, again = relo_outputs(args, kernels=kernels), relo_outputs(args, kernels=kernels)
     p = relo_outputs(args, plain=True)
     identical = all(torch.equal(k[n], again[n]) for n in k)
     errs = relo_errors(k, p, relo_scales(args))
@@ -3423,11 +3539,11 @@ def phase_relo_factor(dev, full_args):
     of RELO_FAULT_OUTPUTS rejected; each launch's times behind a full queue
     and launched alone, beside its latency floor
     (``relo_cuda.latency_floor``), its plain version's and its bound, at
-    (r). Returns the kernels line's numbers: errors the worst of the f32
-    cases."""
+    (r) and on the two-camera f32 window (extrinsics estimated). Returns
+    the kernels line's numbers, (r)'s times (the two-camera window's under
+    "two_camera"): errors the worst of the f32 cases."""
     import torch
-    from lfvio_tpu_torch.backend import relo_cuda as rc
-    from lfvio_tpu_torch.backend.state import n_cams_of, pose_dim
+    from lfvio_tpu_torch.backend.state import n_cams_of
 
     label_r = "(r) phase 6r's relo solve, 256 slots, window 10, f32"
     cases = {label_r: full_args,
@@ -3461,10 +3577,30 @@ def phase_relo_factor(dev, full_args):
                 wa, wr = worst.get(m, (0.0, 0.0))
                 worst[m] = (max(wa, a), max(wr, r))
     block = make_blocker(dev)
-    state, grid, cfg, relo = full_args
+    out = {}
+    for label, args in ((label_r, full_args), ("two-camera 64 slots, f32, extrinsics estimated",
+                                               cases["two-camera 64 slots, f32"])):
+        for mode, rec in relo_times(args, label, block).items():
+            if label != label_r:
+                out[mode]["two_camera"] = rec
+                continue
+            out[mode] = dict(max_abs_err=worst[mode][0], max_rel_err=worst[mode][1],
+                             rel_bound=RELO_BOUNDS["float32"], library_ms=None, **rec)
+    return out
+
+
+def relo_times(args, label, block):
+    """Each relo launch at ``args`` behind a full queue and launched alone,
+    beside its latency floor (relo_cuda.latency_floor), its plain version's
+    time and its bound; logged, and returned as {mode: {ms, ...}}."""
+    import torch
+    from lfvio_tpu_torch.backend import relo_cuda as rc
+    from lfvio_tpu_torch.backend.state import n_cams_of, pose_dim
+
+    state, grid, cfg, relo = args
     F, W1 = grid.valid.shape
     D6 = pose_dim(W1, n_cams_of(state)) + 6
-    z = lambda *s: torch.zeros(s, dtype=state.p.dtype, device=dev)
+    z = lambda *s: torch.zeros(s, dtype=state.p.dtype, device=state.p.device)
     sums = (z(D6, D6), z(D6, F), z(F), z(D6), z(F))
     runs = {"relo_normal": (lambda: rc.relo_normal(*sums, state, grid, *relo, cfg),
                             lambda: rc.relo_normal_plain(*sums, state, grid, *relo, cfg)),
@@ -3476,16 +3612,14 @@ def phase_relo_factor(dev, full_args):
         empty = lambda: rc.latency_floor(mode, state, grid, *relo, cfg)
         floor, floor_alone = cuda_ms(empty, reps=10, blocker=block), cuda_ms(empty)
         plain_ms = cuda_ms(plain, reps=3, blocker=block)
-        bound, by, nbytes, flops = relo_bound_ms(full_args, mode)
-        log(f"[14r] {mode} {label_r}: {ms:.4f} ms behind a full queue, {alone:.4f} ms launched "
+        bound, by, nbytes, flops = relo_bound_ms(args, mode)
+        log(f"[14r] {mode} {label}: {ms:.4f} ms behind a full queue, {alone:.4f} ms launched "
             f"alone; latency floor (the empty kernel, same grid, block and launch path) "
             f"{floor:.4f} ms behind a full queue, {floor_alone:.4f} ms alone; plain version "
             f"{plain_ms:.4f} ms; bound {bound:.6f} ms by {by} ({nbytes} B, {flops / 1e6:.3f} "
             f"MFLOP); at {100 * bound / ms:.2f}% of it; no PyTorch call computes this function")
-        out[mode] = dict(max_abs_err=worst[mode][0], max_rel_err=worst[mode][1],
-                         rel_bound=RELO_BOUNDS["float32"], ms=ms, ms_launched_alone=alone,
-                         floor_ms=floor, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                         library_ms=None)
+        out[mode] = dict(ms=ms, ms_launched_alone=alone, floor_ms=floor, plain_ms=plain_ms,
+                         bound_ms=bound, bound_by=by)
     return out
 
 

@@ -20,7 +20,8 @@ Two wrappers, each with its own ``launches`` count (registered with
     The rows reach the anchor-pose, extrinsic and loop-pose blocks of H6
     and b6, and each matched feature's H_pl6 column, H_ll and b_l; the
     extrinsic columns only where ``cfg.estimate_extrinsic``. No row is
-    written to memory;
+    written to memory; each kept feature is linearized once a launch, in
+    one block (at most ``MAX_SLOTS`` slots);
   * ``relo_cost(state, grid, relo_p, relo_q, relo_bearing, relo_mask, cfg)``
     -> cost [F]: each feature's robust cost term c² log1p(|r|²/c²), 0 where
     it is not matched (``relo_mask & grid.used``).
@@ -145,6 +146,9 @@ def relo_cost_plain(state, grid, relo_p, relo_q, relo_bearing, relo_mask, cfg):
 
 
 # ------------------------------------------------------------ the kernels
+# relo_normal_kernel's one block linearizes at most four rounds of 256
+# features (RN_ROUNDS * RN_LIN in the source).
+MAX_SLOTS = 1024
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = ([_P] * 13 + [_I, _I, _I, ctypes.c_double, ctypes.c_double] + [_P] * 4
              + [_I, _I, _I, _I] + [_P] * 7)
@@ -214,6 +218,9 @@ class ReloKernel:
         name = "relo_normal" if self.normal else "relo_cost"
         if self.normal:
             _check_sums(name, sums, state, grid)
+            if grid.anchor.shape[0] > MAX_SLOTS:
+                raise ValueError(f"relo_normal: the kernel takes at most {MAX_SLOTS} slots, "
+                                 f"got {grid.anchor.shape[0]}")
         if self._fn is None:
             self._fn = _bind("relo_launch", _ARGTYPES)
         cost, launched = _launch(self._fn, name, int(self.normal), False, state, grid, relo, cfg,

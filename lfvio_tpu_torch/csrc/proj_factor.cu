@@ -80,18 +80,33 @@
 // features), its sums into the augmented [D + 6] system (:181-202) and its
 // cost (:209). A relo row is a projection row whose observer is the loop
 // pose seen through camera 0, with td = td_obs = 0 and zero velocities, so
-// both launches evaluate it through lin_obs (relo_lin). relo_cost_kernel is
-// a thread a feature. relo_normal_kernel adds one linearization's rows into
-// the sums in place: a 128-thread block a tile of H6 (the W1 anchor-pose
-// diagonal tiles, then each live block's, the loop pose and the estimated
-// extrinsics, with the poses and the live blocks up to it; a feature reaches
-// one pose block only), each thread walking every feature and evaluating
-// the kept ones that reach both blocks, the sums meeting in block_sum's
-// order; then blocks of 128 features, a thread adding its feature's H_pl6
-// column, H_ll and b_l. No atomics: a repeat is bit-identical. What bounds
-// them on an H100: latency (a launch a few µs against a bound below 0.1 µs
-// at the bench's 256 slots); each tile walking all F features is the first
-// thing to take out.
+// both launches evaluate it through lin_obs (relo_lin), each thread forming
+// the rotations of its anchor frame, its camera, camera 0 and the loop pose
+// from the quaternions it loads (relo_obs): a feature reads a few frames of
+// the window, and a thread that forms them itself waits for no other.
+// relo_cost_kernel is a thread a feature with nothing between its loads and
+// its evaluation: no shared memory, no barrier. relo_normal_kernel adds one
+// linearization's rows into the sums in place, in one block: warps
+// 1..RN_LIN_WARPS linearize each kept feature once, a thread a feature,
+// which adds what the feature owns (its H_pl6 column, H_ll, b_l, whose old
+// values it reads before linearizing) and puts its weighted row blocks
+// (anchor pose, loop pose, each extrinsic when estimated, r w) into shared
+// memory at its place in a list of the kept features sorted by anchor (a
+// ballot an anchor in each warp, the counts' scan; no atomics), while warp
+// 0 builds the list's segments and the jobs. Then a warp a job: a diagonal
+// tile's upper triangle and b6 block, or half the rows of an off-diagonal
+// tile (an anchor's pose tiles over its segment of the list, the loop
+// pose's and the extrinsics' over all of it); a job of more than
+// ENTRY_SPLIT_MAX features split over the lanes by feature, its sums
+// meeting in a butterfly, a smaller one a lane an entry. The sums go to
+// shared memory; after a barrier every thread adds a few into H6 and b6,
+// their reads of the old values issued together. Each entry is added to by
+// one thread in a fixed order: a repeat is bit-identical. What bounds them
+// on an H100: latency (a launch several µs against a bound below 0.1 µs
+// at the bench's 256 slots). relo_normal's phases run one after another on
+// one SM: two dependent trips to device memory and the chain of a
+// linearization (about 750 operations), then the jobs and the adds, each
+// phase's code fetched anew when the launch finds the L2 cold.
 //
 // A tile block finds its observations through anchor[], not by scanning the
 // grid: a pass over its features (one a thread) counts each one's
@@ -1016,69 +1031,76 @@ struct ReloArgs : ProjInputs<T> {
   T* cost;
 };
 
-// Dynamic shared memory of a relo block: the staged frames and cameras, then
-// the loop pose's position (3), quaternion (4) and matrix (9).
-__host__ __device__ __forceinline__ size_t relo_values(int W1, int C) {
-  return stage_values(W1, C) + 16;
-}
+// relo_normal: one block, RN_LIN_WARPS warps that linearize and warp 0,
+// which lists the segments and the jobs meanwhile.
+constexpr int RN_LIN_WARPS = 8;
+constexpr int RN_LIN = 32 * RN_LIN_WARPS;  // features a round
+constexpr int RN_THREADS = RN_LIN + 32;
+constexpr int RN_WARPS = RN_THREADS / 32;
+constexpr int RN_ROUNDS = 4;  // features a relo_normal thread linearizes at most: F <= 1024
+// A relo_normal job over at most this many features: a lane an entry, each
+// summing the job's features in turn; a larger one is split over the lanes
+// by feature, the lanes' sums meeting in butterfly32.
+constexpr int ENTRY_SPLIT_MAX = 24;
+// relo_cost: a thread a feature, RC_THREADS a block (32, 64 and 128 time
+// alike on an H100: turns.py relo builds the others with this macro).
+#ifndef RELO_COST_THREADS
+#define RELO_COST_THREADS 64
+#endif
+constexpr int RC_THREADS = RELO_COST_THREADS;
 
-// Stages the frames, the cameras and the loop pose (as stage_issue /
-// stage_finish, the loop pose's copies in the same group); returns the
-// loop pose's 16 values.
-template <typename T, int NT>
-__device__ const T* relo_stage(const ReloArgs<T>& g, T* sm, Stage<T>& S) {
-  T* rl = sm + stage_values(g.W1, g.C);
-  const int tid = threadIdx.x;
-  if (tid < 3)
-    cp_async_t(rl + tid, g.relo_p + tid);
-  else if (tid < 7)
-    cp_async_t(rl + tid, g.relo_q + tid - 3);
-  stage_issue<T, NT>(g, sm);  // commits the loop pose's copies too
-  S = stage_finish<T, NT>(g, sm);
-  if (tid == 0) {
-    T M[3][3];
-    quat_mat(rl + 3, M);
-#pragma unroll
-    for (int x = 0; x < 3; ++x)
-#pragma unroll
-      for (int y = 0; y < 3; ++y) rl[7 + 3 * x + y] = M[x][y];
-  }
-  __syncthreads();
-  return rl;
-}
-
-// A matched feature: its anchor frame and camera, inverse depth, the anchor
-// observation's bearing and the loop bearing, normalized as
-// backend/relo.py does (b / max(|b|, 1e-12)).
+// Is feature f kept (matched, a used slot, anchor and its camera in range)?
+// Gives its anchor frame and camera, each 0 where out of range, so that the
+// loads of relo_obs stay in bounds for every feature.
 template <typename T>
-struct ReloObs {
-  int a, ci;
-  T lam;
-  T bi[3], bl[3];
-};
-
-// Loads feature f; is it kept (matched, a used slot, anchor and its camera
-// in range)? Every load is issued before the test.
-template <typename T>
-__device__ __forceinline__ bool relo_load(const ReloArgs<T>& g, int f, ReloObs<T>& x) {
+__device__ __forceinline__ bool relo_kept(const ReloArgs<T>& g, int f, int& a, int& ci) {
   const int64_t a64 = g.anchor[f];
   const bool matched = g.relo_mask[f], uf = g.used[f];
   const bool in = a64 >= 0 && a64 < g.W1;
-  x.a = in ? (int)a64 : 0;
-  const int ia = f * g.W1 + x.a;
-  x.ci = g.cam ? (int)g.cam[ia] : 0;
+  a = in ? (int)a64 : 0;
+  const int c = g.cam ? (int)g.cam[(size_t)f * g.W1 + a] : 0;
+  const bool cin = c >= 0 && c < g.C;
+  ci = cin ? c : 0;
+  return matched && uf && in && cin;
+}
+
+// What a relo row of feature f reads: its inverse depth, its anchor
+// observation's bearing, the loop bearing normalized as backend/relo.py
+// does (b / max(|b|, 1e-12)), and the rotations and positions of its anchor
+// frame, its anchor camera, camera 0 and the loop pose. The thread forms the
+// four rotations from the quaternions it loads: a feature reads a few of
+// the window's frames, and no thread waits for another's staging.
+template <typename T>
+struct ReloObs {
+  T lam;
+  T bi[3], bl[3];
+  T Ri[3][3], Rci[3][3], Rc0[3][3], Rl[3][3];
+  T pa[3], tci[3], tc0[3], pl[3];
+};
+
+template <typename T>
+__device__ __forceinline__ void relo_obs(const ReloArgs<T>& g, int f, int a, int ci,
+                                         ReloObs<T>& x) {
+  const size_t ia = (size_t)f * g.W1 + a;
   x.lam = g.inv_depth[f];
   T b[3];
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     b[k] = g.relo_bearing[3 * f + k];
     x.bi[k] = g.bearing[3 * ia + k];
+    x.pa[k] = g.p[3 * a + k];
+    x.tci[k] = g.tic[3 * ci + k];
+    x.tc0[k] = g.tic[k];
+    x.pl[k] = g.relo_p[k];
   }
+  quat_mat(g.q + 4 * a, x.Ri);
+  quat_mat(g.qic + 4 * ci, x.Rci);
+  quat_mat(g.qic, x.Rc0);
+  quat_mat(g.relo_q, x.Rl);
   const T nb = sqrt_t(b[0] * b[0] + b[1] * b[1] + b[2] * b[2]);
   const T nbc = nb >= T(1e-12) ? nb : T(1e-12);
 #pragma unroll
   for (int k = 0; k < 3; ++k) x.bl[k] = b[k] / nbc;
-  return matched && uf && in && x.ci >= 0 && x.ci < g.C;
 }
 
 // lin_obs of a relo residual: the observer is the loop pose seen through
@@ -1086,184 +1108,516 @@ __device__ __forceinline__ bool relo_load(const ReloArgs<T>& g, int f, ReloObs<T
 // zero velocities, the loop bearing in place of pts_j. J's first 25 columns
 // are [δpose_i, δrelo, δex_anchor, δex_cam0, δλ]; its td column is 0.
 template <typename T, bool JAC>
-__device__ __forceinline__ void relo_lin(const ReloArgs<T>& g, const Stage<T>& S, const T* rl,
-                                         const ReloObs<T>& x, T& r0, T& r1, T& w, T& cost,
-                                         T J[2][26]) {
-  T Ri[3][3], Rj[3][3], Rci[3][3], Rcj[3][3];
-  load33(S.R + 9 * x.a, Ri);
-  load33(rl + 7, Rj);
-  load33(S.Rc + 9 * x.ci, Rci);
-  load33(S.Rc, Rcj);
+__device__ __forceinline__ void relo_lin(const ReloArgs<T>& g, ReloObs<T>& x, T& r0, T& r1, T& w,
+                                         T& cost, T J[2][26]) {
   const T z3[3] = {T(0), T(0), T(0)};
-  lin_obs<T, JAC>(Ri, Rj, Rci, Rcj, S.P + 3 * x.a, rl, S.Tc + 3 * x.ci, S.Tc, T(0), x.lam,
-                  x.bi, z3, T(0), x.bl, z3, T(0), g.s, g.c, g.ic2, r0, r1, w, cost, J);
+  lin_obs<T, JAC>(x.Ri, x.Rl, x.Rci, x.Rc0, x.pa, x.pl, x.tci, x.tc0, T(0), x.lam, x.bi, z3,
+                  T(0), x.bl, z3, T(0), g.s, g.c, g.ic2, r0, r1, w, cost, J);
 }
 
-// A 6-column block of the augmented layout a relo row reaches: pose k (at
-// 6k), the loop pose (at D) or extrinsic e (at 15 W1 + 6e).
-struct ReloBlock {
-  int kind;  // 0 pose, 1 loop pose, 2 extrinsic
-  int idx;
-  int col;
+// Residual row Jr (weight w) in extrinsic e's columns: the anchor side's
+// block where e is the anchor camera ci plus the loop side's where e is
+// camera 0 (added where they coincide, as backend/relo.py's layout adds
+// them).
+template <typename T>
+__device__ __forceinline__ void relo_ex_row(int e, int ci, const T Jr[26], T w, T out[6]) {
+#pragma unroll
+  for (int k = 0; k < 6; ++k)
+    out[k] = (e == ci ? Jr[12 + k] * w : T(0)) + (e == 0 ? Jr[18 + k] * w : T(0));
+}
+
+// The old values of what kept feature f owns (relo_owned's entries: its
+// H_pl6 column at its anchor pose, the loop pose and, when estimated, the
+// extrinsics of camera 0 and of its anchor camera ci; H_ll[f], b_l[f]), read
+// as soon as f is known to be kept: its linearization hides their trip
+// from device memory.
+template <typename T>
+struct ReloOwned {
+  T pose[6], loop[6], ex0[6], exi[6], hll, bl;
 };
 
-// Block X of a relo_normal tile: the W1 poses, then the live blocks (the
-// loop pose, then the C extrinsics when they are estimated).
-__device__ __forceinline__ ReloBlock relo_block(int X, int W1, int D) {
-  if (X < W1) return {0, X, 6 * X};
-  if (X == W1) return {1, 0, D};
-  return {2, X - W1 - 1, 15 * W1 + 6 * (X - W1 - 1)};
-}
-
-__device__ __forceinline__ bool relo_touches(const ReloBlock& b, int a, int ci) {
-  return b.kind == 0 ? b.idx == a : b.kind == 1 || b.idx == ci || b.idx == 0;
-}
-
-// Residual row Jr (weight w) of a feature in block b's columns: the
-// anchor-side pose block at frame a, the loop pose's block, and the
-// anchor-side extrinsic block at camera ci plus the loop side's at camera 0
-// (added where they coincide, as backend/relo.py's layout adds them).
 template <typename T>
-__device__ __forceinline__ void relo_block_row(const ReloBlock& b, const T Jr[26], T w, int a,
-                                               int ci, T out[6]) {
+__device__ __forceinline__ void relo_owned_load(const ReloArgs<T>& g, int f, int a, int ci,
+                                                ReloOwned<T>& o) {
+  const int D = g.D6 - 6, F = g.F, W1 = g.W1;
+  const T* col = g.H_pl6 + f;
 #pragma unroll
   for (int k = 0; k < 6; ++k) {
-    if (b.kind == 0)
-      out[k] = b.idx == a ? Jr[k] * w : T(0);
-    else if (b.kind == 1)
-      out[k] = Jr[6 + k] * w;
-    else
-      out[k] = (b.idx == ci ? Jr[12 + k] * w : T(0)) + (b.idx == 0 ? Jr[18 + k] * w : T(0));
+    o.pose[k] = col[(size_t)(6 * a + k) * F];
+    o.loop[k] = col[(size_t)(D + k) * F];
+    o.ex0[k] = g.ex ? col[(size_t)(15 * W1 + k) * F] : T(0);
+    o.exi[k] = g.ex && ci ? col[(size_t)(15 * W1 + 6 * ci + k) * F] : T(0);
   }
+  o.hll = g.H_ll[f];
+  o.bl = g.b_l[f];
 }
 
-// Tiles of relo_normal: the W1 diagonal pose tiles, then for each live block
-// L (n_live of them) its tiles with the W1 poses and with live blocks 0..L.
-// A feature reaches one pose block only, so no off-diagonal pose tile has a
-// relo term.
-__host__ __device__ __forceinline__ int relo_tiles(int W1, int n_live) {
-  return W1 + n_live * W1 + n_live * (n_live + 1) / 2;
-}
-
-// Tile (X, Y), X <= Y, of H6 (and b6's block X where X == Y): every thread
-// walks the features f = tid, tid + NRM_THREADS, ... and sums the terms of
-// the kept ones that reach both blocks; the block's sums meet in block_sum's
-// fixed order and are added in place, into (X, Y) and its mirror.
+// What kept feature f owns, added in place (to the old values o) by the
+// thread that linearized it.
 template <typename T>
-__device__ void relo_tile(const ReloArgs<T>& g, const Stage<T>& S, const T* rl, int X, int Y,
-                          T (*part)[NACC], T* bsum) {
-  const int D = g.D6 - 6, tid = threadIdx.x;
-  const ReloBlock bx = relo_block(X, g.W1, D), by = relo_block(Y, g.W1, D);
-  T acc[NACC];
-#pragma unroll
-  for (int k = 0; k < NACC; ++k) acc[k] = T(0);
-  for (int f = tid; f < g.F; f += NRM_THREADS) {
-    ReloObs<T> x;
-    if (!relo_load(g, f, x) || !relo_touches(bx, x.a, x.ci) || !relo_touches(by, x.a, x.ci))
-      continue;
-    T r0, r1, w, cst, J[2][26];
-    relo_lin<T, true>(g, S, rl, x, r0, r1, w, cst, J);
-    T xa0[6], xa1[6], xb0[6], xb1[6];
-    relo_block_row(bx, J[0], w, x.a, x.ci, xa0);
-    relo_block_row(bx, J[1], w, x.a, x.ci, xa1);
-    relo_block_row(by, J[0], w, x.a, x.ci, xb0);
-    relo_block_row(by, J[1], w, x.a, x.ci, xb1);
-#pragma unroll
-    for (int i = 0; i < 6; ++i)
-#pragma unroll
-      for (int j = 0; j < 6; ++j) acc[6 * i + j] += xa0[i] * xb0[j] + xa1[i] * xb1[j];
-    if (X == Y) {
-      const T rw0 = r0 * w, rw1 = r1 * w;
-#pragma unroll
-      for (int i = 0; i < 6; ++i) acc[36 + i] += xa0[i] * rw0 + xa1[i] * rw1;
-    }
-  }
-  block_sum(acc, part, bsum);
-  if (tid < 36) {
-    const int i = tid / 6, j = tid - 6 * (tid / 6);
-    g.H6[(size_t)(bx.col + i) * g.D6 + by.col + j] += bsum[tid];
-    if (X != Y) g.H6[(size_t)(by.col + j) * g.D6 + bx.col + i] += bsum[tid];
-  } else if (X == Y && tid < NACC) {
-    g.b6[bx.col + tid - 36] += bsum[tid];
-  }
-}
-
-// What kept feature f owns, added in place: its H_pl6 column (at its anchor
-// pose, the loop pose and, when estimated, the extrinsics of its anchor
-// camera and of camera 0), H_ll[f] and b_l[f]. A thread a feature.
-template <typename T>
-__device__ void relo_feature(const ReloArgs<T>& g, const Stage<T>& S, const T* rl, int f) {
-  ReloObs<T> x;
-  if (!relo_load(g, f, x)) return;
-  T r0, r1, w, cst, J[2][26];
-  relo_lin<T, true>(g, S, rl, x, r0, r1, w, cst, J);
+__device__ __forceinline__ void relo_owned(const ReloArgs<T>& g, int f, int a, int ci, T r0, T r1,
+                                           T w, T J[2][26], const ReloOwned<T>& o) {
   const T l0 = J[0][24] * w, l1 = J[1][24] * w;
   const int D = g.D6 - 6, F = g.F, W1 = g.W1;
   T* col = g.H_pl6 + f;
 #pragma unroll
   for (int k = 0; k < 6; ++k) {
-    col[(size_t)(6 * x.a + k) * F] += (J[0][k] * w) * l0 + (J[1][k] * w) * l1;
-    col[(size_t)(D + k) * F] += (J[0][6 + k] * w) * l0 + (J[1][6 + k] * w) * l1;
+    col[(size_t)(6 * a + k) * F] = o.pose[k] + ((J[0][k] * w) * l0 + (J[1][k] * w) * l1);
+    col[(size_t)(D + k) * F] = o.loop[k] + ((J[0][6 + k] * w) * l0 + (J[1][6 + k] * w) * l1);
   }
   if (g.ex) {
-    for (int e = 0; e < g.C; ++e) {
-      if (e != x.ci && e != 0) continue;
-      const ReloBlock b{2, e, 15 * W1 + 6 * e};
-      T x0[6], x1[6];
-      relo_block_row(b, J[0], w, x.a, x.ci, x0);
-      relo_block_row(b, J[1], w, x.a, x.ci, x1);
+    T x0[6], x1[6];
+    relo_ex_row(0, ci, J[0], w, x0);
+    relo_ex_row(0, ci, J[1], w, x1);
 #pragma unroll
-      for (int k = 0; k < 6; ++k) col[(size_t)(b.col + k) * F] += x0[k] * l0 + x1[k] * l1;
+    for (int k = 0; k < 6; ++k)
+      col[(size_t)(15 * W1 + k) * F] = o.ex0[k] + (x0[k] * l0 + x1[k] * l1);
+    if (ci) {
+      relo_ex_row(ci, ci, J[0], w, x0);
+      relo_ex_row(ci, ci, J[1], w, x1);
+#pragma unroll
+      for (int k = 0; k < 6; ++k)
+        col[(size_t)(15 * W1 + 6 * ci + k) * F] = o.exi[k] + (x0[k] * l0 + x1[k] * l1);
     }
   }
-  g.H_ll[f] += l0 * l0 + l1 * l1;
-  g.b_l[f] += l0 * (r0 * w) + l1 * (r1 * w);
+  g.H_ll[f] = o.hll + (l0 * l0 + l1 * l1);
+  g.b_l[f] = o.bl + (l0 * (r0 * w) + l1 * (r1 * w));
 }
 
-// One linearization's relo rows added into the augmented normal equations:
-// relo_tiles blocks of tiles, then blocks of NRM_THREADS features. Each
-// entry is added to by one thread of one block, in a fixed order: no atomics,
-// a repeat is bit-identical.
-template <typename T>
-__global__ void __launch_bounds__(NRM_THREADS) relo_normal_kernel(const ReloArgs<T> g) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ T part[NRM_WARPS][NACC];
-  __shared__ T bsum[NACC];
-  Stage<T> S;
-  const T* rl = relo_stage<T, NRM_THREADS>(g, reinterpret_cast<T*>(smem_raw), S);
-  const int W1 = g.W1, n_live = 1 + (g.ex ? g.C : 0);
-  const int n_tiles = relo_tiles(W1, n_live);
-  const int h = blockIdx.x;
-  if (h >= n_tiles) {
-    const int f = (h - n_tiles) * NRM_THREADS + threadIdx.x;
-    if (f < g.F) relo_feature(g, S, rl, f);
+// relo_normal's dynamic shared memory: the kept features' weighted rows,
+// value-major with an odd stride (lanes reading one value of consecutive
+// features, or several values of one feature, hit distinct banks): nb
+// blocks of 2 x 6 (block 0 the anchor pose, 1 the loop pose, 2 + e
+// extrinsic e when estimated), then r w (2); each linearizing warp's count
+// of each anchor, a slot a warp and round; the segments of the list (seg[a]
+// the first feature anchored at a, seg[W1] the kept features in all); the
+// jobs (jobs[0] their count); each job's tile (x, y and their columns) and
+// its sums (RELO_JOB_SUMS a job).
+struct ReloSmem {
+  int nb, nv, stride, rounds, n_tiles;
+  size_t cnt, seg, jobs, info, sums, total;
+};
+
+constexpr int RELO_JOB_SUMS = 27;  // a diagonal tile's upper triangle and b
+constexpr int RELO_WB = 8;         // sums a thread adds at a time into H6 and b6
+
+__host__ __device__ __forceinline__ ReloSmem relo_smem(int F, int W1, int C, bool ex,
+                                                       size_t elem) {
+  ReloSmem L;
+  L.nb = 2 + (ex ? C : 0);
+  L.nv = 12 * L.nb + 2;
+  L.stride = F | 1;
+  L.rounds = (F + RN_LIN - 1) / RN_LIN;
+  // Each anchor's tiles with its pose, the loop pose and the extrinsics,
+  // then the tiles of the loop pose and the extrinsics among themselves;
+  // at most two jobs a tile.
+  L.n_tiles = W1 * L.nb + (L.nb - 1) * L.nb / 2;
+  L.cnt = ((size_t)L.nv * L.stride * elem + 15) / 16 * 16;
+  L.seg = L.cnt + (size_t)L.rounds * RN_LIN_WARPS * W1 * sizeof(int);
+  L.jobs = L.seg + (size_t)(W1 + 1) * sizeof(int);
+  L.info = (L.jobs + (size_t)(2 * L.n_tiles + 1) * sizeof(int) + 15) / 16 * 16;
+  L.sums = L.info + (size_t)2 * L.n_tiles * 4 * sizeof(int);
+  L.total = L.sums + (size_t)2 * L.n_tiles * RELO_JOB_SUMS * elem;
+  return L;
+}
+
+// A tile of H6 (and b6's block x where x == y): row blocks x <= y of the
+// feature rows, their columns, and the features [s, e) of the list it sums.
+struct ReloTile {
+  int x, y, colx, coly, s, e;
+};
+
+__device__ __forceinline__ int relo_col(int k, int a, int W1, int D) {
+  return k == 0 ? 6 * a : k == 1 ? D : 15 * W1 + 6 * (k - 2);
+}
+
+// Tile t's row blocks x <= y, and its anchor a (-1: every kept feature).
+__device__ __forceinline__ void relo_tile_blocks(int t, int nb, int W1, int& a, int& x, int& y) {
+  if (t < W1 * nb) {  // anchor a's pose against block y, over its segment
+    a = t / nb;
+    x = 0;
+    y = t - nb * a;
     return;
   }
-  int X = h, Y = h;  // h < W1: the diagonal pose tile (h, h)
-  if (h >= W1) {     // (X, Y): Y the live block lb, X a pose or a live block up to lb
-    int r = h - W1, lb = 0;
-    while (r >= W1 + lb + 1) {
-      r -= W1 + lb + 1;
-      ++lb;
-    }
-    Y = W1 + lb;
-    X = r;  // r < W1: pose r; else live block r - W1, at W1 + (r - W1)
+  int r = t - W1 * nb;  // blocks 1 <= x <= y < nb, over every kept feature
+  a = -1;
+  x = 1;
+  while (r >= nb - x) {
+    r -= nb - x;
+    ++x;
   }
-  relo_tile(g, S, rl, X, Y, part, bsum);
+  y = x + r;
+}
+
+__device__ __forceinline__ ReloTile relo_tile_of(int t, int nb, int W1, int D, const int* seg) {
+  int a, x, y;
+  relo_tile_blocks(t, nb, W1, a, x, y);
+  const int b = a < 0 ? 0 : a;
+  return {x, y, relo_col(x, b, W1, D), relo_col(y, b, W1, D), a < 0 ? 0 : seg[a],
+          a < 0 ? seg[W1] : seg[a + 1]};
+}
+
+// Job 2 t + h of tile t. A diagonal tile (x == y) is one job (h = 0): the
+// 21 entries of its upper triangle, each written to both of its places, and
+// b6's 6. Off the diagonal, job h is the tile's rows 3h .. 3h + 2, 18
+// entries, each written with its mirror.
+__device__ __forceinline__ int relo_job_size(const ReloTile& t) { return t.x == t.y ? 27 : 18; }
+
+// Entry idx of job (t, h): (i, j) of the tile, or (i, -1) for b6's entry i.
+__device__ __forceinline__ void relo_job_entry(const ReloTile& t, int h, int idx, int& i, int& j) {
+  if (t.x != t.y) {
+    i = 3 * h + idx / 6;
+    j = idx - 6 * (idx / 6);
+    return;
+  }
+  if (idx >= 21) {
+    i = idx - 21;
+    j = -1;
+    return;
+  }
+  int r = idx;
+  i = 0;
+  while (r >= 6 - i) {
+    r -= 6 - i;
+    ++i;
+  }
+  j = i + r;
+}
+
+// Where entry idx of job (t, h) is added: p, and m, its other place in H6
+// (null on H6's diagonal and in b6); both null past the job's entries.
+template <typename T>
+__device__ __forceinline__ void relo_job_place(const ReloArgs<T>& g, const ReloTile& t, int h,
+                                               int idx, T*& p, T*& m) {
+  p = m = nullptr;
+  if (idx >= relo_job_size(t)) return;
+  int i, j;
+  relo_job_entry(t, h, idx, i, j);
+  if (j < 0) {
+    p = g.b6 + t.colx + i;
+    return;
+  }
+  p = g.H6 + (size_t)(t.colx + i) * g.D6 + t.coly + j;
+  if (t.x != t.y || i != j) m = g.H6 + (size_t)(t.coly + j) * g.D6 + t.colx + i;
+}
+
+// Warp 0 of relo_normal, while the others linearize: the anchors' totals
+// over the count slots, their exclusive scan (seg), and the jobs of the
+// tiles with features, those of tiles of more than ENTRY_SPLIT_MAX
+// features first (they then go to distinct warps first).
+__device__ void relo_segments(const int* cnt, int slots, int W1, int nb, int n_tiles, int* seg,
+                              int* jobs, int lane) {
+  const unsigned full = 0xffffffffu;
+  int carry = 0;
+  for (int a0 = 0; a0 < W1; a0 += 32) {
+    const int a = a0 + lane;
+    int tot = 0;
+    if (a < W1)
+      for (int j = 0; j < slots; ++j) tot += cnt[j * W1 + a];
+    int x = tot;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(full, x, o);
+      if (lane >= o) x += y;
+    }
+    if (a < W1) seg[a] = carry + x - tot;
+    carry += __shfl_sync(full, x, 31);
+  }
+  if (lane == 0) seg[W1] = carry;
+  __syncwarp();
+  int n = 0;
+  for (int pass = 0; pass < 2; ++pass)
+    for (int t0 = 0; t0 < n_tiles; t0 += 32) {
+      const int t = t0 + lane;
+      int c = 0;
+      if (t < n_tiles) {
+        int a, x, y;
+        relo_tile_blocks(t, nb, W1, a, x, y);
+        const int len = a < 0 ? carry : seg[a + 1] - seg[a];
+        if (len > 0 && (len > ENTRY_SPLIT_MAX) == (pass == 0)) c = x == y ? 1 : 2;
+      }
+      int x = c;  // inclusive scan of the jobs
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(full, x, o);
+        if (lane >= o) x += y;
+      }
+      for (int q = 0; q < c; ++q) jobs[1 + n + x - c + q] = 2 * t + q;
+      n += __shfl_sync(full, x, 31);
+    }
+  if (lane == 0) jobs[0] = n;
+}
+
+// The 32-value butterfly: block_sum's steps from lane distance 8 down,
+// then the two halves 16 lanes apart added; lane l holds entries 2 (l & 15)
+// and 2 (l & 15) + 1 of v.
+template <typename T>
+__device__ __forceinline__ void butterfly32(T v[32], int lane) {
+  butterfly_step<8>(v, lane);
+  butterfly_step<4>(v, lane);
+  butterfly_step<2>(v, lane);
+  butterfly_step<1>(v, lane);
+  v[0] += __shfl_xor_sync(0xffffffffu, v[0], 16);
+  v[1] += __shfl_xor_sync(0xffffffffu, v[1], 16);
+}
+
+// Job (t, h) by a warp, split over the lanes by feature: lane l sums the
+// features s + l, s + l + 32, ... into the job's sums, which meet in
+// butterfly32; lanes 0..15 put entries 2l, 2l + 1 into out.
+template <typename T>
+__device__ void relo_job_lanes(const ReloTile& t, int h, const T* rows, int S, int nb, int lane,
+                               T* out) {
+  const T* X = rows + (size_t)12 * t.x * S;
+  const T* Y = rows + (size_t)12 * t.y * S;
+  T v[32];
+#pragma unroll
+  for (int k = 0; k < 32; ++k) v[k] = T(0);
+  if (t.x == t.y) {
+    const T* RW = rows + (size_t)12 * nb * S;
+    for (int f = t.s + lane; f < t.e; f += 32) {
+      T x0[6], x1[6];
+#pragma unroll
+      for (int i = 0; i < 6; ++i) {
+        x0[i] = X[i * S + f];
+        x1[i] = X[(6 + i) * S + f];
+      }
+      const T rw0 = RW[f], rw1 = RW[S + f];
+      int k = 0;
+#pragma unroll
+      for (int i = 0; i < 6; ++i)
+#pragma unroll
+        for (int j = i; j < 6; ++j, ++k) {
+          v[k] += x0[i] * x0[j];
+          v[k] += x1[i] * x1[j];
+        }
+#pragma unroll
+      for (int i = 0; i < 6; ++i) {
+        v[21 + i] += x0[i] * rw0;
+        v[21 + i] += x1[i] * rw1;
+      }
+    }
+  } else {
+    const T* XH = X + (size_t)3 * h * S;
+    for (int f = t.s + lane; f < t.e; f += 32) {
+      T x0[3], x1[3], y0[6], y1[6];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        x0[i] = XH[i * S + f];
+        x1[i] = XH[(6 + i) * S + f];
+      }
+#pragma unroll
+      for (int j = 0; j < 6; ++j) {
+        y0[j] = Y[j * S + f];
+        y1[j] = Y[(6 + j) * S + f];
+      }
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int j = 0; j < 6; ++j) {
+          v[6 * i + j] += x0[i] * y0[j];
+          v[6 * i + j] += x1[i] * y1[j];
+        }
+    }
+  }
+  butterfly32(v, lane);
+  const int n = relo_job_size(t);
+  if (lane < 16 && 2 * lane < n) out[2 * lane] = v[0];
+  if (lane < 16 && 2 * lane + 1 < n) out[2 * lane + 1] = v[1];
+}
+
+// Job (t, h) by a warp, a lane an entry, each lane summing the tile's
+// features in list order into out.
+template <typename T>
+__device__ void relo_job_entries(const ReloTile& t, int h, const T* rows, int S, int nb, int lane,
+                                 T* out) {
+  if (lane >= relo_job_size(t)) return;
+  int i, j;
+  relo_job_entry(t, h, lane, i, j);
+  const T* x = rows + (size_t)(12 * t.x + i) * S;
+  const T* y = j < 0 ? rows + (size_t)12 * nb * S : rows + (size_t)(12 * t.y + j) * S;
+  const int yo = j < 0 ? S : 6 * S;  // the second residual row's value
+  T acc = T(0);
+  int f = t.s;
+  for (; f + 4 <= t.e; f += 4) {  // loads for four features in flight
+    T a[4], b[4], c[4], d[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      a[u] = x[f + u];
+      b[u] = y[f + u];
+      c[u] = x[6 * S + f + u];
+      d[u] = y[yo + f + u];
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      acc += a[u] * b[u];
+      acc += c[u] * d[u];
+    }
+  }
+  for (; f < t.e; ++f) {
+    acc += x[f] * y[f];
+    acc += x[6 * S + f] * y[yo + f];
+  }
+  out[lane] = acc;
+}
+
+// One linearization's relo rows added into the augmented normal equations,
+// in one block: warps 1..RN_LIN_WARPS linearize each kept feature once, a
+// thread a feature, which adds what the feature owns (relo_owned) and puts
+// its weighted rows at its place in the list of kept features sorted by
+// anchor, while warp 0 lists the segments and the jobs; then a warp a job.
+// Every entry is added to by one lane, in a fixed order: no atomics, a
+// repeat is bit-identical.
+template <typename T>
+__global__ void __launch_bounds__(RN_THREADS, 1) relo_normal_kernel(const ReloArgs<T> g) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int W1 = g.W1, F = g.F;
+  const ReloSmem L = relo_smem(F, W1, g.C, g.ex != 0, sizeof(T));
+  T* rows = reinterpret_cast<T*>(smem_raw);
+  int* cnt = reinterpret_cast<int*>(smem_raw + L.cnt);
+  int* seg = reinterpret_cast<int*>(smem_raw + L.seg);
+  int* jobs = reinterpret_cast<int*>(smem_raw + L.jobs);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, lw = warp - 1;
+  const unsigned lt = (1u << lane) - 1u;
+  // Feature r RN_LIN + tid - 32 of round r (warps 1..): its key (its anchor
+  // where kept, else W1), the warp's count of each anchor in slot (r, lw),
+  // its rank among the warp's features of its anchor. The first round's
+  // loads of what its row reads, and of what it owns, go out before the
+  // counts.
+  int key[RN_ROUNDS], ci[RN_ROUNDS], off[RN_ROUNDS];
+  ReloObs<T> x0;
+  ReloOwned<T> own0;
+#pragma unroll
+  for (int r = 0; r < RN_ROUNDS; ++r) {
+    key[r] = W1;
+    ci[r] = off[r] = 0;
+    if (r >= L.rounds || warp == 0) continue;
+    const int f = r * RN_LIN + tid - 32;
+    int a = 0, c = 0;
+    if (f < F && relo_kept(g, f, a, c)) key[r] = a;
+    ci[r] = c;
+    if (r == 0 && key[0] < W1) {
+      relo_obs(g, f, a, c, x0);
+      relo_owned_load(g, f, a, c, own0);
+    }
+    int* slot = cnt + (r * RN_LIN_WARPS + lw) * W1;
+    for (int x = 0; x < W1; ++x) {
+      const unsigned m = __ballot_sync(0xffffffffu, key[r] == x);
+      if (lane == (x & 31)) slot[x] = __popc(m);
+      if (key[r] == x) off[r] = __popc(m & lt);
+    }
+  }
+  __syncthreads();  // every slot's counts
+  if (warp == 0) {
+    relo_segments(cnt, L.rounds * RN_LIN_WARPS, W1, L.nb, L.n_tiles, seg, jobs, lane);
+  } else {
+    // A kept feature's place among its anchor's: the counts of the slots
+    // before its own, plus its rank.
+#pragma unroll
+    for (int r = 0; r < RN_ROUNDS; ++r) {
+      if (r >= L.rounds) break;
+      if (key[r] < W1)
+        for (int j = 0; j < r * RN_LIN_WARPS + lw; ++j) off[r] += cnt[j * W1 + key[r]];
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < RN_ROUNDS; ++r) {
+    if (r >= L.rounds) break;
+    const int f = r * RN_LIN + tid - 32;
+    const bool kept = key[r] < W1;
+    T r0 = T(0), r1 = T(0), w = T(0), cst, J[2][26];
+    if (kept) {
+      if (r == 0) {
+        relo_lin<T, true>(g, x0, r0, r1, w, cst, J);
+        relo_owned(g, f, key[r], ci[r], r0, r1, w, J, own0);
+      } else {
+        ReloObs<T> x;
+        ReloOwned<T> own;
+        relo_obs(g, f, key[r], ci[r], x);
+        relo_owned_load(g, f, key[r], ci[r], own);
+        relo_lin<T, true>(g, x, r0, r1, w, cst, J);
+        relo_owned(g, f, key[r], ci[r], r0, r1, w, J, own);
+      }
+    }
+    if (r == 0) __syncthreads();  // the segments and the jobs
+    if (kept) {
+      const int k = seg[key[r]] + off[r], S = L.stride;
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+#pragma unroll
+        for (int i = 0; i < 6; ++i) {
+          rows[(6 * q + i) * S + k] = J[q][i] * w;
+          rows[(12 + 6 * q + i) * S + k] = J[q][6 + i] * w;
+        }
+        if (g.ex)
+          for (int e = 0; e < g.C; ++e) {
+            T xr[6];
+            relo_ex_row(e, ci[r], J[q], w, xr);
+#pragma unroll
+            for (int i = 0; i < 6; ++i) rows[(12 * (2 + e) + 6 * q + i) * S + k] = xr[i];
+          }
+      }
+      rows[12 * L.nb * S + k] = r0 * w;
+      rows[(12 * L.nb + 1) * S + k] = r1 * w;
+    }
+  }
+  __syncthreads();  // every row
+  const int n_jobs = jobs[0], D = g.D6 - 6;
+  T* sums = reinterpret_cast<T*>(smem_raw + L.sums);
+  int4* info = reinterpret_cast<int4*>(smem_raw + L.info);
+  for (int p = warp; p < n_jobs; p += RN_WARPS) {
+    const int j = jobs[1 + p];
+    const ReloTile t = relo_tile_of(j >> 1, L.nb, W1, D, seg);
+    if (lane == 0) info[p] = make_int4(t.x, t.y, t.colx, t.coly);
+    if (t.e - t.s > ENTRY_SPLIT_MAX)
+      relo_job_lanes(t, j & 1, rows, L.stride, L.nb, lane, sums + p * RELO_JOB_SUMS);
+    else
+      relo_job_entries(t, j & 1, rows, L.stride, L.nb, lane, sums + p * RELO_JOB_SUMS);
+  }
+  __syncthreads();  // every job's sums
+  // Each sum added into its place (and its other place) in H6 or b6, every
+  // thread taking RELO_WB at a time: their reads of the old values are all
+  // issued before any add, so they wait together.
+  const int n_sums = n_jobs * RELO_JOB_SUMS;
+  for (int q0 = tid; q0 < n_sums; q0 += RELO_WB * RN_THREADS) {
+    T *at[RELO_WB], *mir[RELO_WB], o[RELO_WB], om[RELO_WB];
+#pragma unroll
+    for (int u = 0; u < RELO_WB; ++u) {
+      const int q = q0 + u * RN_THREADS, p = q / RELO_JOB_SUMS;
+      at[u] = mir[u] = nullptr;
+      if (q < n_sums) {
+        const int4 i4 = info[p];
+        const ReloTile t{i4.x, i4.y, i4.z, i4.w, 0, 0};
+        relo_job_place(g, t, jobs[1 + p] & 1, q - RELO_JOB_SUMS * p, at[u], mir[u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < RELO_WB; ++u) {
+      o[u] = at[u] ? *at[u] : T(0);
+      om[u] = mir[u] ? *mir[u] : T(0);
+    }
+#pragma unroll
+    for (int u = 0; u < RELO_WB; ++u) {
+      if (!at[u]) continue;
+      const T v = sums[q0 + u * RN_THREADS];
+      *at[u] = o[u] + v;
+      if (mir[u]) *mir[u] = om[u] + v;
+    }
+  }
 }
 
 // The robust cost term of every feature, c² log1p(|r|² / c²) (0 where not
-// kept): a thread a feature, ROWS_THREADS a block.
+// kept): a thread a feature, RC_THREADS a block, no shared memory and no
+// barrier. Every thread issues its loads before the kept test.
 template <typename T>
-__global__ void __launch_bounds__(ROWS_THREADS) relo_cost_kernel(const ReloArgs<T> g) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Stage<T> S;
-  const T* rl = relo_stage<T, ROWS_THREADS>(g, reinterpret_cast<T*>(smem_raw), S);
-  const int f = blockIdx.x * ROWS_THREADS + threadIdx.x;
+__global__ void __launch_bounds__(RC_THREADS) relo_cost_kernel(const ReloArgs<T> g) {
+  const int f = blockIdx.x * RC_THREADS + threadIdx.x;
   if (f >= g.F) return;
+  int a, ci;
+  const bool kept = relo_kept(g, f, a, ci);
   ReloObs<T> x;
+  relo_obs(g, f, a, ci, x);
   T r0 = T(0), r1 = T(0), w = T(1), cost = T(0), J[2][26];
-  if (relo_load(g, f, x)) relo_lin<T, false>(g, S, rl, x, r0, r1, w, cost, J);
+  if (kept) relo_lin<T, false>(g, x, r0, r1, w, cost, J);
   g.cost[f] = cost;
 }
 
@@ -1338,10 +1692,10 @@ int launch_relo(PROJ_IN_PARAMS, const void* relo_p, const void* relo_q, const vo
   const ReloArgs<T> g{proj_inputs<T>(PROJ_IN_ARGS), (const T*)relo_p, (const T*)relo_q,
                       (const T*)relo_bearing, (const bool*)relo_mask, ex, D6, (T*)H6, (T*)b6,
                       (T*)H_pl6, (T*)H_ll, (T*)b_l, (T*)cost};
-  const size_t smem = relo_values(W1, C) * sizeof(T);
-  const int threads = normal ? NRM_THREADS : ROWS_THREADS;
-  const int grid = normal ? relo_tiles(W1, 1 + (ex ? C : 0)) + (F + NRM_THREADS - 1) / NRM_THREADS
-                          : (F + ROWS_THREADS - 1) / ROWS_THREADS;
+  if (normal && F > RN_ROUNDS * RN_LIN) return -1;
+  const size_t smem = normal ? relo_smem(F, W1, C, ex != 0, sizeof(T)).total : 0;
+  const int threads = normal ? RN_THREADS : RC_THREADS;
+  const int grid = normal ? 1 : (F + RC_THREADS - 1) / RC_THREADS;
   void (*kernel)(const ReloArgs<T>) =
       empty ? relo_empty_kernel<T> : normal ? relo_normal_kernel<T> : relo_cost_kernel<T>;
   if (smem > 48 * 1024) {
@@ -1404,7 +1758,9 @@ extern "C" int proj_normal_launch(PROJ_IN_PARAMS, int estimate_ex, int estimate_
 // sums may be null). empty != 0: relo_empty_kernel with that launch's grid,
 // block and shared memory. The state's arguments as proj_rows_launch's;
 // relo_p [3], relo_q [4], relo_bearing [F, 3] of the state's dtype,
-// relo_mask [F] bool.
+// relo_mask [F] bool. Mode 1 takes F <= 1024 (-1 above); its shared memory,
+// F (26 + 12 C) values with the extrinsics estimated, bounds F further in
+// float64.
 extern "C" int relo_launch(PROJ_IN_PARAMS, const void* relo_p, const void* relo_q,
                            const void* relo_bearing, const void* relo_mask, int estimate_ex,
                            int mode, int empty, int dtype, void* H6, void* b6, void* H_pl6,

@@ -5,6 +5,7 @@ graph (``DeviceProgram``)."""
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
 
 import torch
@@ -160,6 +161,12 @@ class DeviceProgram:
         before = [k.launches for k in KERNELS]
         debug = torch.cuda.get_sync_debug_mode()
         torch.cuda.set_sync_debug_mode(0)
+        # No garbage collection inside the capture: a collected cycle that
+        # held another program's graph would destroy that graph mid-capture,
+        # a call the capture forbids, and the capture fails (torch's graph
+        # context collects nothing first unless asked to).
+        gc_on = gc.isenabled()
+        gc.disable()
         try:
             side.synchronize()  # the warm-up's end (the capture synchronizes anyway)
             self.warmup_s = time.perf_counter() - t0
@@ -169,6 +176,8 @@ class DeviceProgram:
             raise RuntimeError(f"DeviceProgram {self.name}: the CUDA graph capture "
                                f"failed: {e}") from e
         finally:
+            if gc_on:
+                gc.enable()
             torch.cuda.set_sync_debug_mode(debug)
         # The capture's launches run at the replays: count them there.
         self._launches = [(k, k.launches - b) for k, b in zip(KERNELS, before)

@@ -18,7 +18,8 @@ of a solve travel as ONE packed buffer (the JAX layout, ``_build_pack_layout``)
 in one non-blocking copy from a ring of pinned buffers. On the card each
 program is a ``device.DeviceProgram``: captured once as a CUDA graph (one
 solve graph per LM iteration cap, one relocalization solve graph per cap,
-one graph per marginalization kind, all in one memory pool) and replayed
+the first of them at the first solve, before any loop closure, one graph
+per marginalization kind, all in one memory pool) and replayed
 once per published frame, so dispatching a frame reads nothing from the
 card. On the CPU the same functions run eagerly.
 
@@ -918,6 +919,8 @@ class Estimator:
         else:
             new_prior = self._program(("marg_new",))(out, prior)
         self.prior = clone_tree(new_prior)  # the next solve's input, kept off the graphs
+        if relo is None:
+            self._capture_relo(packed, prior, cap)
         pend = dict(
             fetch=fetch, t=t, first=first, relo=relo_meta, eager_slid=lagged,
             slides=[],  # slides that happen after this dispatch
@@ -939,6 +942,29 @@ class Estimator:
             self._slide_window()
             for p_ in self._pending_q:
                 p_["slides"].append(marg)
+
+    def _capture_relo(self, packed, prior, cap):
+        """On the card, once: the relocalization program of this solve's cap
+        made and captured now, behind the solve's fetch, its marginalization
+        and their copies, so that the first loop closure replays a graph
+        instead of holding the frame loop for the program's warm-up and
+        capture. It runs on a copy of this solve's packed buffer with no
+        match (``relo_mask`` all 0, the loop pose at the identity) and its
+        outputs are dropped: it touches no estimator state. (Its static
+        outputs share the pool, so a later replay of any program may
+        overwrite them, as they may overwrite each other's.) A loop closure
+        under another cap, a binding wall budget's, still captures its own.
+        Nothing on the CPU, or with ``use_graphs`` off."""
+        if (self.device.type != "cuda" or not self.use_graphs
+                or any(k[0] == "relo" for k in self._programs)):
+            return
+        L = self._pack_layout
+        buf = packed.clone()
+        (m, (F,)), (q, _) = L["relo_mask"], L["relo_q"]
+        buf[m:m + F].zero_()
+        buf[q:q + 4].zero_()
+        buf[q:q + 1].fill_(1.0)
+        self._program(("relo", cap))(buf, prior)
 
     def pending_count(self):
         return len(self._pending_q)

@@ -6,8 +6,9 @@ torch.linalg.eigh, and the estimator's programs as CUDA graphs against the
 same functions run eagerly. The projection factor's kernels
 (lfvio_tpu_torch/csrc/proj_factor.cu: rows, normal equations, cost) and the
 IMU factor's (lfvio_tpu_torch/csrc/imu_factor.cu: rows, normal equations,
-cost) against their plain versions in backend/proj_cuda.py and
-backend/imu_cuda.py.
+cost) and the relocalization rows' (csrc/proj_factor.cu: relo_normal,
+relo_cost) against their plain versions in backend/proj_cuda.py,
+backend/imu_cuda.py and backend/relo_cuda.py.
 
 Every test here needs the card: the kernel has no CPU mode, so they skip
 without one. This file imports neither JAX nor the JAX package, so it also
@@ -1020,6 +1021,36 @@ def test_relo_kernels_match_plain(dev, dtype, n_cams, n_slots):
 
     args = chip_smoke.relo_window(dev, dtype, n_cams, n_slots)
     bound = chip_smoke.RELO_BOUNDS[str(dtype).split(".")[-1]]
+    errs, _, identical = chip_smoke.relo_compare(args)
+    assert identical
+    assert max(errs.values()) <= bound, errs
+    faults = chip_smoke.relo_planted_faults(args)
+    assert len(faults) == (3 if n_cams == 2 else 2)
+    for fault, fe in faults.items():
+        assert all(fe[n] > bound for n in chip_smoke.RELO_FAULT_OUTPUTS[fault]), (fault, fe)
+
+
+@pytest.mark.parametrize("n_cams", [1, 2])
+@pytest.mark.parametrize("layout", ["front", "spread"])
+@pytest.mark.parametrize("n_slots", [256, 384])
+@pytest.mark.parametrize("W1", [11, 21])
+def test_relo_kernels_match_plain_across_layouts(dev, W1, n_slots, layout, n_cams):
+    """relo_normal and relo_cost against their plain versions on
+    chip_smoke.relo_layout: windows of 11 and 21 frames, 256 and 384 slots
+    (two rounds of features a relo_normal thread at 384), anchors 96% at
+    frame 0 as on the main path ("front", where one tile holds nearly every
+    feature) or spread evenly ("spread", many small tiles), one camera, or
+    two with the extrinsics estimated; within [14r]'s f64 bound of each
+    output's scale, a repeat bit-identical, every planted fault rejected.
+    f64: on these windows the f32 plain version's λ-column outputs (H_pl6,
+    H_ll) are themselves up to 1.2e-5 of [14r]'s scale from f64 arithmetic
+    on the same inputs, so f32 is held where [14r] holds it
+    (test_relo_kernels_match_plain, chip_smoke phase 14)."""
+    import chip_smoke
+
+    dtype = torch.float64
+    args = chip_smoke.relo_layout(dev, dtype, W1, n_slots, n_cams, layout)
+    bound = chip_smoke.RELO_BOUNDS["float64"]
     errs, _, identical = chip_smoke.relo_compare(args)
     assert identical
     assert max(errs.values()) <= bound, errs

@@ -8,6 +8,7 @@ replay by up to 2.9 ms, so two versions are compared only inside one).
     python3 turns.py imu EARLIER_IMU_FACTOR_CU
     python3 turns.py rows EARLIER_PROJ_FACTOR_CU
     python3 turns.py eig EARLIER_SYM_EIG_CU
+    python3 turns.py relo EARLIER_PROJ_FACTOR_CU
 
 ``tree``: OTHER_TREE is another checkout (for example ``git archive
 <commit>`` unpacked under ``_archive/``, which ``.gitignore`` lists). In the
@@ -62,6 +63,19 @@ tree's: both held against ``torch.linalg.eigh`` within
 sweep histogram and a repeat bit-identical, then each of the five inputs
 at 256 slots and the [384, 4, 4] triangulation timed in turns, beside
 this tree's latency floor of the launch (``eigh_cuda.latency_floor``).
+
+``relo``: the relocalization launches of an earlier ``csrc/proj_factor.cu``
+(one with the same ``relo_launch``) behind ``relo_cuda``'s wrapper class
+against this tree's: runs ``chip_smoke.phase_relo_full_scale`` (phase 6r)
+for its relo inputs, holds both sources against the plain version within
+``chip_smoke.RELO_BOUNDS`` with a repeat bit-identical at those inputs and
+on ``relo_window``'s two-camera window (f64 and f32, extrinsics
+estimated), then times ``relo_normal`` and ``relo_cost`` behind a full
+queue in turns earlier, this, this, earlier at phase 6r's inputs and on the
+two-camera f32 window, beside each source's latency floor of the launch
+(its empty kernel with the launch's grid, block and shared memory); last,
+this tree's ``relo_cost`` built at 32 and 128 threads a block
+(``-DRELO_COST_THREADS``) against its own 64, in turns at both inputs.
 """
 
 from __future__ import annotations
@@ -134,14 +148,14 @@ def tree_main(argv):
     return 0
 
 
-def build_earlier_lib(src, stem):
-    """The earlier source built with this tree's nvcc flags into a library
-    of its own, loaded."""
+def build_earlier_lib(src, stem, tag="earlier", flags=()):
+    """The earlier source (or, with ``flags``, a variant of a source) built
+    with this tree's nvcc flags into a library of its own, loaded."""
     from lfvio_tpu_torch.frontend import klt_cuda
 
-    lib = klt_cuda.BUILD_DIR / f"lib{stem}_earlier.so"
+    lib = klt_cuda.BUILD_DIR / f"lib{stem}_{tag}.so"
     klt_cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    subprocess.run([klt_cuda.nvcc_path(), *klt_cuda.NVCC_FLAGS, "-o", str(lib), str(src)],
+    subprocess.run([klt_cuda.nvcc_path(), *klt_cuda.NVCC_FLAGS, *flags, "-o", str(lib), str(src)],
                    check=True)
     return ctypes.CDLL(str(lib))
 
@@ -457,13 +471,102 @@ def eig_main(argv):
     return 0
 
 
+def relo_main(argv):
+    """``relo EARLIER_PROJ_FACTOR_CU``: the earlier source's relocalization
+    launches against this tree's in turns."""
+    import torch
+
+    import chip_smoke
+    from lfvio_tpu_torch.backend import relo_cuda as rc
+    from lfvio_tpu_torch.backend.state import n_cams_of, pose_dim
+
+    dev = card_or_usage("relo", argv, "EARLIER_PROJ_FACTOR_CU")
+    if dev is None:
+        return 2
+    smi = chip_smoke.smi_line()
+    print(smi, flush=True)
+    earlier_fn = build_earlier_lib(Path(argv[0]), "proj_factor").relo_launch
+    earlier_fn.argtypes, earlier_fn.restype = rc._ARGTYPES, ctypes.c_int
+    earlier = {"relo_normal": rc.ReloKernel(normal=True), "relo_cost": rc.ReloKernel(normal=False)}
+    for k in earlier.values():
+        k._fn = earlier_fn
+    sources = {"earlier": earlier, "this": {"relo_normal": rc.relo_normal,
+                                            "relo_cost": rc.relo_cost}}
+    relo6 = chip_smoke.phase_relo_full_scale(chip_smoke.full_scale_rig(dev),
+                                             chip_smoke.count_plain_lk())
+    label_r = "(r) phase 6r's relo inputs, 256 slots, window 10, f32"
+    label_2 = "two-camera 64 slots, f32, extrinsics estimated"
+    cases = {label_r: relo6["args"], label_2: chip_smoke.relo_window(dev, torch.float32, 2),
+             "two-camera 64 slots, f64, extrinsics estimated":
+                 chip_smoke.relo_window(dev, torch.float64, 2)}
+    for label, args in cases.items():
+        bound = chip_smoke.RELO_BOUNDS[str(args[0].p.dtype).split(".")[-1]]
+        for who, kernels in sources.items():
+            errs, _, identical = chip_smoke.relo_compare(args, kernels=kernels)
+            print(f"{label}: {who} against the plain version, relative to each output's scale: "
+                  + ", ".join(f"{n} {v:.2e}" for n, v in errs.items())
+                  + f"; repeat bit-identical {identical}", flush=True)
+            if not (identical and max(errs.values()) <= bound):
+                raise AssertionError(f"{label}: {who} is not within {bound} of the plain "
+                                     "version, or a repeat differs")
+    block = chip_smoke.make_blocker(dev)
+    out = {}
+    for label in (label_r, label_2):
+        state, grid, cfg, relo = cases[label]
+        F, W1 = grid.valid.shape
+        D6 = pose_dim(W1, n_cams_of(state)) + 6
+        z = lambda *s: torch.zeros(s, dtype=state.p.dtype, device=dev)
+        sums = (z(D6, D6), z(D6, F), z(F), z(D6), z(F))
+        out[label] = {}
+        for name in ("relo_normal", "relo_cost"):
+            normal = name == "relo_normal"
+            calls = {who: (lambda k=k: k[name](*sums, state, grid, *relo, cfg)) if normal else
+                     (lambda k=k: k[name](state, grid, *relo, cfg)) for who, k in sources.items()}
+            out[label][name] = in_turns(label, name, calls, block)
+            out[label][name]["floor"] = floor_ms(
+                label, name, lambda: rc.latency_floor(name, state, grid, *relo, cfg), block)
+            empty = lambda: rc._launch(earlier_fn, name, int(normal), True, state, grid, relo, cfg,
+                                       sums)
+            fl = dict(queued=chip_smoke.cuda_ms(empty, reps=10, blocker=block),
+                      alone=chip_smoke.cuda_ms(empty))
+            print(f"({label}) {name}, latency floor of the earlier source's launch: "
+                  f"{fl['queued']:.4f} ms behind a full queue, {fl['alone']:.4f} ms alone",
+                  flush=True)
+            out[label][name]["earlier_floor"] = fl
+    # relo_cost's block: this source built at 32 and 128 threads a block
+    # (RELO_COST_THREADS) beside its own 64, in turns at both inputs.
+    cost = {64: rc.relo_cost}
+    for n in (32, 128):
+        fn = build_earlier_lib(rc.__file__.replace("backend/relo_cuda.py", "csrc/proj_factor.cu"),
+                               "proj_factor", f"cost{n}", (f"-DRELO_COST_THREADS={n}",)).relo_launch
+        fn.argtypes, fn.restype = rc._ARGTYPES, ctypes.c_int
+        cost[n] = rc.ReloKernel(normal=False)
+        cost[n]._fn = fn
+    for label in (label_r, label_2):
+        state, grid, cfg, relo = cases[label]
+        ref = rc.relo_cost_plain(state, grid, *relo, cfg)
+        for n, k in cost.items():
+            err = float((k(state, grid, *relo, cfg) - ref).abs().max())
+            print(f"({label}) relo_cost at {n} threads a block: largest error against the plain "
+                  f"version {err:.2e}", flush=True)
+        sweep = []
+        for n in (32, 64, 128, 128, 64, 32):
+            sweep.append((n, chip_smoke.cuda_ms(lambda k=cost[n]: k(state, grid, *relo, cfg),
+                                                reps=10, blocker=block)))
+            print(f"({label}) relo_cost at {n} threads a block: {sweep[-1][1]:.4f} ms behind a "
+                  "full queue", flush=True)
+        out[label]["relo_cost_blocks"] = sweep
+    print(json.dumps({"card": smi, "times_ms": out}))
+    return 0
+
+
 def main(argv):
     modes = {"tree": tree_main, "proj": proj_main, "imu": imu_main, "rows": rows_main,
-             "eig": eig_main}
+             "eig": eig_main, "relo": relo_main}
     if not argv or argv[0] not in modes:
         print(f"usage: {sys.argv[0]} tree OTHER_TREE | proj EARLIER_PROJ_FACTOR_CU | "
               "imu EARLIER_IMU_FACTOR_CU | rows EARLIER_PROJ_FACTOR_CU | "
-              "eig EARLIER_SYM_EIG_CU", file=sys.stderr)
+              "eig EARLIER_SYM_EIG_CU | relo EARLIER_PROJ_FACTOR_CU", file=sys.stderr)
         return 2
     return modes[argv[0]](argv[1:])
 
