@@ -3404,6 +3404,24 @@ def relo_layout(dev, dtype, W1, n_slots, n_cams, layout, seed=0):
     return state, grid, cfg, relo
 
 
+# The float32 kernels against the plain version run in float64 on the same
+# inputs upcast, relative to each output's scale: on relo_layout's 16 card
+# test windows the f32 kernels landed at most 1.01e-5 from it and the f32
+# plain version 1.21e-5 (relo_f32_spread.py on an H100), so twice the
+# largest reading.
+RELO_F32_EXACT_BOUND = 2e-5
+
+
+def relo_upcast(args):
+    """relo inputs (state, grid, cfg, relo) in float64, from their values."""
+    import dataclasses as dc
+
+    cast = lambda x: x.double() if x is not None and x.is_floating_point() else x
+    re = lambda obj: type(obj)(**{f.name: cast(getattr(obj, f.name)) for f in dc.fields(obj)})
+    state, grid, cfg, relo = args
+    return re(state), re(grid), cfg, tuple(cast(x) for x in relo)
+
+
 def relo_outputs(args, plain=False, mask=None, kernels=None):
     """Every output of the two relo launches on zero sums, {name: tensor}:
     the kernels' (with ``kernels``, {"relo_normal", "relo_cost": callable},

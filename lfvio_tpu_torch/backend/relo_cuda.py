@@ -21,7 +21,9 @@ Two wrappers, each with its own ``launches`` count (registered with
     and b6, and each matched feature's H_pl6 column, H_ll and b_l; the
     extrinsic columns only where ``cfg.estimate_extrinsic``. No row is
     written to memory; each kept feature is linearized once a launch, in
-    one block (at most ``MAX_SLOTS`` slots);
+    one cluster of blocks: at most ``MAX_SLOTS`` slots and ``MAX_FRAMES``
+    frames, whose rows and sums fit in the shared memory a block may take
+    (``normal_smem``; a ValueError otherwise);
   * ``relo_cost(state, grid, relo_p, relo_q, relo_bearing, relo_mask, cfg)``
     -> cost [F]: each feature's robust cost term c² log1p(|r|²/c²), 0 where
     it is not matched (``relo_mask & grid.used``).
@@ -146,12 +148,31 @@ def relo_cost_plain(state, grid, relo_p, relo_q, relo_bearing, relo_mask, cfg):
 
 
 # ------------------------------------------------------------ the kernels
-# relo_normal_kernel's one block linearizes at most four rounds of 256
-# features (RN_ROUNDS * RN_LIN in the source).
-MAX_SLOTS = 1024
+# relo_normal_kernel's cluster linearizes a slot a thread, at most
+# RN_CLUSTER * RN_THREADS in the source, and a thread a frame lists the
+# segments: W1 < RN_THREADS.
+MAX_SLOTS, MAX_FRAMES = 2048, 255
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = ([_P] * 13 + [_I, _I, _I, ctypes.c_double, ctypes.c_double] + [_P] * 4
              + [_I, _I, _I, _I] + [_P] * 7)
+_LL = ctypes.POINTER(ctypes.c_longlong)
+_smem_fn = None
+
+
+def normal_smem(F, W1, n_cams, estimate_extrinsic, dtype, device):
+    """``relo_normal_kernel``'s dynamic shared memory at these sizes and the
+    most a block of the card ``device`` may take: (need, limit) in bytes
+    (``relo_normal_smem`` in the source). Card only."""
+    global _smem_fn
+    if _smem_fn is None:
+        _smem_fn = _bind("relo_normal_smem", [_I] * 5 + [_LL, _LL])
+    need, limit = ctypes.c_longlong(), ctypes.c_longlong()
+    with torch.cuda.device(device):
+        err = _smem_fn(F, W1, n_cams, int(bool(estimate_extrinsic)), _DTYPES[dtype],
+                       ctypes.byref(need), ctypes.byref(limit))
+    if err != 0:
+        raise RuntimeError(f"relo_normal_smem failed: cudaError {err}")
+    return need.value, limit.value
 
 
 def _relo_inputs(name, state, grid, relo_p, relo_q, relo_bearing, relo_mask):
@@ -176,6 +197,15 @@ def _launch(fn, name, mode, empty, state, grid, relo, cfg, sums=None):
     H6 = H_pl6 = H_ll = b6 = b_l = cost = None
     if mode:
         H6, H_pl6, H_ll, b6, b_l = sums
+        if F > MAX_SLOTS or W1 > MAX_FRAMES:
+            raise ValueError(f"{name}: the kernel takes at most {MAX_SLOTS} slots and "
+                             f"{MAX_FRAMES} frames, got {F} and {W1}")
+        need, limit = normal_smem(F, W1, C, cfg.estimate_extrinsic, dtype, dev)
+        if need > limit:
+            raise ValueError(
+                f"{name}: {F} slots over {W1} frames, {C} camera(s), extrinsics "
+                f"{'estimated' if cfg.estimate_extrinsic else 'fixed'}, {dtype}: the kernel needs "
+                f"{need} B of shared memory a block, the card allows {limit} B")
     else:
         cost = torch.empty(F, dtype=dtype, device=dev)
     if not F:
@@ -218,9 +248,6 @@ class ReloKernel:
         name = "relo_normal" if self.normal else "relo_cost"
         if self.normal:
             _check_sums(name, sums, state, grid)
-            if grid.anchor.shape[0] > MAX_SLOTS:
-                raise ValueError(f"relo_normal: the kernel takes at most {MAX_SLOTS} slots, "
-                                 f"got {grid.anchor.shape[0]}")
         if self._fn is None:
             self._fn = _bind("relo_launch", _ARGTYPES)
         cost, launched = _launch(self._fn, name, int(self.normal), False, state, grid, relo, cfg,

@@ -86,27 +86,25 @@
 // the window, and a thread that forms them itself waits for no other.
 // relo_cost_kernel is a thread a feature with nothing between its loads and
 // its evaluation: no shared memory, no barrier. relo_normal_kernel adds one
-// linearization's rows into the sums in place, in one block: warps
-// 1..RN_LIN_WARPS linearize each kept feature once, a thread a feature,
-// which adds what the feature owns (its H_pl6 column, H_ll, b_l, whose old
-// values it reads before linearizing) and puts its weighted row blocks
-// (anchor pose, loop pose, each extrinsic when estimated, r w) into shared
-// memory at its place in a list of the kept features sorted by anchor (a
-// ballot an anchor in each warp, the counts' scan; no atomics), while warp
-// 0 builds the list's segments and the jobs. Then a warp a job: a diagonal
-// tile's upper triangle and b6 block, or half the rows of an off-diagonal
-// tile (an anchor's pose tiles over its segment of the list, the loop
-// pose's and the extrinsics' over all of it); a job of more than
-// ENTRY_SPLIT_MAX features split over the lanes by feature, its sums
-// meeting in a butterfly, a smaller one a lane an entry. The sums go to
-// shared memory; after a barrier every thread adds a few into H6 and b6,
-// their reads of the old values issued together. Each entry is added to by
-// one thread in a fixed order: a repeat is bit-identical. What bounds them
-// on an H100: latency (a launch several µs against a bound below 0.1 µs
-// at the bench's 256 slots). relo_normal's phases run one after another on
-// one SM: two dependent trips to device memory and the chain of a
-// linearization (about 750 operations), then the jobs and the adds, each
-// phase's code fetched anew when the launch finds the L2 cold.
+// linearization's rows into the sums in place, in one cluster of
+// RN_CLUSTER blocks: each block linearizes its share of the slots once, a
+// thread a slot, which adds what the feature owns (its H_pl6 column, H_ll,
+// b_l, whose old values it reads before linearizing) and puts its weighted
+// row blocks (anchor pose, loop pose, each extrinsic when estimated, r w)
+// into the block's shared memory at its place in the block's list of kept
+// slots sorted by anchor (each thread counts the keys before its own; no
+// atomics). Each block then sums every tile of H6 (an anchor's pose tiles
+// over its segment of the list, the loop pose's and the extrinsics' over
+// all of it; a diagonal tile's upper triangle and b6 block) over its own
+// rows, a thread a sum, where the rows lie, each sum finding its tile in a
+// table the block builds while its first loads are in flight (decoding the
+// tile at each sum was that phase's larger part). Past the cluster's barrier
+// each sum is added into H6 or b6 by one thread, which takes the blocks'
+// partial sums through distributed shared memory in rank order: a repeat
+// is bit-identical. What bounds them on an H100: latency (a launch several
+// µs against a bound below 0.1 µs at the bench's 256 slots): two dependent
+// trips to device memory, the chain of a linearization (about 750
+// operations), then the sums and the adds.
 //
 // A tile block finds its observations through anchor[], not by scanning the
 // grid: a pass over its features (one a thread) counts each one's
@@ -1031,23 +1029,18 @@ struct ReloArgs : ProjInputs<T> {
   T* cost;
 };
 
-// relo_normal: one block, RN_LIN_WARPS warps that linearize and warp 0,
-// which lists the segments and the jobs meanwhile.
-constexpr int RN_LIN_WARPS = 8;
-constexpr int RN_LIN = 32 * RN_LIN_WARPS;  // features a round
-constexpr int RN_THREADS = RN_LIN + 32;
-constexpr int RN_WARPS = RN_THREADS / 32;
-constexpr int RN_ROUNDS = 4;  // features a relo_normal thread linearizes at most: F <= 1024
-// A relo_normal job over at most this many features: a lane an entry, each
-// summing the job's features in turn; a larger one is split over the lanes
-// by feature, the lanes' sums meeting in butterfly32.
-constexpr int ENTRY_SPLIT_MAX = 24;
-// relo_cost: a thread a feature, RC_THREADS a block (32, 64 and 128 time
-// alike on an H100: turns.py relo builds the others with this macro).
-#ifndef RELO_COST_THREADS
-#define RELO_COST_THREADS 64
-#endif
-constexpr int RC_THREADS = RELO_COST_THREADS;
+// relo_normal: one cluster of RN_CLUSTER blocks of RN_THREADS threads;
+// block b linearizes the slots [b CH, (b + 1) CH), CH = ceil(F /
+// RN_CLUSTER), a thread a slot, so F <= RN_CLUSTER RN_THREADS.
+constexpr int RN_CLUSTER = 8;
+constexpr int RN_THREADS = 256;
+// A tile's sums: a 6 x 6 block, or a diagonal tile's upper triangle (21)
+// and its b6 block (6).
+constexpr int RN_TILE_SUMS = 36;
+constexpr int RELO_WB = 4;  // sums a thread adds at a time into H6 and b6
+// relo_cost: a thread a feature, RC_THREADS a block (32, 64 and 128 timed
+// alike on an H100).
+constexpr int RC_THREADS = 64;
 
 // Is feature f kept (matched, a used slot, anchor and its camera in range)?
 // Gives its anchor frame and camera, each 0 where out of range, so that the
@@ -1184,40 +1177,34 @@ __device__ __forceinline__ void relo_owned(const ReloArgs<T>& g, int f, int a, i
   g.b_l[f] = o.bl + (l0 * (r0 * w) + l1 * (r1 * w));
 }
 
-// relo_normal's dynamic shared memory: the kept features' weighted rows,
-// value-major with an odd stride (lanes reading one value of consecutive
-// features, or several values of one feature, hit distinct banks): nb
+// relo_normal's dynamic shared memory, each block's: its kept slots'
+// weighted rows, value-major with an odd stride (lanes reading one value of
+// consecutive slots, or several values of one slot, hit distinct banks): nb
 // blocks of 2 x 6 (block 0 the anchor pose, 1 the loop pose, 2 + e
-// extrinsic e when estimated), then r w (2); each linearizing warp's count
-// of each anchor, a slot a warp and round; the segments of the list (seg[a]
-// the first feature anchored at a, seg[W1] the kept features in all); the
-// jobs (jobs[0] their count); each job's tile (x, y and their columns) and
-// its sums (RELO_JOB_SUMS a job).
+// extrinsic e when estimated), then r w (2); each tile's sums over them
+// (RN_TILE_SUMS a tile); the table of the tiles (relo_tile_info); each of
+// its slots' key (its anchor where kept, else W1); the segments of its list
+// (seg[a] the first slot anchored at a, seg[W1] the kept slots in all).
 struct ReloSmem {
-  int nb, nv, stride, rounds, n_tiles;
-  size_t cnt, seg, jobs, info, sums, total;
+  int nb, nv, chunk, stride, n_tiles;
+  size_t part, tiles, key, seg, total;
 };
-
-constexpr int RELO_JOB_SUMS = 27;  // a diagonal tile's upper triangle and b
-constexpr int RELO_WB = 8;         // sums a thread adds at a time into H6 and b6
 
 __host__ __device__ __forceinline__ ReloSmem relo_smem(int F, int W1, int C, bool ex,
                                                        size_t elem) {
   ReloSmem L;
   L.nb = 2 + (ex ? C : 0);
   L.nv = 12 * L.nb + 2;
-  L.stride = F | 1;
-  L.rounds = (F + RN_LIN - 1) / RN_LIN;
+  L.chunk = (F + RN_CLUSTER - 1) / RN_CLUSTER;
+  L.stride = L.chunk | 1;
   // Each anchor's tiles with its pose, the loop pose and the extrinsics,
-  // then the tiles of the loop pose and the extrinsics among themselves;
-  // at most two jobs a tile.
+  // then the tiles of the loop pose and the extrinsics among themselves.
   L.n_tiles = W1 * L.nb + (L.nb - 1) * L.nb / 2;
-  L.cnt = ((size_t)L.nv * L.stride * elem + 15) / 16 * 16;
-  L.seg = L.cnt + (size_t)L.rounds * RN_LIN_WARPS * W1 * sizeof(int);
-  L.jobs = L.seg + (size_t)(W1 + 1) * sizeof(int);
-  L.info = (L.jobs + (size_t)(2 * L.n_tiles + 1) * sizeof(int) + 15) / 16 * 16;
-  L.sums = L.info + (size_t)2 * L.n_tiles * 4 * sizeof(int);
-  L.total = L.sums + (size_t)2 * L.n_tiles * RELO_JOB_SUMS * elem;
+  L.part = ((size_t)L.nv * L.stride * elem + 15) / 16 * 16;
+  L.tiles = (L.part + (size_t)L.n_tiles * RN_TILE_SUMS * elem + 15) / 16 * 16;
+  L.key = L.tiles + (size_t)L.n_tiles * sizeof(int4);
+  L.seg = L.key + (size_t)L.chunk * sizeof(int);
+  L.total = L.seg + (size_t)(W1 + 1) * sizeof(int);
   return L;
 }
 
@@ -1249,50 +1236,69 @@ __device__ __forceinline__ void relo_tile_blocks(int t, int nb, int W1, int& a, 
   y = x + r;
 }
 
-__device__ __forceinline__ ReloTile relo_tile_of(int t, int nb, int W1, int D, const int* seg) {
+// Tile t's entry of the block's table, built once a launch: its anchor (-1:
+// every kept feature), its row blocks (x << 8 | y) and their columns.
+__device__ __forceinline__ int4 relo_tile_info(int t, int nb, int W1, int D) {
   int a, x, y;
   relo_tile_blocks(t, nb, W1, a, x, y);
   const int b = a < 0 ? 0 : a;
-  return {x, y, relo_col(x, b, W1, D), relo_col(y, b, W1, D), a < 0 ? 0 : seg[a],
-          a < 0 ? seg[W1] : seg[a + 1]};
+  return make_int4(a, x << 8 | y, relo_col(x, b, W1, D), relo_col(y, b, W1, D));
 }
 
-// Job 2 t + h of tile t. A diagonal tile (x == y) is one job (h = 0): the
-// 21 entries of its upper triangle, each written to both of its places, and
-// b6's 6. Off the diagonal, job h is the tile's rows 3h .. 3h + 2, 18
-// entries, each written with its mirror.
-__device__ __forceinline__ int relo_job_size(const ReloTile& t) { return t.x == t.y ? 27 : 18; }
+// The tile of a table entry, with its segment of the block's list.
+__device__ __forceinline__ ReloTile relo_tile_of(int4 ti, int W1, const int* seg) {
+  return {ti.y >> 8, ti.y & 255, ti.z, ti.w, ti.x < 0 ? 0 : seg[ti.x],
+          ti.x < 0 ? seg[W1] : seg[ti.x + 1]};
+}
 
-// Entry idx of job (t, h): (i, j) of the tile, or (i, -1) for b6's entry i.
-__device__ __forceinline__ void relo_job_entry(const ReloTile& t, int h, int idx, int& i, int& j) {
+// Sum idx of a tile: entry (i, j) of a 6 x 6 block, or on the diagonal
+// (x == y) of its upper triangle (idx < 21) or b6's entry i (j = -1); false
+// past a diagonal tile's 27.
+__device__ __forceinline__ bool relo_entry(const ReloTile& t, int idx, int& i, int& j) {
   if (t.x != t.y) {
-    i = 3 * h + idx / 6;
-    j = idx - 6 * (idx / 6);
-    return;
+    i = idx / 6;
+    j = idx - 6 * i;
+    return true;
   }
+  if (idx >= 27) return false;
   if (idx >= 21) {
     i = idx - 21;
     j = -1;
-    return;
+    return true;
   }
-  int r = idx;
-  i = 0;
-  while (r >= 6 - i) {
-    r -= 6 - i;
-    ++i;
-  }
-  j = i + r;
+  // Row i of the upper triangle starts at 6 i - i (i - 1) / 2.
+  i = (idx >= 6) + (idx >= 11) + (idx >= 15) + (idx >= 18) + (idx >= 20);
+  j = idx - (6 * i - i * (i - 1) / 2) + i;
+  return true;
 }
 
-// Where entry idx of job (t, h) is added: p, and m, its other place in H6
-// (null on H6's diagonal and in b6); both null past the job's entries.
+// Sum idx of tile t over the block's kept slots [t.s, t.e) in list order,
+// two residual rows each (0 past the tile's sums).
 template <typename T>
-__device__ __forceinline__ void relo_job_place(const ReloArgs<T>& g, const ReloTile& t, int h,
-                                               int idx, T*& p, T*& m) {
-  p = m = nullptr;
-  if (idx >= relo_job_size(t)) return;
+__device__ __forceinline__ T relo_tile_sum(const ReloTile& t, int idx, const T* rows, int S,
+                                           int nb) {
   int i, j;
-  relo_job_entry(t, h, idx, i, j);
+  if (!relo_entry(t, idx, i, j)) return T(0);
+  const T* x = rows + (size_t)(12 * t.x + i) * S;
+  const T* y = j < 0 ? rows + (size_t)12 * nb * S : rows + (size_t)(12 * t.y + j) * S;
+  const int yo = j < 0 ? S : 6 * S;  // the second residual row's value
+  T acc = T(0);
+#pragma unroll 4
+  for (int f = t.s; f < t.e; ++f) {
+    acc += x[f] * y[f];
+    acc += x[6 * S + f] * y[yo + f];
+  }
+  return acc;
+}
+
+// Where sum idx of tile t is added: p, and m, its other place in H6 (null
+// on H6's diagonal and in b6); both null past the tile's sums.
+template <typename T>
+__device__ __forceinline__ void relo_place(const ReloArgs<T>& g, const ReloTile& t, int idx,
+                                           T*& p, T*& m) {
+  p = m = nullptr;
+  int i, j;
+  if (!relo_entry(t, idx, i, j)) return;
   if (j < 0) {
     p = g.b6 + t.colx + i;
     return;
@@ -1301,308 +1307,118 @@ __device__ __forceinline__ void relo_job_place(const ReloArgs<T>& g, const ReloT
   if (t.x != t.y || i != j) m = g.H6 + (size_t)(t.coly + j) * g.D6 + t.colx + i;
 }
 
-// Warp 0 of relo_normal, while the others linearize: the anchors' totals
-// over the count slots, their exclusive scan (seg), and the jobs of the
-// tiles with features, those of tiles of more than ENTRY_SPLIT_MAX
-// features first (they then go to distinct warps first).
-__device__ void relo_segments(const int* cnt, int slots, int W1, int nb, int n_tiles, int* seg,
-                              int* jobs, int lane) {
-  const unsigned full = 0xffffffffu;
-  int carry = 0;
-  for (int a0 = 0; a0 < W1; a0 += 32) {
-    const int a = a0 + lane;
-    int tot = 0;
-    if (a < W1)
-      for (int j = 0; j < slots; ++j) tot += cnt[j * W1 + a];
-    int x = tot;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(full, x, o);
-      if (lane >= o) x += y;
-    }
-    if (a < W1) seg[a] = carry + x - tot;
-    carry += __shfl_sync(full, x, 31);
-  }
-  if (lane == 0) seg[W1] = carry;
-  __syncwarp();
-  int n = 0;
-  for (int pass = 0; pass < 2; ++pass)
-    for (int t0 = 0; t0 < n_tiles; t0 += 32) {
-      const int t = t0 + lane;
-      int c = 0;
-      if (t < n_tiles) {
-        int a, x, y;
-        relo_tile_blocks(t, nb, W1, a, x, y);
-        const int len = a < 0 ? carry : seg[a + 1] - seg[a];
-        if (len > 0 && (len > ENTRY_SPLIT_MAX) == (pass == 0)) c = x == y ? 1 : 2;
-      }
-      int x = c;  // inclusive scan of the jobs
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int y = __shfl_up_sync(full, x, o);
-        if (lane >= o) x += y;
-      }
-      for (int q = 0; q < c; ++q) jobs[1 + n + x - c + q] = 2 * t + q;
-      n += __shfl_sync(full, x, 31);
-    }
-  if (lane == 0) jobs[0] = n;
-}
-
-// The 32-value butterfly: block_sum's steps from lane distance 8 down,
-// then the two halves 16 lanes apart added; lane l holds entries 2 (l & 15)
-// and 2 (l & 15) + 1 of v.
+// One linearization's relo rows added into the augmented normal equations
+// by one cluster. Each block linearizes its slots once, a thread a slot,
+// which adds what the feature owns (relo_owned) and puts its weighted rows
+// at its place in the block's list of kept slots sorted by anchor; then
+// every tile's sums over the block's list, a thread a sum; then, past the
+// cluster's barrier, each sum of the tiles is added into H6 or b6 by one
+// thread of one block, the blocks' partial sums taken in rank order. No
+// atomics: a repeat is bit-identical.
 template <typename T>
-__device__ __forceinline__ void butterfly32(T v[32], int lane) {
-  butterfly_step<8>(v, lane);
-  butterfly_step<4>(v, lane);
-  butterfly_step<2>(v, lane);
-  butterfly_step<1>(v, lane);
-  v[0] += __shfl_xor_sync(0xffffffffu, v[0], 16);
-  v[1] += __shfl_xor_sync(0xffffffffu, v[1], 16);
-}
-
-// Job (t, h) by a warp, split over the lanes by feature: lane l sums the
-// features s + l, s + l + 32, ... into the job's sums, which meet in
-// butterfly32; lanes 0..15 put entries 2l, 2l + 1 into out.
-template <typename T>
-__device__ void relo_job_lanes(const ReloTile& t, int h, const T* rows, int S, int nb, int lane,
-                               T* out) {
-  const T* X = rows + (size_t)12 * t.x * S;
-  const T* Y = rows + (size_t)12 * t.y * S;
-  T v[32];
-#pragma unroll
-  for (int k = 0; k < 32; ++k) v[k] = T(0);
-  if (t.x == t.y) {
-    const T* RW = rows + (size_t)12 * nb * S;
-    for (int f = t.s + lane; f < t.e; f += 32) {
-      T x0[6], x1[6];
-#pragma unroll
-      for (int i = 0; i < 6; ++i) {
-        x0[i] = X[i * S + f];
-        x1[i] = X[(6 + i) * S + f];
-      }
-      const T rw0 = RW[f], rw1 = RW[S + f];
-      int k = 0;
-#pragma unroll
-      for (int i = 0; i < 6; ++i)
-#pragma unroll
-        for (int j = i; j < 6; ++j, ++k) {
-          v[k] += x0[i] * x0[j];
-          v[k] += x1[i] * x1[j];
-        }
-#pragma unroll
-      for (int i = 0; i < 6; ++i) {
-        v[21 + i] += x0[i] * rw0;
-        v[21 + i] += x1[i] * rw1;
-      }
-    }
-  } else {
-    const T* XH = X + (size_t)3 * h * S;
-    for (int f = t.s + lane; f < t.e; f += 32) {
-      T x0[3], x1[3], y0[6], y1[6];
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        x0[i] = XH[i * S + f];
-        x1[i] = XH[(6 + i) * S + f];
-      }
-#pragma unroll
-      for (int j = 0; j < 6; ++j) {
-        y0[j] = Y[j * S + f];
-        y1[j] = Y[(6 + j) * S + f];
-      }
-#pragma unroll
-      for (int i = 0; i < 3; ++i)
-#pragma unroll
-        for (int j = 0; j < 6; ++j) {
-          v[6 * i + j] += x0[i] * y0[j];
-          v[6 * i + j] += x1[i] * y1[j];
-        }
-    }
-  }
-  butterfly32(v, lane);
-  const int n = relo_job_size(t);
-  if (lane < 16 && 2 * lane < n) out[2 * lane] = v[0];
-  if (lane < 16 && 2 * lane + 1 < n) out[2 * lane + 1] = v[1];
-}
-
-// Job (t, h) by a warp, a lane an entry, each lane summing the tile's
-// features in list order into out.
-template <typename T>
-__device__ void relo_job_entries(const ReloTile& t, int h, const T* rows, int S, int nb, int lane,
-                                 T* out) {
-  if (lane >= relo_job_size(t)) return;
-  int i, j;
-  relo_job_entry(t, h, lane, i, j);
-  const T* x = rows + (size_t)(12 * t.x + i) * S;
-  const T* y = j < 0 ? rows + (size_t)12 * nb * S : rows + (size_t)(12 * t.y + j) * S;
-  const int yo = j < 0 ? S : 6 * S;  // the second residual row's value
-  T acc = T(0);
-  int f = t.s;
-  for (; f + 4 <= t.e; f += 4) {  // loads for four features in flight
-    T a[4], b[4], c[4], d[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      a[u] = x[f + u];
-      b[u] = y[f + u];
-      c[u] = x[6 * S + f + u];
-      d[u] = y[yo + f + u];
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      acc += a[u] * b[u];
-      acc += c[u] * d[u];
-    }
-  }
-  for (; f < t.e; ++f) {
-    acc += x[f] * y[f];
-    acc += x[6 * S + f] * y[yo + f];
-  }
-  out[lane] = acc;
-}
-
-// One linearization's relo rows added into the augmented normal equations,
-// in one block: warps 1..RN_LIN_WARPS linearize each kept feature once, a
-// thread a feature, which adds what the feature owns (relo_owned) and puts
-// its weighted rows at its place in the list of kept features sorted by
-// anchor, while warp 0 lists the segments and the jobs; then a warp a job.
-// Every entry is added to by one lane, in a fixed order: no atomics, a
-// repeat is bit-identical.
-template <typename T>
-__global__ void __launch_bounds__(RN_THREADS, 1) relo_normal_kernel(const ReloArgs<T> g) {
+__global__ void __cluster_dims__(RN_CLUSTER, 1, 1) __launch_bounds__(RN_THREADS, 1)
+    relo_normal_kernel(const ReloArgs<T> g) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int W1 = g.W1, F = g.F;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int W1 = g.W1, F = g.F, D = g.D6 - 6;
   const ReloSmem L = relo_smem(F, W1, g.C, g.ex != 0, sizeof(T));
   T* rows = reinterpret_cast<T*>(smem_raw);
-  int* cnt = reinterpret_cast<int*>(smem_raw + L.cnt);
+  T* part = reinterpret_cast<T*>(smem_raw + L.part);
+  int4* tiles = reinterpret_cast<int4*>(smem_raw + L.tiles);
+  int* key = reinterpret_cast<int*>(smem_raw + L.key);
   int* seg = reinterpret_cast<int*>(smem_raw + L.seg);
-  int* jobs = reinterpret_cast<int*>(smem_raw + L.jobs);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, lw = warp - 1;
-  const unsigned lt = (1u << lane) - 1u;
-  // Feature r RN_LIN + tid - 32 of round r (warps 1..): its key (its anchor
-  // where kept, else W1), the warp's count of each anchor in slot (r, lw),
-  // its rank among the warp's features of its anchor. The first round's
-  // loads of what its row reads, and of what it owns, go out before the
-  // counts.
-  int key[RN_ROUNDS], ci[RN_ROUNDS], off[RN_ROUNDS];
-  ReloObs<T> x0;
-  ReloOwned<T> own0;
-#pragma unroll
-  for (int r = 0; r < RN_ROUNDS; ++r) {
-    key[r] = W1;
-    ci[r] = off[r] = 0;
-    if (r >= L.rounds || warp == 0) continue;
-    const int f = r * RN_LIN + tid - 32;
-    int a = 0, c = 0;
-    if (f < F && relo_kept(g, f, a, c)) key[r] = a;
-    ci[r] = c;
-    if (r == 0 && key[0] < W1) {
-      relo_obs(g, f, a, c, x0);
-      relo_owned_load(g, f, a, c, own0);
-    }
-    int* slot = cnt + (r * RN_LIN_WARPS + lw) * W1;
-    for (int x = 0; x < W1; ++x) {
-      const unsigned m = __ballot_sync(0xffffffffu, key[r] == x);
-      if (lane == (x & 31)) slot[x] = __popc(m);
-      if (key[r] == x) off[r] = __popc(m & lt);
-    }
+  const int tid = threadIdx.x, rank = (int)cluster.block_rank(), S = L.stride;
+  const int f = rank * L.chunk + tid;
+  // The slot's key; where kept, the loads of what its row reads and of what
+  // it owns go out before the list is built.
+  int a = 0, ci = 0, k = W1;
+  ReloObs<T> x;
+  ReloOwned<T> own;
+  if (tid < L.chunk && f < F && relo_kept(g, f, a, ci)) {
+    k = a;
+    relo_obs(g, f, a, ci, x);
+    relo_owned_load(g, f, a, ci, own);
   }
-  __syncthreads();  // every slot's counts
-  if (warp == 0) {
-    relo_segments(cnt, L.rounds * RN_LIN_WARPS, W1, L.nb, L.n_tiles, seg, jobs, lane);
-  } else {
-    // A kept feature's place among its anchor's: the counts of the slots
-    // before its own, plus its rank.
-#pragma unroll
-    for (int r = 0; r < RN_ROUNDS; ++r) {
-      if (r >= L.rounds) break;
-      if (key[r] < W1)
-        for (int j = 0; j < r * RN_LIN_WARPS + lw; ++j) off[r] += cnt[j * W1 + key[r]];
+  if (tid < L.chunk) key[tid] = k;
+  for (int t = tid; t < L.n_tiles; t += RN_THREADS) tiles[t] = relo_tile_info(t, L.nb, W1, D);
+  __syncthreads();  // every key and tile
+  // The slot's place in the list (by anchor, then slot), and the segments.
+  int place = 0;
+  if (k < W1)
+    for (int j = 0; j < L.chunk; ++j) {
+      const int kj = key[j];
+      place += kj < k || (kj == k && j < tid);
     }
+  if (tid <= W1) {
+    int n = 0;
+    for (int j = 0; j < L.chunk; ++j) n += key[j] < tid;
+    seg[tid] = n;
   }
+  if (k < W1) {
+    T r0, r1, w, cst, J[2][26];
+    relo_lin<T, true>(g, x, r0, r1, w, cst, J);
+    relo_owned(g, f, a, ci, r0, r1, w, J, own);
 #pragma unroll
-  for (int r = 0; r < RN_ROUNDS; ++r) {
-    if (r >= L.rounds) break;
-    const int f = r * RN_LIN + tid - 32;
-    const bool kept = key[r] < W1;
-    T r0 = T(0), r1 = T(0), w = T(0), cst, J[2][26];
-    if (kept) {
-      if (r == 0) {
-        relo_lin<T, true>(g, x0, r0, r1, w, cst, J);
-        relo_owned(g, f, key[r], ci[r], r0, r1, w, J, own0);
-      } else {
-        ReloObs<T> x;
-        ReloOwned<T> own;
-        relo_obs(g, f, key[r], ci[r], x);
-        relo_owned_load(g, f, key[r], ci[r], own);
-        relo_lin<T, true>(g, x, r0, r1, w, cst, J);
-        relo_owned(g, f, key[r], ci[r], r0, r1, w, J, own);
+    for (int q = 0; q < 2; ++q) {
+#pragma unroll
+      for (int i = 0; i < 6; ++i) {
+        rows[(6 * q + i) * S + place] = J[q][i] * w;
+        rows[(12 + 6 * q + i) * S + place] = J[q][6 + i] * w;
       }
-    }
-    if (r == 0) __syncthreads();  // the segments and the jobs
-    if (kept) {
-      const int k = seg[key[r]] + off[r], S = L.stride;
+      if (g.ex)
+        for (int e = 0; e < g.C; ++e) {
+          T xr[6];
+          relo_ex_row(e, ci, J[q], w, xr);
 #pragma unroll
-      for (int q = 0; q < 2; ++q) {
-#pragma unroll
-        for (int i = 0; i < 6; ++i) {
-          rows[(6 * q + i) * S + k] = J[q][i] * w;
-          rows[(12 + 6 * q + i) * S + k] = J[q][6 + i] * w;
+          for (int i = 0; i < 6; ++i) rows[(12 * (2 + e) + 6 * q + i) * S + place] = xr[i];
         }
-        if (g.ex)
-          for (int e = 0; e < g.C; ++e) {
-            T xr[6];
-            relo_ex_row(e, ci[r], J[q], w, xr);
-#pragma unroll
-            for (int i = 0; i < 6; ++i) rows[(12 * (2 + e) + 6 * q + i) * S + k] = xr[i];
-          }
-      }
-      rows[12 * L.nb * S + k] = r0 * w;
-      rows[(12 * L.nb + 1) * S + k] = r1 * w;
     }
+    rows[12 * L.nb * S + place] = r0 * w;
+    rows[(12 * L.nb + 1) * S + place] = r1 * w;
   }
-  __syncthreads();  // every row
-  const int n_jobs = jobs[0], D = g.D6 - 6;
-  T* sums = reinterpret_cast<T*>(smem_raw + L.sums);
-  int4* info = reinterpret_cast<int4*>(smem_raw + L.info);
-  for (int p = warp; p < n_jobs; p += RN_WARPS) {
-    const int j = jobs[1 + p];
-    const ReloTile t = relo_tile_of(j >> 1, L.nb, W1, D, seg);
-    if (lane == 0) info[p] = make_int4(t.x, t.y, t.colx, t.coly);
-    if (t.e - t.s > ENTRY_SPLIT_MAX)
-      relo_job_lanes(t, j & 1, rows, L.stride, L.nb, lane, sums + p * RELO_JOB_SUMS);
-    else
-      relo_job_entries(t, j & 1, rows, L.stride, L.nb, lane, sums + p * RELO_JOB_SUMS);
-  }
-  __syncthreads();  // every job's sums
-  // Each sum added into its place (and its other place) in H6 or b6, every
-  // thread taking RELO_WB at a time: their reads of the old values are all
-  // issued before any add, so they wait together.
-  const int n_sums = n_jobs * RELO_JOB_SUMS;
-  for (int q0 = tid; q0 < n_sums; q0 += RELO_WB * RN_THREADS) {
+  __syncthreads();  // every row and segment
+  const int n_sums = L.n_tiles * RN_TILE_SUMS;
+  for (int q = tid; q < n_sums; q += RN_THREADS)
+    part[q] = relo_tile_sum(relo_tile_of(tiles[q / RN_TILE_SUMS], W1, seg), q % RN_TILE_SUMS,
+                            rows, S, L.nb);
+  // Each sum into its place (and its other place) in H6 or b6: block rank
+  // takes sums rank RN_THREADS + tid + u RN_CLUSTER RN_THREADS, RELO_WB at a
+  // time, their old values read before the partial sums (the first ones'
+  // before the cluster's barrier), each the blocks' partial sums in rank
+  // order.
+  const int step = RN_CLUSTER * RN_THREADS;
+  for (int c0 = 0; c0 < n_sums; c0 += RELO_WB * step) {
+    const int q0 = c0 + rank * RN_THREADS + tid;
     T *at[RELO_WB], *mir[RELO_WB], o[RELO_WB], om[RELO_WB];
 #pragma unroll
     for (int u = 0; u < RELO_WB; ++u) {
-      const int q = q0 + u * RN_THREADS, p = q / RELO_JOB_SUMS;
+      const int q = q0 + u * step;
       at[u] = mir[u] = nullptr;
-      if (q < n_sums) {
-        const int4 i4 = info[p];
-        const ReloTile t{i4.x, i4.y, i4.z, i4.w, 0, 0};
-        relo_job_place(g, t, jobs[1 + p] & 1, q - RELO_JOB_SUMS * p, at[u], mir[u]);
-      }
+      if (q < n_sums)
+        relo_place(g, relo_tile_of(tiles[q / RN_TILE_SUMS], W1, seg), q % RN_TILE_SUMS, at[u],
+                   mir[u]);
     }
 #pragma unroll
     for (int u = 0; u < RELO_WB; ++u) {
       o[u] = at[u] ? *at[u] : T(0);
       om[u] = mir[u] ? *mir[u] : T(0);
     }
+    if (c0 == 0) cluster.sync();  // every block's partial sums
 #pragma unroll
     for (int u = 0; u < RELO_WB; ++u) {
       if (!at[u]) continue;
-      const T v = sums[q0 + u * RN_THREADS];
+      const int q = q0 + u * step;
+      T pr[RN_CLUSTER];
+#pragma unroll
+      for (int r = 0; r < RN_CLUSTER; ++r) pr[r] = cluster.map_shared_rank(part, r)[q];
+      T v = pr[0];
+#pragma unroll
+      for (int r = 1; r < RN_CLUSTER; ++r) v += pr[r];
       *at[u] = o[u] + v;
       if (mir[u]) *mir[u] = om[u] + v;
     }
   }
+  cluster.sync();  // no block leaves while another reads its shared memory
 }
 
 // The robust cost term of every feature, c² log1p(|r|² / c²) (0 where not
@@ -1621,10 +1437,13 @@ __global__ void __launch_bounds__(RC_THREADS) relo_cost_kernel(const ReloArgs<T>
   g.cost[f] = cost;
 }
 
-// The latency floor of a relo launch: nothing, with its grid, block, shared
-// memory and arguments.
+// The latency floor of a relo launch: nothing, with its grid, block (and
+// for relo_normal its cluster), shared memory and arguments.
 template <typename T>
 __global__ void relo_empty_kernel(const ReloArgs<T> g) {}
+
+template <typename T>
+__global__ void __cluster_dims__(RN_CLUSTER, 1, 1) relo_empty_cluster_kernel(const ReloArgs<T> g) {}
 
 #define PROJ_IN_PARAMS                                                                      \
   const void *p, const void *q, const void *tic, const void *qic, const void *td,           \
@@ -1692,12 +1511,13 @@ int launch_relo(PROJ_IN_PARAMS, const void* relo_p, const void* relo_q, const vo
   const ReloArgs<T> g{proj_inputs<T>(PROJ_IN_ARGS), (const T*)relo_p, (const T*)relo_q,
                       (const T*)relo_bearing, (const bool*)relo_mask, ex, D6, (T*)H6, (T*)b6,
                       (T*)H_pl6, (T*)H_ll, (T*)b_l, (T*)cost};
-  if (normal && F > RN_ROUNDS * RN_LIN) return -1;
+  if (normal && (F > RN_CLUSTER * RN_THREADS || W1 >= RN_THREADS)) return -1;
   const size_t smem = normal ? relo_smem(F, W1, C, ex != 0, sizeof(T)).total : 0;
   const int threads = normal ? RN_THREADS : RC_THREADS;
-  const int grid = normal ? 1 : (F + RC_THREADS - 1) / RC_THREADS;
+  const int grid = normal ? RN_CLUSTER : (F + RC_THREADS - 1) / RC_THREADS;
   void (*kernel)(const ReloArgs<T>) =
-      empty ? relo_empty_kernel<T> : normal ? relo_normal_kernel<T> : relo_cost_kernel<T>;
+      normal ? (empty ? relo_empty_cluster_kernel<T> : relo_normal_kernel<T>)
+             : (empty ? relo_empty_kernel<T> : relo_cost_kernel<T>);
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1758,9 +1578,10 @@ extern "C" int proj_normal_launch(PROJ_IN_PARAMS, int estimate_ex, int estimate_
 // sums may be null). empty != 0: relo_empty_kernel with that launch's grid,
 // block and shared memory. The state's arguments as proj_rows_launch's;
 // relo_p [3], relo_q [4], relo_bearing [F, 3] of the state's dtype,
-// relo_mask [F] bool. Mode 1 takes F <= 1024 (-1 above); its shared memory,
-// F (26 + 12 C) values with the extrinsics estimated, bounds F further in
-// float64.
+// relo_mask [F] bool. Mode 1 takes F <= 2048 (-1 above) and needs
+// relo_normal_smem's shared memory (about F (26 + 12 C) values with the
+// extrinsics estimated), which bounds F further where it exceeds what a
+// block may take.
 extern "C" int relo_launch(PROJ_IN_PARAMS, const void* relo_p, const void* relo_q,
                            const void* relo_bearing, const void* relo_mask, int estimate_ex,
                            int mode, int empty, int dtype, void* H6, void* b6, void* H_pl6,
@@ -1774,4 +1595,19 @@ extern "C" int relo_launch(PROJ_IN_PARAMS, const void* relo_p, const void* relo_
                : launch_relo<float>(PROJ_IN_ARGS, relo_p, relo_q, relo_bearing, relo_mask,
                                     estimate_ex, mode, empty != 0, H6, b6, H_pl6, H_ll, b_l,
                                     cost, (cudaStream_t)stream);
+}
+
+// relo_normal_kernel's dynamic shared memory at these sizes (need, bytes)
+// and the most a block of the current device may take (limit, bytes).
+extern "C" int relo_normal_smem(int F, int W1, int C, int estimate_ex, int dtype, long long* need,
+                                long long* limit) {
+  if (F < 0 || W1 < 1 || C < 1 || (dtype != 0 && dtype != 1)) return -1;
+  *need = (long long)relo_smem(F, W1, C, estimate_ex != 0, dtype ? sizeof(double) : sizeof(float))
+              .total;
+  int dev = 0, v = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  *limit = v;
+  return (int)err;
 }

@@ -18,17 +18,7 @@ the outputs and the output it is in.
 """
 
 import ctypes
-import dataclasses
 import sys
-
-
-def upcast(args):
-    """relo inputs in float64, from their float32 values."""
-    state, grid, cfg, relo = args
-    cast = lambda x: x.double() if x is not None and x.is_floating_point() else x
-    re = lambda obj: type(obj)(**{f.name: cast(getattr(obj, f.name))
-                                  for f in dataclasses.fields(obj)})
-    return re(state), re(grid), cfg, tuple(cast(x) for x in relo)
 
 
 def main(argv):
@@ -63,8 +53,8 @@ def main(argv):
             for layout in chip_smoke.RELO_LAYOUTS:
                 for C in (1, 2):
                     args = chip_smoke.relo_layout(dev, torch.float32, W1, F, C, layout)
-                    exact = chip_smoke.relo_outputs(upcast(args), plain=True)
-                    scale = chip_smoke.relo_scales(upcast(args))
+                    exact = chip_smoke.relo_outputs(chip_smoke.relo_upcast(args), plain=True)
+                    scale = chip_smoke.relo_scales(chip_smoke.relo_upcast(args))
                     plain = chip_smoke.relo_outputs(args, plain=True)
                     outs = {who: chip_smoke.relo_outputs(args, kernels=k)
                             for who, k in sources.items()}

@@ -4,38 +4,34 @@ stamps at its phase boundaries.
     python3 relo_stamps.py                     (beside chip_smoke.py)
 
 Builds this tree's ``csrc/proj_factor.cu`` once more with stamps written
-into a device array at the phases of ``relo_normal_kernel`` (the kernel's
-start; warp 1's counts done; warp 0's segments and jobs done; each warp's
-linearization done, before the barrier that publishes the segments; the
-rows written; each warp's jobs done; the last add into H6), launches it
-behind ``chip_smoke.make_blocker`` (the L2 emptied, as the ``[14r]`` times
-are taken) at three f32 windows (``relo_layout`` 11 frames / 256 slots /
-anchors at frame 0 / one camera, like phase 6r's; ``relo_window``'s two
-cameras; ``relo_layout`` 21 frames / 384 slots / spread / two cameras),
+into a device array at the phases of ``relo_normal_kernel``'s block of rank
+0 in its cluster (the kernel's start; thread 0's key stored; its place in
+the list found; each warp's rows written; each warp's partial sums done;
+each warp's adds into H6 done, before the last cluster barrier), launches
+it behind ``chip_smoke.make_blocker`` (the L2 emptied, as the ``[14r]``
+times are taken) at three f32 windows (``relo_layout`` 11 frames / 256
+slots / anchors at frame 0 / one camera, like phase 6r's; ``relo_window``'s
+two cameras; ``relo_layout`` 21 frames / 384 slots / spread / two cameras),
 and prints the card's line and, for each window, the median over five
 launches of each stamp in SM cycles from the kernel's start. Stamps are
-read on one SM (the kernel is one block); a stamp is placed before a
+read on one SM (each SM has its own clock), and a stamp is placed before a
 barrier, never after one (a read of the clock may move across it).
 """
 
 import ctypes
 import sys
 
+R0 = "  if (rank == 0 && tid == 0) relo_stamps[{}] = clock64();\n"
+RW = "  if (rank == 0 && (tid & 31) == 0) relo_stamps[{} + (tid >> 5)] = clock64();\n"
 STAMPS = [  # (text in the kernel, the stamp put before it)
-    ("  // Feature r RN_LIN + tid - 32 of round r (warps 1..): its key (its anchor",
-     "  if (tid == 0) relo_stamps[0] = clock64();\n"),
-    ("  __syncthreads();  // every slot's counts\n",
-     "  if (tid == 32) relo_stamps[1] = clock64();\n"),
-    ("#pragma unroll\n  for (int r = 0; r < RN_ROUNDS; ++r) {\n    if (r >= L.rounds) break;\n"
-     "    const int f = r * RN_LIN + tid - 32;\n    const bool kept",
-     "  if (tid == 0) relo_stamps[2] = clock64();\n"),
-    ("    if (r == 0) __syncthreads();  // the segments and the jobs\n",
-     "    if (r == 0 && lane == 0) relo_stamps[8 + warp] = clock64();\n"),
-    ("  __syncthreads();  // every row\n", "  if (tid == 0) relo_stamps[5] = clock64();\n"),
-    ("  __syncthreads();  // every job's sums\n",
-     "  if (lane == 0) relo_stamps[24 + warp] = clock64();\n"),
+    ("  // The slot's key; where kept, the loads of what its row reads and of what", R0.format(0)),
+    ("  __syncthreads();  // every key and tile\n", R0.format(1)),
+    ("  if (k < W1) {\n    T r0, r1, w, cst, J[2][26];", R0.format(2)),
+    ("  __syncthreads();  // every row and segment\n", RW.format(8)),
+    ("  // Each sum into its place (and its other place) in H6 or b6: block rank", RW.format(16)),
+    ("  cluster.sync();  // no block leaves while another reads its shared memory\n",
+     RW.format(24)),
 ]
-END = "      if (mir[u]) *mir[u] = om[u] + v;\n    }\n  }\n"
 
 
 def stamped(text):
@@ -46,9 +42,6 @@ def stamped(text):
         if text.count(anchor) != 1:
             raise RuntimeError(f"relo_stamps.py: the kernel no longer has {anchor!r}")
         text = text.replace(anchor, stamp + anchor)
-    if text.count(END) != 1:
-        raise RuntimeError("relo_stamps.py: the kernel's last add moved")
-    text = text.replace(END, END + "  if (tid == 0) relo_stamps[7] = clock64();\n")
     return text + ('\nextern "C" int relo_stamps_read(long long* out) {\n'
                    '  return (int)cudaMemcpyFromSymbol(out, relo_stamps, sizeof(relo_stamps));\n}\n')
 
@@ -83,9 +76,9 @@ def main():
              "relo_window, 64 slots, two cameras": chip_smoke.relo_window(dev, torch.float32, 2),
              "21 frames, 384 slots, spread, two cameras":
                  chip_smoke.relo_layout(dev, torch.float32, 21, 384, 2, "spread")}
-    names = {"counts (warp 1)": [1], "segments and jobs (warp 0)": [2],
-             "linearized (last warp)": list(range(9, 17)), "rows": [5],
-             "jobs (last warp)": list(range(24, 33)), "end": [7]}
+    names = {"key stored": [1], "place found": [2], "rows (last warp)": list(range(8, 16)),
+             "partial sums (last warp)": list(range(16, 24)),
+             "adds (last warp)": list(range(24, 32))}
     for label, (state, grid, cfg, relo) in cases.items():
         F, W1 = grid.valid.shape
         D6 = pose_dim(W1, n_cams_of(state)) + 6

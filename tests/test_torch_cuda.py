@@ -1037,15 +1037,15 @@ def test_relo_kernels_match_plain(dev, dtype, n_cams, n_slots):
 def test_relo_kernels_match_plain_across_layouts(dev, W1, n_slots, layout, n_cams):
     """relo_normal and relo_cost against their plain versions on
     chip_smoke.relo_layout: windows of 11 and 21 frames, 256 and 384 slots
-    (two rounds of features a relo_normal thread at 384), anchors 96% at
+    (32 and 48 slots a block of relo_normal's cluster), anchors 96% at
     frame 0 as on the main path ("front", where one tile holds nearly every
     feature) or spread evenly ("spread", many small tiles), one camera, or
     two with the extrinsics estimated; within [14r]'s f64 bound of each
     output's scale, a repeat bit-identical, every planted fault rejected.
     f64: on these windows the f32 plain version's λ-column outputs (H_pl6,
     H_ll) are themselves up to 1.2e-5 of [14r]'s scale from f64 arithmetic
-    on the same inputs, so f32 is held where [14r] holds it
-    (test_relo_kernels_match_plain, chip_smoke phase 14)."""
+    on the same inputs; test_relo_kernels_f32_across_layouts holds the f32
+    kernels there against f64 arithmetic."""
     import chip_smoke
 
     dtype = torch.float64
@@ -1058,6 +1058,64 @@ def test_relo_kernels_match_plain_across_layouts(dev, W1, n_slots, layout, n_cam
     assert len(faults) == (3 if n_cams == 2 else 2)
     for fault, fe in faults.items():
         assert all(fe[n] > bound for n in chip_smoke.RELO_FAULT_OUTPUTS[fault]), (fault, fe)
+
+
+@pytest.mark.parametrize("n_cams", [1, 2])
+@pytest.mark.parametrize("layout", ["front", "spread"])
+@pytest.mark.parametrize("n_slots", [256, 384])
+@pytest.mark.parametrize("W1", [11, 21])
+def test_relo_kernels_f32_across_layouts(dev, W1, n_slots, layout, n_cams):
+    """The float32 kernels on test_relo_kernels_match_plain_across_layouts'
+    windows against the plain version run in float64 on the float32 inputs
+    upcast (chip_smoke.relo_upcast), within RELO_F32_EXACT_BOUND of each
+    output's scale ([14r]'s scale of the upcast inputs), a repeat
+    bit-identical, every planted fault rejected."""
+    import chip_smoke
+
+    args = chip_smoke.relo_layout(dev, torch.float32, W1, n_slots, n_cams, layout)
+    bound = chip_smoke.RELO_F32_EXACT_BOUND
+    out, again = chip_smoke.relo_outputs(args), chip_smoke.relo_outputs(args)
+    assert all(torch.equal(out[n], again[n]) for n in out)
+    exact = chip_smoke.relo_outputs(chip_smoke.relo_upcast(args), plain=True)
+    errs = chip_smoke.relo_errors({n: x.double() for n, x in out.items()}, exact,
+                                  chip_smoke.relo_scales(chip_smoke.relo_upcast(args)))
+    assert max(errs.values()) <= bound, errs
+    faults = chip_smoke.relo_planted_faults(args)
+    assert len(faults) == (3 if n_cams == 2 else 2)
+    for fault, fe in faults.items():
+        assert all(fe[n] > bound for n in chip_smoke.RELO_FAULT_OUTPUTS[fault]), (fault, fe)
+
+
+@pytest.mark.parametrize("n_cams", [1, 2])
+def test_relo_normal_at_its_limits(dev, n_cams):
+    """relo_normal in float64 (one camera; two with the extrinsics
+    estimated) at MAX_SLOTS slots, over 21 frames (window 20) and over the
+    most frames the wrapper takes there (MAX_FRAMES, or fewer where a
+    block's shared memory holds no more): against the plain version within
+    [14r]'s f64 bound, a repeat bit-identical; one slot or one frame more
+    is refused with its reason."""
+    import chip_smoke
+    from lfvio_tpu_torch.backend import relo_cuda as rc
+
+    F, dt = rc.MAX_SLOTS, torch.float64
+
+    def fits(W1):
+        need, limit = rc.normal_smem(F, W1, n_cams, n_cams > 1, dt, dev)
+        return W1 <= rc.MAX_FRAMES and need <= limit
+
+    W_max = 21
+    while fits(W_max + 1):
+        W_max += 1
+    for W1 in (21, W_max):
+        errs, _, identical = chip_smoke.relo_compare(
+            chip_smoke.relo_layout(dev, dt, W1, F, n_cams, "spread"))
+        assert identical
+        assert max(errs.values()) <= chip_smoke.RELO_BOUNDS["float64"], (W1, errs)
+    refused = ((F + 1, 21, "at most"),
+               (F, W_max + 1, "at most" if W_max == rc.MAX_FRAMES else "shared memory"))
+    for n_slots, W1, why in refused:
+        with pytest.raises(ValueError, match=why):
+            chip_smoke.relo_outputs(chip_smoke.relo_layout(dev, dt, W1, n_slots, n_cams, "spread"))
 
 
 @pytest.mark.parametrize("estimate_extrinsic", [True, False])

@@ -68,14 +68,14 @@ this tree's latency floor of the launch (``eigh_cuda.latency_floor``).
 (one with the same ``relo_launch``) behind ``relo_cuda``'s wrapper class
 against this tree's: runs ``chip_smoke.phase_relo_full_scale`` (phase 6r)
 for its relo inputs, holds both sources against the plain version within
-``chip_smoke.RELO_BOUNDS`` with a repeat bit-identical at those inputs and
-on ``relo_window``'s two-camera window (f64 and f32, extrinsics
-estimated), then times ``relo_normal`` and ``relo_cost`` behind a full
-queue in turns earlier, this, this, earlier at phase 6r's inputs and on the
-two-camera f32 window, beside each source's latency floor of the launch
-(its empty kernel with the launch's grid, block and shared memory); last,
-this tree's ``relo_cost`` built at 32 and 128 threads a block
-(``-DRELO_COST_THREADS``) against its own 64, in turns at both inputs.
+``chip_smoke.RELO_BOUNDS`` with a repeat bit-identical at those inputs, on
+``relo_window``'s two-camera window (f64 and f32, extrinsics estimated)
+and on ``relo_layout``'s f32 windows of 21 frames and 384 slots (the
+high-rate configuration's width: anchors 96% at frame 0 or spread, one
+camera or two with the extrinsics estimated), then times ``relo_normal``
+and ``relo_cost`` behind a full queue in turns earlier, this, this,
+earlier at each f32 input, beside each source's latency floor of the
+launch (its empty kernel with the launch's grid, block and shared memory).
 """
 
 from __future__ import annotations
@@ -499,6 +499,10 @@ def relo_main(argv):
     cases = {label_r: relo6["args"], label_2: chip_smoke.relo_window(dev, torch.float32, 2),
              "two-camera 64 slots, f64, extrinsics estimated":
                  chip_smoke.relo_window(dev, torch.float64, 2)}
+    for layout in chip_smoke.RELO_LAYOUTS:
+        for C in (1, 2):
+            cases[f"21 frames, 384 slots, {layout}, {C} camera(s), f32"] = chip_smoke.relo_layout(
+                dev, torch.float32, 21, 384, C, layout)
     for label, args in cases.items():
         bound = chip_smoke.RELO_BOUNDS[str(args[0].p.dtype).split(".")[-1]]
         for who, kernels in sources.items():
@@ -511,7 +515,7 @@ def relo_main(argv):
                                      "version, or a repeat differs")
     block = chip_smoke.make_blocker(dev)
     out = {}
-    for label in (label_r, label_2):
+    for label in (k for k, args in cases.items() if args[0].p.dtype == torch.float32):
         state, grid, cfg, relo = cases[label]
         F, W1 = grid.valid.shape
         D6 = pose_dim(W1, n_cams_of(state)) + 6
@@ -533,29 +537,6 @@ def relo_main(argv):
                   f"{fl['queued']:.4f} ms behind a full queue, {fl['alone']:.4f} ms alone",
                   flush=True)
             out[label][name]["earlier_floor"] = fl
-    # relo_cost's block: this source built at 32 and 128 threads a block
-    # (RELO_COST_THREADS) beside its own 64, in turns at both inputs.
-    cost = {64: rc.relo_cost}
-    for n in (32, 128):
-        fn = build_earlier_lib(rc.__file__.replace("backend/relo_cuda.py", "csrc/proj_factor.cu"),
-                               "proj_factor", f"cost{n}", (f"-DRELO_COST_THREADS={n}",)).relo_launch
-        fn.argtypes, fn.restype = rc._ARGTYPES, ctypes.c_int
-        cost[n] = rc.ReloKernel(normal=False)
-        cost[n]._fn = fn
-    for label in (label_r, label_2):
-        state, grid, cfg, relo = cases[label]
-        ref = rc.relo_cost_plain(state, grid, *relo, cfg)
-        for n, k in cost.items():
-            err = float((k(state, grid, *relo, cfg) - ref).abs().max())
-            print(f"({label}) relo_cost at {n} threads a block: largest error against the plain "
-                  f"version {err:.2e}", flush=True)
-        sweep = []
-        for n in (32, 64, 128, 128, 64, 32):
-            sweep.append((n, chip_smoke.cuda_ms(lambda k=cost[n]: k(state, grid, *relo, cfg),
-                                                reps=10, blocker=block)))
-            print(f"({label}) relo_cost at {n} threads a block: {sweep[-1][1]:.4f} ms behind a "
-                  "full queue", flush=True)
-        out[label]["relo_cost_blocks"] = sweep
     print(json.dumps({"card": smi, "times_ms": out}))
     return 0
 
