@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--profile]
 
 ``--profile`` adds CUDA-synchronized stage timers (FrontEnd per published
-and unpublished frame, its LK stage alone, Estimator solve) and a
+and unpublished frame, run op by op, its LK stage alone, Estimator solve) and a
 torch.profiler trace of one solve to phase 4. Phases, each printing its
 lines; any failure ends the run with a non-zero exit code:
 
@@ -40,9 +40,21 @@ lines; any failure ends the run with a non-zero exit code:
      torch.cuda.set_sync_debug_mode("error") (none may wait for the card),
      with the host's ms per call, and no solve finalized inside
      Estimator.process_image_arrays (the pipeline defers it); then a few
-     frames of the same FrontEnd
+     frames of the same FrontEnd, run op by op,
      with the level loop on the host over the one-level wrapper (five
-     launches per frame);
+     launches per frame). Every tracked frame of phases 4, 6, 6p, 8, 9 and
+     15 after the first of its kind is one replay of the FrontEnd's
+     published or unpublished CUDA graph (counted at dispatch; each program
+     logged with its warm-up and capture seconds). Then (4e) phase 4's run
+     with the FrontEnd op by op (use_graphs off), its dispatch host ms
+     beside the graphs', ATE within 1 mm of phase 4's, and (4g) the graphs
+     against the eager step at full width, frame by frame in turns over 16
+     frames with a reset before frame 8: 1280x960 at 256 slots (15 Hz
+     published at 10 Hz) in both LK geometries and at 384 slots in the
+     high-rate configuration (30 Hz published at 10 Hz): status, new_src,
+     positions, bearings and the finalized frames bit-identical, launches
+     equal, the graphs' kernel nodes, and each dispatch host ms under the
+     sync check;
   5. the accuracy gate of tests/test_e2e.py::test_e2e_vio_ate on the card
      (512x384, f32 tracker, f64 solver, 7 s): ATE < 0.25 m;
   6. bench.py's configuration as bench.py runs it: the stream of phase 4 at
@@ -645,17 +657,41 @@ def count_plain_lk():
     return calls
 
 
-def count_calls(obj, name):
-    """Wrap ``obj.name`` with a call counter."""
-    calls = {"n": 0}
-    fn = getattr(obj, name)
+def count_tracked(fe):
+    """Count the tracked frames (every frame after a stream's first) a
+    FrontEnd dispatches, by kind: {"n": all, True: published, False:
+    unpublished}. Counted at ``dispatch``: under the graphs ``_step_impl``
+    runs only at a program's warm-up and capture."""
+    calls = {"n": 0, True: 0, False: 0}
+    dispatch = fe.dispatch
 
-    def counted(*a, **k):
-        calls["n"] += 1
-        return fn(*a, **k)
+    def counted(img, t, publish=True):
+        if fe._dev_pos is not None:
+            calls["n"] += 1
+            calls[bool(publish)] += 1
+        return dispatch(img, t, publish=publish)
 
-    setattr(obj, name, counted)
+    fe.dispatch = counted
     return calls
+
+
+def check_frontend_programs(tag, fe, tracked):
+    """Log a FrontEnd's step programs (warm-up, capture, replays) and raise
+    unless, with its graphs on, each kind of tracked frame captured its
+    graph once and replayed it at every later frame of its kind, or, with
+    them off, no program was made. Returns {kind: (warm-up s, capture s,
+    replays)}."""
+    progs = {("published" if k else "unpublished"): p for k, p in fe._programs.items()}
+    log(f"{tag} front-end programs ({'CUDA graphs' if fe.use_graphs else 'eager'}): "
+        + (", ".join(f"{k} warm-up {p.warmup_s:.3f} s, capture {p.capture_s:.3f} s, replays "
+                     f"{p.replays}" for k, p in progs.items()) or "none")
+        + f"; tracked frames {tracked[True]} published + {tracked[False]} unpublished")
+    want = {k for k in (True, False) if tracked[k]} if fe.use_graphs else set()
+    if set(fe._programs) != want or any(
+            p.graph is None or p.replays != tracked[k] - 1 for k, p in fe._programs.items()):
+        raise AssertionError(f"{tag} not every tracked frame after the first of its kind was a "
+                             f"replay of the front end's graph of its kind")
+    return {k: (p.warmup_s, p.capture_s, p.replays) for k, p in progs.items()}
 
 
 def count_level_pads():
@@ -695,7 +731,9 @@ def add_stage_timers(fe, est, profile_solve=5):
     points (``dispatch``, ``_dispatch_solve``), and the LK call the FrontEnd
     makes (``klt_cuda.pyramidal_lk``),
     with CUDA-synchronized host timers, and trace one solve with
-    torch.profiler. Returns the dict the timers fill (ms per call)."""
+    torch.profiler. Returns the dict the timers fill (ms per call). The
+    FrontEnd must run eagerly (``use_graphs`` off): a graph records its LK
+    call once, at the capture, which cannot hold a synchronize."""
     import torch
     from lfvio_tpu_torch.frontend import klt_cuda
 
@@ -801,10 +839,12 @@ def check_factor_launches(counts, what):
 def sync_checked(fn, rec, key):
     """``fn`` run under torch.cuda.set_sync_debug_mode(SYNC_CHECK), so that
     any wait for the card inside it raises; appends the host's ms per call
-    (no synchronize) to rec[key]. Calls may nest."""
+    (no synchronize) to rec[key] (``key`` may be a function of the call's
+    arguments). Calls may nest."""
     import torch
 
     def run(*a, **k):
+        key_ = key(*a, **k) if callable(key) else key
         t0 = time.perf_counter()
         prev = torch.cuda.get_sync_debug_mode()
         torch.cuda.set_sync_debug_mode(SYNC_CHECK)
@@ -812,7 +852,7 @@ def sync_checked(fn, rec, key):
             return fn(*a, **k)
         finally:
             torch.cuda.set_sync_debug_mode(prev)
-            rec.setdefault(key, []).append(1e3 * (time.perf_counter() - t0))
+            rec.setdefault(key_, []).append(1e3 * (time.perf_counter() - t0))
 
     return run
 
@@ -838,8 +878,13 @@ def finalizes_inside(est):
     return count
 
 
+def dispatch_key(img, t, publish=True):
+    """The sync check's key of a FrontEnd.dispatch call."""
+    return f"FrontEnd.dispatch, {'published' if publish else 'unpublished'}"
+
+
 def run_full_scale(tag, rig, plain_calls, solve_lag, depth, profile=False, sync_check=False,
-                   graphs=True, marg_record=None, fe_kw=None):
+                   graphs=True, marg_record=None, fe_kw=None, fe_graphs=True):
     """The full-scale stream through a fresh pipeline at (solve_lag,
     depth), the FrontEnd built with ``fe_kw``, timed by bench.timed_window:
     warm-up on the first 60%, frames/s over the rest, the launch counts of
@@ -848,7 +893,9 @@ def run_full_scale(tag, rig, plain_calls, solve_lag, depth, profile=False, sync_
     and Estimator._dispatch_solve after the warm-up runs under the sync
     debug mode "error", timed on the host, and no solve may be finalized
     inside process_image_arrays. ``graphs=False`` runs the estimator's
-    programs eagerly. ``marg_record`` (a dict) collects each
+    programs eagerly, ``fe_graphs=False`` the FrontEnd's step (with
+    ``profile`` it always runs eagerly: its LK stage timer synchronizes, which
+    a capture cannot hold). ``marg_record`` (a dict) collects each
     marginalization's QR-against-eigh information difference
     (record_marg_information). Returns dict(fe, est, stages, launches,
     sym_launches, fps, ate, host_ms)."""
@@ -862,16 +909,17 @@ def run_full_scale(tag, rig, plain_calls, solve_lag, depth, profile=False, sync_
                    if fe_kw.get("use_pallas") else
                    (klt_cuda.lk_pyramid, klt_cuda.pyramidal_lk_pallas, klt_cuda.lk_level))
     est.use_graphs = graphs
+    fe.use_graphs = fe_graphs and not profile
     if marg_record is not None:
         record_marg_information(est, marg_record)
     stages = add_stage_timers(fe, est) if profile else None
 
-    tracked = count_calls(fe, "_step_impl")
+    tracked = count_tracked(fe)
     padded = count_level_pads()
     host_ms, inner = {}, {}
 
     def install_sync_checks():
-        fe.dispatch = sync_checked(fe.dispatch, host_ms, "FrontEnd.dispatch")
+        fe.dispatch = sync_checked(fe.dispatch, host_ms, dispatch_key)
         est._dispatch_solve = sync_checked(est._dispatch_solve, host_ms,
                                            "Estimator._dispatch_solve")
         inner["count"] = finalizes_inside(est)
@@ -895,8 +943,9 @@ def run_full_scale(tag, rig, plain_calls, solve_lag, depth, profile=False, sync_
     times = np.asarray(est.times)
     traj = np.asarray(est.traj_p)
     n_graphs, capture_s = est.graph_stats()
-    log(f"{tag} solve lag {solve_lag}, depth {depth}, programs "
-        f"{'as CUDA graphs' if graphs else 'eager'}: warm-up {win.warmup_s:.2f} s; timed "
+    log(f"{tag} solve lag {solve_lag}, depth {depth}, estimator programs "
+        f"{'as CUDA graphs' if graphs else 'eager'}, front end "
+        f"{'as CUDA graphs' if fe.use_graphs else 'eager'}: warm-up {win.warmup_s:.2f} s; timed "
         f"{n_timed} frames in {win.seconds:.3f} s = "
         f"{fps:.3f} frames/s; solves {len(times)}; tracked frames {tracked['n']}; fused LK "
         f"launches {klt_cuda.lk_pyramid.launches}; Pallas-mode launches "
@@ -922,12 +971,13 @@ def run_full_scale(tag, rig, plain_calls, solve_lag, depth, profile=False, sync_
         raise AssertionError("the estimator's programs were not captured as CUDA graphs")
     if sync_check and len(host_ms.get("Estimator._dispatch_solve", [])) < 5:
         raise AssertionError("too few steady-state solves under the sync check")
+    fe_programs = check_frontend_programs(tag, fe, tracked)
     ate, n = trajectory_ate(rig.world, est)
     log(f"{tag} ATE {ate:.4f} m over {n} poses; first solve at t = {times[0]:.4f} s")
     if n != len(times):
         raise AssertionError("not as many trajectory poses as solves")
     return dict(fe=fe, est=est, stages=stages, launches=launches, sym_launches=sym_launches,
-                factors=factors, fps=fps, ate=ate, host_ms=host_ms)
+                factors=factors, fps=fps, ate=ate, host_ms=host_ms, fe_programs=fe_programs)
 
 
 def phase_full_scale(rig, plain_calls, profile=False):
@@ -935,12 +985,145 @@ def phase_full_scale(rig, plain_calls, profile=False):
     (solve lag 1, depth 1) on the card. ``profile`` times the stages (the
     timers synchronize the card, so the frames/s of such a run are not the
     cell's)."""
+    from lfvio_tpu_torch.frontend import klt_cuda
+
     log(f"[4] stream: {len(rig[1])} events, {len(rig[2])} frames rendered on the card")
+    lk = klt_cuda.pyramidal_lk
     run = run_full_scale("[4]", rig, plain_calls, 1, 1, profile, sync_check=not profile)
     run["level_launches"] = phase_five_launch_path(run["fe"], rig[2], run["stages"])
+    # The stage timer's LK wrapper synchronizes: no later capture may record it.
+    klt_cuda.pyramidal_lk = lk
     if run["stages"] is not None:
         log_stage_timers(run["stages"])
     return run
+
+
+# Phase 4g: the front end's step programs at full width against the step
+# run op by op (FrontEnd.use_graphs off) on the same frames: FE_GRAPH_FRAMES
+# frames, a reset of both before frame FE_GRAPH_RESET (FE_GRAPH_FRAMES - 2
+# tracked frames).
+FE_GRAPH_FRAMES = 16
+FE_GRAPH_RESET = 8
+
+
+def throttled(times, freq=10.0):
+    """The publish decisions VioPipeline makes for frames at ``times`` at its
+    publish rate ``freq`` (VioPipeline._process_frame)."""
+    out, last = [], -1e18
+    for t in times:
+        out.append(t - last >= 1.0 / freq - 1e-9)
+        last = t if out[-1] else last
+    return out
+
+
+def fetched(handle):
+    """The device outputs a FrontEnd's (or a DualFrontEnd's) dispatch handle
+    fetched, as numpy arrays."""
+    if handle[0] == "dual":
+        return [x for sub in handle[1] for x in fetched(sub)]
+    return handle[1].numpy()
+
+
+def frontend_graphs_vs_eager(tag, fe_g, fe_e, frames, publish, reset_at=FE_GRAPH_RESET):
+    """Drive a graphed front end (a FrontEnd or a DualFrontEnd) and its
+    eager twin (use_graphs off) over the same (t, image) frames in turns,
+    frame by frame, both reset before frame ``reset_at``. Each dispatch of a
+    tracked frame but a capture's runs under the sync check, timed on the
+    host. Raises unless the fetched device outputs (status, new_src,
+    positions, bearings) and the finalized frames (ids, bearings,
+    velocities, rows, publish masks) agree bit for bit, every kernel's
+    launches of each frame are equal, and every tracked frame after the
+    first of its kind replayed the graph of its kind (each camera's own).
+    Returns dict(tracked, host_ms {(path, kind): [ms]}, nodes and programs:
+    a list over cameras of {kind: kernel nodes} and of
+    check_frontend_programs' record)."""
+    from lfvio_tpu_torch.frontend import klt_cuda
+    from lfvio_tpu_torch.geom.eigh_cuda import sym_eig
+
+    kernels = (klt_cuda.lk_pyramid, klt_cuda.pyramidal_lk_pallas, klt_cuda.lk_level, sym_eig)
+    counts = lambda: [k.launches for k in kernels]
+    cams_g, cams_e = (getattr(fe, "fes", (fe,)) for fe in (fe_g, fe_e))
+    for fe in cams_e:
+        fe.use_graphs = False
+    tracked, host_ms, seen = {"n": 0, True: 0, False: 0}, {}, set()
+    for k, (t, img) in enumerate(frames):
+        if k == reset_at:
+            fe_g.reset()
+            fe_e.reset()
+        first = cams_g[0]._dev_pos is None
+        kind = "published" if publish[k] else "unpublished"
+        handles, deltas = [], []
+        for path, fe in (("graphs", fe_g), ("eager", fe_e)):
+            c0 = counts()
+            capture = path == "graphs" and not first and publish[k] not in seen
+            call = (fe.dispatch if first or capture else
+                    sync_checked(fe.dispatch, host_ms, (path, kind)))
+            handles.append(call(img, t, publish=publish[k]))
+            deltas.append([b - a for a, b in zip(c0, counts())])
+        if deltas[0] != deltas[1]:
+            raise AssertionError(f"{tag} frame {k}: launches {deltas[0]} with the graphs, "
+                                 f"{deltas[1]} eager")
+        if not all(np.array_equal(x, y) for x, y in zip(*map(fetched, handles))):
+            raise AssertionError(f"{tag} frame {k}: the graphs' device outputs differ from "
+                                 f"the eager step's")
+        outs = [fe_g.finalize(handles[0]), fe_e.finalize(handles[1])]
+        if (outs[0] is None) != (outs[1] is None) or not all(
+                np.array_equal(x, y) for x, y in zip(outs[0] or (), outs[1] or ())):
+            raise AssertionError(f"{tag} frame {k}: the finalized frames differ")
+        if not first:
+            seen.add(publish[k])
+            tracked["n"] += 1
+            tracked[publish[k]] += 1
+    label = lambda c: tag if len(cams_g) == 1 else f"{tag} camera {c}:"
+    programs = [check_frontend_programs(label(c), fe, tracked) for c, fe in enumerate(cams_g)]
+    nodes = [{("published" if pub else "unpublished"): graph_nodes(p)
+              for pub, p in fe._programs.items()} for fe in cams_g]
+    log(f"{tag} graphs against eager over {len(frames)} frames (reset before frame "
+        f"{reset_at}), {tracked['n']} tracked: status, new_src, positions, bearings and the "
+        f"finalized frames bit-identical; launches equal frame by frame; nodes "
+        + "; ".join(("" if len(nodes) == 1 else f"camera {c} ") + f"{k} "
+                    + ", ".join(f"{n} {v}" for n, v in kinds.items())
+                    for c, cam in enumerate(nodes) for k, kinds in cam.items()))
+    for key, vals in sorted(host_ms.items()):
+        log(f"{tag} FrontEnd.dispatch, {key[0]}, {key[1]}, host ms under "
+            f"set_sync_debug_mode({SYNC_CHECK!r}): n {len(vals)}, min {min(vals):.3f}, median "
+            f"{float(np.median(vals)):.3f}, max {max(vals):.3f}")
+    return dict(tracked=tracked, host_ms=host_ms, nodes=nodes, programs=programs)
+
+
+def phase_frontend_graphs(rig, plain_calls, run4):
+    """The front end's programs: phase 4's configuration and stream with the
+    FrontEnd run op by op (4e: its dispatch host ms under the sync check
+    beside phase 4's graphs, frames/s, ATE within GRAPH_ATE_M of phase 4's),
+    then the graphs held against the eager step at full width (4g):
+    1280x960 at 256 slots on phase 4's frames (15 Hz published at 10 Hz),
+    in both LK geometries, and at 384 slots in the high-rate configuration
+    (30 Hz frames published at 10 Hz: 2 of 3 unpublished)."""
+    dev = next(iter(rig.frames.values())).device
+    eager = run_full_scale("[4e]", rig, plain_calls, 1, 1, sync_check=True, fe_graphs=False)
+    d_ate = abs(eager["ate"] - run4["ate"])
+    log(f"[4e] phase 4's stream with the front end eager: {eager['fps']:.3f} frames/s beside "
+        f"{run4['fps']:.3f} with its graphs; ATE {eager['ate']:.6f} m beside {run4['ate']:.6f} m "
+        f"(difference {d_ate:.2e})")
+    if d_ate > GRAPH_ATE_M or abs(float(eager["est"].times[0])
+                                  - float(run4["est"].times[0])) > 1e-9:
+        raise AssertionError("the front end's graphs moved the trajectory")
+    cam = rig.world.camera
+    ts = sorted(rig.frames)[:FE_GRAPH_FRAMES]
+    frames15 = [(t, rig.frames[t]) for t in ts]
+    high = bench.config_from_env(BENCH_HIGH_RATE)
+    ts30 = [k / high.frame_rate for k in range(FE_GRAPH_FRAMES)]
+    frames30 = [(t, rig.world.render_u8(t)) for t in ts30]
+    out = {}
+    for key, cfg, frames, kw in (("256", FULL_SCALE, frames15, {}),
+                                 ("256 pallas", FULL_SCALE, frames15, dict(use_pallas=True)),
+                                 ("384", high, frames30, {})):
+        make = lambda: bench.make_frontend(cfg, cam, dev, **kw)
+        publish = throttled([t for t, _ in frames])
+        out[key] = frontend_graphs_vs_eager(f"[4g] {key} slots:", make(), make(), frames,
+                                            publish)
+    out["eager_run"] = eager
+    return out
 
 
 def phase_bench_configuration(rig, plain_calls, run4):
@@ -1219,7 +1402,9 @@ def phase_five_launch_path(fe, frames, stages):
         return out
 
     fe.reset()
-    # The FrontEnd looks its LK call up in klt_cuda at every frame.
+    # The FrontEnd, run eagerly, looks its LK call up in klt_cuda at every
+    # frame (its graphs hold the fused launch they captured).
+    fe.use_graphs = False
     fused_track, klt_cuda.pyramidal_lk = klt_cuda.pyramidal_lk, track
     try:
         klt_cuda.lk_pyramid.launches = klt_cuda.lk_level.launches = 0
@@ -1485,7 +1670,7 @@ def phase_dual_pal(dev, plain_calls):
                                     solver_dtype=torch.float64, device=dev))
     solves = {}
     est._dispatch_solve = timed_call(est._dispatch_solve, solves, "ms")
-    tracked = [count_calls(f, "_step_impl") for f in fes]
+    tracked = [count_tracked(f) for f in fes]
     reset_launches()
     plain_calls["n"] = 0
     stream = world.generate(DUAL_PAL_SECONDS, 15.0, 200.0)
@@ -1516,6 +1701,10 @@ def phase_dual_pal(dev, plain_calls):
         raise AssertionError("dual-PAL: not two fused LK launches per tracked frame")
     if sym_launches == 0:
         raise AssertionError("dual-PAL: the eigensolver kernel was not launched")
+    for c, (f, n) in enumerate(zip(fes, tracked)):
+        check_frontend_programs(f"[8] camera {c}:", f, n)
+    if fes[0]._programs[True] is fes[1]._programs[True]:
+        raise AssertionError("dual-PAL: the cameras share a front-end program")
     if not (np.isfinite(ate) and ate < 0.25):
         raise AssertionError("dual-PAL accuracy gate failed")
     check_factor_launches(factors, "dual-PAL")
@@ -1620,7 +1809,7 @@ def phase_euroc(rig, plain_calls):
                 items[i] = ("frame", it[1], checked(it[2], k))
                 k += 1
         fe, est, pipe = make(2, 3)
-        tracked = count_calls(fe, "_step_impl")
+        tracked = count_tracked(fe)
         padded = count_level_pads()
         reset_launches()
         plain_calls["n"] = 0
@@ -1661,6 +1850,7 @@ def phase_euroc(rig, plain_calls):
         raise AssertionError("the EuRoC path's LK is not one fused launch per tracked frame")
     if sym_launches == 0:
         raise AssertionError("the EuRoC path did not launch the eigensolver kernel")
+    check_frontend_programs("[9]", fe, tracked)
     check_factor_launches(factors, "EuRoC")
     return dict(launches=launches, sym_launches=sym_launches, factors=factors, fps=fps, ate=ate)
 
@@ -3709,8 +3899,10 @@ def run_bench(tag, knobs):
     repository root, with ``knobs`` as its only LFVIO_BENCH_* variables.
     Checks its exit code, its one JSON line on stdout, and in its figures
     (stderr) one fused LK launch per tracked frame of the timed window,
-    eigensolver launches in it, a finite trajectory and, where the
-    estimator initialized, ATE < FULL_SCALE_ATE_M. Returns the figures."""
+    eigensolver launches in it, the front end's two graphs replayed at every
+    tracked frame after the first of its kind, a finite trajectory and,
+    where the estimator initialized, ATE < FULL_SCALE_ATE_M. Returns the
+    figures."""
     env = {k: v for k, v in os.environ.items() if k not in bench.KNOBS}
     env.update(knobs)
     t0 = time.perf_counter()
@@ -3734,6 +3926,10 @@ def run_bench(tag, knobs):
         raise AssertionError(f"{tag} the bench's LK is not one fused launch per tracked frame")
     if fig["sym_eig_launches"] == 0:
         raise AssertionError(f"{tag} the bench did not launch the eigensolver kernel")
+    if not (fig["frontend_graphs"] == 2
+            and fig["frontend_replays"] + fig["frontend_graphs"] == fig["lk_launches_run"]):
+        raise AssertionError(f"{tag} not every tracked frame after the first of its kind replayed "
+                             f"the front end's graph of its kind")
     if not all(v for k, v in fig["factor_launches"].items() if k not in RELO_KERNELS):
         raise AssertionError(f"{tag} the bench did not launch every factor kernel in its timed "
                              f"window")
@@ -3771,8 +3967,10 @@ def phase_bench():
             f"ATE {f['ate_m']} m over {f['ate_poses']} poses; LK launches {f['lk_launches_run']} in "
             f"the run ({f['lk_launches']} timed), sym_eig launches {f['sym_eig_launches_run']} "
             f"({f['sym_eig_launches']} timed); graphs {f['graphs']} "
-            f"({f['graphs_captured_timed']} captured in the timed window, {f['capture_s']:.2f} s "
-            f"of capture); peak memory {peak / 2**20:.1f} MiB")
+            f"({f['capture_s']:.2f} s of capture); front-end graphs {f['frontend_graphs']} "
+            f"({f['frontend_capture_s']:.3f} s of capture, {f['frontend_replays']} replays); "
+            f"graphs captured in the timed window {f['graphs_captured_timed']}; peak memory "
+            f"{peak / 2**20:.1f} MiB")
     return runs
 
 
@@ -3811,6 +4009,7 @@ def main(argv):
     plain_calls = count_plain_lk()
     rig = full_scale_rig(dev)
     run4 = phase_full_scale(rig, plain_calls, profile)
+    fe_graphs = phase_frontend_graphs(rig, plain_calls, run4)
     phase_e2e_gate(dev)
     run6 = phase_bench_configuration(rig, plain_calls, run4)
     run6p = phase_pallas_frontend(rig, plain_calls, run4)

@@ -107,7 +107,7 @@ def workload(cfg: BenchConfig, device=None, width=1280, height=960) -> Workload:
     on the device, and a maker of fresh (FrontEnd, Estimator, VioPipeline)
     triples in bench.py's configuration; ``make``'s arguments override the
     solve lag, the pipeline depth and FrontEnd arguments."""
-    from .runtime import Estimator, EstimatorConfig, FrontEnd, VioPipeline
+    from .runtime import Estimator, EstimatorConfig, VioPipeline
     from .runtime.synthetic import (
         MINDVISION_POLY, SyntheticWorld, fit_inverse_poly, scaramuzza_camera)
 
@@ -122,15 +122,26 @@ def workload(cfg: BenchConfig, device=None, width=1280, height=960) -> Workload:
         torch.cuda.synchronize(dev)
 
     def make(solve_lag=2, depth=3, **fe_kw):
-        fe = FrontEnd(cam, (H, W), max_cnt=cfg.max_cnt, min_dist=20, n_slots=cfg.n_slots,
-                      annulus=(W / 2.0, H / 2.0, 500.0 * 0.95, 160.0), equalize=True,
-                      dtype=torch.float32, device=dev, **fe_kw)
+        fe = make_frontend(cfg, cam, dev, W, H, **fe_kw)
         est = Estimator(EstimatorConfig(n_feature_slots=cfg.n_slots, window=cfg.window,
                                         solver_dtype=torch.float32, solve_lag=solve_lag,
                                         max_imu_per_interval=64, device=dev))
         return fe, est, VioPipeline(fe, est, freq=10.0, depth=depth)
 
     return Workload(world, stream, frames, make)
+
+
+def make_frontend(cfg: BenchConfig, camera, device, width=1280, height=960, **fe_kw):
+    """The bench's FrontEnd (``bench.py:58-119``'s tracker) for ``cfg``:
+    CLAHE, the PAL annulus, ``cfg.max_cnt`` and ``cfg.n_slots``; ``fe_kw``
+    adds or overrides FrontEnd arguments."""
+    from .runtime import FrontEnd
+
+    W, H = width, height
+    kw = dict(max_cnt=cfg.max_cnt, min_dist=20, n_slots=cfg.n_slots,
+              annulus=(W / 2.0, H / 2.0, 500.0 * 0.95, 160.0), equalize=True,
+              dtype=torch.float32, device=device)
+    return FrontEnd(camera, (H, W), **{**kw, **fe_kw})
 
 
 def feed(pipe, items, frames):
@@ -212,8 +223,10 @@ def run(cfg: BenchConfig, device=None, width=1280, height=960) -> dict:
     frames of each part, solves, the estimator's initialization and first
     solve against the split, the kernel launches of the whole run (every
     count set to 0 just before the first event) and of the timed window,
-    the graphs captured in it, the ATE against the world's trajectory and
-    the card's peak memory."""
+    the estimator's and the front end's graphs (the latter's replays: every
+    tracked frame after the first of its kind), the graphs captured in the
+    timed window, the ATE against the world's trajectory and the card's
+    peak memory."""
     from .runtime.evaluation import ate_rmse
 
     dev = resolve_device(device)
@@ -229,7 +242,8 @@ def run(cfg: BenchConfig, device=None, width=1280, height=960) -> dict:
     at_split = {}
 
     def on_split():
-        at_split.update(init=est.solver_flag == est.NON_LINEAR, graphs=est.graph_stats()[0],
+        at_split.update(init=est.solver_flag == est.NON_LINEAR,
+                        graphs=est.graph_stats()[0] + fe.graph_stats()[0],
                         restarts=pipe.n_restarts, launches=_launches())
         log(f"warm-up done: use_pallas={fe.use_pallas}, "
             f"init={'ok' if at_split['init'] else 'NOT DONE'}, graphs captured "
@@ -244,6 +258,7 @@ def run(cfg: BenchConfig, device=None, width=1280, height=960) -> dict:
     times, traj = np.asarray(est.times), np.asarray(est.traj_p)
     first_solve = float(times[0]) if len(times) else None
     graphs, capture_s = est.graph_stats()
+    fe_graphs, fe_capture_s = fe.graph_stats()
     ate = n_ate = None
     if len(times):
         ate, n_ate = ate_rmse(times, traj, times, wl.world.pose_batch(times)[0])
@@ -262,7 +277,10 @@ def run(cfg: BenchConfig, device=None, width=1280, height=960) -> dict:
         sym_eig_launches_run=run_launches["sym_eig"],
         factor_launches={k: launches[k] for k in FACTOR_KERNELS},
         factor_launches_run={k: run_launches[k] for k in FACTOR_KERNELS},
-        graphs=graphs, graphs_captured_timed=graphs - at_split["graphs"], capture_s=capture_s,
+        graphs=graphs, capture_s=capture_s, frontend_graphs=fe_graphs,
+        frontend_capture_s=fe_capture_s,
+        frontend_replays=sum(p.replays for p in fe._programs.values()),
+        graphs_captured_timed=graphs + fe_graphs - at_split["graphs"],
         restarts_timed=pipe.n_restarts - at_split["restarts"],
         trajectory_finite=bool(np.isfinite(traj).all()),
         ate_m=_finite_or_none(ate), ate_poses=n_ate,

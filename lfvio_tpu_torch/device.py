@@ -120,17 +120,24 @@ class DeviceProgram:
     kernel launches a capture records are added to their wrappers' counts
     (``register_kernel``) at every replay.
 
+    ``warmup_result``: the first call returns the warm-up's outputs and does
+    not replay the graph it has just captured, so its work runs once, as a
+    later call's does (each kernel launch of that call is counted once);
+    the outputs are fresh tensors, not the static ones.
+
     On the CPU the function is called as it is, op for op."""
 
-    def __init__(self, fn, pool=None, name=None):
+    def __init__(self, fn, pool=None, name=None, warmup_result=False):
         self.fn = fn
         self.pool = pool
         self.name = name or getattr(fn, "__name__", "program")
+        self.warmup_result = warmup_result
         self.graph = None
         self.static_in = None
         self.static_out = None
         self.capture_s = 0.0  # the first call's set-up: cloning, warm-up and capture
         self.warmup_s = 0.0  # its part up to the warm-up's end
+        self.replays = 0
         self._launches = []
 
     def __call__(self, *args):
@@ -138,12 +145,15 @@ class DeviceProgram:
         if not leaves or not leaves[0].is_cuda:
             return self.fn(*args)
         if self.graph is None:
-            self._capture(args)
+            out = self._capture(args)
+            if self.warmup_result:
+                return out
         else:
             for dst, src in zip(self._in_leaves, leaves):
                 if src.data_ptr() != dst.data_ptr():
                     dst.copy_(src)
         self.graph.replay()
+        self.replays += 1
         for k, n in self._launches:
             k.launches += n
         return self.static_out
@@ -152,11 +162,14 @@ class DeviceProgram:
         t0 = time.perf_counter()
         self.static_in = clone_tree(args)
         self._in_leaves = _leaves(self.static_in, [])
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
+        side, current = torch.cuda.Stream(), torch.cuda.current_stream()
+        side.wait_stream(current)
         with torch.cuda.stream(side):
-            self.fn(*self.static_in)
-        torch.cuda.current_stream().wait_stream(side)
+            warm = self.fn(*self.static_in)
+        current.wait_stream(side)
+        if self.warmup_result:  # made on the side stream, used on this one
+            for x in _leaves(warm, []):
+                x.record_stream(current)
         graph = torch.cuda.CUDAGraph()
         before = [k.launches for k in KERNELS]
         debug = torch.cuda.get_sync_debug_mode()
@@ -186,3 +199,4 @@ class DeviceProgram:
             k.launches -= n
         self.graph = graph
         self.capture_s = time.perf_counter() - t0
+        return warm

@@ -16,7 +16,9 @@ frame, staging a band of the search window), which
 ``FrontEnd(use_pallas=True)`` calls. On a CUDA tensor a
 wrapper launches the kernel on the current stream or raises; there is no
 fallback. On a CPU tensor it runs the plain version in ``klt.py``. Each
-wrapper's ``launches`` counts its kernel launches.
+wrapper's ``launches`` counts its kernel launches; the wrappers are
+registered with ``device.register_kernel``, so a launch inside a CUDA
+graph (the FrontEnd's step programs) is counted at each replay.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from pathlib import Path
 
 import torch
 
+from ..device import register_kernel
 from . import klt
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -192,7 +195,7 @@ class LkLevelKernel:
         return g_out, ok_out
 
 
-lk_level = LkLevelKernel()
+lk_level = register_kernel(LkLevelKernel())
 
 
 def _pass_table(level_shapes, n_levels, win, n_iters, refine_win, refine_iters):
@@ -298,6 +301,6 @@ class LkPyramidKernel:
         return (pts_out, ok_out) + tuple(c for c in (iters, restages) if c is not None)
 
 
-lk_pyramid = LkPyramidKernel()
+lk_pyramid = register_kernel(LkPyramidKernel())
 pyramidal_lk = lk_pyramid
-pyramidal_lk_pallas = LkPyramidKernel(pallas=True)
+pyramidal_lk_pallas = register_kernel(LkPyramidKernel(pallas=True))

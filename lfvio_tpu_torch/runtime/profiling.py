@@ -221,7 +221,9 @@ def profile_solve(n_slots=256, max_iterations=8, dtype=torch.float32, n=20, devi
 
 def profile_frontend(n=10, width=1280, height=960, dtype=torch.float32, device=None):
     """Per-stage times of the tracker at the bench rig's scale (the
-    mindvision PAL polynomial, CLAHE, 256 slots)."""
+    mindvision PAL polynomial, CLAHE, 256 slots): the published step op by
+    op and as the FrontEnd runs it, its program (on the card a CUDA graph,
+    captured at the row's first call)."""
     from .synthetic import MINDVISION_POLY, SyntheticWorld, fit_inverse_poly, scaramuzza_camera
     from .tracker import FrontEnd
 
@@ -235,11 +237,13 @@ def profile_frontend(n=10, width=1280, height=960, dtype=torch.float32, device=N
                   dtype=dtype, device=device)
     img0, img1 = world.render_u8(0.0), world.render_u8(1.0 / 15.0)
     fe.process_arrays(img0, 0.0)
+    args = (fe.prev_pyr, img1, fe._dev_pos, fe._dev_valid, fe.ransac_draws())
     return [
         time_stage("preprocess alone (CLAHE + 4-level pyramid)", fe._preprocess, (img1,), n=n),
         time_stage("tracker step (pre+LK+RANSAC+detect)",
-                   lambda *a: fe._step_impl(*a, publish=True),
-                   (fe.prev_pyr, img1, fe._dev_pos, fe._dev_valid), n=n),
+                   lambda *a: fe._step_impl(*a, publish=True), args, n=n),
+        time_stage("tracker step, published program", fe._step(True), args, n=n,
+                   note="a CUDA graph replay on the card; first s: its capture"),
     ]
 
 

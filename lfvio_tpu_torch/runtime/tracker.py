@@ -8,22 +8,30 @@ Shi-Tomasi refill → bearing lift, for any camera model. Images, pyramids
 and the slot chain live on ``device``; id and track-count bookkeeping stays
 on the host (numpy).
 
-``FrontEnd.dispatch`` enqueues a frame's device work, starts the copies of
-its results to the host and returns; ``finalize`` waits for those copies
+A tracked frame's device work is one program, the counterpart of the JAX
+package's ``jax.jit(_step_impl, static_argnames=("publish",))``: on the
+card one replay of a CUDA graph (``device.DeviceProgram``), one for
+published and one for unpublished frames, each captured at the first
+tracked frame of its kind (``FrontEnd.use_graphs``; False runs the step op
+by op). ``FrontEnd.dispatch`` draws the RANSAC uniforms (published frames
+only), puts the image on the card, replays the program, starts the copies
+of its results to the host and returns; ``finalize`` waits for those copies
 (one CUDA event) and does the bookkeeping, possibly several frames later:
-the device's slot chain has advanced at dispatch. Nothing of the port's own
-makes ``dispatch`` wait for the device; on a published frame RANSAC's
-``torch.linalg.eigh`` / ``svd`` still do (their error checks read it).
+the device's slot chain has advanced at dispatch. Nothing in ``dispatch``
+waits for the card once both programs are captured (RANSAC's eigensolves
+are ``csrc/sym_eig.cu`` launches inside the published program).
 ``DualFrontEnd`` drives two FrontEnds (a dual-PAL rig) with one feature-id
-space.
+space; each has its own programs.
 """
 
 from __future__ import annotations
 
+from functools import partial
+
 import numpy as np
 import torch
 
-from ..device import Fetch, resolve_device
+from ..device import DeviceProgram, Fetch, resolve_device
 from ..frontend import (
     annulus_mask,
     clahe,
@@ -96,10 +104,18 @@ class FrontEnd:
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         # A DualFrontEnd rebinds it to the rig's shared one.
         self._ids_src = id_counter if id_counter is not None else IdCounter()
+        # The step's programs, keyed by publish, made at the first tracked
+        # frame of their kind; on the card their graphs share a pool.
+        self._programs = {}
+        self._pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
+        # False runs the step op by op, on the card too: the reference the
+        # graphs are held against. Read at every dispatch.
+        self.use_graphs = True
         self.reset()
 
     def reset(self):
-        """Drop all tracking state (stream restart)."""
+        """Drop all tracking state (stream restart). The programs stay
+        captured."""
         self.pos = np.zeros((self.N, 2), np.float64)
         self.ids = np.full(self.N, -1, np.int64)
         self.track_cnt = np.zeros(self.N, np.int64)
@@ -120,10 +136,16 @@ class FrontEnd:
 
     # ------------------------------------------------------------ device fns
     def _preprocess(self, img):
-        img = torch.as_tensor(img).to(device=self.device, dtype=self.dtype)
+        """CLAHE and the pyramid of an image on the device. Level 0 is never
+        ``img`` itself: it outlives the frame as the next step's pyr_prev,
+        while the caller's image buffer (a program's static input) takes the
+        next frame."""
+        x = img.to(self.dtype)
         if self.equalize:
-            img = clahe(img)
-        return gaussian_pyramid(img, self.n_levels)
+            x = clahe(x)
+        elif x is img:
+            x = x.clone()
+        return gaussian_pyramid(x, self.n_levels)
 
     def _lift(self, pts):
         rays = self.camera.lift_projective(pts)
@@ -162,7 +184,9 @@ class FrontEnd:
         return pos_next, valid_next, new_src
 
     def _first_impl(self, img):
-        """First frame: preprocess + detect + place into slots."""
+        """First frame: preprocess + detect + place into slots. Runs op by
+        op, also on the card: once a stream and once after each ``reset``,
+        where a capture would cost more than the run."""
         pyr = self._preprocess(img)
         new_pts, new_ok = select_features(
             shi_tomasi_response(pyr[0]), self.static_mask,
@@ -177,10 +201,12 @@ class FrontEnd:
         )
         return pyr, pos0, valid0, new_src
 
-    def _step_impl(self, pyr_prev, img, pos, valid, publish: bool):
+    def _step_impl(self, pyr_prev, img, pos, valid, draws, publish: bool):
         """Per-frame step: preprocess, pyramidal LK, rejection, refill
-        detection, bearing lift. Returns (pyr, status, new_src, pos_next,
-        bear_next, valid_next)."""
+        detection, bearing lift. ``draws`` are RANSAC's uniforms
+        (``ransac_draws``; None when not ``publish``), drawn outside the
+        step as the JAX step takes its key. Returns (pyr, status, new_src,
+        pos_next, bear_next, valid_next)."""
         pyr = self._preprocess(img)
         # The frame's LK: one fused kernel launch on a CUDA device.
         if self.use_pallas:
@@ -202,7 +228,7 @@ class FrontEnd:
         if publish:
             # Spherical RANSAC on prev vs cur bearings (rejectWithF).
             _, inl = spherical_ransac_e(
-                self.ransac_draws(), self._lift(pos), self._lift(pts_next), status
+                draws, self._lift(pos), self._lift(pts_next), status
             )
             status = torch.where(torch.sum(status) >= 8, status & inl, status)
             new_pts, new_ok = select_features(
@@ -219,19 +245,67 @@ class FrontEnd:
         return pyr, status, new_src, pos_next, self._lift(pos_next), valid_next
 
     # ----------------------------------------------------------------- frame
+    def _step(self, publish: bool):
+        """The tracked frame's step: its program (made here at first use),
+        or with ``use_graphs`` off the function itself."""
+        if not self.use_graphs:
+            return partial(self._step_impl, publish=publish)
+        prog = self._programs.get(publish)
+        if prog is None:
+            # The first call's work is the warm-up's: one run a frame, so
+            # each kernel launches once a tracked frame.
+            prog = DeviceProgram(partial(self._step_impl, publish=publish), pool=self._pool,
+                                 name="frontend_" + ("published" if publish else "unpublished"),
+                                 warmup_result=True)
+            self._programs[publish] = prog
+        return prog
+
+    def _upload(self, img, step=None):
+        """The frame on the device. A host image is copied into pinned memory
+        and from there, without waiting, into the step program's static
+        image input once it is captured (the program then copies nothing),
+        else into a new tensor. The pinned buffer comes from torch's caching
+        host allocator, which records the copy's stream and hands the
+        buffer out again only once the copy has completed."""
+        if isinstance(img, torch.Tensor) and img.device.type == "cuda":
+            return img.to(self.device)
+        host = torch.as_tensor(img)
+        if self.device.type != "cuda":
+            return host
+        dst = None
+        if isinstance(step, DeviceProgram) and step.static_in is not None:
+            dst = step.static_in[1]
+            if dst.shape != host.shape or dst.dtype != host.dtype:
+                dst = None
+        if dst is None:
+            dst = torch.empty(host.shape, dtype=host.dtype, device=self.device)
+        pinned = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
+        pinned.copy_(host)
+        return dst.copy_(pinned, non_blocking=True)
+
+    def graph_stats(self):
+        """(graphs captured, their capture seconds in all)."""
+        caps = [p.capture_s for p in self._programs.values() if p.graph is not None]
+        return len(caps), float(sum(caps))
+
     def dispatch(self, img, t: float, publish: bool = True):
         """Enqueue the frame's device work and the copies of its results to
         the host, without waiting for either. Returns a handle for
         :meth:`finalize`. The device slot chain (pos, valid) advances here:
         the next dispatch consumes this one's device outputs directly, so
-        finalize may run several frames later."""
+        finalize may run several frames later. A program's outputs are its
+        static tensors, which its next replay overwrites: the next call
+        copies pyr, pos and valid into its static inputs first (the other
+        program may share their memory too: nothing reads them after)."""
         if self._dev_pos is None:
-            pyr, pos0, valid0, new_src = self._first_impl(img)
+            pyr, pos0, valid0, new_src = self._first_impl(self._upload(img))
             self.prev_pyr = pyr
             self._dev_pos, self._dev_valid = pos0, valid0
             return ("first", Fetch([pos0, valid0]), t, publish)
-        pyr, status, new_src, pos_next, bear_next, valid_next = self._step_impl(
-            self.prev_pyr, img, self._dev_pos, self._dev_valid, publish
+        draws = self.ransac_draws() if publish else None
+        step = self._step(publish)
+        pyr, status, new_src, pos_next, bear_next, valid_next = step(
+            self.prev_pyr, self._upload(img, step), self._dev_pos, self._dev_valid, draws
         )
         self.prev_pyr = pyr
         self._dev_pos, self._dev_valid = pos_next, valid_next
@@ -318,7 +392,8 @@ class DualFrontEnd:
     """Image-level dual-PAL (two-camera) front end: two FrontEnds with one
     feature-id space, driven by one pipeline on (img_up, img_down) frame
     tuples. Each camera runs its own device work (CLAHE, pyramid, LK,
-    RANSAC, refill against its own mask: two fused LK launches a frame);
+    RANSAC, refill against its own mask: two fused LK launches a frame),
+    each through its FrontEnd's own programs;
     the published arrays are the concatenation over cameras with a
     per-observation camera id (estimator_node.cpp:292-312)."""
 

@@ -50,8 +50,10 @@ def main():
                       (out[name][0] - pp)[out[name][1] & pok].abs().max().item())])
         return out["fused"]
 
-    # The FrontEnd looks its LK call up in klt_cuda at every frame.
+    # The FrontEnd, run op by op (use_graphs off: a graph holds the LK
+    # launch it captured), looks its LK call up in klt_cuda at every frame.
     fe, _, _ = make()
+    fe.use_graphs = False
     klt_cuda.pyramidal_lk = shadowed
     for i, t in enumerate(sorted(frames)):
         fe.process_arrays(frames[t], t, publish=i % 3 != 1)
@@ -64,8 +66,9 @@ def main():
     for name, lag, depth in (("fused", 1, 1), ("five launches", 1, 1), ("plain", 1, 1),
                              ("fused", 1, 1), ("fused", 2, 3)):
         fe, est, pipe = make(lag, depth)
+        fe.use_graphs = False
         klt_cuda.pyramidal_lk = paths[name]
-        chip_smoke.feed(pipe, stream, frames)
+        chip_smoke.bench.feed(pipe, stream, frames)
         pipe.flush()
         ate, n = chip_smoke.trajectory_ate(world, est)
         print(f"{name}, solve lag {lag}, depth {depth}: {len(est.times)} solves, first at t = {est.times[0]:.4f} s, "

@@ -111,7 +111,23 @@ def test_run_on_the_cpu():
     assert fig["lk_launches"] == fig["sym_eig_launches"] == 0
     assert fig["lk_launches_run"] == fig["sym_eig_launches_run"] == 0
     assert fig["peak_memory_bytes"] is None and fig["device"] == "cpu"
+    # The front end's programs run op by op on the CPU: nothing captured.
+    assert fig["frontend_graphs"] == fig["frontend_replays"] == fig["graphs_captured_timed"] == 0
     json.dumps(fig)  # main logs it as one JSON line
+
+
+def test_make_frontend_is_the_workloads_tracker():
+    """bench.make_frontend builds the FrontEnd the workload's make builds,
+    for any configuration, and takes FrontEnd arguments over its own."""
+    hi = dataclasses.replace(bench.config_from_env(HIGH_RATE), duration=0.2)
+    wl = bench.workload(hi, "cpu", W, H)
+    fe, _, _ = wl.make()
+    made = bench.make_frontend(hi, wl.world.camera, "cpu", W, H)
+    assert (made.max_cnt, made.N, made.min_dist, made.equalize, made.H, made.W) == (
+        fe.max_cnt, fe.N, fe.min_dist, fe.equalize, fe.H, fe.W) == (300, 384, 20, True, H, W)
+    assert torch.equal(made.static_mask, fe.static_mask)
+    other = bench.make_frontend(hi, wl.world.camera, "cpu", W, H, use_pallas=True, max_cnt=7)
+    assert other.use_pallas and other.max_cnt == 7 and not fe.use_pallas
 
 
 class _Recorder:

@@ -376,25 +376,27 @@ def _pal_frontend(dev, seed=0, n_slots=160):
 def test_dispatch_does_not_wait_and_equals_process_arrays(dev):
     """FrontEnd.dispatch enqueues and returns: behind a busy stream the
     handle's event has not completed when dispatch is back, so nothing in it
-    waited for the card. Shown on an unpublished frame (CLAHE, pyramid, the
-    LK kernel, the lift): a published frame's RANSAC calls
-    torch.linalg.eigh and svd, whose error checks read the device. And
-    dispatch + a later finalize gives what process_arrays gives, bit for
-    bit, over 5 tracked frames (handles finalized two frames late, as the
-    pipeline does at depth 3)."""
+    waited for the card. Shown on every tracked frame after the first of
+    its kind, published (RANSAC's eigensolves are the kernel) and
+    unpublished: each is a replay of the kind's CUDA graph (the first frame
+    of a kind captures it, and a capture synchronizes). And dispatch + a
+    later finalize gives what process_arrays gives, bit for bit, over 5
+    tracked frames (handles finalized two frames late, as the pipeline does
+    at depth 3)."""
     world, fe_a = _pal_frontend(dev)
     _, fe_b = _pal_frontend(dev)
     imgs = [world.render(k / 15) for k in range(6)]
     torch.cuda.synchronize()
-    publish = [k != 3 for k in range(6)]
+    publish = [k not in (2, 4) for k in range(6)]
     sync_outs = [fe_a.process_arrays(img, k / 15, publish=publish[k])
                  for k, img in enumerate(imgs)]
     handles, late_outs = [], []
     for k, img in enumerate(imgs):
-        if not publish[k]:
+        replay = k >= 3  # frames 1 and 2 captured the published and unpublished graphs
+        if replay:
             torch.cuda._sleep(int(2e8))  # keep the stream busy for ~0.1 s
         h = fe_b.dispatch(img, k / 15, publish=publish[k])
-        if not publish[k]:
+        if replay:
             assert h[1].event is not None and not h[1].event.query()
         handles.append(h)
         if len(handles) == 3:
@@ -404,8 +406,9 @@ def test_dispatch_does_not_wait_and_equals_process_arrays(dev):
         assert (a is None) == (b is None)
         for x, y in zip(a or (), b or ()):
             np.testing.assert_array_equal(x, y)
-    assert [o is None for o in late_outs] == [True, False, False, True, False, False]
+    assert [o is None for o in late_outs] == [True, False, True, False, True, False]
     assert sync_outs[5][4].sum() > 60
+    assert {k: p.replays for k, p in fe_b._programs.items()} == {True: 2, False: 1}
 
 
 def test_dual_frontend_counts_two_launches_a_frame(dev):
@@ -428,6 +431,65 @@ def test_dual_frontend_counts_two_launches_a_frame(dev):
     live = ids[ids >= 0]
     assert len(np.unique(live)) == len(live) > 100
     assert pub[cams == 0].sum() > 30 and pub[cams == 1].sum() > 30
+
+
+# Publish patterns of the card's front-end graph tests (frame 0 is a
+# stream's first frame): the bench's 15 Hz frames published at 10 Hz (every
+# other frame) and 30 Hz frames at 10 Hz (2 of 3 unpublished).
+FRONTEND_PATTERNS = {"15hz_10hz": lambda k: k % 2 == 0, "30hz_10hz": lambda k: k % 3 == 0}
+
+
+@pytest.mark.parametrize("pattern", list(FRONTEND_PATTERNS))
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_frontend_graphs_match_eager(dev, use_pallas, pattern):
+    """A FrontEnd whose tracked frames replay its published / unpublished
+    CUDA graphs against one run op by op (use_graphs off) on the same 16
+    frames, reset before frame 8 (14 tracked frames), through
+    chip_smoke.frontend_graphs_vs_eager (phase 4g's check): status,
+    new_src, positions, bearings and the finalized frames bit for bit, the
+    LK and sym_eig launches of every frame equal, every replayed dispatch
+    under set_sync_debug_mode("error"), and one capture a kind, at its
+    first tracked frame; in both LK geometries."""
+    import chip_smoke
+
+    world, fe_g = _pal_frontend(dev)
+    _, fe_e = _pal_frontend(dev)
+    for fe in (fe_g, fe_e):
+        fe.use_pallas = use_pallas
+    frames = [(k / 15, world.render(k / 15)) for k in range(16)]
+    publish = [FRONTEND_PATTERNS[pattern](k) for k in range(16)]
+    lk = klt_cuda.pyramidal_lk_pallas if use_pallas else klt_cuda.lk_pyramid
+    before = lk.launches
+    out = chip_smoke.frontend_graphs_vs_eager("[test]", fe_g, fe_e, frames, publish, reset_at=8)
+    assert out["tracked"]["n"] == 14 and lk.launches - before == 2 * 14
+    assert fe_g.graph_stats()[0] == 2 and fe_e._programs == {}
+    assert out["nodes"][0]["published"]["kernel"] > out["nodes"][0]["unpublished"]["kernel"]
+
+
+def test_dual_frontend_graphs_match_eager(dev):
+    """A DualFrontEnd (two 128-slot trackers, one id space) with each
+    camera's graphs against its eager twin, 14 frame pairs at the 15 Hz /
+    10 Hz pattern, reset before frame 7: bit for bit, launches equal, each
+    camera's FrontEnd with programs of its own."""
+    import chip_smoke
+    from lfvio_tpu_torch.runtime.tracker import DualFrontEnd
+
+    world, f0 = _pal_frontend(dev, n_slots=128)
+    fes = [f0] + [_pal_frontend(dev, seed=s, n_slots=128)[1] for s in (1, 0, 1)]
+    dual_g, dual_e = DualFrontEnd(*fes[:2]), DualFrontEnd(*fes[2:])
+    rics = [np.eye(3), np.diag([1.0, -1.0, -1.0])]
+    tics = [np.array([0.0, 0.0, 0.05]), np.array([0.0, 0.0, -0.05])]
+    frames = [(k / 15, tuple(world.render_rig(k / 15, rics[c], tics[c]) for c in range(2)))
+              for k in range(14)]
+    publish = [FRONTEND_PATTERNS["15hz_10hz"](k) for k in range(14)]
+    out = chip_smoke.frontend_graphs_vs_eager("[test]", dual_g, dual_e, frames, publish,
+                                              reset_at=7)
+    assert out["tracked"]["n"] == 12 and len(out["programs"]) == 2
+    assert all(fe.graph_stats()[0] == 2 for fe in dual_g.fes)
+    assert dual_g.fes[0]._programs[True] is not dual_g.fes[1]._programs[True]
+    ids = np.concatenate([fe.ids for fe in dual_g.fes])
+    live = ids[ids >= 0]
+    assert len(np.unique(live)) == len(live) > 100
 
 
 # ------------------------------------------------------------- sym_eig

@@ -80,8 +80,10 @@ def test_profile_frontend_runs_its_stages_on_the_cpu(monkeypatch):
                         tprof.StageTime(name, float(len(fn(*args))), 0.0))
     rows = tprof.profile_frontend(width=192, height=144, device="cpu")
     assert [r.name for r in rows] == ["preprocess alone (CLAHE + 4-level pyramid)",
-                                      "tracker step (pre+LK+RANSAC+detect)"]
-    assert rows[0].ms == 4 and rows[1].ms == 6  # pyramid levels; the step's outputs
+                                      "tracker step (pre+LK+RANSAC+detect)",
+                                      "tracker step, published program"]
+    # pyramid levels; the step's outputs, op by op and as its program
+    assert rows[0].ms == 4 and rows[1].ms == 6 and rows[2].ms == 6
 
 
 def test_print_table(capsys):
