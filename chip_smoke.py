@@ -74,12 +74,16 @@ lines; any failure ends the run with a non-zero exit code:
      graph captured at the first solve (its warm-up, capture and
      max_memory_allocated before and after), the first relo solve within
      50 ms of wall time, the relo and solve replays' card ms and nodes (at
-     most 4,596 kernel nodes in the relo graph), and cap relo_normal + cap
-     + 1 relo_cost launches a relo replay;
+     most 4,596 kernel nodes in the relo graph and its conditional bodies,
+     its LM iterations conditional nodes), and a relo_normal launch a
+     linearization and a relo_cost launch a cost a relo replay runs; phases
+     4, 6, 6p and 6r print the LM iterations and linearizations each solve
+     ran;
   7. the estimator's capabilities on the card, bearing-level (a stub front
      end serves analytic bearings; 64 slots, f64 solver): td recovery,
      online extrinsic rotation, relocalization, window 20, solve lag 3, the
-     solver's wall budget (the bounds of tests/test_capabilities.py), and
+     solver's wall budget (the bounds of tests/test_capabilities.py; no
+     graph captured after the first solve though the cap falls to 1), and
      the f32 operating point (tests/test_f32.py's 6 s stream: the f32 ATE
      at most max(2 x the f64 ATE, 0.05 m));
   8. a rendered dual-PAL rig: DualFrontEnd of two 512x384 trackers with one
@@ -102,14 +106,18 @@ lines; any failure ends the run with a non-zero exit code:
      against the monolithic lm_solve, and equal to the same ranks on the
      CPU; f32 at the main path's window (11 keyframes, 256 slots a segment)
      through the scaling bench's rows at 1x1, 2x1 and 2x2;
- 14. the estimator's device programs: the census of the captured graphs
-     (kernel nodes of the solve, MARGIN_OLD and SECOND_NEW graphs, and of
-     the f64 estimator's four, relocalization included; the card's ms per
-     replay at bench.py's window 10 / 256 slots (a) and window 20 / 384
-     slots (b); one eager solve's device time split by solver function;
-     8 normal-equation and 9 cost launches of the projection kernels and
-     of the IMU kernels and no rows launch a solve replay at cap 8, one
-     rows launch of each a MARGIN_OLD);
+ 14. the estimator's device programs: graph against eager in f64 (the
+     solve at the packed caps 8, 1 and 3 and at an early plateau, each
+     running the same LM iterations both ways); the census of the captured
+     graphs (nodes of the solve, MARGIN_OLD and SECOND_NEW graphs, and of
+     the f64 estimator's four, relocalization included, conditional bodies
+     apart; the card's ms per replay at bench.py's window 10 / 256 slots
+     (a) and window 20 / 384 slots (b), the solve's also with every LM
+     iteration forced and at the packed caps 1 and 3; one eager solve's
+     device time split by solver function; a normal-equation launch a
+     linearization and a cost launch a cost of the projection kernels and
+     of the IMU kernels and no rows launch a solve replay, one rows launch
+     of each a MARGIN_OLD);
      the projection kernels (csrc/proj_factor.cu: rows, normal equations,
      cost) against their plain versions at (a)'s and (b)'s solve inputs
      (f32) and on a dual-camera window (f64), a bit-identical repeat, each
@@ -165,6 +173,7 @@ last {"ok": true, "device": {...}}. Imports neither JAX nor the JAX package.
 
 from __future__ import annotations
 
+import collections
 import datetime
 import gc
 import json
@@ -822,7 +831,11 @@ RELO_KERNELS = ("relo_normal", "relo_cost")
 
 
 def factor_launches():
-    """The factor kernels' (bench.FACTOR_KERNELS) launch counts."""
+    """The factor kernels' (bench.FACTOR_KERNELS) launch counts, the
+    graphs' conditional bodies' runs collected first."""
+    from lfvio_tpu_torch.device import collect_launches
+
+    collect_launches()
     return {k: w.launches for k, w in bench.FACTOR_KERNELS.items()}
 
 
@@ -952,7 +965,8 @@ def run_full_scale(tag, rig, plain_calls, solve_lag, depth, profile=False, sync_
         f"{klt_cuda.pyramidal_lk_pallas.launches}; one-level launches "
         f"{klt_cuda.lk_level.launches}; plain LK calls "
         f"{plain_calls['n']}; level images padded {padded['n']}; sym_eig launches {sym_launches}; "
-        f"factor kernels' launches {factors}; graphs captured {n_graphs} in {capture_s:.2f} s")
+        f"factor kernels' launches {factors}; graphs captured {n_graphs} in {capture_s:.2f} s; "
+        f"{lm_run_counts(est.lm_runs)}")
     for key, vals in host_ms.items():
         log(f"{tag} {key} after the warm-up, under set_sync_debug_mode({SYNC_CHECK!r}): n "
             f"{len(vals)}, host ms per call min {min(vals):.3f}, median "
@@ -1180,8 +1194,9 @@ RELO_ARM_SOLVES = 5
 # graph is captured at the first solve, so the loop closure replays it
 # (captured at the loop closure instead, it took 304.4 ms on an H100).
 RELO_FIRST_WALL_MS = 50.0
-# The relo graph's kernel nodes at full width: 8 relo_normal and 9
-# relo_cost launches a replay beside the solve's, as they have always been.
+# The relo graph's kernel nodes at full width (its conditional bodies'
+# included): 8 relo_normal and 9 relo_cost launches a replay at most beside
+# the solve's, as they have always been.
 RELO_MAX_NODES = 4596
 
 
@@ -1236,9 +1251,11 @@ def phase_relo_full_scale(rig, plain_calls):
     RELO_REL_YAW_DEG, the drift correction's yaw within RELO_DRIFT_YAW_DEG
     of the planted one, the loop match consumed, ATE < FULL_SCALE_ATE_M,
     both relo kernels launched, and, armed once more on the final window,
-    one replay of the relo graph launching cap relo_normal and cap + 1
-    relo_cost (as many as the projection's and the IMU's normal and cost
-    launches), at most RELO_MAX_NODES kernel nodes in its graph, that graph
+    one replay of the relo graph launching a relo_normal a linearization
+    it ran and a relo_cost a cost (1 + its LM iterations), as many as the
+    projection's and the IMU's normal and cost launches, its LM iterations
+    as conditional nodes, at most RELO_MAX_NODES kernel nodes in its graph
+    and its conditional bodies, that graph
     captured at the first solve's dispatch (Estimator._capture_relo) and
     the first relo solve within RELO_FIRST_WALL_MS of wall time
     (synchronized around its dispatch). Logs that first solve's dispatch
@@ -1266,14 +1283,14 @@ def phase_relo_full_scale(rig, plain_calls):
         rec.update(wall_ms=1e3 * (time.perf_counter() - t0), t=float(a[0]))
         return out
 
-    def timed_capture(packed, prior, cap):
-        if any(key[0] == "relo" for key in est._programs):
-            return capture_relo(packed, prior, cap)
+    def timed_capture(packed, prior):
+        if ("relo",) in est._programs:
+            return capture_relo(packed, prior)
         torch.cuda.synchronize()
         mem0 = (torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated())
-        capture_relo(packed, prior, cap)
+        capture_relo(packed, prior)
         torch.cuda.synchronize()
-        early.update(first_solve=not first_solve, cap=cap, prog=est._programs.get(("relo", cap)),
+        early.update(first_solve=not first_solve, prog=est._programs.get(("relo",)),
                      mem_before=mem0, mem_after=(torch.cuda.memory_allocated(),
                                                  torch.cuda.max_memory_allocated()))
 
@@ -1311,7 +1328,9 @@ def phase_relo_full_scale(rig, plain_calls):
         f"{RELO_DRIFT_YPR_DEG[0]} + the VIO world's yaw against the truth {gauge_yaw:.3f} = "
         f"{want_yaw:.3f}, within {RELO_DRIFT_YAW_DEG}); loop match consumed "
         f"{est._relo_active is None}; ATE {ate:.4f} m over {n} poses (< {FULL_SCALE_ATE_M}); "
-        f"{len(est.times)} solves, stream {wall_s:.1f} s; factor kernels' launches {launches}")
+        f"{len(est.times)} solves, stream {wall_s:.1f} s; factor kernels' launches {launches}; "
+        f"{lm_run_counts(est.lm_runs)}; the relo solve's "
+        f"{[r[:2] for r in est.lm_runs if r[2]]}")
     if not (rel_t < RELO_REL_T_M and abs(rel_yaw) < RELO_REL_YAW_DEG
             and abs(_wrap_deg(drift_yaw - want_yaw)) < RELO_DRIFT_YAW_DEG
             and est._relo_active is None and ate < FULL_SCALE_ATE_M and n == len(est.times)):
@@ -1322,14 +1341,13 @@ def phase_relo_full_scale(rig, plain_calls):
     if plain_calls["n"]:
         raise AssertionError("[6r] the front end ran the plain LK")
 
-    cap = est.cfg.max_iterations
-    prog = est._programs[("relo", cap)]
+    prog = est._programs[("relo",)]
     warm_ms, capture_ms = 1e3 * prog.warmup_s, 1e3 * (prog.capture_s - prog.warmup_s)
     mib = lambda b: b / 2**20
     if not early:
         raise AssertionError("[6r] the relo program was not captured before the loop closure")
     (m0, p0), (m1, p1) = early["mem_before"], early["mem_after"]
-    log(f"[6r] the relo program (cap {early['cap']}) captured at the first solve's dispatch "
+    log(f"[6r] the relo program captured at the first solve's dispatch "
         f"(t = {first_solve['t']:.4f} s): its eager warm-up {warm_ms:.1f} "
         f"ms, its capture {capture_ms:.1f} ms; that dispatch {first_solve['wall_ms']:.1f} ms of "
         f"wall time (synchronized; its solve's and marginalization's captures too); "
@@ -1347,26 +1365,30 @@ def phase_relo_full_scale(rig, plain_calls):
     packed_r = est._upload(est._pack_solve_buffer(est.Ps[0], est.Qs[0], relo=relo))
     packed = est._upload(est._pack_solve_buffer(est.Ps[0], est.Qs[0]))
     chain = est._zero_chain()
-    solve = est._program(("solve", cap))
-    per_replay = launches_of(lambda: prog(packed_r, prior))
+    solve = est._program(("solve",))
+    per_replay, (res_r, _) = launches_of(lambda: prog(packed_r, prior))
+    ran = tuple(int(x) for x in res_r["lm_runs"])
     ms = {"relo": cuda_ms(lambda: prog(packed_r, prior), n=5, warmup=1),
           "solve": cuda_ms(lambda: solve(packed, prior, chain), n=5, warmup=1)}
     nodes = {"relo": graph_nodes(prog), "solve": graph_nodes(solve)}
-    log(f"[6r] the first relo solve (cap {cap}): {first['wall_ms']:.1f} ms of wall time around "
+    log(f"[6r] the first relo solve: {first['wall_ms']:.1f} ms of wall time around "
         f"its synchronized dispatch (pack, upload, a replay of the relo graph captured at the "
         f"first solve, the marginalization's replay, the fetch; bound {RELO_FIRST_WALL_MS} ms); "
         f"a replay {ms['relo']:.3f} ms on the card")
-    log(f"[6r] relo solve replay (cap {cap}) {ms['relo']:.3f} ms on the card beside the solve "
+    log(f"[6r] relo solve replay ({ran[0]} LM iterations, {ran[1]} linearizations run) "
+        f"{ms['relo']:.3f} ms on the card beside the solve "
         f"replay's {ms['solve']:.3f} ms; nodes relo " + ", ".join(
             f"{k} {v}" for k, v in nodes["relo"].items()) + "; solve " + ", ".join(
             f"{k} {v}" for k, v in nodes["solve"].items())
         + "; factor kernels' launches per relo replay " + ", ".join(
             f"{k} {v}" for k, v in per_replay.items()))
-    want = {"proj_rows": 0, "proj_normal": cap, "proj_cost": cap + 1, "imu_rows": 0,
-            "imu_normal": cap, "imu_cost": cap + 1, "relo_normal": cap, "relo_cost": cap + 1}
+    want = replay_launches(*ran, relo=True)
     if per_replay != want:
-        raise AssertionError(f"[6r] a relo replay at cap {cap} did not launch {want}")
-    if nodes["relo"].get("kernel", 0) > RELO_MAX_NODES:
+        raise AssertionError(f"[6r] a relo replay that ran {ran} iterations and linearizations "
+                             f"did not launch {want}")
+    if not nodes["relo"].get("conditional"):
+        raise AssertionError("[6r] the relo graph holds no conditional node")
+    if kernel_nodes(nodes["relo"]) > RELO_MAX_NODES:
         raise AssertionError(f"[6r] the relo graph has more than {RELO_MAX_NODES} kernel nodes")
     if first["wall_ms"] > RELO_FIRST_WALL_MS:
         raise AssertionError(f"[6r] the first relo solve took {first['wall_ms']:.1f} ms of wall "
@@ -1596,16 +1618,34 @@ def phase_capabilities(dev):
                                                   orig(pend, host))[1]
     stream("solve lag 3", est3, mk_world(traj_freq=0.5), 2.2, check_lag3)
 
+    graphs_at = []
+
     def check_budget(est, pipe, world):
         est.marg_old = False
         if not (est._iter_time and est._iter_time > 0 and est._iterations_allowed() == 1):
             raise AssertionError(f"budget: _iter_time {est._iter_time}")
+        graphs = est.graph_stats()[0]
+        if graphs != graphs_at[0] or est.lm_runs[-1][0] != 1:
+            raise AssertionError(f"budget: {graphs} graphs at the end against {graphs_at[0]} "
+                                 f"after the first solve ({sorted(est._programs)}), or the last "
+                                 f"solve not at cap 1: {est.lm_runs}")
         out["iter_time"] = est._iter_time
         return (f"max_solver_time 1e-7: _iter_time {est._iter_time:.5f} s per LM iteration, "
                 f"_iterations_allowed() 1; a budget of 0.04 s would allow "
-                f"{int(np.clip(0.04 / est._iter_time, 1, 8))}")
+                f"{int(np.clip(0.04 / est._iter_time, 1, 8))}; graphs {graphs} after the first "
+                f"solve and at the end; {lm_run_counts(est.lm_runs)}")
 
-    stream("wall budget", mk_est(max_solver_time=1e-7), mk_world(), 1.5, check_budget)
+    est_b = mk_est(max_solver_time=1e-7)
+    dispatch_b = est_b._dispatch_solve
+
+    def counted_dispatch(*a, **k):
+        out_ = dispatch_b(*a, **k)
+        if est_b._programs and not graphs_at:  # the first solve's
+            graphs_at.append(est_b.graph_stats()[0])
+        return out_
+
+    est_b._dispatch_solve = counted_dispatch
+    stream("wall budget", est_b, mk_world(), 1.5, check_budget)
 
     t0 = time.perf_counter()
     (ate64, n64), (ate32, n32) = f32_stream_ates(dev)
@@ -2483,10 +2523,43 @@ def state_err(a, b, fields=("p", "q", "v", "ba", "bg", "tic", "qic", "td", "inv_
                      / getattr(b, f).abs().max().clamp(min=1)) for f in fields)
 
 
+def packed_at(est, max_iter=None, perturb=None):
+    """The estimator's packed solve buffer from its mirrors, on the card,
+    with the LM's cap ``max_iter`` in place of its own and the window
+    positions moved by N(0, 0.05) m drawn from the seed ``perturb``."""
+    buf = est._pack_solve_buffer(est.Ps[0], est.Qs[0])
+    if max_iter is not None:
+        buf[est._pack_layout["max_iter"][0]] = max_iter
+    if perturb is not None:
+        off, shape = est._pack_layout["p"]
+        n = int(np.prod(shape))
+        buf[off:off + n] += np.random.default_rng(perturb).normal(0.0, 0.05, n)
+    return est._upload(buf)
+
+
+def lm_run_counts(runs):
+    """The histograms of LM iterations and linearizations run a solve over
+    ``runs`` (Estimator.lm_runs entries), as text."""
+    hist = lambda i: dict(sorted(collections.Counter(r[i] for r in runs).items()))
+    return (f"LM iterations run a solve {hist(0)}, linearizations {hist(1)} "
+            f"({len(runs)} solves)")
+
+
+# Phase 14's graph-against-eager inputs of the solve: the stream's window
+# with its positions moved (so that every iteration has work: on the CPU in
+# f64 no accepted step improves the cost by less than cost_tol before the
+# 8th) under the packed caps 8, 1 and 3, and the window as the stream left
+# it, converged, which its first steps bring to the cost plateau (2
+# iterations on the CPU).
+GRAPH_SOLVE_CASES = (("cap 8", 8, 1), ("cap 1", 1, 1), ("cap 3", 3, 1), ("plateau", 8, None))
+
+
 def phase_graphs_f64(dev):
     """Each program's graph replay against the same function run eagerly on
     the same inputs, f64, on an estimator a bearing stream initialized (64
-    slots): the solve, the relocalization solve, both marginalizations."""
+    slots): the solve (at GRAPH_SOLVE_CASES: caps 8, 1, 3 in the packed
+    buffer and an early plateau, each running its own iterations and
+    linearizations), the relocalization solve, both marginalizations."""
     import torch
     from lfvio_tpu_torch.device import clone_tree
     from lfvio_tpu_torch.runtime import Estimator, EstimatorConfig, VioPipeline
@@ -2502,10 +2575,21 @@ def phase_graphs_f64(dev):
     cap = est.cfg.max_iterations
     prior = est.prior if est.prior is not None else est._empty_prior()
     chain = est._zero_chain()
-    packed = est._upload(est._pack_solve_buffer(est.Ps[0], est.Qs[0]))
-    g_res, g_grid = clone_tree(est._program(("solve", cap))(packed, prior, chain))
-    e_res, e_grid = est._solve_packed_impl(packed, prior, chain, max_iter=cap)
-    errs = {"solve": state_err(g_res["out"], e_res["out"])}
+    errs, ran = {}, {}
+    for name, max_iter, perturb in GRAPH_SOLVE_CASES:
+        packed = packed_at(est, max_iter, perturb)
+        g_res, _ = clone_tree(est._program(("solve",))(packed, prior, chain))
+        e_res, e_grid = est._solve_packed_impl(packed, prior, chain)
+        errs[f"solve {name}"] = state_err(g_res["out"], e_res["out"])
+        ran[name] = tuple(int(x) for x in g_res["lm_runs"])
+        if ran[name] != tuple(int(x) for x in e_res["lm_runs"]):
+            raise AssertionError(f"[14] solve {name}: the graph ran {ran[name]} iterations and "
+                                 f"linearizations, the eager program {e_res['lm_runs']}")
+    if not (ran["cap 8"][0] == cap and ran["cap 1"][0] == 1 and ran["cap 3"][0] == 3
+            and 1 <= ran["plateau"][0] < cap):
+        raise AssertionError(f"[14] the solve's iterations run do not follow the packed cap and "
+                             f"the plateau: {ran}")
+    errs["solve"] = errs.pop("solve plateau")  # the marginalizations' inputs below
     args = (e_res["out"], e_grid, e_res["pre"], e_res["sqrt_info"], e_res["imu_ok"], prior)
     errs["marg_old"] = info_err(clone_tree(est._program(("marg_old",))(*args)),
                                 est._marg_old_impl(*args))
@@ -2517,20 +2601,22 @@ def phase_graphs_f64(dev):
     if not est.set_relo_frame(t_loop, np.arange(len(pts)), b, p_true, q_true):
         raise AssertionError("set_relo_frame refused the match")
     packed_r = est._upload(est._pack_solve_buffer(est.Ps[0], est.Qs[0], relo=est._relo_active))
-    g_res, _ = clone_tree(est._program(("relo", cap))(packed_r, prior))
-    e_res, _ = est._solve_relo_packed_impl(packed_r, prior, max_iter=cap)
+    g_res, _ = clone_tree(est._program(("relo",))(packed_r, prior))
+    e_res, _ = est._solve_relo_packed_impl(packed_r, prior)
     errs["relo"] = max(state_err(g_res["out"], e_res["out"]),
                        float((g_res["relo_p"] - e_res["relo_p"]).abs().max()),
                        float((g_res["relo_q"] - e_res["relo_q"]).abs().max()))
     torch.cuda.synchronize()
     n, cap_s = est.graph_stats()
     log(f"[14] census, the f64 estimator (64 slots, window 10): nodes "
-        + "; ".join(f"{'_'.join(map(str, key))} " + ", ".join(
+        + "; ".join(f"{key[0]} " + ", ".join(
             f"{k} {c}" for k, c in graph_nodes(p).items())
                     for key, p in est._programs.items() if getattr(p, "graph", None) is not None))
-    log(f"[14] f64 graph replay against eager on the same inputs (64 slots, cap {cap}): "
+    log(f"[14] f64 graph replay against eager on the same inputs (64 slots): "
         + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
-        + f" of the scale (bound {GRAPH_F64}); {n} graphs captured in {cap_s:.2f} s")
+        + f" of the scale (bound {GRAPH_F64}); the solve's LM iterations and linearizations "
+        f"run (graph = eager) " + ", ".join(f"{k} {v}" for k, v in ran.items())
+        + f"; {n} graphs captured in {cap_s:.2f} s")
     if not all(v <= GRAPH_F64 for v in errs.values()):
         raise AssertionError("a graph replay disagrees with the eager program")
     return errs
@@ -2651,20 +2737,24 @@ def phase_qr_information(dev):
 
 # ------------------------------------------------ phase 14: the census of the graphs
 # cuda.h's CUgraphNodeType values the census names; others count as "other".
-NODE_KINDS = {0: "kernel", 1: "memcpy", 2: "memset"}
+NODE_KINDS = {0: "kernel", 1: "memcpy", 2: "memset", 13: "conditional"}
 
 
 def graph_nodes(prog):
-    """The nodes of a DeviceProgram's CUDA graph by kind, with their total
-    under "all": its function captured once more on its static inputs, into
-    a graph of the census's own that keeps its cudaGraph_t
-    (``raw_cuda_graph()``) and is never replayed, read with cuGraphGetNodes
-    and cuGraphNodeGetType through libcuda. The launches the capture adds
-    to the wrappers' counts are taken off again."""
+    """The nodes of a DeviceProgram's CUDA graph by kind: its function
+    captured once more on its static inputs (through ``device.capture``,
+    so its ``cond`` blocks are IF nodes again), into a graph of the
+    census's own that keeps its cudaGraph_t (``raw_cuda_graph()``) and is
+    never replayed, read with cuGraphGetNodes and cuGraphNodeGetType
+    through libcuda. The top level's kinds, with their total under "all",
+    then the conditional nodes' body graphs' (read through
+    ``device.IF_BODIES``, nested bodies included) under "body <kind>" and
+    "body all". The launches the capture adds to the wrappers' counts are
+    taken off again."""
     import ctypes
 
     import torch
-    from lfvio_tpu_torch.device import KERNELS
+    from lfvio_tpu_torch.device import IF_BODIES, KERNELS, capture
 
     before = [k.launches for k in KERNELS]
     debug = torch.cuda.get_sync_debug_mode()
@@ -2673,7 +2763,7 @@ def graph_nodes(prog):
     gc_on = gc.isenabled()
     gc.disable()  # as DeviceProgram captures: no graph destroyed mid-capture
     try:
-        with torch.cuda.graph(graph):
+        with capture(graph):
             prog.fn(*prog.static_in)
     finally:
         if gc_on:
@@ -2682,24 +2772,40 @@ def graph_nodes(prog):
         for k, b in zip(KERNELS, before):
             k.launches = b
     cu = ctypes.CDLL("libcuda.so.1")
-    try:
-        g = ctypes.c_void_p(graph.raw_cuda_graph())
+
+    def nodes_of(g):
         n = ctypes.c_size_t(0)
-        if cu.cuGraphGetNodes(g, None, ctypes.byref(n)) != 0:
+        if cu.cuGraphGetNodes(ctypes.c_void_p(g), None, ctypes.byref(n)) != 0:
             raise RuntimeError("cuGraphGetNodes failed")
         nodes = (ctypes.c_void_p * n.value)()
-        if n.value and cu.cuGraphGetNodes(g, nodes, ctypes.byref(n)) != 0:
+        if n.value and cu.cuGraphGetNodes(ctypes.c_void_p(g), nodes, ctypes.byref(n)) != 0:
             raise RuntimeError("cuGraphGetNodes failed")
-        kinds = {"all": n.value}
+        return list(nodes)
+
+    def count(g, kinds, prefix, bodies):
         t = ctypes.c_int(0)
-        for node in nodes:
+        for node in nodes_of(g):
             if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t)) != 0:
                 raise RuntimeError("cuGraphNodeGetType failed")
-            name = NODE_KINDS.get(t.value, "other")
+            name = prefix + NODE_KINDS.get(t.value, "other")
             kinds[name] = kinds.get(name, 0) + 1
+            kinds[prefix + "all"] = kinds.get(prefix + "all", 0) + 1
+            if t.value == 13:
+                bodies.append(IF_BODIES[node])
+
+    try:
+        kinds, bodies = {"all": 0}, []
+        count(graph.raw_cuda_graph(), kinds, "", bodies)
+        while bodies:
+            count(bodies.pop(), kinds, "body ", bodies)
     finally:
         graph.reset()
     return kinds
+
+
+def kernel_nodes(nodes):
+    """The kernel nodes of a graph_nodes census, its bodies' included."""
+    return nodes.get("kernel", 0) + nodes.get("body kernel", 0)
 
 
 # The parts of a solve. For a traced solve the functions of
@@ -2819,11 +2925,23 @@ def solve_shares(run):
 
 def launches_of(fn):
     """The factor kernels' launches while ``fn()`` runs (a graph's are
-    counted at its replay)."""
-    ks = bench.FACTOR_KERNELS
-    before = {k: w.launches for k, w in ks.items()}
-    fn()
-    return {k: w.launches - before[k] for k, w in ks.items()}
+    counted at its replay, its conditional bodies' as often as they ran),
+    and what ``fn()`` returned."""
+    before = factor_launches()
+    out = fn()
+    return {k: v - before[k] for k, v in factor_launches().items()}, out
+
+
+def replay_launches(iters, lins, relo=False):
+    """The factor kernels' launches of a solve replay that ran ``iters`` LM
+    iterations and ``lins`` linearizations: a normal-equation launch a
+    linearization and a cost launch a cost (the initial one and one an
+    iteration) of the projection, the IMU and (``relo``) the relocalization
+    rows; no rows launch."""
+    want = {k: 0 for k in bench.FACTOR_KERNELS}
+    for k in ("proj", "imu") + (("relo",) if relo else ()):
+        want[f"{k}_normal"], want[f"{k}_cost"] = lins, 1 + iters
+    return want
 
 
 def warm_estimator(dev, knobs):
@@ -2845,35 +2963,69 @@ def warm_estimator(dev, knobs):
     return est
 
 
+def forced_solve(est):
+    """A solve program of the estimator's own function captured with
+    cost_tol 0 (no plateau ends its LM: every iteration up to the packed
+    cap runs), in the estimator's pool; its first call captures it."""
+    import dataclasses
+
+    from lfvio_tpu_torch.device import DeviceProgram
+
+    scfg = est.scfg
+
+    def fn(packed, prior, chain):
+        est.scfg = dataclasses.replace(scfg, cost_tol=0.0)
+        try:
+            return est._solve_packed_impl(packed, prior, chain)
+        finally:
+            est.scfg = scfg
+
+    return DeviceProgram(fn, pool=est._pool, name="solve_forced")
+
+
 def program_census(est, label, trace=True):
-    """The census of an estimator's programs (solve at its cap, MARGIN_OLD,
-    SECOND_NEW): nodes of each captured graph by kind, the card's ms per
-    replay (CUDA events, copying the inputs in included), the factor
-    kernels' launches in one replay of the solve and of MARGIN_OLD, and
-    (``trace``) the shares of one eager solve's device time by part
-    (``solve_shares``). Returns a dict."""
+    """The census of an estimator's programs (the solve, MARGIN_OLD,
+    SECOND_NEW): nodes of each captured graph by kind, its conditional
+    bodies' apart, the card's ms per replay (CUDA events, copying the inputs
+    in included) of each, of the solve with every LM iteration forced to
+    run (``forced_solve``, "solve_forced") and of the solve with the packed
+    cap at 1 and 3 (one graph: "solve_cap1", "solve_cap3"), the LM
+    iterations and
+    linearizations each solve replay ran, the factor kernels' launches in
+    one replay of the solve and of MARGIN_OLD, and (``trace``) the shares
+    of one eager solve's device time by part (``solve_shares``). Returns a
+    dict."""
     import torch
 
     prior = est.prior if est.prior is not None else est._empty_prior()
     chain = est._zero_chain()
     packed = est._upload(est._pack_solve_buffer(est.Ps[0], est.Qs[0]))
     cap = est.cfg.max_iterations
-    solve = est._program(("solve", cap))
+    solve, forced = est._program(("solve",)), forced_solve(est)
+    capped = {f"solve_cap{k}": packed_at(est, k) for k in (1, 3)}
+    ran = {"solve_forced": tuple(int(x) for x in forced(packed, prior, chain)[0]["lm_runs"])}
+    for name, p in capped.items():
+        ran[name] = tuple(int(x) for x in solve(p, prior, chain)[0]["lm_runs"])
     res, grid = solve(packed, prior, chain)
+    ran["solve"] = tuple(int(x) for x in res["lm_runs"])
     marg_args = (res["out"], grid, res["pre"], res["sqrt_info"], res["imu_ok"], prior)
     marg_old, marg_new = est._program(("marg_old",)), est._program(("marg_new",))
     ms = {"solve": cuda_ms(lambda: solve(packed, prior, chain), n=5, warmup=1),
+          "solve_forced": cuda_ms(lambda: forced(packed, prior, chain), n=5, warmup=1),
+          **{k: cuda_ms(lambda p=p: solve(p, prior, chain), n=5, warmup=1)
+             for k, p in capped.items()},
           "marg_old": cuda_ms(lambda: marg_old(*marg_args), n=5, warmup=1),
           "marg_new": cuda_ms(lambda: marg_new(res["out"], prior), n=5, warmup=1)}
-    per_replay = {"solve": launches_of(lambda: solve(packed, prior, chain)),
-                  "marg_old": launches_of(lambda: marg_old(*marg_args))}
-    nodes = {k: graph_nodes(est._programs[key]) for k, key in
-             (("solve", ("solve", cap)), ("marg_old", ("marg_old",)), ("marg_new", ("marg_new",)))}
+    per_replay = {"solve": launches_of(lambda: solve(packed, prior, chain))[0],
+                  "solve_forced": launches_of(lambda: forced(packed, prior, chain))[0],
+                  "marg_old": launches_of(lambda: marg_old(*marg_args))[0]}
+    nodes = {k: graph_nodes(p) for k, p in
+             (("solve", solve), ("marg_old", marg_old), ("marg_new", marg_new))}
     F, W1 = grid.valid.shape
     obs = F * W1
     parts, attributed, total, trace_s = {}, 0.0, 0.0, 0.0
     if trace:
-        run = lambda: est._solve_packed_impl(packed, prior, chain, max_iter=cap)
+        run = lambda: est._solve_packed_impl(packed, prior, chain)
         run()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2883,15 +3035,18 @@ def program_census(est, label, trace=True):
     log(f"[14] census {label}: {F} slots x {W1} frames = {obs} observations, cap {cap}; nodes "
         + "; ".join(f"{k} " + ", ".join(f"{n} {c}" for n, c in v.items()) for k, v in nodes.items())
         + "; ms per replay " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+        + "; LM iterations and linearizations run a replay " + ", ".join(
+            f"{k} {v}" for k, v in ran.items())
         + "; factor kernels' launches per replay " + ", ".join(
-            f"{k} {v}" for k, v in per_replay.items()))
+            f"{k} {v}" for k, v in per_replay.items())
+        + f"; the estimator's solves so far: {lm_run_counts(est.lm_runs)}")
     if trace:
         log(f"[14] census {label}: one eager solve traced ({trace_s:.1f} s), {total / 1e3:.3f} ms "
             f"of device kernels, {attributed / 1e3:.3f} ms attributed to ops: "
             + ", ".join(f"{k} {parts[k] / 1e3:.3f} ms "
                         f"({100 * parts[k] / max(attributed, 1e-9):.1f}%)" for k in order))
     return dict(obs=obs, ms=ms, nodes=nodes, parts_us=parts, attributed_us=attributed,
-                device_us=total, per_replay=per_replay, est=est)
+                device_us=total, per_replay=per_replay, ran=ran, est=est)
 
 
 # ------------------------------------------------ phase 14: the projection kernels
@@ -3846,24 +4001,30 @@ def phase_programs(dev, rig, plain_calls, run4, relo6):
     prior = est.prior
     chain = est._zero_chain()
     packed = est._upload(est._pack_solve_buffer(est.Ps[0], est.Qs[0]))
-    cap = est.cfg.max_iterations
-    eager_ms = cuda_ms(lambda: est._solve_packed_impl(packed, prior, chain, max_iter=cap), n=3,
-                       warmup=1)
+    eager_ms = cuda_ms(lambda: est._solve_packed_impl(packed, prior, chain), n=3, warmup=1)
     n, cap_s = est.graph_stats()
-    log(f"[14] phase 4's estimator: solve (cap {cap}) eager on the card {eager_ms:.3f} ms between "
+    log(f"[14] phase 4's estimator: solve eager on the card {eager_ms:.3f} ms between "
         f"CUDA events; {n} graphs captured in {cap_s:.2f} s in all ("
         + ", ".join(f"{k} {p.capture_s:.2f} s" for k, p in est._programs.items()
                     if hasattr(p, "capture_s")) + ")")
     census["b"] = program_census(warm_estimator(dev, BENCH_HIGH_RATE),
                                  "(b) high-rate (f32, window 20, 384 slots)", trace=False)
-    want = {"proj_rows": 0, "proj_normal": cap, "proj_cost": cap + 1,
-            "imu_rows": 0, "imu_normal": cap, "imu_cost": cap + 1, "relo_normal": 0,
-            "relo_cost": 0}
-    want_marg = {k: int(k in ("proj_rows", "imu_rows")) for k in want}
+    want_marg = {k: int(k in ("proj_rows", "imu_rows")) for k in bench.FACTOR_KERNELS}
     for key, c in census.items():
-        if c["per_replay"]["solve"] != want or c["per_replay"]["marg_old"] != want_marg:
-            raise AssertionError(f"census ({key}): a solve replay at cap {cap} did not launch "
-                                 f"{want}, or a MARGIN_OLD replay not {want_marg}")
+        for name in ("solve", "solve_forced"):
+            want = replay_launches(*c["ran"][name])
+            if c["per_replay"][name] != want:
+                raise AssertionError(f"census ({key}): a {name} replay that ran {c['ran'][name]} "
+                                     f"LM iterations and linearizations did not launch {want}")
+        if (c["ran"]["solve_forced"][0] != est.cfg.max_iterations
+                or c["ran"]["solve_cap1"][0] != 1 or c["ran"]["solve_cap3"][0] > 3):
+            raise AssertionError(f"census ({key}): the forced solve or the packed caps 1 and 3 "
+                                 f"ran {c['ran']}")
+        if not c["nodes"]["solve"].get("conditional"):
+            raise AssertionError(f"census ({key}): the solve graph holds no conditional node")
+        if c["per_replay"]["marg_old"] != want_marg:
+            raise AssertionError(f"census ({key}): a MARGIN_OLD replay did not launch "
+                                 f"{want_marg}")
     proj = phase_proj_factor(dev, est, census["b"]["est"])
     imu = phase_imu_factor(dev, est, census["b"]["est"])
     relo = phase_relo_factor(dev, relo6["args"])

@@ -66,10 +66,11 @@ def _relo_apply(rs, dx, dlam, cfg):
 def lm_solve_relo(state: WindowState, grid: FeatureGrid, pre, sqrt_info_imu,
                   imu_valid, prior: PriorFactor, gravity, cfg: SolverConfig,
                   relo_p0, relo_q0, relo_bearing, relo_mask, max_iter_dyn=None,
-                  limit=None):
+                  limit=None, counts=False):
     """LM over the window plus the free loop pose (augmented D+6 system).
 
-    Returns (state_out, relo_p, relo_q, init_cost, final_cost)."""
+    Returns (state_out, relo_p, relo_q, init_cost, final_cost), and with
+    ``counts`` the iterations and linearizations run (see lm_loop)."""
     pad = torch.nn.functional.pad
     relo = (relo_bearing, relo_mask)
 
@@ -91,8 +92,8 @@ def lm_solve_relo(state: WindowState, grid: FeatureGrid, pre, sqrt_info_imu,
         base = total_cost(s, grid, pre, sqrt_info_imu, imu_valid, prior, gravity, cfg)
         return base + 0.5 * torch.sum(relo_cost(s, grid, rp, rq, *relo, cfg))
 
-    (s_out, rp, rq), c0, c1, _ = lm_loop(
+    (s_out, rp, rq), c0, c1, _, iters, lins = lm_loop(
         (state, relo_p0, relo_q0), lin_fn, solve_fn, cost_fn, cfg, max_iter_dyn,
         apply_fn=_relo_apply, limit=limit,
     )
-    return s_out, rp, rq, c0, c1
+    return (s_out, rp, rq, c0, c1) + ((iters, lins) if counts else ())

@@ -56,7 +56,7 @@ import numpy as np
 import torch
 
 from .backend import imu_cuda, proj_cuda, relo_cuda
-from .device import resolve_device
+from .device import collect_launches, resolve_device
 from .frontend import klt_cuda
 from .geom.eigh_cuda import sym_eig
 
@@ -170,7 +170,9 @@ FACTOR_KERNELS = {"proj_rows": proj_cuda.proj_rows, "proj_normal": proj_cuda.pro
 
 
 def reset_launches():
-    """Set every kernel wrapper's launch count to 0."""
+    """Set every kernel wrapper's launch count to 0 (the launches that the
+    graphs' conditional bodies ran before are collected first and dropped)."""
+    collect_launches()
     klt_cuda.lk_pyramid.launches = klt_cuda.lk_level.launches = sym_eig.launches = 0
     klt_cuda.pyramidal_lk_pallas.launches = 0
     for k in FACTOR_KERNELS.values():
@@ -178,9 +180,18 @@ def reset_launches():
 
 
 def _launches():
+    collect_launches()
     return dict(lk=klt_cuda.lk_pyramid.launches,
                 lk_other=klt_cuda.pyramidal_lk_pallas.launches + klt_cuda.lk_level.launches,
                 sym_eig=sym_eig.launches, **{k: v.launches for k, v in FACTOR_KERNELS.items()})
+
+
+def lm_means(runs):
+    """(mean LM iterations run, mean linearizations run) over ``runs``
+    (``Estimator.lm_runs`` entries), or (None, None) without any."""
+    if not runs:
+        return None, None
+    return tuple(float(np.mean([r[i] for r in runs])) for i in (0, 1))
 
 
 class Window(NamedTuple):
@@ -244,7 +255,8 @@ def run(cfg: BenchConfig, device=None, width=1280, height=960) -> dict:
     def on_split():
         at_split.update(init=est.solver_flag == est.NON_LINEAR,
                         graphs=est.graph_stats()[0] + fe.graph_stats()[0],
-                        restarts=pipe.n_restarts, launches=_launches())
+                        restarts=pipe.n_restarts, launches=_launches(),
+                        lm_runs=len(est.lm_runs))
         log(f"warm-up done: use_pallas={fe.use_pallas}, "
             f"init={'ok' if at_split['init'] else 'NOT DONE'}, graphs captured "
             f"{at_split['graphs']}")
@@ -277,6 +289,10 @@ def run(cfg: BenchConfig, device=None, width=1280, height=960) -> dict:
         sym_eig_launches_run=run_launches["sym_eig"],
         factor_launches={k: launches[k] for k in FACTOR_KERNELS},
         factor_launches_run={k: run_launches[k] for k in FACTOR_KERNELS},
+        lm_iterations_mean=lm_means(est.lm_runs[at_split["lm_runs"]:])[0],
+        lm_linearizations_mean=lm_means(est.lm_runs[at_split["lm_runs"]:])[1],
+        lm_iterations_mean_run=lm_means(est.lm_runs)[0],
+        lm_linearizations_mean_run=lm_means(est.lm_runs)[1],
         graphs=graphs, capture_s=capture_s, frontend_graphs=fe_graphs,
         frontend_capture_s=fe_capture_s,
         frontend_replays=sum(p.replays for p in fe._programs.values()),
@@ -292,7 +308,10 @@ def run(cfg: BenchConfig, device=None, width=1280, height=960) -> dict:
         f"(split {t_split:.2f} s); LK launches {launches['lk']} timed, {run_launches['lk']} in "
         f"the run; sym_eig launches {launches['sym_eig']} timed, {run_launches['sym_eig']} in "
         f"the run; factor kernels' launches {figures['factor_launches']} timed, "
-        f"{figures['factor_launches_run']} in the run; ATE {ate} m over {n_ate} poses")
+        f"{figures['factor_launches_run']} in the run; LM iterations / linearizations run a "
+        f"solve {figures['lm_iterations_mean']} / {figures['lm_linearizations_mean']} timed, "
+        f"{figures['lm_iterations_mean_run']} / {figures['lm_linearizations_mean_run']} in the "
+        f"run; ATE {ate} m over {n_ate} poses")
     if figures["first_solve_in_timed_window"] or figures["graphs_captured_timed"]:
         log(f"NOTE: inside the timed window: first solve {figures['first_solve_in_timed_window']}, "
             f"graphs captured {figures['graphs_captured_timed']}")

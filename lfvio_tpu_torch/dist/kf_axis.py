@@ -277,7 +277,7 @@ def segmented_trajectory_solve(
     gap_hist, dmu_hist = [], []
     for _ in range(n_outer):
         zF, WFm, wF, zL, WLm, wL = bnd
-        st, c0, c1, _ = lm_loop(st, *make_fns(bnd), cfg)
+        st, c0, c1 = lm_loop(st, *make_fns(bnd), cfg)[:3]
         # Reduced own-factor Hessian at the solution (depths eliminated).
         H_pp, H_pl, H_ll, _, _, _ = assemble_normal_equations(
             st, g, pre, si_s, imu_ok, pr_s, gravity, cfg)

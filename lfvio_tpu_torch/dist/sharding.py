@@ -17,7 +17,9 @@ rank evaluates them with square-root weights scaled by 1/√n, so the sum
 over n ranks holds each exactly once ((J/√n)ᵀ(J/√n) summed n times is JᵀJ).
 The LM loop is the single-device one (``backend/solver.py::lm_loop``):
 every rank sees the same reduced costs and the same step, so the ranks
-take the same branches and stay in lockstep.
+take the same branches and stay in lockstep. Run eagerly (a process group
+cannot be captured), its blocks are masked (``device.cond``), so every rank
+runs every iteration's collectives.
 
 The caller creates the process group (``init_process_group``): gloo on
 the CPU, NCCL where each rank has a card of its own, gloo on CUDA tensors
@@ -120,5 +122,5 @@ def lm_solve_sharded(mesh: FeatureMesh, state: WindowState, grid: FeatureGrid, p
         return all_reduce_sum(
             mesh, total_cost(s, grid, pre, si_s, imu_valid, pr_s, gravity, cfg))[0]
 
-    out, c0, c1, _ = lm_loop(state, lin_fn, solve_fn, cost_fn, cfg, max_iter_dyn)
+    out, c0, c1 = lm_loop(state, lin_fn, solve_fn, cost_fn, cfg, max_iter_dyn)[:3]
     return out, c0, c1

@@ -17,11 +17,14 @@ the QR marginalization, whose prior stays on the device. All host inputs
 of a solve travel as ONE packed buffer (the JAX layout, ``_build_pack_layout``)
 in one non-blocking copy from a ring of pinned buffers. On the card each
 program is a ``device.DeviceProgram``: captured once as a CUDA graph (one
-solve graph per LM iteration cap, one relocalization solve graph per cap,
-the first of them at the first solve, before any loop closure, one graph
-per marginalization kind, all in one memory pool) and replayed
-once per published frame, so dispatching a frame reads nothing from the
-card. On the CPU the same functions run eagerly.
+solve graph and one relocalization solve graph, both at the first solve,
+before any loop closure, and one graph per marginalization kind, all in
+one memory pool) and replayed once per published frame, so dispatching a
+frame reads nothing from the card. The LM's iteration cap (the wall
+budget's) is the packed ``max_iter``, read on the device: its iterations
+and linearizations are conditional nodes, as JAX's ``lax.cond``, so one
+graph serves every cap and a skipped iteration launches nothing. On the
+CPU the same functions run eagerly.
 
 A dispatched solve is completed (written back, checked, slid) by
 :meth:`finalize_solve`. Its results travel to the host as non-blocking
@@ -39,7 +42,6 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from functools import partial
 
 import numpy as np
 import torch
@@ -149,8 +151,8 @@ class Estimator:
             # QR and the batched Cholesky through cuSOLVER: MAGMA's hybrid
             # paths wait for the host and cannot be captured.
             torch.backends.cuda.preferred_linalg_library("cusolver")
-        # The device programs, keyed ("solve", cap), ("relo", cap),
-        # ("marg_old",), ("marg_new",); on the card their graphs share a pool.
+        # The device programs, keyed ("solve",), ("relo",), ("marg_old",),
+        # ("marg_new",); on the card their graphs share a pool.
         self._programs = {}
         self._pool = torch.cuda.graph_pool_handle() if on_card else None
         # False before the first solve runs the programs eagerly, op for op,
@@ -164,6 +166,9 @@ class Estimator:
         self._gravity_t = self._tensor([0.0, 0.0, cfg.g_norm])
         self._empty_prior_cache = None
         self._zero_chain_cache = None
+        # (LM iterations run, linearizations run, relocalization solve) of
+        # each finalized solve.
+        self.lm_runs = []
         self.clear_state()
 
     # ------------------------------------------------------------------ state
@@ -343,16 +348,17 @@ class Estimator:
         return WindowState(p=p2, q=q2, v=v2, ba=ba2, bg=bg2, tic=ctic, qic=cqic,
                            td=ctd, inv_depth=state.inv_depth)
 
-    def _solve_step(self, state, grid, imu, prior, has_depth, origin_p0, origin_q0,
-                    max_iter, relo=None, limit=None):
+    def _solve_step(self, state, grid, imu, prior, has_depth, origin_p0, origin_q0, limit,
+                    relo=None):
         """The per-frame solve (solveOdometry + double2vector,
         estimator.cpp:475-515, 532-626): preintegrate every window interval
         at its start frame's biases, whiten, triangulate new features, LM
         (with the loop pose as a free block when ``relo`` = (p, q, bearing,
         mask) tensors is given, estimator.cpp:777-808), yaw-gauge fix.
-        ``max_iter`` (an int) is the LM's length, ``limit`` its in-program
-        limit. Returns a dict with the solved state and the intermediates the
-        MARGIN_OLD prior needs."""
+        ``limit`` (the packed ``max_iter``, a device scalar) caps the LM's
+        iterations. Returns a dict with the solved state, the LM's
+        iterations and linearizations run (``lm_runs``) and the
+        intermediates the MARGIN_OLD prior needs."""
         dts, accs, gyrs, a0, g0, imu_valid = imu
         gravity = self._gravity_t
         pre = preintegrate(dts, accs, gyrs, a0, g0, state.ba[:-1], state.bg[:-1],
@@ -362,18 +368,19 @@ class Estimator:
         res = dict(pre=pre, sqrt_info=sqrt_info, imu_ok=imu_valid,
                    rn=None, rvalid=None, relo_p=None, relo_q=None)
         if relo is None:
-            out, _, _, _ = lm_solve(state, grid, pre, sqrt_info, imu_valid, prior,
-                                    gravity, self.scfg, max_iter_dyn=max_iter, limit=limit)
+            out, _, _, _, iters, lins = lm_solve(state, grid, pre, sqrt_info, imu_valid, prior,
+                                                 gravity, self.scfg, limit=limit, counts=True)
         else:
-            out, rp, rq, _, _ = lm_solve_relo(
+            out, rp, rq, _, _, iters, lins = lm_solve_relo(
                 state, grid, pre, sqrt_info, imu_valid, prior, gravity, self.scfg,
-                *relo, max_iter_dyn=max_iter, limit=limit,
+                *relo, limit=limit, counts=True,
             )
             # The loop pose rides the window's gauge correction
             # (estimator.cpp:605-611).
             rot, pivot = yaw_gauge_transform(out, origin_p0, origin_q0)
             res["relo_p"], res["relo_q"] = gauge_apply_pose(rot, pivot, origin_p0, rp, rq)
         out = yaw_gauge_fix(out, origin_p0, origin_q0)
+        res["lm_runs"] = torch.stack([iters, lins])
         if relo is None and self.GATE_THRESH < 1e8:
             r, res["rvalid"] = projection_residuals_grid(out, grid, self.scfg.proj_sqrt_info)
             res["rn"] = torch.linalg.norm(r, dim=-1)
@@ -511,7 +518,7 @@ class Estimator:
         return state, grid, imu, misc, relo, get("use_chain") > 0.5, get("marg_prev") > 0.5
 
     # ------------------------------------------------------ device programs
-    def _solve_packed_impl(self, packed, prior, chain, max_iter):
+    def _solve_packed_impl(self, packed, prior, chain):
         """The solve program: unpack, the device chain selected by the packed
         flags, then the solve. Returns (solve dict, grid)."""
         state, grid, imu, misc, _, use, marg_prev = self._unpack(packed)
@@ -526,15 +533,14 @@ class Estimator:
         )
         # Gauge origin: pre-solve frame 0 of whichever state seeds the LM.
         op0, oq0 = sel(chained.p[0], op0), sel(chained.q[0], oq0)
-        return self._solve_step(state, grid, imu, prior, has_depth, op0, oq0, max_iter,
-                                limit=mi), grid
+        return self._solve_step(state, grid, imu, prior, has_depth, op0, oq0, mi), grid
 
-    def _solve_relo_packed_impl(self, packed, prior, max_iter):
+    def _solve_relo_packed_impl(self, packed, prior):
         """The relocalization solve program (the D+6 system)."""
         state, grid, imu, misc, relo, _, _ = self._unpack(packed)
         has_depth, op0, oq0, mi = misc
-        return self._solve_step(state, grid, imu, prior, has_depth, op0, oq0, max_iter,
-                                relo=relo, limit=mi), grid
+        return self._solve_step(state, grid, imu, prior, has_depth, op0, oq0, mi,
+                                relo=relo), grid
 
     def _marg_old_impl(self, out, grid, pre, sqrt_info, imu_ok, prior):
         """The MARGIN_OLD program (estimator.cpp:832-948)."""
@@ -550,14 +556,9 @@ class Estimator:
         graph is captured at its first call)."""
         prog = self._programs.get(key)
         if prog is None:
-            kind = key[0]
-            if kind == "solve":
-                fn = partial(self._solve_packed_impl, max_iter=key[1])
-            elif kind == "relo":
-                fn = partial(self._solve_relo_packed_impl, max_iter=key[1])
-            else:
-                fn = self._marg_old_impl if kind == "marg_old" else self._marg_new_impl
-            prog = DeviceProgram(fn, pool=self._pool, name="_".join(map(str, key)))
+            fn = {"solve": self._solve_packed_impl, "relo": self._solve_relo_packed_impl,
+                  "marg_old": self._marg_old_impl, "marg_new": self._marg_new_impl}[key[0]]
+            prog = DeviceProgram(fn, pool=self._pool, name=key[0])
             self._programs[key] = prog if self.use_graphs else fn
         return self._programs[key]
 
@@ -817,8 +818,8 @@ class Estimator:
 
     def calibrate_solver_budget(self, n=4):
         """Measure the time of one LM iteration so that max_solver_time can
-        bind: the solve program at cap 1 against the solve program at
-        max_iterations (on the card, replays of their graphs), n runs each on
+        bind: the solve program with the packed cap at 1 against it at
+        max_iterations (on the card, replays of its one graph), n runs each on
         the host's clock around a device synchronize; the fixed cost cancels
         in the difference. Each run perturbs the window positions so the
         iterations do real work (a converged window stops at the cost
@@ -837,14 +838,13 @@ class Estimator:
             b = packed.copy()
             b[off_mi] = max_iter
             b[off_p:off_p + n_p] += np.random.default_rng(seed).normal(0.0, 0.05, n_p)
-            return self._program(("solve", max_iter))(self._upload(b), prior,
-                                                      self._zero_chain())
+            return self._program(("solve",))(self._upload(b), prior, self._zero_chain())
 
         def sync():
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
 
-        for mi in (1, self.cfg.max_iterations):  # captured and warm
+        for mi in (1, self.cfg.max_iterations):  # captured and warm at both caps
             run(mi, 0)
         sync()
         t0 = time.perf_counter()
@@ -888,17 +888,17 @@ class Estimator:
         packed = self._upload(self._pack_solve_buffer(
             origin_p0, origin_q0, relo=relo,
             chain_flags=(chain_on, self._chain["marg"] if chain_on else False)))
-        cap = self._iterations_allowed()
         if relo is not None:
-            res, grid = self._program(("relo", cap))(packed, prior)
+            res, grid = self._program(("relo",))(packed, prior)
         else:
             chain = self._chain["state"] if chain_on else self._zero_chain()
-            res, grid = self._program(("solve", cap))(packed, prior, chain)
+            res, grid = self._program(("solve",))(packed, prior, chain)
         out = res["out"]
         # The copies to the host start now, before any other replay can
         # overwrite the program's outputs.
         fetch = Fetch([out.p, out.q, out.v, out.ba, out.bg, out.tic, out.qic, out.td,
-                       out.inv_depth, res["rn"], res["rvalid"], res["relo_p"], res["relo_q"]])
+                       out.inv_depth, res["rn"], res["rvalid"], res["relo_p"], res["relo_q"],
+                       res["lm_runs"]])
         relo_meta = None
         if relo is not None:
             relo_meta = dict(stamp=relo["stamp"], prev_p=relo["prev_p"], prev_q=relo["prev_q"])
@@ -920,7 +920,7 @@ class Estimator:
             new_prior = self._program(("marg_new",))(out, prior)
         self.prior = clone_tree(new_prior)  # the next solve's input, kept off the graphs
         if relo is None:
-            self._capture_relo(packed, prior, cap)
+            self._capture_relo(packed, prior)
         pend = dict(
             fetch=fetch, t=t, first=first, relo=relo_meta, eager_slid=lagged,
             slides=[],  # slides that happen after this dispatch
@@ -943,20 +943,19 @@ class Estimator:
             for p_ in self._pending_q:
                 p_["slides"].append(marg)
 
-    def _capture_relo(self, packed, prior, cap):
-        """On the card, once: the relocalization program of this solve's cap
-        made and captured now, behind the solve's fetch, its marginalization
+    def _capture_relo(self, packed, prior):
+        """On the card, once: the relocalization program made and captured
+        now, behind the solve's fetch, its marginalization
         and their copies, so that the first loop closure replays a graph
         instead of holding the frame loop for the program's warm-up and
         capture. It runs on a copy of this solve's packed buffer with no
         match (``relo_mask`` all 0, the loop pose at the identity) and its
         outputs are dropped: it touches no estimator state. (Its static
         outputs share the pool, so a later replay of any program may
-        overwrite them, as they may overwrite each other's.) A loop closure
-        under another cap, a binding wall budget's, still captures its own.
+        overwrite them, as they may overwrite each other's.) The packed cap
+        is read on the device, so this graph serves every loop closure.
         Nothing on the CPU, or with ``use_graphs`` off."""
-        if (self.device.type != "cuda" or not self.use_graphs
-                or any(k[0] == "relo" for k in self._programs)):
+        if self.device.type != "cuda" or not self.use_graphs or ("relo",) in self._programs:
             return
         L = self._pack_layout
         buf = packed.clone()
@@ -964,7 +963,7 @@ class Estimator:
         buf[m:m + F].zero_()
         buf[q:q + 4].zero_()
         buf[q:q + 1].fill_(1.0)
-        self._program(("relo", cap))(buf, prior)
+        self._program(("relo",))(buf, prior)
 
     def pending_count(self):
         return len(self._pending_q)
@@ -978,7 +977,8 @@ class Estimator:
         pend = self._pending_q.pop(0)
         host = [a if a is None or a.dtype.kind != "f" else a.astype(np.float64)
                 for a in pend["fetch"].numpy()]
-        state_host, (rn, rvalid, relo_p, relo_q) = host[:9], host[9:]
+        state_host, (rn, rvalid, relo_p, relo_q, lm_runs) = host[:9], host[9:]
+        self.lm_runs.append((int(lm_runs[0]), int(lm_runs[1]), pend["relo"] is not None))
         if pend["eager_slid"]:
             self._write_back_lagged(pend, state_host)
             self._solved_points = self._landmarks(pend, state_host)

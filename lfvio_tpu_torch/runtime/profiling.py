@@ -178,10 +178,30 @@ def profile_solve(n_slots=256, max_iterations=8, dtype=torch.float32, n=20, devi
                               (state, grid, has_depth), n=n))
 
     def f_lm(s):
-        return lm_solve(s, grid, pre, sqrt_info, imu_ok, prior, gravity, cfg)
+        return lm_solve(s, grid, pre, sqrt_info, imu_ok, prior, gravity, cfg, counts=True)
 
-    results.append(time_stage(f"lm_solve total ({cfg.max_iterations} iters)", f_lm, (state,),
-                              n=max(n // 2, 5), chain_arg=0))
+    n_lm = max(n // 2, 5)
+    runs = []
+
+    def counted(fn):
+        """``fn`` keeping each call's LM iterations and linearizations run (a
+        device copy: a graph's outputs are overwritten by its next replay)."""
+        def run(s):
+            out = fn(s)
+            runs.append(torch.stack(out[-2:]))
+            return out
+        return run
+
+    def ran():
+        """The LM iterations and linearizations of the last n_lm calls."""
+        it, lin = torch.stack(runs[-n_lm:]).to(torch.float64).mean(0).tolist()
+        runs.clear()
+        return f"LM ran {it:.2f} iterations, {lin:.2f} linearizations a call"
+
+    row = time_stage(f"lm_solve total ({cfg.max_iterations} iters)", counted(f_lm), (state,),
+                     n=n_lm, chain_arg=0)
+    row.note = ran()
+    results.append(row)
     if dev.type == "cuda":
         # The same solve as the estimator runs it on the card: one CUDA graph,
         # captured at the first call and replayed (QR through cuSOLVER, as the
@@ -189,8 +209,9 @@ def profile_solve(n_slots=256, max_iterations=8, dtype=torch.float32, n=20, devi
         torch.backends.cuda.preferred_linalg_library("cusolver")
         prog = DeviceProgram(f_lm, name="lm_solve")
         row = time_stage(f"lm_solve total, CUDA graph replay ({cfg.max_iterations} iters)",
-                         prog, (state,), n=max(n // 2, 5), chain_arg=0)
-        row.note = f"1 graph captured in {prog.capture_s:.2f} s (first s includes it)"
+                         counted(prog), (state,), n=n_lm, chain_arg=0)
+        row.note = (f"{ran()}; 1 graph captured in {prog.capture_s:.2f} s (first s "
+                    f"includes it)")
         results.append(row)
 
     def f_asm(s):

@@ -132,6 +132,10 @@ STREAMS = {
     "td": dict(cfg=dict(solve_lag=1, estimate_td=True), td_true=0.005, traj_freq=0.8,
                reference=qr_unit_rows_marginalizing),
     "depth3_throttled": dict(cfg=dict(solve_lag=2), dispatching=True, freq=10.0, duration=2.6),
+    # A wall budget that binds from the first solve: the same fixed time per
+    # LM iteration on both estimators (the pipelines calibrate only without
+    # one), so the cap is 3, 2 when marginalizing old (0.8 of the budget).
+    "budget": dict(cfg=dict(solve_lag=1, max_solver_time=0.035), iter_time=0.01),
 }
 _runs = {}
 
@@ -153,6 +157,8 @@ def run_both(key, worlds):
         JEstimator(JConfig(n_feature_slots=64, solver_dtype=jnp.float64, **spec["cfg"])))
     test = Estimator(EstimatorConfig(n_feature_slots=64, solver_dtype=F64, device="cpu",
                                      **spec["cfg"]))
+    if "iter_time" in spec:
+        jest._iter_time = test._iter_time = spec["iter_time"]
     dur = spec.get("duration", 1.5)
     jp = run_stream(JPipeline(fe_cls(jw, pts, td_true=spec.get("td_true", 0.0)), jest, **pkw),
                     jw, dur)

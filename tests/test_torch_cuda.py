@@ -745,11 +745,15 @@ def test_published_dispatch_does_not_wait(dev):
 def test_estimator_graphs_match_eager_f64(dev):
     """One replay of each program's CUDA graph (solve, relocalization solve,
     both marginalizations) against the same function run eagerly on the
-    same inputs, f64, within 1e-9 of the scale (chip_smoke.py phase 14)."""
+    same inputs, f64, within 1e-9 of the scale (chip_smoke.py phase 14);
+    the solve also at the packed caps 8, 1 and 3 on a perturbed window, each
+    running as many LM iterations as its cap, and at the stream window's
+    own early plateau ("solve")."""
     import chip_smoke
 
     errs = chip_smoke.phase_graphs_f64(dev)
-    assert set(errs) == {"solve", "marg_old", "marg_new", "relo"}
+    assert set(errs) == {"solve", "solve cap 8", "solve cap 1", "solve cap 3", "marg_old",
+                         "marg_new", "relo"}
     assert max(errs.values()) <= 1e-9
 
 
@@ -1027,14 +1031,16 @@ def test_imu_wrappers_reject_what_the_kernels_do_not_take(dev):
 
 def test_imu_launches_counted_at_graph_replay(dev):
     """lm_solve at cap 8 and marginalize_old_qr as DevicePrograms (f64): each
-    solve replay counts 8 imu_normal and 9 imu_cost launches and no rows
-    launch, each MARGIN_OLD replay one imu_rows launch and nothing else; the
-    replays equal the eager functions within 1e-9 of the scale
+    solve replay counts an imu_normal launch a linearization it ran and an
+    imu_cost launch a cost (1 + its iterations), read from its conditional
+    bodies' counters (``collect_launches``), and no rows launch; each
+    MARGIN_OLD replay one imu_rows launch and nothing else; the replays
+    equal the eager functions within 1e-9 of the scale
     (test_estimator_graphs_match_eager_f64's bound)."""
     from lfvio_tpu_torch.backend import imu_cuda as ic
     from lfvio_tpu_torch.backend.marginalize import marginalize_old_qr
     from lfvio_tpu_torch.backend.solver import lm_solve
-    from lfvio_tpu_torch.device import DeviceProgram
+    from lfvio_tpu_torch.device import DeviceProgram, collect_launches
     from lfvio_tpu_torch.imu import preintegrate, whiten_covariance
     from lfvio_tpu_torch.runtime.profiling import make_window_problem
 
@@ -1046,18 +1052,22 @@ def test_imu_launches_counted_at_graph_replay(dev):
     si, ok = whiten_covariance(pre.covariance, torch.as_tensor(pb["imu_valid"], device=dev))
     cfg = pb["cfg"]
     assert cfg.max_iterations == 8
-    solve = lambda s: lm_solve(s, pb["grid"], pre, si, ok, pb["prior"], pb["gravity"], cfg)[0]
+    solve = lambda s: lm_solve(s, pb["grid"], pre, si, ok, pb["prior"], pb["gravity"], cfg,
+                               counts=True)
     marg = lambda s: marginalize_old_qr(s, pb["grid"], pre, si, ok, pb["prior"], pb["gravity"],
                                         cfg)
+    iters, lins = (int(x) for x in solve(st)[4:])
     kernels = (ic.imu_rows, ic.imu_normal, ic.imu_cost)
-    for fn, want in ((solve, [0, 8, 9]), (marg, [1, 0, 0])):
+    for fn, want in ((solve, [0, lins, 1 + iters]), (marg, [1, 0, 0])):
         prog = DeviceProgram(fn)
         eager = fn(st)
         prog(st)
+        collect_launches()
         before = [k.launches for k in kernels]
         for _ in range(2):
             out = prog(st)
         torch.cuda.synchronize()
+        collect_launches()
         assert [k.launches - b for k, b in zip(kernels, before)] == [2 * w for w in want]
         for x, y in zip(_leaves(out), _leaves(eager)):
             assert float((x - y).abs().max()) <= 1e-9 * max(float(y.abs().max()), 1.0)
@@ -1237,7 +1247,8 @@ def test_relo_wrappers_reject_what_the_kernels_do_not_take(dev):
 
 def test_relo_launches_counted_at_graph_replay(dev):
     """lm_solve_relo at cap 8 as a DeviceProgram (f64, two cameras): each
-    replay counts 8 relo_normal and 9 relo_cost launches, as many as the
+    replay counts a relo_normal launch a linearization it ran and a
+    relo_cost launch a cost (1 + its iterations), as many as the
     projection's normal and cost launches; the replay equals the eager
     function within 1e-9 of the scale, and another loop pose copied into
     its static inputs gives the eager result at that pose."""
@@ -1246,7 +1257,7 @@ def test_relo_launches_counted_at_graph_replay(dev):
     from lfvio_tpu_torch.backend import relo_cuda as rc
     from lfvio_tpu_torch.backend.relo import lm_solve_relo
     from lfvio_tpu_torch.backend.state import PriorFactor
-    from lfvio_tpu_torch.device import DeviceProgram
+    from lfvio_tpu_torch.device import DeviceProgram, collect_launches
     from lfvio_tpu_torch.imu import preintegrate, whiten_covariance
     from lfvio_tpu_torch.runtime.profiling import make_window_problem
 
@@ -1260,21 +1271,131 @@ def test_relo_launches_counted_at_graph_replay(dev):
     assert cfg.max_iterations == 8
 
     def solve(rp, rq):
-        return lm_solve_relo(state, grid, pre, si, ok, prior, pb["gravity"], cfg, rp, rq,
-                             *relo[2:])[:3]
+        out = lm_solve_relo(state, grid, pre, si, ok, prior, pb["gravity"], cfg, rp, rq,
+                            *relo[2:], counts=True)
+        return out[:3] + out[-2:]
 
     kernels = (rc.relo_normal, rc.relo_cost, pc.proj_normal, pc.proj_cost)
     prog = DeviceProgram(solve)
     eager = solve(*relo[:2])
+    iters, lins = int(eager[3]), int(eager[4])
     prog(*relo[:2])
+    collect_launches()
     before = [k.launches for k in kernels]
     for _ in range(2):
         out = prog(*relo[:2])
     torch.cuda.synchronize()
-    assert [k.launches - b for k, b in zip(kernels, before)] == [16, 18, 16, 18]
+    collect_launches()
+    want = [lins, 1 + iters] * 2
+    assert [k.launches - b for k, b in zip(kernels, before)] == [2 * w for w in want]
+    assert torch.equal(out[3], eager[3]) and torch.equal(out[4], eager[4])
     for x, y in zip(_leaves(out), _leaves(eager)):
         assert float((x - y).abs().max()) <= 1e-9 * max(float(y.abs().max()), 1.0)
     rp2 = relo[0] + 0.02
     out2, eager2 = _leaves(prog(rp2, relo[1])), _leaves(solve(rp2, relo[1]))
     for x, y in zip(out2, eager2):
         assert float((x - y).abs().max()) <= 1e-9 * max(float(y.abs().max()), 1.0)
+
+
+# ------------------------------------------------ the LM's conditional blocks
+def _lm_case(dev, n_slots=32):
+    """make_window_problem's f64 window on the card, preintegrated and
+    whitened: (state, the rest of lm_solve's arguments up to cfg, cfg)."""
+    from lfvio_tpu_torch.imu import preintegrate, whiten_covariance
+    from lfvio_tpu_torch.runtime.profiling import make_window_problem
+
+    pb = make_window_problem(n_slots, torch.float64, n_obs_frames=5, device=dev)
+    st = pb["state"]
+    imu = [torch.as_tensor(pb[k], dtype=torch.float64, device=dev)
+           for k in ("dts", "accs", "gyrs", "a0", "g0")]
+    pre = preintegrate(*imu, st.ba[:-1], st.bg[:-1], pb["noise"])
+    si, ok = whiten_covariance(pre.covariance, torch.as_tensor(pb["imu_valid"], device=dev))
+    return st, (pb["grid"], pre, si, ok, pb["prior"], pb["gravity"]), pb["cfg"]
+
+
+@pytest.mark.parametrize("case", ["limit1", "limit3", "limit8", "plateau"])
+def test_lm_blocks_graph_matches_eager(dev, case):
+    """lm_solve with the device limit as a DeviceProgram's input (f64): its
+    iterations and linearizations are IF nodes, so a replay at limit 1, 3
+    and 8 and at an early plateau (cost_tol 0.3) runs only what the eager
+    masked form keeps: the replay equals it within 1e-9 of the scale, runs
+    the same iterations and linearizations, and launches proj_normal /
+    imu_normal once a linearization and proj_cost / imu_cost once a cost
+    (1 + the iterations) a replay; one graph serves every limit."""
+    import dataclasses
+
+    from lfvio_tpu_torch.backend import imu_cuda as ic
+    from lfvio_tpu_torch.backend import proj_cuda as pc
+    from lfvio_tpu_torch.backend.solver import lm_solve
+    from lfvio_tpu_torch.device import DeviceProgram, collect_launches
+
+    st, args, cfg = _lm_case(dev)
+    if case == "plateau":
+        cfg = dataclasses.replace(cfg, cost_tol=0.3)
+    limit = {"limit1": 1, "limit3": 3}.get(case, 8)
+    solve = lambda s, lim: lm_solve(s, *args, cfg, limit=lim, counts=True)
+    prog = DeviceProgram(solve)
+    other = torch.tensor(8 if limit != 8 else 2, dtype=torch.int32, device=dev)
+    prog(st, other)  # captured at another limit
+    lim = torch.tensor(limit, dtype=torch.int32, device=dev)
+    eager = solve(st, lim)
+    iters, lins = int(eager[4]), int(eager[5])
+    kernels = (pc.proj_normal, ic.imu_normal, pc.proj_cost,
+               ic.imu_cost, pc.proj_rows)
+    torch.cuda.synchronize()
+    collect_launches()
+    before = [k.launches for k in kernels]
+    out = prog(st, lim)
+    torch.cuda.synchronize()
+    collect_launches()
+    assert [k.launches - b for k, b in zip(kernels, before)] == [lins, lins, 1 + iters,
+                                                                  1 + iters, 0]
+    assert (int(out[4]), int(out[5])) == (iters, lins)
+    assert 1 <= lins <= iters <= limit
+    if case == "plateau":
+        assert iters < 8
+    for x, y in zip(_leaves(out), _leaves(eager)):
+        assert float((x - y).abs().max()) <= 1e-9 * max(float(y.abs().max()), 1.0)
+
+
+def test_estimator_one_graph_a_kind_whatever_the_cap(dev):
+    """An f64 bearing stream on the card (64 slots): the estimator holds one
+    solve graph and one relocalization graph (captured at the first solve);
+    a wall budget that binds afterwards (a cap of 2, 1 when marginalizing
+    old) captures nothing more, and its solves run no more iterations than
+    it allows."""
+    import chip_smoke
+    from lfvio_tpu_torch.runtime import Estimator, EstimatorConfig, VioPipeline
+    from lfvio_tpu_torch.runtime.synthetic import SyntheticWorld, make_synthetic_pal_camera
+
+    world = SyntheticWorld(camera=make_synthetic_pal_camera(dtype=torch.float64),
+                           dtype=torch.float64, device=dev)
+    pts = chip_smoke.make_landmarks()
+    est = Estimator(EstimatorConfig(n_feature_slots=64, solver_dtype=torch.float64, device=dev))
+    pipe = VioPipeline(chip_smoke.BearingFrontEnd(world, pts), est)
+    chip_smoke.run_bearing_stream(pipe, world, 1.2)
+    assert est.solver_flag == est.NON_LINEAR
+    assert set(est._programs) == {("solve",), ("relo",), ("marg_old",)}
+    graphs = est.graph_stats()[0]
+    assert graphs == 3
+    n = len(est.lm_runs)
+    est._iter_time, est.cfg.max_solver_time = 0.01, 0.025
+    chip_smoke.run_bearing_stream(pipe, world, 0.3, t0=1.2)
+    assert est.graph_stats()[0] == graphs and set(est._programs) == {
+        ("solve",), ("relo",), ("marg_old",)}
+    after = est.lm_runs[n:]
+    assert len(after) >= 4 and all(1 <= lins <= it <= 2 for it, lins, _ in after), after
+
+
+def test_capture_raises_without_conditional_nodes(dev, monkeypatch):
+    """Where torch offers no CUDA-graph conditional nodes, capturing the LM
+    raises, naming them; nothing falls back to a masked graph."""
+    from lfvio_tpu_torch import device
+    from lfvio_tpu_torch.backend.solver import lm_solve
+
+    st, args, cfg = _lm_case(dev, n_slots=16)
+    monkeypatch.setattr(device, "POOL_ROUTING", device.POOL_ROUTING + ("no_such_call",))
+    prog = device.DeviceProgram(lambda s: lm_solve(s, *args, cfg)[0])
+    with pytest.raises(RuntimeError, match="conditional nodes"):
+        prog(st)
+    assert prog.graph is None

@@ -303,12 +303,20 @@ def test_rolling_shutter_td_obs_and_gate():
 
 
 # ------------------------------------------------------------------ streams
-@pytest.mark.parametrize("key", ["lag1", "td"])
+@pytest.mark.parametrize("key", ["lag1", "td", "budget"])
 def test_stream_matches_jax(worlds, key):
     """One bearing-harness stream (48 landmarks, 64 slots, 20 Hz, 1.5 s)
     through both pipelines: the same initialization frame, the same solve
-    times, trajectories within 1e-6 m, and td within 1e-7 s."""
+    times, trajectories within 1e-6 m, and td within 1e-7 s. "budget": the
+    wall budget's cap (3, 2 when marginalizing old) binds every solve of
+    both, the port's read from its packed buffer by its one solve program."""
     jest, test, jp, tp, *_ = run_both(key, worlds)
+    if key == "budget":
+        # Every solve of this stream marginalizes the oldest frame: each runs
+        # the cap of 2 iterations, through the one solve program.
+        assert [it for it, _, _ in test.lm_runs] == [2] * len(test.lm_runs)
+        assert set(test._programs) == {("solve",), ("marg_old",)}
+        assert test._iter_time == jest._iter_time == 0.01
     assert test.solver_flag == test.NON_LINEAR == jest.solver_flag
     assert len(test.times) == len(jest.times) >= (5 if "throttled" in key else 15)
     np.testing.assert_array_equal(test.times, jest.times)

@@ -4,7 +4,11 @@
   on the device, against the JAX package's ``lm_loop`` on
   ``tests/test_torch_backend.py::problem``'s window: iteration caps 1, 3
   and 8, a cost-plateau exit and a forced non-finite step; states within
-  1e-10 of their scale.
+  1e-10 of their scale. The loop of 8 with the device limit at 1, 3 and 8,
+  at a plateau and with non-finite steps, in both forms of its
+  ``device.cond`` blocks outside a capture (masked, and host predicates):
+  each against JAX, the two bit for bit, and the iterations and
+  linearizations run equal to those JAX's ``lax.cond`` branches ran.
 * The packed upload: the layout's names, shapes and size equal the JAX
   ``Estimator._build_pack_layout`` for a mono and a two-camera rig, the
   packed buffer equals the JAX one from the same mirrors, and unpacking
@@ -59,15 +63,23 @@ STATE_FIELDS = ("p", "q", "v", "ba", "bg", "tic", "qic", "td", "inv_depth")
 
 
 # ------------------------------------------------------------------ lm_loop
-def _jax_fns(problem, nan_below=None):
+def _jax_fns(problem, nan_below=None, ran=None):
+    """JAX's lin_fn, solve_fn and cost_fn; with ``ran`` (a dict) each run of
+    a linearization and of a cost adds one to ran["lin"] / ran["cost"]
+    (host callbacks: inside a lax.cond branch only where it runs)."""
     st, grid, pre, si, iv, prior, g, cfg = problem["j"]
     F, W1 = grid.valid.shape
     D = jsolver.pose_dim(W1, 1)
+
+    def tally(key):
+        if ran is not None:
+            jax.debug.callback(lambda: ran.__setitem__(key, ran.get(key, 0) + 1))
 
     def lin_fn(s, zeros_like=False):
         if zeros_like:
             z = jnp.zeros
             return (z((D, D)), z((D, F)), z((F,)), z((D,)), z((F,)))
+        tally("lin")
         return jsolver.assemble_normal_equations(s, grid, pre, si, iv, prior, g, cfg)[:5]
 
     def solve_fn(lin, lam):
@@ -77,6 +89,7 @@ def _jax_fns(problem, nan_below=None):
         return dx, dlam
 
     def cost_fn(s):
+        tally("cost")
         return jsolver.total_cost(s, grid, pre, si, iv, prior, g, cfg)
 
     return lin_fn, solve_fn, cost_fn
@@ -113,8 +126,8 @@ def _compare_loops(problem, caps, cost_tol=None, nan_below=None):
     hists = {}
     for cap in caps:
         jout, jc0, jc1, jhist = loop(jst, jnp.asarray(cap, jnp.int32))
-        tout, tc0, tc1, thist = tsolver.lm_loop(tst, *_torch_fns(problem, nan_below), tcfg,
-                                                max_iter_dyn=cap)
+        tout, tc0, tc1, thist, _, _ = tsolver.lm_loop(tst, *_torch_fns(problem, nan_below), tcfg,
+                                                      max_iter_dyn=cap)
         assert thist.shape == (cap,)
         close(jc0, tc0, 1e-10)
         close(jc1, tc1, 1e-10)
@@ -145,6 +158,60 @@ def test_lm_loop_non_finite_step_matches_jax(problem):
     hist = _compare_loops(problem, (5,), nan_below=1e-3)[5]
     c0 = tsolver.total_cost(*[problem["t"][i] for i in (0, 1, 2, 3, 4, 5, 6, 7)])
     assert hist[0] == hist[1] == float(c0) and hist[-1] < hist[1]
+
+
+# The loop of 8 with its device limit, each case (limit, cost_tol,
+# nan_below) against JAX's loop with max_iter_dyn at the limit.
+BLOCK_CASES = {"limit1": (1, None, None), "limit3": (3, None, None), "limit8": (8, None, None),
+               "plateau": (8, 0.3, None), "non_finite": (8, None, 1e-3)}
+
+
+@pytest.mark.parametrize("case", list(BLOCK_CASES))
+def test_lm_loop_blocks_match_jax(problem, case):
+    """The port's loop of cfg.max_iterations (8) with ``limit`` a device
+    tensor, its blocks masked (the default outside a capture) and under
+    ``device.host_predicates()`` (each block an ``if`` on the host): both
+    within 1e-10 of JAX's loop (states, costs, the whole history), bit for
+    bit equal to each other, and the iterations and linearizations they
+    report equal to those JAX ran (its cost and linearization callbacks:
+    the first cost is the initial one)."""
+    limit, cost_tol, nan_below = BLOCK_CASES[case]
+    jst, jcfg = problem["j"][0], problem["j"][-1]
+    tst, tcfg = problem["t"][0], problem["t"][-1]
+    if cost_tol is not None:
+        jcfg = dataclasses.replace(jcfg, cost_tol=cost_tol)
+        tcfg = dataclasses.replace(tcfg, cost_tol=cost_tol)
+    assert tcfg.max_iterations == 8
+    ran = {}
+    jfns = _jax_fns(problem, nan_below, ran)
+    jout, jc0, jc1, jhist = jax.jit(lambda s, cap: jsolver.lm_loop(s, *jfns, jcfg, cap))(
+        jst, jnp.asarray(limit, jnp.int32))
+    jax.effects_barrier()
+    lim = torch.tensor(limit, dtype=torch.int32)
+    masked = tsolver.lm_loop(tst, *_torch_fns(problem, nan_below), tcfg, limit=lim)
+    with tdevice.host_predicates():
+        host = tsolver.lm_loop(tst, *_torch_fns(problem, nan_below), tcfg, limit=lim)
+    for out in (masked, host):
+        tout, tc0, tc1, thist, iters, lins = out
+        assert thist.shape == (8,)
+        close(jc0, tc0, 1e-10)
+        close(jc1, tc1, 1e-10)
+        close(np.asarray(jhist), thist, 1e-10)
+        for name in STATE_FIELDS:
+            close(getattr(jout, name), getattr(tout, name), 1e-10)
+        assert (int(iters), int(lins)) == (ran["cost"] - 1, ran["lin"]), (case, ran)
+    for name in STATE_FIELDS:
+        assert torch.equal(getattr(masked[0], name), getattr(host[0], name)), name
+    for a, b in zip(masked[1:], host[1:]):
+        assert torch.equal(a, b)
+    iters, lins = int(masked[4]), int(masked[5])
+    assert 1 <= lins <= iters <= limit
+    if case == "limit8":
+        assert iters == 8  # the default cost_tol does not end this window's loop early
+    if case == "plateau":
+        assert iters < 8 and torch.equal(thist[iters:], thist[iters - 1].expand(8 - iters))
+    if case == "non_finite":
+        assert lins < iters  # the rejected steps re-solved without linearizing
 
 
 def test_lm_solve_limit_masks_like_the_packed_max_iter(problem):
@@ -405,8 +472,32 @@ def test_estimator_programs_read_nothing_back():
         assert est.set_relo_frame(t_loop, np.arange(len(pts)), b, p, q)
         run_stream(pipe, world, 0.3, t0=1.0)
     assert est._relo_active is None and np.isfinite(np.asarray(est.traj_p)).all()
-    assert {"solve_4", "marg_old", "marg_new"} <= set(calls), calls
-    assert any(k.startswith("relo_") for k in calls) and "solve_1" in calls, calls
+    assert set(calls) == {"solve", "relo", "marg_old", "marg_new"}, calls
+    assert max(it for it, _, _ in est.lm_runs[-5:]) <= 2  # the budget bound
+
+
+def test_program_keys_carry_no_cap():
+    """One program a kind, whatever the LM's cap: a stream's programs are
+    keyed ("solve",), ("marg_old",), ("marg_new",); a wall budget that binds
+    (a cap of 2, 1 when marginalizing old) adds none, and the solves after
+    it run no more iterations than it allows, read from the packed cap."""
+    world = tsyn.SyntheticWorld(camera=tsyn.make_synthetic_pal_camera(dtype=F64), dtype=F64,
+                                device="cpu")
+    pts = make_landmarks()
+    est = Estimator(EstimatorConfig(n_feature_slots=64, solver_dtype=F64, device="cpu",
+                                    max_iterations=4))
+    pipe = VioPipeline(BearingFrontEnd(world, pts), est)
+    run_stream(pipe, world, 1.0)
+    assert est.solver_flag == est.NON_LINEAR
+    keys = set(est._programs)
+    assert keys <= {("solve",), ("relo",), ("marg_old",), ("marg_new",)} and ("solve",) in keys
+    n = len(est.lm_runs)
+    assert max(it for it, _, _ in est.lm_runs) > 2
+    est._iter_time, est.cfg.max_solver_time = 0.01, 0.025
+    run_stream(pipe, world, 0.3, t0=1.0)
+    assert set(est._programs) == keys
+    after = est.lm_runs[n:]
+    assert len(after) >= 4 and all(1 <= lins <= it <= 2 for it, lins, _ in after), after
 
 
 def test_frontend_published_step_reads_nothing_back():

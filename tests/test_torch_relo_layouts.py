@@ -109,5 +109,5 @@ def test_relo_program_not_captured_early_on_the_cpu():
 
     est = Estimator(EstimatorConfig(n_feature_slots=16, solver_dtype=F64, device="cpu"))
     packed = est._upload(est._pack_solve_buffer(est.Ps[0], est.Qs[0]))
-    est._capture_relo(packed, est._empty_prior(), est.cfg.max_iterations)
+    est._capture_relo(packed, est._empty_prior())
     assert not est._programs

@@ -16,8 +16,10 @@ order OTHER, this, this, OTHER each tree runs, in processes of its own from
 its own root (so each builds and imports its own package): its
 ``chip_smoke.program_census`` of the solve, MARGIN_OLD and SECOND_NEW graphs
 of an estimator warmed up in bench.py's default configuration (a) and in
-its high-rate one (b) (kernel nodes and the card's ms per replay, CUDA
-events), then ``python -m lfvio_tpu_torch.bench`` in (a) and (b)
+its high-rate one (b) (kernel nodes, conditional bodies' included, and the
+card's ms per replay, CUDA events; where the tree's census has them, the LM
+iterations and linearizations a solve replay ran and the replay with every
+iteration forced to run), then ``python -m lfvio_tpu_torch.bench`` in (a) and (b)
 (frames/s). Prints a line per run, the card's ``nvidia-smi`` line, and
 last one JSON object with every run's numbers.
 
@@ -96,8 +98,9 @@ dev = torch.device("cuda", 0)
 out = {}
 for key, knobs in (("a", {}), ("b", c.BENCH_HIGH_RATE)):
     cen = c.program_census(c.warm_estimator(dev, knobs), f"({key})", trace=False)
-    out[key] = dict(ms=cen["ms"], kernel_nodes={k: v.get("kernel") for k, v in
-                                                cen["nodes"].items()})
+    out[key] = dict(ms=cen["ms"], ran=cen.get("ran"), nodes=cen["nodes"],
+                    kernel_nodes={k: v.get("kernel", 0) + v.get("body kernel", 0)
+                                  for k, v in cen["nodes"].items()})
 print("TURNS " + json.dumps(out))
 """
 HIGH_RATE = {"LFVIO_BENCH_FRAME_RATE": "30", "LFVIO_BENCH_MAX_CNT": "300",
@@ -137,8 +140,12 @@ def tree_main(argv):
         rec = one_turn(tree)
         runs.append(dict(tree=name, **rec))
         print(f"[turns] {name}: " + "; ".join(
-            f"({k}) solve {rec[k]['ms']['solve']:.3f} ms, marg_old {rec[k]['ms']['marg_old']:.3f} "
-            f"ms, solve nodes {rec[k]['kernel_nodes']['solve']}, marg_old nodes "
+            f"({k}) solve {rec[k]['ms']['solve']:.3f} ms"
+            + (f" (LM iterations, linearizations run {rec[k]['ran']['solve']}), with every "
+               f"iteration forced {rec[k]['ms']['solve_forced']:.3f} ms "
+               f"({rec[k]['ran']['solve_forced']})" if rec[k].get("ran") else "")
+            + f", marg_old {rec[k]['ms']['marg_old']:.3f} "
+            f"ms, solve kernel nodes {rec[k]['kernel_nodes']['solve']}, marg_old nodes "
             f"{rec[k]['kernel_nodes']['marg_old']}, {rec[k]['frames_per_s']:.3f} frames/s"
             for k in ("a", "b")), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
