@@ -2656,19 +2656,9 @@ def record_marg_information(est, rec):
     computes the QR and the eigh prior of its inputs in f64 and appends
     their information difference (``marg_info_err``) to ``rec["old"]`` or
     ``rec["new"]``."""
-    import torch
     from lfvio_tpu_torch.backend.marginalize import (marginalize_old, marginalize_old_qr,
                                                      marginalize_second_new,
                                                      marginalize_second_new_qr)
-
-    def f64(x):
-        if x is None:
-            return x
-        if isinstance(x, torch.Tensor):
-            return x.double() if x.is_floating_point() else x
-        if isinstance(x, tuple):
-            return tuple(f64(y) for y in x)
-        return type(x)(**{k: f64(v) for k, v in vars(x).items()})
 
     make = est._program
     forms = {"marg_old": ("old", marginalize_old_qr, marginalize_old),
@@ -2682,7 +2672,7 @@ def record_marg_information(est, rec):
 
         def run(*args):
             out = prog(*args)
-            a = f64(args) + ((est._gravity_t.double(),) if kind == "old" else ()) + (est.scfg,)
+            a = to_f64(args) + ((est._gravity_t.double(),) if kind == "old" else ()) + (est.scfg,)
             rec.setdefault(kind, []).append(marg_info_err(qr(*a), eigh(*a)))
             return out
 
@@ -2710,28 +2700,35 @@ def log_marg_information(tag, name, rec):
 
 def phase_qr_information(dev):
     """The parity streams of tests/test_torch_estimator.py and
-    tests/test_torch_lag.py (the bearing harness, 64 slots, f64, 1.5 s) on
-    the card, each marginalization's QR information against the eigh one."""
+    tests/test_torch_lag.py (the bearing harness, 64 slots, f64, 1.5 s) and
+    phase 7's lag-3 stream (30 px of parallax, so SECOND_NEW marginalizations
+    too; 2.2 s) on the card, each marginalization's QR information (the
+    kernels of csrc/marg_qr.cu in f64) against the eigh one."""
     import torch
     from lfvio_tpu_torch.runtime import Estimator, EstimatorConfig, VioPipeline
     from lfvio_tpu_torch.runtime.synthetic import SyntheticWorld, make_synthetic_pal_camera
 
     pts = make_landmarks()
     out = {}
-    for name, cfg, fe_kw, world_kw in (
-            ("lag1", dict(solve_lag=1), {}, {}),
-            ("lag2_chain", dict(solve_lag=2, device_chain=True), {}, {}),
-            ("lag3", dict(solve_lag=3), {}, {}),
+    for name, cfg, fe_kw, world_kw, duration in (
+            ("lag1", dict(solve_lag=1), {}, {}, 1.5),
+            ("lag2_chain", dict(solve_lag=2, device_chain=True), {}, {}, 1.5),
+            ("lag3", dict(solve_lag=3), {}, {}, 1.5),
             ("td", dict(solve_lag=1, estimate_td=True), dict(td_true=0.005),
-             dict(traj_freq=0.8))):
+             dict(traj_freq=0.8), 1.5),
+            ("phase 7's solve lag 3", dict(solve_lag=3, min_parallax=30.0 / 160.0), {},
+             dict(traj_freq=0.5), 2.2)):
         world = SyntheticWorld(camera=make_synthetic_pal_camera(dtype=torch.float64),
                                dtype=torch.float64, device=dev, **world_kw)
         est = Estimator(EstimatorConfig(n_feature_slots=64, solver_dtype=torch.float64,
                                         device=dev, **cfg))
         rec = {}
         record_marg_information(est, rec)
-        run_bearing_stream(VioPipeline(BearingFrontEnd(world, pts, **fe_kw), est), world, 1.5)
+        run_bearing_stream(VioPipeline(BearingFrontEnd(world, pts, **fe_kw), est), world,
+                           duration)
         out[name] = log_marg_information("[14]", f"parity stream {name}", rec)
+    if not out["phase 7's solve lag 3"]["new"]["n"]:
+        raise AssertionError("phase 7's lag-3 stream took no SECOND_NEW")
     return out
 
 
@@ -2983,6 +2980,31 @@ def forced_solve(est):
     return DeviceProgram(fn, pool=est._pool, name="solve_forced")
 
 
+# Name parts of a library's QR kernels (cuSOLVER's geqrf and its Householder
+# steps, MAGMA's), none of which a MARGIN_OLD replay may run.
+LIBRARY_QR = ("geqr", "larf", "orgqr", "ormqr", "cusolver", "magma", "householder")
+# The record_function ranges the port opens (their spans on the card's
+# timeline are profiler events too, not kernels).
+RANGES = ("solve::", "marg_old::", "marg_qr::", "proj_factor::", "imu_factor::", "relo_factor::")
+
+
+def graph_kernel_names(fn):
+    """{kernel name: launches} on the card while ``fn()`` runs once (a
+    replay's), from torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU and not e.name.startswith(RANGES):
+            names[e.name] = names.get(e.name, 0) + 1
+    return names
+
+
 def program_census(est, label, trace=True):
     """The census of an estimator's programs (the solve, MARGIN_OLD,
     SECOND_NEW): nodes of each captured graph by kind, its conditional
@@ -3018,7 +3040,9 @@ def program_census(est, label, trace=True):
           "marg_new": cuda_ms(lambda: marg_new(res["out"], prior), n=5, warmup=1)}
     per_replay = {"solve": launches_of(lambda: solve(packed, prior, chain))[0],
                   "solve_forced": launches_of(lambda: forced(packed, prior, chain))[0],
-                  "marg_old": launches_of(lambda: marg_old(*marg_args))[0]}
+                  "marg_old": launches_of(lambda: marg_old(*marg_args))[0],
+                  "marg_new": launches_of(lambda: marg_new(res["out"], prior))[0]}
+    qr_kernels = graph_kernel_names(lambda: marg_old(*marg_args))
     nodes = {k: graph_nodes(p) for k, p in
              (("solve", solve), ("marg_old", marg_old), ("marg_new", marg_new))}
     F, W1 = grid.valid.shape
@@ -3040,13 +3064,24 @@ def program_census(est, label, trace=True):
         + "; factor kernels' launches per replay " + ", ".join(
             f"{k} {v}" for k, v in per_replay.items())
         + f"; the estimator's solves so far: {lm_run_counts(est.lm_runs)}")
+    log(f"[14] census {label}: one MARGIN_OLD replay under torch.profiler ran "
+        f"{sum(qr_kernels.values())} kernels of {len(qr_kernels)} names: "
+        + ", ".join(f"{n} x{c}" for n, c in sorted(qr_kernels.items())))
+    library = [n for n in qr_kernels if any(w in n.lower() for w in LIBRARY_QR)]
+    if library:
+        raise AssertionError(f"census {label}: MARGIN_OLD ran a library QR kernel: {library}")
+    seen = {k: sum(c for n, c in qr_kernels.items() if f"{k}_kernel<" in n) for k in MARG_KERNELS}
+    if seen != {k: 1 for k in MARG_KERNELS}:
+        raise AssertionError(f"census {label}: the profiled MARGIN_OLD replay recorded the "
+                             f"marginalization kernels {seen} times, not once each")
     if trace:
         log(f"[14] census {label}: one eager solve traced ({trace_s:.1f} s), {total / 1e3:.3f} ms "
             f"of device kernels, {attributed / 1e3:.3f} ms attributed to ops: "
             + ", ".join(f"{k} {parts[k] / 1e3:.3f} ms "
                         f"({100 * parts[k] / max(attributed, 1e-9):.1f}%)" for k in order))
     return dict(obs=obs, ms=ms, nodes=nodes, parts_us=parts, attributed_us=attributed,
-                device_us=total, per_replay=per_replay, ran=ran, est=est)
+                device_us=total, per_replay=per_replay, ran=ran, est=est,
+                marg_args=(*marg_args, est._gravity_t, est.scfg))
 
 
 # ------------------------------------------------ phase 14: the projection kernels
@@ -3986,6 +4021,445 @@ def relo_times(args, label, block):
     return out
 
 
+# ------------------------------------------------ phase 14: the marginalizations' QR
+# csrc/marg_qr.cu against its plain version (backend/marg_cuda.py) on the
+# same inputs. marg_depth's rows relative to each slot's scale, the largest
+# magnitude of the slot's dense rows (a reflected row is a row less a
+# multiple of vᵀA, a sum over the slot's 2 W rows: f32 rounds it to a few
+# 2 W eps of that scale). marg_qr's R through its information, RᵀR against
+# AᵀA (``rtr_error``) and the kept rows' (those below the dropped columns,
+# the prior: ``kept_error``), entry (i, j) relative to |a_i| |a_j| of A's
+# columns (against the largest entry of |A|ᵀ|A| instead, the projection
+# rows' information sits below 1e-5 of the IMU's and the prior's, and a
+# tile of them left out went unseen on the CPU). f32 at the main path's
+# inputs, f64 on the same inputs upcast.
+MARG_BOUNDS = {"float32": 2e-5, "float64": 1e-13}
+MARG_KERNELS = ("marg_depth", "marg_qr")
+MARG_RTR = "marg_qr (RᵀR against AᵀA)"
+MARG_STRUCTURE = "marg_qr (a lower entry or a zero pivot's row non-zero)"
+# The kept information is a Schur complement: it carries the dropped
+# block's conditioning, so two f32 QRs of the same stack differ there by
+# more than their backward errors (up to 6.2e-5 of the scale at (b) on an
+# H100). In f32 it is held against the plain version run in f64 on the
+# stack upcast, within twice the largest f32 reading of marg_f32_spread.py
+# (marg_qr, the plain version and torch.linalg.qr, each against that f64
+# answer, over the 71 MARGIN_OLD stacks of bench.py's two streams on an
+# H100: at most 4.98e-4, 8.51e-4 and 5.82e-4): the kernel is held to what
+# an f32 QR of these stacks attains. In f64 it is held against the plain
+# version in f64, within that bound scaled by the ratio of the two types'
+# rounding units, doubled (both sides round).
+MARG_KEPT = "marg_qr (kept information)"
+MARG_KEPT_F32_BOUND = 1.7e-3
+MARG_KEPT_BOUNDS = {"float32": MARG_KEPT_F32_BOUND,
+                    "float64": 2 * MARG_KEPT_F32_BOUND * 2.0 ** -29}
+REPLACES.update({
+    "marg_depth": "lfvio_tpu/backend/marginalize.py:260 (jnp.linalg.qr in marginalize_old_qr "
+                  ":207, its F anchored-depth columns; XLA, no Pallas kernel)",
+    "marg_qr": "lfvio_tpu/backend/marginalize.py:260 and :297 (jnp.linalg.qr in "
+               "marginalize_old_qr :207 and marginalize_second_new_qr :276; XLA, no Pallas "
+               "kernel)"})
+SOURCES.update({k: "lfvio_tpu_torch/csrc/marg_qr.cu" for k in MARG_KERNELS})
+# A planted fault of each kernel, and the check that must reject it.
+MARG_FAULTS = {"marg_depth": ("a slot left unreflected", "a slot's pivot row kept"),
+               "marg_qr": ("a tile of rows left out", "a kept row of R zeroed")}
+# The rows of that tile: the first non-zero ones after the head (all rows
+# where the head is all of them), as many as a float64 tile holds.
+MARG_FAULT_ROWS = 32
+
+
+def marg_cases(census, dev):
+    """{label: (args, kind)}: MARGIN_OLD's arguments at (a) and (b) (the
+    census' estimators' solve outputs, their priors) and SECOND_NEW's at
+    (b) (the estimator's prior at the solve's state, the program's inputs),
+    in f32, and the f64 upcast of each."""
+    a, b = census["a"]["marg_args"], census["b"]["marg_args"]
+    sn = (b[0], b[5])
+    return {"(a) MARGIN_OLD, window 10, 256 slots, f32": (a, "old"),
+            "(b) MARGIN_OLD, window 20, 384 slots, f32": (b, "old"),
+            "(b) SECOND_NEW, window 20, f32": (sn, "new"),
+            "(a) MARGIN_OLD, f64": (to_f64(a), "old"),
+            "(b) MARGIN_OLD, f64": (to_f64(b), "old"),
+            "(b) SECOND_NEW, f64": (to_f64(sn), "new")}
+
+
+def to_f64(x):
+    """``x`` (a tensor, a tuple or a dataclass of them) with every floating
+    tensor in float64."""
+    import dataclasses
+
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.double() if x.is_floating_point() else x
+    if isinstance(x, tuple):
+        return tuple(to_f64(y) for y in x)
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return type(x)(**{f.name: to_f64(getattr(x, f.name)) for f in dataclasses.fields(x)})
+    return x
+
+
+def marg_stage_inputs(args, kind):
+    """(marg_depth's arguments or None, marg_qr's stack, its head, the
+    dropped columns m) of a MARGIN_OLD (``kind`` "old") or SECOND_NEW
+    ("new") case."""
+    from lfvio_tpu_torch.backend import marginalize as mg
+    from lfvio_tpu_torch.backend.proj_cuda import proj_rows
+
+    if kind == "new":
+        state, prior = args
+        D = prior.J.shape[0]
+        return None, mg.second_new_stack(state, prior), D, 6
+    state, grid, cfg = args[0], args[1], args[7]
+    D = mg.pose_dim(state.p.shape[0], mg.n_cams_of(state))
+    grid0 = grid.replace(used=grid.used & (grid.anchor == 0))
+    res, J26, w, _ = proj_rows(state, grid0, cfg)
+    return ((res, J26, w, grid0, cfg, mg.n_cams_of(state)), mg.old_stack(*args), D + 15, 15)
+
+
+def depth_error(depth_args, out, ref):
+    """marg_depth's rows ``out`` against ``ref``, slot by slot over the
+    slot's scale (a slot of scale 0 must agree exactly)."""
+    import torch
+    from lfvio_tpu_torch.backend import marg_cuda as mc
+
+    A, _ = mc._dense_obs_rows(*depth_args)
+    F, R2, C = A.shape
+    scale = A.abs().amax(dim=(1, 2))[:, None, None]
+    d = (out.reshape(F, R2, C) - ref.reshape(F, R2, C)).abs()
+    return float(torch.where(scale > 0, d / torch.where(scale > 0, scale, 1.0),
+                             torch.where(d > 0, np.inf, 0.0)).max())
+
+
+def qr_structure(R):
+    """0 if R is upper triangular and every row whose pivot is zero is zero
+    (a column with nothing to eliminate consumed no row), else inf."""
+    import torch
+
+    zero_pivot = R.diagonal() == 0
+    ok = (torch.tril(R, -1) == 0).all() & ~(R[zero_pivot] != 0).any()
+    return 0.0 if bool(ok) else float("inf")
+
+
+def _over_norms(d, norms):
+    """max |d_ij| / (|a_i| |a_j|), ``norms`` the norms of A's columns (an
+    entry of scale 0 must be 0), in f64."""
+    import torch
+
+    d, scale = d.abs(), torch.outer(norms, norms)
+    return float(torch.where(scale > 0, d / torch.where(scale > 0, scale, 1.0),
+                             torch.where(d > 0, np.inf, 0.0)).max())
+
+
+def rtr_error(A, R):
+    """RᵀR against AᵀA, entry (i, j) over |a_i| |a_j| (a QR's backward
+    error is eps times a few of A's column by column)."""
+    A, R = A.double(), R.double()
+    return _over_norms(R.T @ R - A.T @ A, A.norm(dim=0))
+
+
+def kept_error(A, R, Rref, m):
+    """The information of R's kept rows (below the first ``m``, the last
+    row, the residual's rest, aside) against Rref's, entry (i, j) over
+    |a_i| |a_j|."""
+    A, R, Rref = A.double(), R.double(), Rref.double()
+    kept = lambda X: X[m:-1, m:].T @ X[m:-1, m:]
+    return _over_norms(kept(R) - kept(Rref), A.norm(dim=0)[m:])
+
+
+def marg_bound(check, dtype):
+    """The bound of ``marg_compare``'s ``check`` in ``dtype`` ("float32" or
+    "float64")."""
+    return (MARG_KEPT_BOUNDS if check == MARG_KEPT else MARG_BOUNDS)[dtype]
+
+
+def marg_planted_faults(depth_args, A, head, m):
+    """{kernel: {fault: its error}}: the plain versions' outputs against
+    those a kernel with each fault of MARG_FAULTS would give."""
+    import torch
+    from lfvio_tpu_torch.backend import marg_cuda as mc
+
+    out = {}
+    if depth_args is not None:
+        ref = mc.depth_plain(*depth_args)
+        dense, x = mc._dense_obs_rows(*depth_args)
+        F, R2, C = dense.shape
+        f = int((x.abs().amax(dim=1) > 0).nonzero()[0])
+        unref = ref.reshape(F, R2, C).clone()
+        unref[f] = dense[f]
+        kept = ref.reshape(F, R2, C).clone()
+        kept[f, 0] = dense[f].T @ (x[f] / x[f].norm())  # the depth pivot's row (up to sign)
+        out["marg_depth"] = dict(zip(MARG_FAULTS["marg_depth"],
+                                     (depth_error(depth_args, unref, ref),
+                                      depth_error(depth_args, kept, ref))))
+    Rp = mc.qr_plain(A)
+    less = A.clone()
+    rows = (A[head if head < A.shape[0] else 0:] != 0).any(dim=1).nonzero()[:, 0]
+    less[(head if head < A.shape[0] else 0) + rows[:MARG_FAULT_ROWS]] = 0.0
+    zeroed = Rp.clone()
+    diag = Rp.diagonal()[m:-1].abs() / A.norm(dim=0)[m:-1].clamp(min=torch.finfo(A.dtype).tiny)
+    zeroed[m + int(diag.argmax())] = 0.0
+    out["marg_qr"] = {MARG_FAULTS["marg_qr"][0]: rtr_error(A, mc.qr_plain(less)),
+                      MARG_FAULTS["marg_qr"][1]: rtr_error(A, zeroed)}
+    return out
+
+
+def marg_compare(depth_args, A, head, m):
+    """({check: error relative to its scale (MARG_STRUCTURE: 0 or inf), each
+    within ``marg_bound``}, {kernel: largest absolute error: marg_depth's
+    rows, marg_qr's RᵀR against the plain version's}, {QR: its kept
+    information's error against the same f64 answer, f32 only: the plain
+    version's and torch.linalg.qr's}, repeats bit-identical) of both kernels
+    at one case. MARG_KEPT: the kernel's kept information against the plain
+    version's, which in f32 runs in f64 on A upcast."""
+    import torch
+    from lfvio_tpu_torch.backend import marg_cuda as mc
+
+    errs, absolute, readings, identical = {}, {}, {}, True
+    if depth_args is not None:
+        k, again = mc.marg_depth(*depth_args), mc.marg_depth(*depth_args)
+        identical &= torch.equal(k, again)
+        p = mc.depth_plain(*depth_args)
+        errs["marg_depth"] = depth_error(depth_args, k, p)
+        absolute["marg_depth"] = float((k - p).abs().max())
+    R, again = mc.marg_qr(A, head=head), mc.marg_qr(A, head=head)
+    identical &= torch.equal(R, again)
+    Rp = mc.qr_plain(A)
+    errs[MARG_RTR] = rtr_error(A, R)
+    errs[MARG_STRUCTURE] = qr_structure(R)
+    if A.dtype == torch.float32:
+        exact = mc.qr_plain(A.double())
+        errs[MARG_KEPT] = kept_error(A, R, exact, m)
+        readings = {"plain version": kept_error(A, Rp, exact, m),
+                    "torch.linalg.qr": kept_error(A, torch.linalg.qr(A, mode="r")[1], exact, m)}
+    else:
+        errs[MARG_KEPT] = kept_error(A, R, Rp, m)
+    absolute["marg_qr"] = float((R.double().T @ R.double() - Rp.double().T @ Rp.double())
+                                .abs().max())
+    return errs, absolute, readings, bool(identical)
+
+
+def dense_old_stack(args):
+    """The port's MARGIN_OLD matrix before the two stages (torch.linalg.qr's
+    input then): [pose0/sb0 | the F depth columns | kept | r] with a unit
+    row in each empty dropped column; (A, dropped columns)."""
+    import torch
+    from lfvio_tpu_torch.backend import marginalize as mg
+    from lfvio_tpu_torch.backend import solver
+
+    state, grid, pre0, si, iv, prior, gravity, cfg = args
+    n_frames = state.p.shape[0]
+    F, W1 = grid.valid.shape
+    dtype, dev = state.p.dtype, state.p.device
+    D = mg.pose_dim(n_frames, mg.n_cams_of(state))
+    with torch.profiler.record_function("marg_old::linearize"):
+        grid0 = grid.replace(used=grid.used & (grid.anchor == 0))
+        imu_valid = torch.zeros_like(iv)
+        imu_valid[0] = iv[0]
+        res_w, Jfull, J_lam, _, _ = solver.linearize_proj_rows(state, grid0, cfg)
+        imu_res, Jimu, _ = solver.linearize_imu_rows(state, pre0, si, imu_valid, gravity)
+        rp = mg.prior_residual(state, prior)
+        Jp = torch.where(prior.valid, prior.J, torch.zeros_like(prior.J))
+    with torch.profiler.record_function("marg_old::stack"):
+        R1 = F * W1 * 2
+        dep = (J_lam[..., None] * torch.eye(F, dtype=dtype, device=dev)[:, None, None, :]
+               ).reshape(R1, F)
+        A_pose = torch.cat([Jfull.reshape(R1, D), Jimu, Jp], dim=0)
+        A_dep = torch.cat([dep, torch.zeros((Jimu.shape[0] + D, F), dtype=dtype, device=dev)])
+        r = torch.cat([res_w.reshape(R1), imu_res.reshape(-1), rp])
+        drop, keep, _ = mg._indices("old", n_frames, D, dev)
+        A = torch.cat([A_pose[:, drop], A_dep, A_pose[:, keep], r[:, None]], dim=1)
+        m = len(drop) + F
+        return mg._with_unit_rows(A, m), m
+
+
+def dense_marginalize_old_qr(args):
+    """The port's MARGIN_OLD before the two stages (one torch.linalg.qr of
+    ``dense_old_stack``), with the same record_function ranges as
+    marginalize_old_qr's: the split the two stages are measured against."""
+    import torch
+    from lfvio_tpu_torch.backend import marginalize as mg
+
+    state = args[0]
+    D = mg.pose_dim(state.p.shape[0], mg.n_cams_of(state))
+    A, m = dense_old_stack(args)
+    K = D - 15
+    with torch.profiler.record_function("marg_old::qr"):
+        Rfac = torch.linalg.qr(A, mode="r")[1]
+    with torch.profiler.record_function("marg_old::scatter_slide"):
+        keep = mg._indices("old", state.p.shape[0], D, state.p.device)[1]
+        Jk, rk = Rfac[m:m + K, m:m + K], Rfac[m:m + K, m + K]
+        ok = torch.isfinite(Jk).all() & torch.isfinite(rk).all()
+        J, r0 = mg._scatter_prior(torch.where(ok, Jk, 0.0), torch.where(ok, rk, 0.0), keep, D)
+        return mg._slid_old(J, r0, state, ok)
+
+
+MARG_PARTS = ("linearize", "stack", "qr", "scatter_slide")
+# Kernels launched through ctypes carry no op, and the ranges' spans on the
+# card's timeline cover only the ops' kernels: these go to a part by name.
+MARG_KERNEL_PARTS = {"proj_rows_kernel": "linearize", "imu_rows_kernel": "linearize",
+                     "marg_depth_kernel": "stack", "marg_qr_kernel": "qr"}
+
+
+def marg_split(run):
+    """One eager MARGIN_OLD (``run()``) under torch.profiler: {part: µs of
+    device kernels} by MARG_KERNEL_PARTS for the ctypes kernels, else by
+    the "marg_old::<part>" range whose span on the card's timeline holds
+    the kernel's start ("other" outside them), and the names of the
+    kernels."""
+    import torch
+    from torch.autograd import DeviceType
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    run()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        run()
+        torch.cuda.synchronize()
+    dev_events = [e for e in prof.events() if e.device_type != DeviceType.CPU]
+    spans = {e.name[len("marg_old::"):]: (e.time_range.start, e.time_range.end)
+             for e in dev_events if e.name.startswith("marg_old::")}
+    parts, names = {}, set()
+    for e in dev_events:
+        if e.name.startswith(RANGES):
+            continue  # a range's span, not a kernel
+        names.add(e.name)
+        t = e.time_range.start
+        part = next((p for k, p in MARG_KERNEL_PARTS.items() if k in e.name), None)
+        part = part or next((p for p, (a, b) in spans.items() if a <= t < b), "other")
+        parts[part] = parts.get(part, 0.0) + e.time_range.elapsed_us()
+    return parts, names
+
+
+def marg_bound_ms(depth_args, A, name):
+    """The least time of one launch of ``name`` on an H100 at these inputs:
+    marg_depth reads proj_rows' compact rows (res, J26, w, cam) and writes
+    its 2 W rows a slot of the stack, and does about 8 operations a reflected
+    slot's row and touched column (vᵀA and the update, 6 W + 6 nc + 8
+    columns); marg_qr reads A and writes R, and does the 2 n C² - 2 C³ / 3
+    operations of Householder QR on A's n non-zero rows (n >= C; 4 C³ / 3
+    for fewer); against 3.35 TB/s and the float32 rate; (ms, by, bytes,
+    FLOP)."""
+    from lfvio_tpu_torch.backend import marg_cuda as mc
+
+    e = A.element_size()
+    C = A.shape[1]
+    if name == "marg_depth":
+        res, J26, w, grid, cfg, nc = depth_args
+        F, W1 = grid.valid.shape
+        nbytes = e * (res.numel() + J26.numel() + w.numel() + F * 2 * (W1 - 1) * C)
+        nbytes += 0 if grid.cam is None else grid.cam.numel() * grid.cam.element_size()
+        _, x = mc._dense_obs_rows(*depth_args)
+        reflected = int((x.abs().amax(dim=1) > 0).sum())
+        flops = reflected * 8 * 2 * (W1 - 1) * (6 * (W1 - 1) + 6 * nc + 8)
+    else:
+        n = int((A != 0).any(dim=1).sum())
+        nbytes = e * (A.numel() + C * C)
+        flops = 2 * n * C * C - 2 * C ** 3 // 3 if n >= C else 4 * C ** 3 // 3
+    t_b, t_o = 1e3 * nbytes / PEAK_BYTES_S, 1e3 * flops / PEAK_F32_FLOPS
+    return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations"), nbytes, flops
+
+
+def phase_marg_qr(dev, census):
+    """The marginalizations' QR kernels against their plain versions at
+    ``marg_cases`` within MARG_BOUNDS, repeats bit-identical, the planted
+    faults of MARG_FAULTS rejected; each launch's time behind a full queue
+    and alone beside its latency floor (marg_cuda.latency_floor), its plain
+    version's, its bound and (marg_qr) torch.linalg.qr's of the same stack
+    and of the dense stack the port factored before; MARGIN_OLD's eager
+    device time by part (``marg_split``), the two stages' and the dense
+    form's, at (a) and (b). Returns the kernels line's numbers (times at
+    (b); errors the worst of the f32 cases: absolute, marg_depth's rows and
+    marg_qr's RᵀR against the plain version's, and relative, the checks'
+    values)."""
+    import torch
+    from lfvio_tpu_torch.backend import marg_cuda as mc
+    from lfvio_tpu_torch.backend.marginalize import marginalize_old_qr
+
+    worst = {k: 0.0 for k in MARG_KERNELS}
+    worst_rel = {k: 0.0 for k in MARG_KERNELS}
+    worst_kept = 0.0
+    timed = {}
+    for label, (args, kind) in marg_cases(census, dev).items():
+        depth_args, A, head, m = marg_stage_inputs(args, kind)
+        dtype = str(A.dtype).split(".")[-1]
+        bound = MARG_BOUNDS[dtype]
+        errs, absolute, readings, identical = marg_compare(depth_args, A, head, m)
+        n_rows = int((A != 0).any(dim=1).sum())
+        against = "the plain version in f64" if dtype == "float32" else "the plain version"
+        log(f"[14m] {label}: stack {tuple(A.shape)} ({n_rows} non-zero rows, head {head}, "
+            f"leaves {mc.leaves(A.shape[0], head)}) against the plain versions: "
+            + ", ".join(f"{n} {v:.2e}" for n, v in errs.items() if n != MARG_KEPT)
+            + f" (bound {bound}); {MARG_KEPT} against {against} {errs[MARG_KEPT]:.2e} (bound "
+            f"{marg_bound(MARG_KEPT, dtype):.2e})"
+            + "".join(f", {n} f32 {v:.2e}" for n, v in readings.items())
+            + f"; repeat bit-identical {identical}")
+        if not (identical and all(v <= marg_bound(n, dtype) for n, v in errs.items())):
+            raise AssertionError(f"the marginalization kernels disagree with their plain versions "
+                                 f"at {label}")
+        for kernel, faults in marg_planted_faults(depth_args, A, head, m).items():
+            log(f"[14m] planted faults of {kernel} at {label}: "
+                + ", ".join(f"{n} {v:.2e}" for n, v in faults.items()) + f" (must exceed {bound})")
+            if not all(v > bound for v in faults.values()):
+                raise AssertionError(f"the {kernel} check does not see a planted fault at {label}")
+        if dtype == "float32":
+            for k in MARG_KERNELS:
+                worst[k] = max(worst[k], absolute.get(k, 0.0))
+                worst_rel[k] = max([worst_rel[k]] + [v for n, v in errs.items()
+                                                     if n.startswith(k) and n != MARG_KEPT])
+            worst_kept = max(worst_kept, errs[MARG_KEPT])
+            timed[label] = (depth_args, A, head, m, args, kind)
+    block = make_blocker(dev)
+    out = {}
+    for label, (depth_args, A, head, m, args, kind) in timed.items():
+        runs = {"marg_qr": (lambda: mc.marg_qr(A, head=head), lambda: mc.qr_plain(A),
+                            lambda: mc.latency_floor("marg_qr", A, head=head))}
+        if depth_args is not None:
+            runs["marg_depth"] = (lambda: mc.marg_depth(*depth_args),
+                                  lambda: mc.depth_plain(*depth_args),
+                                  lambda: mc.latency_floor("marg_depth", *depth_args))
+        for name, (kern, plain, empty) in runs.items():
+            ms, alone = cuda_ms(kern, reps=10, blocker=block), cuda_ms(kern)
+            floor, floor_alone = cuda_ms(empty, reps=10, blocker=block), cuda_ms(empty)
+            plain_ms = cuda_ms(plain, n=3, reps=1, blocker=block)
+            bound, by, nbytes, flops = marg_bound_ms(depth_args, A, name)
+            lib = ""
+            library_ms = None
+            if name == "marg_qr":
+                library_ms = cuda_ms(lambda: torch.linalg.qr(A, mode="r"), n=5, blocker=block)
+                lib = f"; torch.linalg.qr of the same stack {library_ms:.4f} ms"
+                if kind == "old":
+                    dense, _ = dense_old_stack(args)
+                    dense_ms = cuda_ms(lambda: torch.linalg.qr(dense, mode="r"), n=3,
+                                       blocker=block)
+                    lib += (f", of the dense stack {tuple(dense.shape)} the port factored "
+                            f"before {dense_ms:.4f} ms")
+            log(f"[14m] {name} {label}: {ms:.4f} ms behind a full queue, {alone:.4f} ms "
+                f"launched alone; latency floor (the empty kernel, same grid, block and shared "
+                f"memory) {floor:.4f} ms behind a full queue, {floor_alone:.4f} ms alone; plain "
+                f"version {plain_ms:.4f} ms; bound {bound:.6f} ms by {by} ({nbytes} B, "
+                f"{flops / 1e6:.3f} MFLOP); at {100 * bound / ms:.2f}% of it{lib}")
+            if label.startswith("(b) MARGIN_OLD"):
+                out[name] = dict(max_abs_err=worst[name], max_rel_err=worst_rel[name],
+                                 rel_bound=MARG_BOUNDS["float32"],
+                                 **({"kept_rel_err": worst_kept,
+                                     "kept_rel_bound": MARG_KEPT_BOUNDS["float32"]}
+                                    if name == "marg_qr" else {}),
+                                 ms=ms, ms_launched_alone=alone, floor_ms=floor,
+                                 plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                                 library_ms=library_ms)
+    for key in ("a", "b"):
+        args = census[key]["marg_args"]
+        for form, run in (("dense (torch.linalg.qr, before)", lambda: dense_marginalize_old_qr(args)),
+                          ("two stages (marg_depth + marg_qr)", lambda: marginalize_old_qr(*args))):
+            parts, names = marg_split(run)
+            total = sum(parts.values())
+            log(f"[14m] MARGIN_OLD eager at ({key}), {form}: {total / 1e3:.3f} ms of device "
+                f"kernels: " + ", ".join(f"{p} {parts.get(p, 0.0) / 1e3:.3f} ms"
+                                         for p in (*MARG_PARTS, "other"))
+                + f"; {len(names)} kernel names")
+    return out
+
+
 def phase_programs(dev, rig, plain_calls, run4, relo6):
     """The eigensolver kernel, f64 graph replays against eager, phase 4's
     stream with eager programs, and the card's time per replay; the factor
@@ -4009,7 +4483,9 @@ def phase_programs(dev, rig, plain_calls, run4, relo6):
                     if hasattr(p, "capture_s")) + ")")
     census["b"] = program_census(warm_estimator(dev, BENCH_HIGH_RATE),
                                  "(b) high-rate (f32, window 20, 384 slots)", trace=False)
-    want_marg = {k: int(k in ("proj_rows", "imu_rows")) for k in bench.FACTOR_KERNELS}
+    want_marg = {k: int(k in ("proj_rows", "imu_rows", *MARG_KERNELS))
+                 for k in bench.FACTOR_KERNELS}
+    want_new = {k: int(k == "marg_qr") for k in bench.FACTOR_KERNELS}
     for key, c in census.items():
         for name in ("solve", "solve_forced"):
             want = replay_launches(*c["ran"][name])
@@ -4025,10 +4501,14 @@ def phase_programs(dev, rig, plain_calls, run4, relo6):
         if c["per_replay"]["marg_old"] != want_marg:
             raise AssertionError(f"census ({key}): a MARGIN_OLD replay did not launch "
                                  f"{want_marg}")
+        if c["per_replay"]["marg_new"] != want_new:
+            raise AssertionError(f"census ({key}): a SECOND_NEW replay did not launch "
+                                 f"{want_new}")
     proj = phase_proj_factor(dev, est, census["b"]["est"])
     imu = phase_imu_factor(dev, est, census["b"]["est"])
     relo = phase_relo_factor(dev, relo6["args"])
-    times = dict(census=census, eager_ms=eager_ms, proj=proj, imu=imu, relo=relo)
+    marg = phase_marg_qr(dev, census)
+    times = dict(census=census, eager_ms=eager_ms, proj=proj, imu=imu, relo=relo, marg=marg)
     qr = phase_qr_information(dev)
     rec4, rec6 = {}, {}
     eager = run_full_scale("[14]", rig, plain_calls, 1, 1, graphs=False,
@@ -4183,7 +4663,7 @@ def main(argv):
     phase_dist()
     phase_kf_axis()
     kernels["sym_eig"], times14, _ = phase_programs(dev, rig, plain_calls, run4, relo6)
-    kernels.update(times14["proj"], **times14["imu"], **times14["relo"])
+    kernels.update(times14["proj"], **times14["imu"], **times14["relo"], **times14["marg"])
     del rig
     benches = phase_bench()
     # Each run's counts were set to 0 just before it: the phases' by
@@ -4212,7 +4692,7 @@ def main(argv):
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
          "launches": launches[name], **kernels[name]}
         for name in ("lk_pyramid", "lk_level", "lk_pyramid_pallas", "sym_eig", *PROJ_FLOPS,
-                     *IMU_FLOPS, *RELO_FLOPS)]}))
+                     *IMU_FLOPS, *RELO_FLOPS, *MARG_KERNELS)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,302 @@
+"""The marginalizations' QR kernels (``csrc/marg_qr.cu``) and their plain
+versions.
+
+Two wrappers, each with its own ``launches`` count (registered with
+``device.register_kernel``, so a CUDA graph's replays count):
+
+  * ``marg_depth(res, J26, w, grid, cfg, n_cams, out=None)`` -> the stack's
+    projection rows [F * 2 W, C], C = D + 1, over [pose0 | speed-bias0 |
+    kept | r] (``stack_columns``): each feature's 2 W rows (frames 1..W; the
+    anchor, frame 0, has no row) of ``proj_rows``' compact output, weighted
+    by ``w``, reflected so that its inverse-depth column lies in its first
+    row alone; that row is dropped (its slot zero). A feature whose depth
+    column is all zero keeps all its rows unreflected. MARGIN_OLD's stage 1;
+    every used feature of ``grid`` must be anchored at frame 0.
+  * ``marg_qr(A, head=0)`` -> R [C, C], the upper-triangular R factor of
+    A [M, C]: RᵀR = AᵀA. Its first ``head`` rows (dense ones, such as a
+    prior's) form a leaf of their own that the others' tree merges into
+    last. A column whose part to eliminate is zero (or below the
+    rounding unit of its pivot, or below the smallest normal number) takes
+    no reflection and consumes no row, so an empty column's row of R stays
+    zero (no unit rows are needed) and a column without information leaves
+    the residual's rest to the last row. R's row signs are the
+    implementation's. Stage 2 of both marginalizations.
+
+``latency_floor(name, ...)`` launches the source's empty kernel with the
+grid, block and shared memory of one of the two launches, the part of its
+time that no design of the kernel removes (card only, counted nowhere).
+
+On CUDA tensors each launches its kernel on the current stream or raises;
+on CPU tensors each is its plain version (``depth_plain``, ``qr_plain``:
+one reflection a column over the whole matrix, the kernel's arithmetic
+without its tiles and tree). Neither reads anything back, so both sit in
+the MARGIN_OLD and SECOND_NEW graphs.
+
+They stand where the JAX package calls ``jnp.linalg.qr`` (XLA, no Pallas
+kernel) in ``lfvio_tpu/backend/marginalize.py:260`` (marginalize_old_qr) and
+``:297`` (marginalize_second_new_qr).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import numpy as np
+import torch
+
+from ..device import register_kernel
+from .proj_cuda import _DTYPES, _check, _ptr, _shape, full_rows
+from .state import pose_dim, pose_off, sb_off
+
+@functools.lru_cache(maxsize=None)
+def _stack_order(n_frames: int, D: int):
+    drop = np.r_[pose_off(0):pose_off(0) + 6, sb_off(0, n_frames):sb_off(0, n_frames) + 9]
+    return np.concatenate([drop, np.setdiff1d(np.arange(D), drop)])
+
+
+@functools.lru_cache(maxsize=None)
+def stack_columns(n_frames: int, D: int, device: torch.device):
+    """The full layout's columns in MARGIN_OLD's stack order (pose0 and
+    speed-bias0 first, then the kept ones in order) as an int64 tensor on
+    ``device``, built once (a graph cannot copy an index from the host)."""
+    return torch.as_tensor(_stack_order(n_frames, D), device=device)
+
+
+# ------------------------------------------------------------ plain versions
+def _dense_obs_rows(res, J26, w, grid, cfg, n_cams):
+    """Each feature's 2 W rows (frames 1..W) in the stack's columns, dense:
+    [F, 2 W, C]."""
+    F, W1 = grid.valid.shape
+    D = pose_dim(W1, n_cams)
+    Jw = J26 * w[..., None, None]
+    Jfull = full_rows(Jw, grid, cfg, n_cams)[:, :, :, stack_columns(W1, D, res.device)]
+    A = torch.cat([Jfull, (res * w[..., None])[..., None]], dim=-1)
+    return A[:, 1:].reshape(F, 2 * (W1 - 1), D + 1), Jw[:, 1:, :, 24].reshape(F, 2 * (W1 - 1))
+
+
+def depth_plain(res, J26, w, grid, cfg, n_cams):
+    """``marg_depth``'s plain version: the dense rows of each feature and one
+    reflection of them, batched over the features."""
+    A, x = _dense_obs_rows(res, J26, w, grid, cfg, n_cams)
+    F, R2, C = A.shape
+    if not F:
+        return A.reshape(0, C)
+    xmax = x.abs().amax(dim=1)
+    bad = torch.isnan(x).any(dim=1)
+    refl = bad | (xmax >= torch.finfo(x.dtype).tiny)
+    inv = 1.0 / torch.where(refl, xmax, 1.0)
+    xh = x * inv[:, None]
+    ah = xh[:, 0]
+    bh = -torch.copysign(torch.sqrt((xh * xh).sum(dim=1)), ah)
+    tau = torch.where(refl, (bh - ah) / bh, 0.0)
+    scal = torch.where(refl, inv / (ah - bh), 0.0)
+    v = x * scal[:, None]
+    v[:, 0].fill_(1.0)
+    u = torch.einsum("fr,frc->fc", v, A)
+    out = A - (tau[:, None] * v)[:, :, None] * u[:, None, :]
+    out[:, 0] = torch.where(refl[:, None], 0.0, A[:, 0])
+    return torch.where(refl[:, None, None], out, A).reshape(F * R2, C)
+
+
+def qr_plain(A):
+    """``marg_qr``'s plain version: R [C, C] of A [M, C] by one reflection a
+    column of [R[k, k]; A[:, k]] over all rows (the kernel's rule for a
+    column with nothing to eliminate), masked so that nothing is read
+    back."""
+    M, C = A.shape
+    fi = torch.finfo(A.dtype)
+    R = torch.zeros((C, C), dtype=A.dtype, device=A.device)
+    Y = A.clone()
+    for k in range(C):
+        a0, y = R[k, k], Y[:, k]
+        ymax = y.abs().amax() if M else torch.zeros_like(a0)
+        bad = torch.isnan(y).any()
+        skip = ~bad & ((ymax < fi.tiny) | (ymax <= fi.eps * a0.abs()))
+        s = torch.where(skip, 1.0, torch.maximum(ymax, a0.abs()))
+        inv = 1.0 / s
+        yh, ah = y * inv, a0 * inv
+        bh = -torch.copysign(torch.sqrt(ah * ah + (yh * yh).sum()), ah)
+        tau = torch.where(skip, 0.0, (bh - ah) / bh)
+        v = torch.where(skip, 0.0, y * (inv / (ah - bh)))
+        if k + 1 < C:
+            tw = tau * (R[k, k + 1:] + v @ Y[:, k + 1:])
+            R[k, k + 1:] -= tw
+            Y[:, k + 1:] -= v[:, None] * tw[None, :]
+        R[k, k] = torch.where(skip, a0, bh * s)
+    return R
+
+
+# ------------------------------------------------------------ the kernels
+def _library():
+    from ..frontend.klt_cuda import library
+
+    return library("marg_qr")
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_DEPTH_ARGTYPES = [_P] * 4 + [_I] * 7 + [_P, _P]
+_QR_ARGTYPES = [_P] + [_I] * 6 + [_P] * 4
+_fns = {}
+
+
+def _fn(name, argtypes):
+    if name not in _fns:
+        fn = getattr(_library(), name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _fns[name] = fn
+    return _fns[name]
+
+
+def _raise_on(err, name):
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+
+
+def _depth_inputs(res, J26, w, grid, n_cams, out):
+    """Check marg_depth's inputs; (dtype, F, W1, C, out)."""
+    name = "marg_depth"
+    dtype, dev = res.dtype, res.device
+    if dtype not in _DTYPES:
+        raise ValueError(f"{name}: takes float32 or float64, got {dtype}")
+    F, W1 = grid.valid.shape
+    if W1 < 2:
+        raise ValueError(f"{name}: the grid has {W1} frames, no observation row")
+    C = pose_dim(W1, n_cams) + 1
+    t = {"res": (res, None), "J26": (J26, None), "w": (w, None)}
+    if grid.cam is not None:
+        t["cam"] = (grid.cam, torch.int64)
+    if out is None:
+        out = torch.empty((F * 2 * (W1 - 1), C), dtype=dtype, device=dev)
+    t["out"] = (out, None)
+    _check(name, t, dtype, dev)
+    for key, x, shape in (("res", res, (F, W1, 2)), ("J26", J26, (F, W1, 2, 26)),
+                          ("w", w, (F, W1)), ("out", out, (F * 2 * (W1 - 1), C)),
+                          *((("cam", grid.cam, (F, W1)),) if grid.cam is not None else ())):
+        _shape(name, key, x, shape)
+    return dtype, F, W1, C, out
+
+
+def _depth_launch(fn_name, res, J26, w, grid, cfg, n_cams, out):
+    """One call of ``fn_name`` (the kernel's launch, or with empty=1 the
+    empty kernel's) on ``out``; whether it launched (an empty grid launches
+    nothing)."""
+    dtype, F, W1, C, out = _depth_inputs(res, J26, w, grid, n_cams, out)
+    if not F:
+        return out, False
+    empty = int(fn_name == "empty")
+    dev = res.device
+    with torch.profiler.record_function("marg_qr::marg_depth"), torch.cuda.device(dev):
+        err = _fn("marg_depth_launch", _DEPTH_ARGTYPES)(
+            res.data_ptr(), J26.data_ptr(), w.data_ptr(), _ptr(grid.cam), F, W1, n_cams,
+            int(cfg.estimate_extrinsic), int(cfg.estimate_td), _DTYPES[dtype], empty,
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "marg_depth")
+    return out, True
+
+
+class MargDepthKernel:
+    """``marg_depth``: one launch of ``marg_depth_kernel``, a block a slot."""
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, res, J26, w, grid, cfg, n_cams, out=None):
+        if not res.is_cuda:
+            rows = depth_plain(res, J26, w, grid, cfg, n_cams)
+            if out is None:
+                return rows
+            out.copy_(rows)
+            return out
+        out, launched = _depth_launch("kernel", res, J26, w, grid, cfg, n_cams, out)
+        self.launches += launched
+        return out
+
+
+def leaves(M, head):
+    """(leaves, tree levels) of ``marg_qr`` on M rows whose first ``head``
+    form leaf 0: 1 + ceil((M - head) / L) leaves, L the rows of a leaf
+    (``limits``), the levels of the binary tree over all but leaf 0. Card
+    only."""
+    L = limits(torch.float32)[3]
+    NL = 1 + -(-(M - head) // L)
+    return NL, math.ceil(math.log2(NL - 1)) if NL > 2 else 0
+
+
+_limits = {}
+
+
+def limits(dtype):
+    """(the widest stack, words of a column mask, rows of a tile, rows of a
+    leaf after the head) of ``marg_qr_kernel`` in ``dtype``. Card only (read
+    from the library)."""
+    if dtype not in _limits:
+        vals = [ctypes.c_int() for _ in range(4)]
+        _fn("marg_qr_limits", [_I, _P, _P, _P, _P])(_DTYPES[dtype], *[ctypes.byref(v) for v in vals])
+        _limits[dtype] = tuple(v.value for v in vals)
+    return _limits[dtype]
+
+
+def _qr_launch(empty, A, head):
+    name = "marg_qr"
+    if A.dtype not in _DTYPES:
+        raise ValueError(f"{name}: takes float32 or float64, got {A.dtype}")
+    if A.dim() != 2 or not A.is_contiguous() or not A.shape[1] or not A.shape[0]:
+        raise ValueError(f"{name}: A must be a contiguous non-empty [M, C] matrix, got "
+                         f"{tuple(A.shape)}" + ("" if A.is_contiguous() else " (not contiguous)"))
+    M, C = A.shape
+    if not 0 <= head <= M:
+        raise ValueError(f"{name}: head {head} does not fit {M} rows")
+    max_cols, mask_words = limits(A.dtype)[:2]
+    if C > max_cols:
+        raise ValueError(f"{name}: takes at most {max_cols} columns, got {C}")
+    dev = A.device
+    NL, levels = leaves(M, head)
+    R = torch.empty((NL, C, C), dtype=A.dtype, device=dev)
+    mask = torch.empty((NL, mask_words), dtype=torch.int32, device=dev)
+    count = torch.zeros((levels * NL + 1,), dtype=torch.int32, device=dev)
+    with torch.profiler.record_function("marg_qr::marg_qr"), torch.cuda.device(dev):
+        err = _fn("marg_qr_launch", _QR_ARGTYPES)(
+            A.data_ptr(), M, C, head, NL, _DTYPES[A.dtype], int(empty),
+            R.data_ptr(), mask.data_ptr(), count.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, name)
+    return R[0]
+
+
+class MargQrKernel:
+    """``marg_qr``: one launch of ``marg_qr_kernel``, a block a leaf (the
+    first ``head`` rows, then a fixed number each: ``limits``), the leaves'
+    triangles merged in the same launch."""
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, A, head=0):
+        if not A.is_cuda:
+            return qr_plain(A)
+        R = _qr_launch(False, A, head)
+        self.launches += 1
+        return R
+
+
+marg_depth = register_kernel(MargDepthKernel())
+marg_qr = register_kernel(MargQrKernel())
+
+
+def latency_floor(name, *args, **kw):
+    """One launch of ``csrc/marg_qr.cu``'s empty kernel with the grid, block
+    and shared memory of ``name``'s launch ("marg_depth" with marg_depth's
+    arguments, "marg_qr" with marg_qr's) through the wrappers' ctypes path,
+    allocating what the wrapper allocates: the part of that launch's time
+    that no design of its kernel removes. Card only; adds to no
+    ``launches``."""
+    if name not in ("marg_depth", "marg_qr"):
+        raise ValueError(f"latency_floor: takes 'marg_depth' or 'marg_qr', got {name!r}")
+    if not args[0].is_cuda:
+        raise ValueError("latency_floor: times a launch on the card; the inputs lie on the CPU")
+    if name == "marg_depth":
+        return _depth_launch("empty", *args, out=kw.get("out"))[0]
+    return _qr_launch(True, args[0], kw.get("head", 0))

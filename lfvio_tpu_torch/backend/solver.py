@@ -12,8 +12,8 @@ solve, estimator.cpp:810-825):
      ``csrc/imu_factor.cu`` on the card.
   2. Dense normal equations in the full local layout: H_pp [D, D],
      H_pl [D, F] and the diagonal H_ll [F]. ``linearize_proj_rows`` and
-     ``linearize_imu_rows`` give the dense rows that the QR marginalization
-     stacks.
+     ``linearize_imu_rows`` give the dense rows that the sharded QR
+     marginalization (``dist/marginalize.py``) stacks.
   3. Schur elimination of the inverse depths, one Cholesky of the reduced
      D×D system (``cholesky_ex`` and two triangular solves: a non-PD system
      gives a non-finite step, which LM rejects, as jnp.linalg.cholesky's

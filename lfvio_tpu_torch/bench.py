@@ -55,7 +55,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from .backend import imu_cuda, proj_cuda, relo_cuda
+from .backend import imu_cuda, marg_cuda, proj_cuda, relo_cuda
 from .device import collect_launches, resolve_device
 from .frontend import klt_cuda
 from .geom.eigh_cuda import sym_eig
@@ -160,13 +160,15 @@ def log(msg):
     print(f"[bench +{time.perf_counter() - _T0:6.1f}s] {msg}", file=sys.stderr, flush=True)
 
 
-# The solver's factor kernels: the projection's, the IMU's and the
+# The solver's factor kernels: the projection's, the IMU's, the
 # relocalization rows' (these launch only in a solve with an armed loop
-# closure, which the bench's stream has not).
+# closure, which the bench's stream has not) and the marginalizations' QR
+# (marg_depth in each MARGIN_OLD, marg_qr in each MARGIN_OLD and SECOND_NEW).
 FACTOR_KERNELS = {"proj_rows": proj_cuda.proj_rows, "proj_normal": proj_cuda.proj_normal,
                   "proj_cost": proj_cuda.proj_cost, "imu_rows": imu_cuda.imu_rows,
                   "imu_normal": imu_cuda.imu_normal, "imu_cost": imu_cuda.imu_cost,
-                  "relo_normal": relo_cuda.relo_normal, "relo_cost": relo_cuda.relo_cost}
+                  "relo_normal": relo_cuda.relo_normal, "relo_cost": relo_cuda.relo_cost,
+                  "marg_depth": marg_cuda.marg_depth, "marg_qr": marg_cuda.marg_qr}
 
 
 def reset_launches():

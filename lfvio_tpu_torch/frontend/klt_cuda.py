@@ -37,7 +37,8 @@ from . import klt
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / f"{stem}.cu"
-                for stem in ("lk_pyramid", "sym_eig", "proj_factor", "imu_factor", "graph_cond"))
+                for stem in ("lk_pyramid", "sym_eig", "proj_factor", "imu_factor", "marg_qr",
+                           "graph_cond"))
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,0 +1,86 @@
+"""The float32 marginalization QR on the stacks of bench.py's streams, on one
+CUDA card: how far ``marg_qr``, its plain version and ``torch.linalg.qr``
+each land from float64 arithmetic on the same float32 stack, in the kept
+information (the prior) that ``chip_smoke.py``'s ``[14m]`` check bounds by
+``MARG_KEPT_BOUNDS``.
+
+    python3 marg_f32_spread.py     (beside chip_smoke.py)
+
+Runs bench.py's default and high-rate workloads whole through a synchronous
+pipeline (lag 1, depth 1) with the estimator's programs eager
+(``use_graphs`` off, so every call goes through Python) and records every
+stack ``marg_qr`` is given: MARGIN_OLD's (its head shorter than the stack;
+15 dropped columns) and SECOND_NEW's (the stack all head; 6). For each, the
+kept information (``chip_smoke.kept_error``) of ``marg_qr``, ``qr_plain``
+and ``torch.linalg.qr`` in float32 against ``qr_plain`` in float64 on the
+stack upcast. Prints the card's line, a line a stack and the largest
+reading of each QR.
+"""
+
+import sys
+
+
+def record_stacks(dev, knobs):
+    """[(stack, head, dropped columns)] of every marg_qr call of a
+    workload's whole stream."""
+    import torch
+
+    import chip_smoke
+    from lfvio_tpu_torch import bench
+    from lfvio_tpu_torch.backend import marg_cuda as mc
+    from lfvio_tpu_torch.backend import marginalize as mg
+
+    stacks = []
+
+    def recording(A, head=0):
+        stacks.append((A.clone(), head, 15 if head < A.shape[0] else 6))
+        return mc.marg_qr(A, head=head)
+
+    wl = bench.workload(bench.config_from_env(knobs), dev)
+    _, est, pipe = wl.make(1, 1)
+    est.use_graphs = False
+    mg.marg_qr = recording
+    try:
+        for it in wl.stream:
+            bench.feed(pipe, [it], wl.frames)
+        pipe.flush()
+        torch.cuda.synchronize()
+    finally:
+        mg.marg_qr = mc.marg_qr
+    chip_smoke.log(f"{knobs or 'default'}: {len(est.times)} solves, {len(stacks)} stacks")
+    return stacks
+
+
+def main(argv):
+    import torch
+
+    import chip_smoke
+    from lfvio_tpu_torch.backend import marg_cuda as mc
+
+    if argv:
+        print(f"usage: {sys.argv[0]}", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("marg_f32_spread.py: no CUDA device", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(chip_smoke.smi_line(), flush=True)
+    worst = {}
+    for name, knobs in (("default", {}), ("high-rate", chip_smoke.BENCH_HIGH_RATE)):
+        for i, (A, head, m) in enumerate(record_stacks(dev, knobs)):
+            exact = mc.qr_plain(A.double())
+            got = {"marg_qr": mc.marg_qr(A, head=head), "plain": mc.qr_plain(A),
+                   "torch.linalg.qr": torch.linalg.qr(A, mode="r")[1]}
+            errs = {k: chip_smoke.kept_error(A, R, exact, m) for k, R in got.items()}
+            for k, v in errs.items():
+                worst[k] = max(worst.get(k, 0.0), v)
+            print(f"{name} stack {i} {tuple(A.shape)} head {head} dropped {m}: kept information "
+                  "against f64 arithmetic " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()),
+                  flush=True)
+    print("largest: " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

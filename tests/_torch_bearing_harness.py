@@ -54,16 +54,25 @@ def make_worlds():
 
 
 def eigh_marginalizing(jest):
-    """The JAX estimator ``jest`` with its MARGIN_OLD program replaced by
-    jax.jit of the JAX package's eigh form (``marginalize_old``, the
-    reference's own H-space elimination), bound to the estimator's gravity
-    and SolverConfig. The port's QR form gives every empty dropped column a
-    unit row and so equals it; the JAX QR form drops information there.
-    The bearing streams take no SECOND_NEW (every frame is a keyframe), so
-    that program stays. Needs a float64 estimator."""
+    """The JAX estimator ``jest`` with its marginalization programs replaced
+    by jax.jit of the JAX package's eigh forms (``marginalize_old``,
+    ``marginalize_second_new``: the reference's own H-space elimination),
+    bound to the estimator's gravity and SolverConfig. The port's QR forms
+    lose no information where a dropped column is empty and so equal them;
+    the JAX QR forms drop information there. ``jest.second_news`` counts
+    the SECOND_NEW marginalizations (the streams at the default parallax
+    take none: every frame is a keyframe). Needs a float64 estimator."""
     gravity = jnp.asarray([0.0, 0.0, jest.cfg.g_norm], jest.cfg.solver_dtype)
     jest._marg_old = jax.jit(lambda out, grid, pre, si, iv, prior: jmarg.marginalize_old(
         out, grid, pre, si, iv, prior, gravity, jest.scfg))
+    marg_new = jax.jit(lambda out, prior: jmarg.marginalize_second_new(out, prior, jest.scfg))
+    jest.second_news = 0
+
+    def counted_marg_new(out, prior):
+        jest.second_news += 1
+        return marg_new(out, prior)
+
+    jest._marg_new = counted_marg_new
     return jest
 
 
@@ -129,6 +138,10 @@ STREAMS = {
     "lag2_chain": dict(cfg=dict(solve_lag=2, device_chain=True)),
     "lag2_mirrors": dict(cfg=dict(solve_lag=2, device_chain=False)),
     "lag3": dict(cfg=dict(solve_lag=3)),
+    # chip_smoke.py phase 7's lag-3 stream: at 30 px of keyframe parallax
+    # the window merges non-keyframes (SECOND_NEW) between keyframes.
+    "lag3_second_new": dict(cfg=dict(solve_lag=3, min_parallax=30.0 / 160.0), traj_freq=0.5,
+                            duration=2.2),
     "td": dict(cfg=dict(solve_lag=1, estimate_td=True), td_true=0.005, traj_freq=0.8,
                reference=qr_unit_rows_marginalizing),
     "depth3_throttled": dict(cfg=dict(solve_lag=2), dispatching=True, freq=10.0, duration=2.6),

@@ -1399,3 +1399,154 @@ def test_capture_raises_without_conditional_nodes(dev, monkeypatch):
     with pytest.raises(RuntimeError, match="conditional nodes"):
         prog(st)
     assert prog.graph is None
+
+
+# ------------------------------------------------ csrc/marg_qr.cu: the marginalizations' QR
+def _marg_window(dev, dtype, n_slots=256, n_cams=1, seed=0):
+    """make_window_problem's window on the card (tracks of 5 frames, anchors
+    spread; with ``n_cams`` = 2 a second extrinsic and a random camera an
+    observation) as MARGIN_OLD's arguments."""
+    import dataclasses
+
+    from lfvio_tpu_torch.imu import preintegrate, whiten_covariance
+    from lfvio_tpu_torch.runtime.profiling import make_window_problem
+
+    pb = make_window_problem(n_slots, dtype, n_obs_frames=5, seed=seed, device=dev)
+    st, grid, cfg, prior = pb["state"], pb["grid"], pb["cfg"], pb["prior"]
+    if n_cams == 2:
+        import chip_smoke
+
+        dual = chip_smoke.dual_camera_inputs(dev)[0]
+        st = st.replace(tic=dual.tic.to(dtype), qic=dual.qic.to(dtype))
+        g = torch.Generator(device="cpu").manual_seed(seed)
+        grid = grid.replace(cam=torch.randint(0, 2, grid.valid.shape, generator=g).to(dev))
+        cfg = dataclasses.replace(cfg, n_cams=2)
+        D = prior.J.shape[0] + 6
+        R = torch.triu(0.5 * torch.randn(D, D, generator=g, dtype=torch.float64)) + 2 * torch.eye(D)
+        prior = type(prior).from_state(R.to(dev, dtype), torch.zeros(D, dtype=dtype, device=dev),
+                                       st, torch.ones((), dtype=torch.bool, device=dev))
+    imu = [torch.as_tensor(pb[k], dtype=dtype, device=dev) for k in ("dts", "accs", "gyrs", "a0", "g0")]
+    pre = preintegrate(*imu, st.ba[:-1], st.bg[:-1], pb["noise"])
+    si, ok = whiten_covariance(pre.covariance, torch.as_tensor(pb["imu_valid"], device=dev))
+    return (st, grid, pre, si, ok, prior, pb["gravity"], cfg)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n_cams,n_slots", [(1, 256), (2, 64)])
+def test_marg_kernels_match_plain(dev, dtype, n_cams, n_slots):
+    """marg_depth and marg_qr against their plain versions on a MARGIN_OLD
+    window and its SECOND_NEW stack (chip_smoke.marg_compare: rows slot by
+    slot, RᵀR against AᵀA, and the kept information against the plain
+    version's, in f32 run in f64 on the stack upcast, each within
+    chip_smoke.marg_bound), repeats bit-identical, and each planted fault
+    of chip_smoke.MARG_FAULTS above chip_smoke.MARG_BOUNDS."""
+    import chip_smoke
+
+    args = _marg_window(dev, dtype, n_slots, n_cams)
+    name = str(dtype).split(".")[-1]
+    bound = chip_smoke.MARG_BOUNDS[name]
+    for case in ((args, "old"), ((args[0], args[5]), "new")):
+        depth_args, A, head, m = chip_smoke.marg_stage_inputs(*case)
+        errs, _, _, identical = chip_smoke.marg_compare(depth_args, A, head, m)
+        assert identical and all(v <= chip_smoke.marg_bound(n, name) for n, v in errs.items()), errs
+        faults = chip_smoke.marg_planted_faults(depth_args, A, head, m)
+        assert all(v > bound for f in faults.values() for v in f.values()), faults
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_marg_qr_without_information_in_some_columns(dev, dtype):
+    """marg_qr of a stack with a dense head, empty columns, a kept column
+    the others span and all-zero rows, its 840 rows after the head spread
+    by blocks of zero rows over 2, 3 and 9 leaves (``marg_cuda.leaves``;
+    zero rows carry no information): RᵀR = AᵀA within the bound of its
+    scale, the empty columns' rows of R zero, the lower triangle zero,
+    repeats bit-identical, and the same information below the first 20
+    (dropped) columns whatever the leaves, up to rounding (a Schur
+    complement on a non-singular dropped block; r0ᵀr0 aside, which the
+    spanned column's rounding-level pivot splits with the last row)."""
+    import chip_smoke
+    from lfvio_tpu_torch.backend import marg_cuda as mc
+
+    bound = chip_smoke.MARG_BOUNDS[str(dtype).split(".")[-1]]
+    rng = np.random.default_rng(5)
+    M, C, head = 900, 130, 60
+    A = rng.standard_normal((M, C)) * np.exp(rng.uniform(-2, 2, (M, 1)))
+    A[rng.random(M) < 0.5] = 0.0
+    A[:, [3, 40]] = 0.0
+    A[:, 57] = A[:, 22] - 0.5 * A[:, 29]
+    leaf = mc.limits(dtype)[3]
+    S = float((np.abs(A).T @ np.abs(A)).max())
+    infos = []
+    for chunk, want_leaves in ((M - head, 2), (300, 3), (100, 9)):
+        parts = [A[:head]]
+        for r in range(head, M, chunk):
+            parts += [A[r:r + chunk], np.zeros((max(leaf - chunk, 0), C))]
+        At = torch.as_tensor(np.concatenate(parts), dtype=dtype, device=dev)
+        assert mc.leaves(At.shape[0], head)[0] == 1 + want_leaves
+        R = mc.marg_qr(At, head=head)
+        assert torch.equal(R, mc.marg_qr(At, head=head))
+        R64, A64 = R.double(), At.double()
+        assert float((R64.T @ R64 - A64.T @ A64).abs().max()) <= bound * S
+        assert float(R[[3, 40]].abs().max()) == 0.0 and float(torch.tril(R, -1).abs().max()) == 0.0
+        info = R64[20:-1, 20:].T @ R64[20:-1, 20:]
+        info[-1, -1] = 0.0  # r0ᵀr0: split with the last row where a kept pivot is rounding
+        infos.append(info)
+    assert all(float((x - infos[0]).abs().max()) <= bound * S for x in infos[1:])
+
+
+def test_marg_wrappers_reject_what_the_kernels_do_not_take(dev):
+    """marg_depth and marg_qr raise on a mistyped, misplaced or strided
+    input, a stack wider than the kernel takes and a head beyond its rows;
+    no launch is counted."""
+    from lfvio_tpu_torch.backend import marg_cuda as mc
+    from lfvio_tpu_torch.backend.proj_cuda import proj_rows
+
+    st, grid, *_, cfg = _marg_window(dev, torch.float32, 32)
+    grid0 = grid.replace(used=grid.used & (grid.anchor == 0))
+    res, J26, w, _ = proj_rows(st, grid0, cfg)
+    before = (mc.marg_depth.launches, mc.marg_qr.launches)
+    bad_depth = [(res.double(), J26, w), (res, J26[..., :25].contiguous(), w),
+                 (res, J26, w.t().contiguous().t())]
+    for r, j, ww in bad_depth:
+        with pytest.raises(ValueError):
+            mc.marg_depth(r, j, ww, grid0, cfg, 1)
+    with pytest.raises(ValueError):
+        mc.marg_depth(res, J26, w, grid0, cfg, 1, out=torch.empty(3, 3, device=dev))
+    A = torch.randn(50, 40, device=dev)
+    for bad, kw in ((A.half(), {}), (A.t(), {}), (torch.randn(50, 400, device=dev), {}),
+                    (A, {"head": 51})):
+        with pytest.raises(ValueError):
+            mc.marg_qr(bad, **kw)
+    assert (mc.marg_depth.launches, mc.marg_qr.launches) == before
+
+
+def test_marg_programs_graph_matches_eager(dev):
+    """marginalize_old_qr and marginalize_second_new_qr as DevicePrograms
+    (f32 and f64): each MARGIN_OLD replay counts one marg_depth and one
+    marg_qr launch, each SECOND_NEW replay one marg_qr launch, and the
+    replays equal the eager functions bit for bit (the kernels have no
+    atomics in their arithmetic)."""
+    from lfvio_tpu_torch.backend import marg_cuda as mc
+    from lfvio_tpu_torch.backend.marginalize import (marginalize_old_qr,
+                                                     marginalize_second_new_qr)
+    from lfvio_tpu_torch.device import DeviceProgram, collect_launches
+
+    for dtype in (torch.float32, torch.float64):
+        args = _marg_window(dev, dtype, 128)
+        st, prior, cfg = args[0], args[5], args[7]
+        old = lambda s: marginalize_old_qr(s, *args[1:])
+        new = lambda s: marginalize_second_new_qr(s, prior, cfg)
+        for fn, want in ((old, [1, 1]), (new, [0, 1])):
+            prog = DeviceProgram(fn)
+            eager = fn(st)
+            prog(st)
+            collect_launches()
+            before = [mc.marg_depth.launches, mc.marg_qr.launches]
+            for _ in range(2):
+                out = prog(st)
+            torch.cuda.synchronize()
+            collect_launches()
+            assert [mc.marg_depth.launches - before[0], mc.marg_qr.launches - before[1]] == [
+                2 * x for x in want]
+            for x, y in zip(_leaves(out), _leaves(eager)):
+                assert torch.equal(x, y)

@@ -1,8 +1,10 @@
 """The lagged pipeline of the port against the JAX package, on the CPU in
 f64: one bearing-harness stream through both pipelines at solve lag 2 with
-the device chain, lag 2 from the host mirrors, lag 3 (stacked slides), and
-through the dispatch / finalize path at depth 3 with the publish throttle
-(in-flight and deferred frame queues)."""
+the device chain, lag 2 from the host mirrors, lag 3 (stacked slides), lag 3
+at 30 px of keyframe parallax (SECOND_NEW marginalizations between
+keyframes, against the JAX package's eigh forms), and through the dispatch /
+finalize path at depth 3 with the publish throttle (in-flight and deferred
+frame queues)."""
 
 import os
 import sys
@@ -17,7 +19,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from _torch_bearing_harness import make_worlds, run_both
 
-KEYS = ["lag2_chain", "lag2_mirrors", "lag3", "depth3_throttled"]
+KEYS = ["lag2_chain", "lag2_mirrors", "lag3", "depth3_throttled", "lag3_second_new"]
 
 
 @pytest.fixture(scope="module")
@@ -41,6 +43,16 @@ def test_lagged_stream_matches_jax(worlds, key):
     np.testing.assert_array_equal(test.fm.feature_id, jest.fm.feature_id)
     assert len(tp.high_rate) == len(jp.high_rate) > 50
     assert test.pending_count() == 0 and not tp._fe_inflight and not tp._fe_deferred
+
+
+def test_second_new_stream_merges_non_keyframes(worlds):
+    """The lag-3 stream at 30 px of parallax takes SECOND_NEW
+    marginalizations on both sides (the port's ``marginalize_second_new_qr``
+    program runs), MARGIN_OLD ones too, and its trajectory matched JAX's
+    eigh forms within 1e-6 m (test_lagged_stream_matches_jax)."""
+    jest, test, *_ = run_both("lag3_second_new", worlds)
+    assert jest.second_news >= 1
+    assert {("marg_old",), ("marg_new",)} <= set(test._programs)
 
 
 def test_lag_changes_the_numerics(worlds):

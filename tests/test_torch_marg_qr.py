@@ -1,0 +1,389 @@
+"""The marginalizations' QR in two stages (backend/marg_cuda.py's plain
+versions of csrc/marg_qr.cu: each anchored feature's inverse depth removed
+within its own rows, then one R factor over the pose columns) against the
+JAX package's QR marginalizations, and against the port's earlier dense form
+(one QR of the whole stacked matrix, the depth columns an F x F expansion,
+unit rows in the empty dropped columns), kept here as the oracle.
+
+On the CPU in f64. JᵀJ, Jᵀr and rᵀr of a prior are compared, not J: R's
+row signs are the implementation's. Bounds: 1e-8 of the scale against JAX
+(test_torch_backend.py's marginalization bound), 1e-10 against the dense
+form (the same factorization up to rounding), 1e-12 where only the order of
+rows or padding differs.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+import chip_smoke
+
+from lfvio_tpu import backend as jb
+from lfvio_tpu import imu as jimu
+from lfvio_tpu.backend import marginalize as jmarg
+from lfvio_tpu.backend.state import NFRAMES
+from lfvio_tpu.runtime.profiling import make_window_problem
+
+from lfvio_tpu_torch import convert
+from lfvio_tpu_torch import imu as timu
+from lfvio_tpu_torch.backend import marg_cuda as mc
+from lfvio_tpu_torch.backend import marginalize as tmarg
+from lfvio_tpu_torch.backend import solver as tsolver
+from lfvio_tpu_torch.backend.state import PriorFactor, pose_dim
+
+F64 = torch.float64
+
+
+def fields(obj):
+    return {f.name: np.asarray(getattr(obj, f.name)) for f in dataclasses.fields(obj)
+            if getattr(obj, f.name) is not None}
+
+
+def t(x):
+    return torch.as_tensor(np.array(x), dtype=F64)
+
+
+def info(prior):
+    """JᵀJ, Jᵀr0, r0ᵀr0 of a prior (either package's) in numpy f64."""
+    J = np.asarray(prior.J.numpy() if isinstance(prior.J, torch.Tensor) else prior.J, np.float64)
+    r = np.asarray(prior.r0.numpy() if isinstance(prior.r0, torch.Tensor) else prior.r0,
+                   np.float64)
+    return J.T @ J, J.T @ r, r @ r
+
+
+def info_close(a, b, tol, singular=False):
+    """Each of the three within ``tol`` of its scale (at least 1). Where
+    JᵀJ is singular (``singular``: no prior, so kept columns without any
+    information) r0ᵀr0 is not a function of JᵀJ and Jᵀr: a QR that gives an
+    empty column a row of R moves a part of the residual into it, which
+    the one it is compared with may not. There r0ᵀr0 of ``b`` (the port's
+    two stages) must be the minimum-norm one, (Jᵀr)ᵀ (JᵀJ)⁺ (Jᵀr), as the
+    eigh form's is: an empty column consumes no row; within 1e-8 at the
+    least, the rounding of the pseudo-inverse of that singular JᵀJ."""
+    pairs = [(x, y, tol) for x, y in zip(info(a), info(b))]
+    if singular:
+        H, g, rr = info(b)
+        pairs[2] = (g @ np.linalg.pinv(H, rcond=1e-12, hermitian=True) @ g, rr, max(tol, 1e-8))
+    for x, y, bound in pairs:
+        x, y = np.asarray(x), np.asarray(y)
+        scale = max(1.0, float(np.abs(x).max()))
+        assert float(np.abs(x - y).max()) <= bound * scale, (float(np.abs(x - y).max()), scale)
+
+
+def _small_quat(rng, angle):
+    axis = rng.standard_normal(3)
+    axis /= np.linalg.norm(axis)
+    return np.r_[np.cos(angle / 2), np.sin(angle / 2) * axis]
+
+
+def window(n_cams, with_prior, seed=7):
+    """make_window_problem's 32-slot window (tracks of 5 frames, anchors
+    spread over the window), perturbed, td and extrinsics estimated; with
+    ``n_cams`` = 2 a second extrinsic and a random camera per observation;
+    the prior informative with a non-zero residual, or empty (the first
+    marginalization: nothing ties pose0's gauge directions). JAX and port
+    forms, the MARGIN_OLD arguments without the config, and each config."""
+    pb = make_window_problem(32, jnp.float64, n_obs_frames=5, imu_samples=16)
+    rng = np.random.default_rng(seed)
+    s = pb["state"]
+    kw = {}
+    grid = pb["grid"]
+    if n_cams == 2:
+        kw = dict(tic=jnp.asarray([[0.01, -0.02, 0.005], [-0.015, 0.03, -0.04]]),
+                  qic=jnp.asarray(np.stack([_small_quat(rng, 0.01), _small_quat(rng, 0.02)])))
+        cam = rng.integers(0, 2, (s.inv_depth.shape[0], NFRAMES)).astype(np.int32)
+        grid = dataclasses.replace(grid, cam=jnp.asarray(cam))
+    else:
+        kw = dict(tic=jnp.asarray([0.01, -0.02, 0.005]))
+    state = dataclasses.replace(
+        s, p=s.p + 0.02 * rng.standard_normal(s.p.shape),
+        ba=s.ba + 0.01 * rng.standard_normal(s.ba.shape),
+        bg=s.bg + 0.001 * rng.standard_normal(s.bg.shape), td=jnp.asarray(0.003), **kw)
+    D = pose_dim(NFRAMES, n_cams)
+    if with_prior:
+        x0 = dataclasses.replace(state, p=state.p + 0.01 * rng.standard_normal(state.p.shape))
+        prior = jb.PriorFactor.from_state(
+            jnp.asarray(np.triu(0.5 * rng.standard_normal((D, D))) + 2.0 * np.eye(D)),
+            jnp.asarray(0.1 * rng.standard_normal(D)), x0)
+    else:
+        prior = jb.PriorFactor.empty(jnp.float64, NFRAMES, n_cams)
+    noise = pb["noise"]
+    imu_raw = tuple(np.asarray(pb[k]) for k in ("dts", "accs", "gyrs", "a0", "g0"))
+    pre = jax.jit(jax.vmap(
+        lambda d, ac, gy, a0, g0, ba, bg: jimu.preintegrate_parallel(
+            d, ac, gy, a0, g0, ba, bg, noise)
+    ))(*[jnp.asarray(x) for x in imu_raw], state.ba[:-1], state.bg[:-1])
+    si, iv = jax.jit(jimu.whiten_covariance)(pre.covariance, jnp.asarray(pb["imu_valid"]))
+    cfg = jb.SolverConfig(max_iterations=8, n_cams=n_cams)
+    tst = convert.window_state(fields(state))
+    tpre = timu.preintegrate(*[t(x) for x in imu_raw], tst.ba[:-1], tst.bg[:-1],
+                             convert.imu_noise(fields(noise)))
+    tsi, tiv = timu.whiten_covariance(tpre.covariance,
+                                      torch.as_tensor(np.asarray(pb["imu_valid"])))
+    tprior = (convert.prior_factor(fields(prior)) if with_prior
+              else PriorFactor.empty(F64, NFRAMES, n_cams=n_cams))
+    return dict(j=(state, grid, pre, si, iv, prior, pb["gravity"]), jcfg=cfg,
+                t=(tst, convert.feature_grid(fields(grid)), tpre, tsi, tiv, tprior,
+                   t(pb["gravity"])),
+                tcfg=convert.solver_config(dataclasses.asdict(cfg)))
+
+
+CASES = {f"{'mono' if nc == 1 else 'two_cameras'}_{'prior' if p else 'no_prior'}": (nc, p)
+         for nc in (1, 2) for p in (True, False)}
+
+
+@pytest.fixture(scope="module")
+def windows():
+    return {k: window(*v) for k, v in CASES.items()}
+
+
+# -------------------------------------------- the earlier dense form (oracle)
+def dense_old_qr(*args):
+    """The port's MARGIN_OLD before the two stages: one QR
+    (torch.linalg.qr) of [pose0/sb0 | the F depth columns | kept | r] with
+    a unit row in each empty dropped column (chip_smoke.py's copy, which
+    phase 14 times as the form the two stages replaced)."""
+    return chip_smoke.dense_marginalize_old_qr(args)
+
+
+def dense_second_new_qr(state, prior, cfg):
+    """The port's SECOND_NEW before: one QR of [pose[W-1] | kept | r] with
+    unit rows in the empty pose[W-1] columns."""
+    n_frames = prior.x0_p.shape[0]
+    D = prior.J.shape[0]
+    rp = tmarg.prior_residual(state, prior)
+    J0 = torch.where(prior.valid, prior.J, torch.zeros_like(prior.J))
+    drop, keep, _ = tmarg._indices("second_new", n_frames, D, J0.device)
+    K = len(keep)
+    A = torch.cat([J0[:, drop], J0[:, keep], rp[:, None]], dim=1)
+    Rfac = torch.linalg.qr(tmarg._with_unit_rows(A, len(drop)), mode="r")[1]
+    Jk, rk = Rfac[6:6 + K, 6:6 + K], Rfac[6:6 + K, 6 + K]
+    ok = prior.valid & torch.isfinite(Jk).all() & torch.isfinite(rk).all()
+    J, r0 = tmarg._scatter_prior(torch.where(ok, Jk, 0.0), torch.where(ok, rk, 0.0), keep, D)
+    return tmarg._slid_second_new(J, r0, state, ok)
+
+
+# ------------------------------------------------------------ against JAX
+@pytest.mark.parametrize("case", list(CASES))
+def test_marginalize_old_qr_matches_jax(windows, case):
+    """MARGIN_OLD mono and two-camera, with an informative prior and with
+    none (the first marginalization, pose0's gauge directions untied):
+    JᵀJ, Jᵀr and rᵀr within 1e-8 of JAX's marginalize_old_qr (without a
+    prior, rᵀr the minimum-norm one: ``info_close``); the x0 snapshots
+    identical."""
+    w = windows[case]
+    jp = jax.jit(jmarg.marginalize_old_qr, static_argnums=7)(*w["j"], w["jcfg"])
+    tp = tmarg.marginalize_old_qr(*w["t"], w["tcfg"])
+    assert bool(jp.valid) and bool(tp.valid)
+    info_close(jp, tp, 1e-8, singular="no_prior" in case)
+    for name in ("x0_p", "x0_q", "x0_v", "x0_ba", "x0_bg", "x0_tic", "x0_qic", "x0_td"):
+        np.testing.assert_allclose(np.asarray(getattr(jp, name)), getattr(tp, name).numpy(),
+                                   rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("case", [k for k in CASES if k.endswith("_prior") and "no_" not in k])
+def test_marginalize_second_new_qr_matches_jax(windows, case):
+    """SECOND_NEW of the informative prior at the moved state (a non-zero
+    prior residual), mono and two-camera: within 1e-8 of JAX's
+    marginalize_second_new_qr."""
+    w = windows[case]
+    jst, jprior = w["j"][0], w["j"][5]
+    tst, tprior = w["t"][0], w["t"][5]
+    jp = jax.jit(jmarg.marginalize_second_new_qr, static_argnums=2)(jst, jprior, w["jcfg"])
+    tp = tmarg.marginalize_second_new_qr(tst, tprior, w["tcfg"])
+    assert bool(jp.valid) and bool(tp.valid)
+    info_close(jp, tp, 1e-8)
+    for name in ("x0_p", "x0_q", "x0_v", "x0_ba", "x0_bg"):
+        np.testing.assert_allclose(np.asarray(getattr(jp, name)), getattr(tp, name).numpy(),
+                                   rtol=0, atol=1e-12)
+
+
+def test_marginalize_second_new_qr_of_an_empty_prior(windows):
+    """An invalid (empty) prior stays invalid and zero through SECOND_NEW,
+    as in JAX's form."""
+    w = windows["mono_no_prior"]
+    jp = jax.jit(jmarg.marginalize_second_new_qr, static_argnums=2)(w["j"][0], w["j"][5],
+                                                                     w["jcfg"])
+    tp = tmarg.marginalize_second_new_qr(w["t"][0], w["t"][5], w["tcfg"])
+    assert not bool(jp.valid) and not bool(tp.valid)
+    assert float(tp.J.abs().max()) == 0.0 and float(tp.r0.abs().max()) == 0.0
+
+
+# ------------------------------------------- against the earlier dense form
+@pytest.fixture(scope="module")
+def empty_cols():
+    """test_torch_backend.py's empty-column inputs: tests/_torch_dist_child's
+    mixed problem (features anchored at frame 0 beside others, so the dense
+    form's depth columns include empty ones) and its prior with the
+    pose[W-1] columns zeroed (what a SECOND_NEW leaves)."""
+    from lfvio_tpu_torch.imu import preintegrate, whiten_covariance
+    from tests import _torch_dist_child as child
+
+    pb = child.problem(mixed=True)
+    state, grid, prior, gravity, cfg = (pb[k] for k in ("state", "grid", "prior", "gravity", "cfg"))
+    pre = preintegrate(*pb["imu"], state.ba[:-1], state.bg[:-1], pb["noise"])
+    si, ok = whiten_covariance(pre.covariance, pb["imu_valid"])
+    o = tmarg.pose_off(state.p.shape[0] - 2)
+    J = prior.J.clone()
+    J[:, o:o + 6] = 0.0
+    return dict(old=(state, grid, pre, si, ok, prior, gravity, cfg),
+                second_new=(state, dataclasses.replace(prior, J=J), cfg))
+
+
+@pytest.mark.parametrize("kind", ["old", "second_new"])
+def test_two_stages_match_the_dense_form_on_empty_columns(empty_cols, kind):
+    """Where the dense form needs its unit rows (empty depth columns of
+    features not anchored at frame 0; empty pose[W-1] columns after a
+    SECOND_NEW), the two stages give the same prior within 1e-10."""
+    args = empty_cols[kind]
+    if kind == "old":
+        ref, got = dense_old_qr(*args), tmarg.marginalize_old_qr(*args)
+    else:
+        ref, got = dense_second_new_qr(*args), tmarg.marginalize_second_new_qr(*args)
+    assert bool(ref.valid) and bool(got.valid)
+    info_close(ref, got, 1e-10)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_two_stages_match_the_dense_form(windows, case):
+    """On the JAX comparison's windows too, within 1e-10 (without a prior,
+    rᵀr the minimum-norm one)."""
+    w = windows[case]
+    info_close(dense_old_qr(*w["t"], w["tcfg"]), tmarg.marginalize_old_qr(*w["t"], w["tcfg"]),
+               1e-10, singular="no_prior" in case)
+
+
+# ------------------------------------------------- padding, order, stage 1
+def _padded(state, grid, extra):
+    """``extra`` unused, unobserved slots appended to the grid and the
+    depths."""
+    pad = lambda x, v=0: torch.cat([x, torch.full((extra,) + x.shape[1:], v, dtype=x.dtype)])
+    grid = grid.replace(bearing=pad(grid.bearing, 0.5), velocity=pad(grid.velocity),
+                        td_obs=pad(grid.td_obs), valid=pad(grid.valid, False),
+                        anchor=pad(grid.anchor), used=pad(grid.used, False),
+                        cam=None if grid.cam is None else pad(grid.cam))
+    return state.replace(inv_depth=pad(state.inv_depth, 0.3)), grid
+
+
+@pytest.mark.parametrize("case", ["mono_prior", "two_cameras_no_prior"])
+def test_zero_padded_slots_leave_the_prior_unchanged(windows, case):
+    """Eight unused slots more (each keeps its 2 W zero rows): the same
+    prior within 1e-12."""
+    w = windows[case]
+    st, grid, *rest = w["t"]
+    pst, pgrid = _padded(st, grid, 8)
+    info_close(tmarg.marginalize_old_qr(st, grid, *rest, w["tcfg"]),
+               tmarg.marginalize_old_qr(pst, pgrid, *rest, w["tcfg"]), 1e-12)
+
+
+@pytest.mark.parametrize("case", ["mono_prior", "two_cameras_no_prior"])
+def test_shuffled_rows_leave_the_r_factor_unchanged(windows, case):
+    """marg_qr of MARGIN_OLD's stack with its rows shuffled: the same RᵀR
+    within 1e-12 of the scale, and the same information below the 15
+    dropped rows (the prior's)."""
+    w = windows[case]
+    A = tmarg.old_stack(*w["t"], w["tcfg"])
+    R = mc.marg_qr(A)
+    Rs = mc.marg_qr(A[torch.randperm(A.shape[0], generator=torch.Generator().manual_seed(0))])
+    scale = float((A.abs().T @ A.abs()).max())
+    assert float((R.T @ R - A.T @ A).abs().max()) <= 1e-12 * scale
+    assert float((Rs.T @ Rs - R.T @ R).abs().max()) <= 1e-12 * scale
+    kept = lambda M: M[15:-1, 15:].T @ M[15:-1, 15:]
+    assert float((kept(Rs) - kept(R)).abs().max()) <= 1e-12 * float(kept(R).abs().max())
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_depth_stage_is_each_features_schur_complement(windows, case):
+    """marg_depth's rows of each slot: their information is the slot's
+    dense rows' with its depth Schur-eliminated (AᵀA - Aᵀx xᵀA / xᵀx) within
+    1e-12; the dropped row's slot is zero; a slot whose depth column is zero
+    keeps its rows as they are."""
+    w = windows[case]
+    st, grid = w["t"][:2]
+    cfg = w["tcfg"]
+    grid0 = grid.replace(used=grid.used & (grid.anchor == 0))
+    res, J26, wts, _ = tsolver.proj_rows(st, grid0, cfg)
+    nc = tmarg.n_cams_of(st)
+    A, x = mc._dense_obs_rows(res, J26, wts, grid0, cfg, nc)
+    F, R2, C = A.shape
+    out = mc.marg_depth(res, J26, wts, grid0, cfg, nc).reshape(F, R2, C)
+    n_reflected = 0
+    for f in range(F):
+        H = A[f].T @ A[f]
+        xx = float(x[f] @ x[f])
+        if xx == 0:
+            assert torch.equal(out[f], A[f])
+            continue
+        n_reflected += 1
+        u = A[f].T @ x[f]
+        want = H - torch.outer(u, u) / xx
+        assert float(out[f, 0].abs().max()) == 0.0
+        assert float((out[f].T @ out[f] - want).abs().max()) <= 1e-12 * float(H.abs().max())
+    assert 0 < n_reflected < F
+
+
+def test_qr_skips_empty_columns_without_losing_rows():
+    """marg_qr of a matrix with two empty columns: RᵀR = AᵀA within 1e-13
+    of the scale, their rows of R zero, and the information below them the
+    dense form's with unit rows (torch.linalg.qr of _with_unit_rows) within
+    1e-12: an empty column consumes no row."""
+    rng = np.random.default_rng(3)
+    A = rng.standard_normal((40, 8))
+    A[:, [1, 5]] = 0.0
+    A = torch.as_tensor(A)
+    R = mc.marg_qr(A)
+    assert float((R.T @ R - A.T @ A).abs().max()) <= 1e-13 * float((A.T @ A).abs().max())
+    assert float(R[1].abs().max()) == 0.0 and float(R[5].abs().max()) == 0.0
+    assert float(torch.tril(R, -1).abs().max()) == 0.0
+    for m in (2, 6):
+        ref = torch.linalg.qr(tmarg._with_unit_rows(A, m), mode="r")[1][m:, m:]
+        got = R[m:, m:]
+        assert float((got.T @ got - ref.T @ ref).abs().max()) <= 1e-12 * float((A.T @ A).abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["mono_prior", "two_cameras_no_prior"])
+def test_marg_check_rejects_planted_faults(windows, case, dtype):
+    """chip_smoke.py phase 14's check of the marginalization kernels, run on
+    the CPU (where each wrapper is its plain version, so kernel and plain
+    agree exactly and repeat bit for bit): every planted fault of
+    MARG_FAULTS exceeds MARG_BOUNDS, at MARGIN_OLD's stages and (where
+    there is a prior) SECOND_NEW's stack; the kept information within its
+    bound (in f32 against the plain version run in f64)."""
+    w = windows[case]
+    args = chip_smoke.to_f64(tuple(w["t"])) + (w["tcfg"],)
+    if dtype == torch.float32:
+        args = tuple(x.float() if isinstance(x, torch.Tensor) and x.is_floating_point() else x
+                     for x in args)
+        args = tuple(dataclasses.replace(x, **{f.name: getattr(x, f.name).float() for f in
+                                               dataclasses.fields(x)
+                                               if isinstance(getattr(x, f.name), torch.Tensor)
+                                               and getattr(x, f.name).is_floating_point()})
+                     if dataclasses.is_dataclass(x) and not isinstance(x, type)
+                     and not hasattr(x, "cauchy_c") else x for x in args)
+    bound = chip_smoke.MARG_BOUNDS[str(dtype).split(".")[-1]]
+    stages = [(args, "old")] + ([((args[0], args[5]), "new")] if "no_prior" not in case else [])
+    for stage_args in stages:
+        depth_args, A, head, m = chip_smoke.marg_stage_inputs(*stage_args)
+        assert A.dtype == dtype
+        errs, absolute, readings, identical = chip_smoke.marg_compare(depth_args, A, head, m)
+        assert identical and max(absolute.values()) == 0.0
+        assert errs.get("marg_depth", 0.0) == 0.0 and errs[chip_smoke.MARG_STRUCTURE] == 0.0
+        assert errs[chip_smoke.MARG_RTR] <= bound
+        kept_bound = chip_smoke.MARG_KEPT_BOUNDS[str(dtype).split(".")[-1]]
+        if dtype == torch.float32:  # the plain version is the kernel here
+            assert errs[chip_smoke.MARG_KEPT] == readings["plain version"] <= kept_bound
+            assert readings["torch.linalg.qr"] <= kept_bound
+        else:
+            assert errs[chip_smoke.MARG_KEPT] == 0.0 and not readings
+        faults = chip_smoke.marg_planted_faults(depth_args, A, head, m)
+        assert set(faults) == ({"marg_qr"} if depth_args is None else set(chip_smoke.MARG_FAULTS))
+        for kernel, f in faults.items():
+            assert set(f) == set(chip_smoke.MARG_FAULTS[kernel])
+            assert all(v > bound for v in f.values()), (kernel, f)
