@@ -2523,17 +2523,17 @@ def state_err(a, b, fields=("p", "q", "v", "ba", "bg", "tic", "qic", "td", "inv_
                      / getattr(b, f).abs().max().clamp(min=1)) for f in fields)
 
 
-def packed_at(est, max_iter=None, perturb=None):
+def packed_at(est, max_iter=None, perturb=None, scale=0.05):
     """The estimator's packed solve buffer from its mirrors, on the card,
     with the LM's cap ``max_iter`` in place of its own and the window
-    positions moved by N(0, 0.05) m drawn from the seed ``perturb``."""
+    positions moved by N(0, scale) m drawn from the seed ``perturb``."""
     buf = est._pack_solve_buffer(est.Ps[0], est.Qs[0])
     if max_iter is not None:
         buf[est._pack_layout["max_iter"][0]] = max_iter
     if perturb is not None:
         off, shape = est._pack_layout["p"]
         n = int(np.prod(shape))
-        buf[off:off + n] += np.random.default_rng(perturb).normal(0.0, 0.05, n)
+        buf[off:off + n] += np.random.default_rng(perturb).normal(0.0, scale, n)
     return est._upload(buf)
 
 
@@ -2548,10 +2548,32 @@ def lm_run_counts(runs):
 # Phase 14's graph-against-eager inputs of the solve: the stream's window
 # with its positions moved (so that every iteration has work: on the CPU in
 # f64 no accepted step improves the cost by less than cost_tol before the
-# 8th) under the packed caps 8, 1 and 3, and the window as the stream left
-# it, converged, which its first steps bring to the cost plateau (2
-# iterations on the CPU).
+# 8th) under the packed caps 8, 1 and 3, and a window whose solve ends on
+# the cost plateau before the cap: the first of PLATEAU_WINDOWS (seed,
+# scale: the window as the stream left it, then moved by N(0, 1e-6) m) whose
+# eager solve does. The stream has no noise, so its converged window's cost
+# lies at the rounding floor, and whether the LM's first step there lowers
+# it (a step is taken only on a strict decrease) is drawn by the last bits
+# of the arithmetic before it: on the CPU 2 iterations with the plain QR of
+# the marginalizations, 4 with the kernel's blocked order; on an H100 with
+# the pipelined kernel every step was rejected (8 iterations, 1 linearization).
 GRAPH_SOLVE_CASES = (("cap 8", 8, 1), ("cap 1", 1, 1), ("cap 3", 3, 1), ("plateau", 8, None))
+PLATEAU_WINDOWS = ((None, 0.0), (1, 1e-6), (2, 1e-6), (3, 1e-6), (4, 1e-6))
+
+
+def plateau_window(est, prior, chain, cap):
+    """The packed buffer of the first of PLATEAU_WINDOWS whose eager solve
+    runs 1 <= iterations < cap (it ends on the cost plateau); raises if
+    none does (the plateau exit never ran)."""
+    tried = []
+    for seed, scale in PLATEAU_WINDOWS:
+        packed = packed_at(est, cap, seed, scale)
+        runs = tuple(int(x) for x in est._solve_packed_impl(packed, prior, chain)[0]["lm_runs"])
+        if 1 <= runs[0] < cap:
+            return packed
+        tried.append(((seed, scale), runs))
+    raise AssertionError(f"[14] no window of PLATEAU_WINDOWS ends its solve on the cost plateau "
+                         f"before the cap {cap}: {tried}")
 
 
 def phase_graphs_f64(dev):
@@ -2577,7 +2599,8 @@ def phase_graphs_f64(dev):
     chain = est._zero_chain()
     errs, ran = {}, {}
     for name, max_iter, perturb in GRAPH_SOLVE_CASES:
-        packed = packed_at(est, max_iter, perturb)
+        packed = (plateau_window(est, prior, chain, max_iter) if name == "plateau"
+                  else packed_at(est, max_iter, perturb))
         g_res, _ = clone_tree(est._program(("solve",))(packed, prior, chain))
         e_res, e_grid = est._solve_packed_impl(packed, prior, chain)
         errs[f"solve {name}"] = state_err(g_res["out"], e_res["out"])
@@ -4067,19 +4090,69 @@ MARG_FAULTS = {"marg_depth": ("a slot left unreflected", "a slot's pivot row kep
 MARG_FAULT_ROWS = 32
 
 
+def marg_panel_stack(dev, dtype, C, seed=0):
+    """(A, head, dropped columns) of a stack that exercises marg_qr's
+    panels: 1,400 rows of C columns (173 and 323 are no multiple of the
+    kernel's 16-column panel, 384 is the widest), 30% of them zero, a head
+    of 60 whose first 20 rows alone touch columns [16, 48) (two whole
+    panels in which every later reflection skips: the other rows are zero
+    there, and so is R above them) and an empty column, 100, in mid-panel;
+    15 dropped columns."""
+    import torch
+
+    rng = np.random.default_rng(seed + C)
+    head, M = 60, 1400
+    A = rng.standard_normal((M, C)) * np.exp(rng.uniform(-1, 1, (M, 1)))
+    A[rng.random(M) < 0.3] = 0.0
+    A[:, 16:48] = 0.0
+    A[:20, :] = 0.0
+    A[:20, 16:48] = rng.standard_normal((20, 32)) + 4 * np.eye(20, 32)
+    A[:, 100] = 0.0
+    return torch.as_tensor(A, dtype=dtype, device=dev), head, 15
+
+
 def marg_cases(census, dev):
     """{label: (args, kind)}: MARGIN_OLD's arguments at (a) and (b) (the
     census' estimators' solve outputs, their priors) and SECOND_NEW's at
     (b) (the estimator's prior at the solve's state, the program's inputs),
-    in f32, and the f64 upcast of each."""
+    in f32, and the f64 upcast of each; and ``marg_panel_stack``'s stacks
+    (kind "stack") at C = 173, 323 and 384 in f32 and f64."""
+    import torch
+
     a, b = census["a"]["marg_args"], census["b"]["marg_args"]
     sn = (b[0], b[5])
-    return {"(a) MARGIN_OLD, window 10, 256 slots, f32": (a, "old"),
-            "(b) MARGIN_OLD, window 20, 384 slots, f32": (b, "old"),
-            "(b) SECOND_NEW, window 20, f32": (sn, "new"),
-            "(a) MARGIN_OLD, f64": (to_f64(a), "old"),
-            "(b) MARGIN_OLD, f64": (to_f64(b), "old"),
-            "(b) SECOND_NEW, f64": (to_f64(sn), "new")}
+    cases = {"(a) MARGIN_OLD, window 10, 256 slots, f32": (a, "old"),
+             "(b) MARGIN_OLD, window 20, 384 slots, f32": (b, "old"),
+             "(b) SECOND_NEW, window 20, f32": (sn, "new"),
+             "(a) MARGIN_OLD, f64": (to_f64(a), "old"),
+             "(b) MARGIN_OLD, f64": (to_f64(b), "old"),
+             "(b) SECOND_NEW, f64": (to_f64(sn), "new")}
+    for dtype in (torch.float32, torch.float64):
+        for C in (173, 323, 384):
+            cases[f"panel stack, C = {C}, whole panels skipping, an empty column, "
+                  f"f{str(dtype)[-2:]}"] = (marg_panel_stack(dev, dtype, C), "stack")
+    return cases
+
+
+def marg_inputs(est):
+    """MARGIN_OLD's arguments at an estimator's next solve (the solve
+    program's outputs, its prior, gravity and solver config), as the census
+    records them."""
+    prior = est.prior if est.prior is not None else est._empty_prior()
+    packed = est._upload(est._pack_solve_buffer(est.Ps[0], est.Qs[0]))
+    res, grid = est._program(("solve",))(packed, prior, est._zero_chain())
+    return (res["out"], grid, res["pre"], res["sqrt_info"], res["imu_ok"], prior,
+            est._gravity_t, est.scfg)
+
+
+def marg_stacks(dev):
+    """{label: (stack, head, dropped columns)}: marg_qr's f32 inputs at (a)
+    and (b)'s MARGIN_OLD and (b)'s SECOND_NEW (``warm_estimator`` in
+    bench.py's default and high-rate configurations, ``marg_inputs``)."""
+    a, b = (marg_inputs(warm_estimator(dev, k)) for k in ({}, BENCH_HIGH_RATE))
+    cases = {"(a) MARGIN_OLD": (a, "old"), "(b) MARGIN_OLD": (b, "old"),
+             "(b) SECOND_NEW": ((b[0], b[5]), "new")}
+    return {label: marg_stage_inputs(args, kind)[1:] for label, (args, kind) in cases.items()}
 
 
 def to_f64(x):
@@ -4101,10 +4174,12 @@ def to_f64(x):
 def marg_stage_inputs(args, kind):
     """(marg_depth's arguments or None, marg_qr's stack, its head, the
     dropped columns m) of a MARGIN_OLD (``kind`` "old") or SECOND_NEW
-    ("new") case."""
+    ("new") case, or of a stack given as (A, head, m) ("stack")."""
     from lfvio_tpu_torch.backend import marginalize as mg
     from lfvio_tpu_torch.backend.proj_cuda import proj_rows
 
+    if kind == "stack":
+        return (None, *args)
     if kind == "new":
         state, prior = args
         D = prior.J.shape[0]
@@ -4157,13 +4232,18 @@ def rtr_error(A, R):
     return _over_norms(R.T @ R - A.T @ A, A.norm(dim=0))
 
 
-def kept_error(A, R, Rref, m):
+def kept_error(A, R, Rref, m, with_rr=True):
     """The information of R's kept rows (below the first ``m``, the last
     row, the residual's rest, aside) against Rref's, entry (i, j) over
-    |a_i| |a_j|."""
+    |a_i| |a_j|; ``with_rr`` False leaves out its (r, r) entry, the part of
+    the residual's norm the kept rows hold (where the kept information is
+    singular, rounding-level pivots split it with the last row)."""
     A, R, Rref = A.double(), R.double(), Rref.double()
     kept = lambda X: X[m:-1, m:].T @ X[m:-1, m:]
-    return _over_norms(kept(R) - kept(Rref), A.norm(dim=0)[m:])
+    d = kept(R) - kept(Rref)
+    if not with_rr:
+        d[-1, -1] = 0.0
+    return _over_norms(d, A.norm(dim=0)[m:])
 
 
 def marg_bound(check, dtype):
@@ -4367,8 +4447,9 @@ def phase_marg_qr(dev, census):
     version's, its bound and (marg_qr) torch.linalg.qr's of the same stack
     and of the dense stack the port factored before; MARGIN_OLD's eager
     device time by part (``marg_split``), the two stages' and the dense
-    form's, at (a) and (b). Returns the kernels line's numbers (times at
-    (b); errors the worst of the f32 cases: absolute, marg_depth's rows and
+    form's, at (a) and (b). ``marg_panel_stack``'s cases are checked, not
+    timed. Returns the kernels line's numbers (times at (b); errors the
+    worst of the main path's f32 cases: absolute, marg_depth's rows and
     marg_qr's RᵀR against the plain version's, and relative, the checks'
     values)."""
     import torch
@@ -4401,7 +4482,7 @@ def phase_marg_qr(dev, census):
                 + ", ".join(f"{n} {v:.2e}" for n, v in faults.items()) + f" (must exceed {bound})")
             if not all(v > bound for v in faults.values()):
                 raise AssertionError(f"the {kernel} check does not see a planted fault at {label}")
-        if dtype == "float32":
+        if dtype == "float32" and kind != "stack":  # the main path's inputs
             for k in MARG_KERNELS:
                 worst[k] = max(worst[k], absolute.get(k, 0.0))
                 worst_rel[k] = max([worst_rel[k]] + [v for n, v in errs.items()

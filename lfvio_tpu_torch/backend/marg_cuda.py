@@ -30,7 +30,10 @@ On CUDA tensors each launches its kernel on the current stream or raises;
 on CPU tensors each is its plain version (``depth_plain``, ``qr_plain``:
 one reflection a column over the whole matrix, the kernel's arithmetic
 without its tiles and tree). Neither reads anything back, so both sit in
-the MARGIN_OLD and SECOND_NEW graphs.
+the MARGIN_OLD and SECOND_NEW graphs. ``qr_blocked_plain`` is
+``marg_qr_kernel``'s order in torch ops (its leaves, tiles, 16-column
+panels with their compact WY updates and tree), the CPU tests' oracle of
+that order; it reads values back.
 
 They stand where the JAX package calls ``jnp.linalg.qr`` (XLA, no Pallas
 kernel) in ``lfvio_tpu/backend/marginalize.py:260`` (marginalize_old_qr) and
@@ -128,6 +131,134 @@ def qr_plain(A):
     return R
 
 
+# The kernel's shapes (csrc/marg_qr.cu): a panel's columns, a tile's rows
+# by type, a leaf's rows after the head, the rows a leaf lists at once, and
+# the range of a column's largest entry where its norm is summed unscaled.
+PANEL = 16
+TILE_ROWS = {torch.float32: 128, torch.float64: 64}
+LEAF_ROWS = 256
+LIST_ROWS = 512
+UNSCALED = {torch.float32: (2.0 ** -40, 2.0 ** 40), torch.float64: (2.0 ** -400, 2.0 ** 400)}
+
+
+def _first_nonzero(X):
+    """Each row's first non-zero column (C where it has none)."""
+    C = X.shape[1]
+    nz = X != 0
+    idx = torch.arange(C, device=X.device).expand_as(X)
+    return torch.where(nz, idx, C).amin(dim=1) if C else torch.zeros(X.shape[0], dtype=torch.long)
+
+
+def _factor_panel(R, X, pc, lo_hi):
+    """One panel of the sweep in the kernel's order: a reflection a column
+    k of pc of [R[k, k]; X[:, k]] (unscaled where its largest entry lies in
+    ``lo_hi``, else scaled by it; none where the kernel's rule skips it),
+    its update of the panel's later columns; R's panel block and X's panel
+    columns in place. Returns (Y [n, len(pc)], T upper triangular)."""
+    fi = torch.finfo(X.dtype)
+    nb = len(pc)
+    Y = torch.zeros((X.shape[0], nb), dtype=X.dtype)
+    T = torch.zeros((nb, nb), dtype=X.dtype)
+    for j, k in enumerate(pc):
+        x, a0 = X[:, k].clone(), R[k, k].clone()
+        mx = x.abs().max() if len(x) else torch.zeros((), dtype=X.dtype)
+        bad = bool(torch.isnan(x).any())
+        if not bad and (mx < fi.tiny or mx <= fi.eps * a0.abs()):
+            continue  # τ = 0: Y's column and T's column stay zero
+        s = torch.maximum(mx, a0.abs())
+        f = 1.0 if lo_hi[0] <= s <= lo_hi[1] else 1.0 / s
+        xs = x * f
+        ss = xs @ x if f == 1.0 else f * (xs @ x)
+        ah = a0 * f
+        bh = -torch.copysign(torch.sqrt(ah * ah + ss), ah)
+        coef = 1.0 / (ah - bh)
+        tau = (bh - ah) * (1.0 / bh)
+        later = pc[j + 1:]
+        if later:
+            tw = tau * (R[k, later] + coef * (xs @ X[:, later]))
+            R[k, later] -= tw
+        v = x * (f * coef)
+        if later:
+            X[:, later] -= v[:, None] * tw[None, :]
+        R[k, k] = bh if f == 1.0 else bh * s
+        g = Y[:, :j].T @ v
+        T[:j, j] = -tau * (T[:j, :j] @ g)
+        T[j, j] = tau
+        Y[:, j] = v
+    return Y, T
+
+
+def _sweep(R, rmask, X, lo_hi, nb):
+    """Absorb the tile X (its rows) into R: the columns from X's first
+    non-zero one where X or R is non-zero, ``nb`` at a time (a panel, then
+    its compact WY update W = R_p + Yᵀ X, W' = Tᵀ W, R_p -= W', X -= Y W'
+    of the later ones); rmask |= X's columns, in place."""
+    C = R.shape[0]
+    tmask = (X != 0).any(dim=0)
+    kmin = int(_first_nonzero(X).min()) if len(X) else C
+    cols = [c for c in range(kmin, C) if bool(rmask[c] | tmask[c])]
+    for p0 in range(0, len(cols), nb):
+        pc, tc = cols[p0:p0 + nb], cols[p0 + nb:]
+        Y, T = _factor_panel(R, X, pc, lo_hi)
+        if tc:
+            W = R[pc][:, tc] + Y.T @ X[:, tc]
+            W = T.T @ W
+            R[[[k] for k in pc], tc] -= W
+            X[:, tc] -= Y @ W
+    rmask |= tmask
+
+
+def _absorb_rows(R, rmask, rows, tile_rows, lo_hi, nb):
+    """Absorb ``rows`` [k, C], tile_rows at a time, into R."""
+    for t0 in range(0, rows.shape[0], tile_rows):
+        _sweep(R, rmask, rows[t0:t0 + tile_rows].clone(), lo_hi, nb)
+
+
+def qr_blocked_plain(A, head=0, tile_rows=None, leaf_rows=LEAF_ROWS, nb=PANEL):
+    """``marg_qr_kernel``'s arithmetic in its order, in torch ops: leaf 0
+    the first ``head`` rows (LIST_ROWS at a time, the non-zero ones by
+    first non-zero column), leaves 1.. ``leaf_rows`` rows each (non-zero
+    rows in order), each absorbed ``tile_rows`` at a time (the kernel's
+    TILE_ROWS by default) in sweeps of ``nb``-column panels with their
+    compact WY updates; leaves 1.. merged up a binary tree (the right
+    child's non-zero rows into the left), its root last into leaf 0. R
+    [C, C]. Reads values back to choose its steps: a CPU tests' oracle of
+    the kernel's order, not a program's plain version (``qr_plain``)."""
+    M, C = A.shape
+    tile_rows = tile_rows or TILE_ROWS[A.dtype]
+    lo_hi = UNSCALED[A.dtype]
+
+    def leaf(rows, by_first):
+        R = torch.zeros((C, C), dtype=A.dtype)
+        rmask = torch.zeros(C, dtype=torch.bool)
+        for c0 in range(0, rows.shape[0], LIST_ROWS):
+            chunk = rows[c0:c0 + LIST_ROWS]
+            first = _first_nonzero(chunk)
+            keep = (first < C).nonzero()[:, 0]
+            if by_first:
+                keep = keep[torch.sort(first[keep], stable=True)[1]]
+            _absorb_rows(R, rmask, chunk[keep], tile_rows, lo_hi, nb)
+        return R, rmask
+
+    nodes = [leaf(A[:head], True)]
+    nodes += [leaf(A[r:r + leaf_rows], False) for r in range(head, M, leaf_rows)]
+
+    def merge(into, frm):
+        R, rmask = nodes[into]
+        Rf, fmask = nodes[frm]
+        _absorb_rows(R, rmask, Rf[fmask.nonzero()[:, 0]], tile_rows, lo_hi, nb)
+
+    nsub, step = len(nodes) - 1, 1
+    while step < nsub:
+        for parent in range(0, nsub, 2 * step):
+            if parent + step < nsub:
+                merge(1 + parent, 1 + parent + step)
+        step *= 2
+    if nsub:
+        merge(0, 1)
+    return nodes[0][0]
+
+
 # ------------------------------------------------------------ the kernels
 def _library():
     from ..frontend.klt_cuda import library
@@ -215,31 +346,38 @@ class MargDepthKernel:
         return out
 
 
-def leaves(M, head):
+def leaves(M, head, limits_fn=None):
     """(leaves, tree levels) of ``marg_qr`` on M rows whose first ``head``
     form leaf 0: 1 + ceil((M - head) / L) leaves, L the rows of a leaf
     (``limits``), the levels of the binary tree over all but leaf 0. Card
     only."""
-    L = limits(torch.float32)[3]
+    L = limits(torch.float32, limits_fn)[3]
     NL = 1 + -(-(M - head) // L)
     return NL, math.ceil(math.log2(NL - 1)) if NL > 2 else 0
 
 
 _limits = {}
+_LIMITS_ARGTYPES = [_I, _P, _P, _P, _P]
 
 
-def limits(dtype):
+def limits(dtype, fn=None):
     """(the widest stack, words of a column mask, rows of a tile, rows of a
     leaf after the head) of ``marg_qr_kernel`` in ``dtype``. Card only (read
-    from the library)."""
-    if dtype not in _limits:
+    from the library, or through ``fn``, another build's
+    ``marg_qr_limits``)."""
+    if fn is not None or dtype not in _limits:
         vals = [ctypes.c_int() for _ in range(4)]
-        _fn("marg_qr_limits", [_I, _P, _P, _P, _P])(_DTYPES[dtype], *[ctypes.byref(v) for v in vals])
+        (fn or _fn("marg_qr_limits", _LIMITS_ARGTYPES))(_DTYPES[dtype],
+                                                        *[ctypes.byref(v) for v in vals])
+        if fn is not None:
+            return tuple(v.value for v in vals)
         _limits[dtype] = tuple(v.value for v in vals)
     return _limits[dtype]
 
 
-def _qr_launch(empty, A, head):
+def _qr_launch(empty, A, head, fn=None, limits_fn=None):
+    """One call of ``marg_qr_launch`` (this library's, or ``fn`` with
+    ``limits_fn``, another build's) on A; R [C, C]."""
     name = "marg_qr"
     if A.dtype not in _DTYPES:
         raise ValueError(f"{name}: takes float32 or float64, got {A.dtype}")
@@ -249,16 +387,18 @@ def _qr_launch(empty, A, head):
     M, C = A.shape
     if not 0 <= head <= M:
         raise ValueError(f"{name}: head {head} does not fit {M} rows")
-    max_cols, mask_words = limits(A.dtype)[:2]
+    max_cols, mask_words = limits(A.dtype, limits_fn)[:2]
     if C > max_cols:
         raise ValueError(f"{name}: takes at most {max_cols} columns, got {C}")
     dev = A.device
-    NL, levels = leaves(M, head)
+    NL, levels = leaves(M, head, limits_fn)
     R = torch.empty((NL, C, C), dtype=A.dtype, device=dev)
     mask = torch.empty((NL, mask_words), dtype=torch.int32, device=dev)
-    count = torch.zeros((levels * NL + 1,), dtype=torch.int32, device=dev)
+    # zeroed sync words: this source's 1 + 2 (2 NL - 1) (a ticket, each node's flag and
+    # progress); an earlier source's (turns.py) levels * NL + 1 merge counters
+    count = torch.zeros((max(4 * NL - 1, levels * NL + 1),), dtype=torch.int32, device=dev)
     with torch.profiler.record_function("marg_qr::marg_qr"), torch.cuda.device(dev):
-        err = _fn("marg_qr_launch", _QR_ARGTYPES)(
+        err = (fn or _fn("marg_qr_launch", _QR_ARGTYPES))(
             A.data_ptr(), M, C, head, NL, _DTYPES[A.dtype], int(empty),
             R.data_ptr(), mask.data_ptr(), count.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
@@ -268,16 +408,18 @@ def _qr_launch(empty, A, head):
 
 class MargQrKernel:
     """``marg_qr``: one launch of ``marg_qr_kernel``, a block a leaf (the
-    first ``head`` rows, then a fixed number each: ``limits``), the leaves'
-    triangles merged in the same launch."""
+    first ``head`` rows, then a fixed number each: ``limits``) and a block a
+    merge of the leaves' triangles, each merge pipelined behind the two it
+    reads."""
 
     def __init__(self):
         self.launches = 0
+        self._fn = self._limits_fn = None  # another build's launch and limits
 
     def __call__(self, A, head=0):
         if not A.is_cuda:
             return qr_plain(A)
-        R = _qr_launch(False, A, head)
+        R = _qr_launch(False, A, head, self._fn, self._limits_fn)
         self.launches += 1
         return R
 

@@ -1445,7 +1445,11 @@ def test_marg_kernels_match_plain(dev, dtype, n_cams, n_slots):
     args = _marg_window(dev, dtype, n_slots, n_cams)
     name = str(dtype).split(".")[-1]
     bound = chip_smoke.MARG_BOUNDS[name]
-    for case in ((args, "old"), ((args[0], args[5]), "new")):
+    cases = [(args, "old"), ((args[0], args[5]), "new")]
+    if n_cams == 1:  # and marg_qr's panels: C = 173, 323 (no multiple of 16), 384 (the widest),
+        # whole panels whose reflections all skip, an empty column in mid-panel
+        cases += [(chip_smoke.marg_panel_stack(dev, dtype, C), "stack") for C in (173, 323, 384)]
+    for case in cases:
         depth_args, A, head, m = chip_smoke.marg_stage_inputs(*case)
         errs, _, _, identical = chip_smoke.marg_compare(depth_args, A, head, m)
         assert identical and all(v <= chip_smoke.marg_bound(n, name) for n, v in errs.items()), errs
@@ -1456,8 +1460,9 @@ def test_marg_kernels_match_plain(dev, dtype, n_cams, n_slots):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_marg_qr_without_information_in_some_columns(dev, dtype):
     """marg_qr of a stack with a dense head, empty columns, a kept column
-    the others span and all-zero rows, its 840 rows after the head spread
-    by blocks of zero rows over 2, 3 and 9 leaves (``marg_cuda.leaves``;
+    the others span and all-zero rows, its 840 rows after the head in
+    blocks of 840, 300 and 100 rows, each padded with zero rows to whole
+    leaves (``marg_cuda.leaves``: 4, 5 and 9 leaves of 256 rows;
     zero rows carry no information): RᵀR = AᵀA within the bound of its
     scale, the empty columns' rows of R zero, the lower triangle zero,
     repeats bit-identical, and the same information below the first 20
@@ -1477,10 +1482,12 @@ def test_marg_qr_without_information_in_some_columns(dev, dtype):
     leaf = mc.limits(dtype)[3]
     S = float((np.abs(A).T @ np.abs(A)).max())
     infos = []
-    for chunk, want_leaves in ((M - head, 2), (300, 3), (100, 9)):
-        parts = [A[:head]]
+    for chunk in (M - head, 300, 100):
+        parts, want_leaves = [A[:head]], 0
         for r in range(head, M, chunk):
-            parts += [A[r:r + chunk], np.zeros((max(leaf - chunk, 0), C))]
+            k = min(r + chunk, M) - r
+            parts += [A[r:r + k], np.zeros(((-k) % leaf, C))]
+            want_leaves += -(-k // leaf)
         At = torch.as_tensor(np.concatenate(parts), dtype=dtype, device=dev)
         assert mc.leaves(At.shape[0], head)[0] == 1 + want_leaves
         R = mc.marg_qr(At, head=head)

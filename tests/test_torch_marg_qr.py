@@ -57,7 +57,7 @@ def info(prior):
     return J.T @ J, J.T @ r, r @ r
 
 
-def info_close(a, b, tol, singular=False):
+def info_close(a, b, tol, singular=False, with_rr=True):
     """Each of the three within ``tol`` of its scale (at least 1). Where
     JᵀJ is singular (``singular``: no prior, so kept columns without any
     information) r0ᵀr0 is not a function of JᵀJ and Jᵀr: a QR that gives an
@@ -65,8 +65,9 @@ def info_close(a, b, tol, singular=False):
     the one it is compared with may not. There r0ᵀr0 of ``b`` (the port's
     two stages) must be the minimum-norm one, (Jᵀr)ᵀ (JᵀJ)⁺ (Jᵀr), as the
     eigh form's is: an empty column consumes no row; within 1e-8 at the
-    least, the rounding of the pseudo-inverse of that singular JᵀJ."""
-    pairs = [(x, y, tol) for x, y in zip(info(a), info(b))]
+    least, the rounding of the pseudo-inverse of that singular JᵀJ.
+    ``with_rr`` False leaves r0ᵀr0 out."""
+    pairs = [(x, y, tol) for x, y in zip(info(a), info(b))][:3 if with_rr else 2]
     if singular:
         H, g, rr = info(b)
         pairs[2] = (g @ np.linalg.pinv(H, rcond=1e-12, hermitian=True) @ g, rr, max(tol, 1e-8))
@@ -143,6 +144,17 @@ def windows():
     return {k: window(*v) for k, v in CASES.items()}
 
 
+@pytest.fixture(scope="module")
+def jax_priors(windows):
+    """JAX's marginalize_old_qr and marginalize_second_new_qr of each
+    window, recorded once (one jit of each function) for every test that
+    compares with them."""
+    old = jax.jit(jmarg.marginalize_old_qr, static_argnums=7)
+    new = jax.jit(jmarg.marginalize_second_new_qr, static_argnums=2)
+    return {k: {"old": old(*w["j"], w["jcfg"]), "new": new(w["j"][0], w["j"][5], w["jcfg"])}
+            for k, w in windows.items()}
+
+
 # -------------------------------------------- the earlier dense form (oracle)
 def dense_old_qr(*args):
     """The port's MARGIN_OLD before the two stages: one QR
@@ -171,14 +183,14 @@ def dense_second_new_qr(state, prior, cfg):
 
 # ------------------------------------------------------------ against JAX
 @pytest.mark.parametrize("case", list(CASES))
-def test_marginalize_old_qr_matches_jax(windows, case):
+def test_marginalize_old_qr_matches_jax(windows, jax_priors, case):
     """MARGIN_OLD mono and two-camera, with an informative prior and with
     none (the first marginalization, pose0's gauge directions untied):
     JᵀJ, Jᵀr and rᵀr within 1e-8 of JAX's marginalize_old_qr (without a
     prior, rᵀr the minimum-norm one: ``info_close``); the x0 snapshots
     identical."""
     w = windows[case]
-    jp = jax.jit(jmarg.marginalize_old_qr, static_argnums=7)(*w["j"], w["jcfg"])
+    jp = jax_priors[case]["old"]
     tp = tmarg.marginalize_old_qr(*w["t"], w["tcfg"])
     assert bool(jp.valid) and bool(tp.valid)
     info_close(jp, tp, 1e-8, singular="no_prior" in case)
@@ -188,14 +200,13 @@ def test_marginalize_old_qr_matches_jax(windows, case):
 
 
 @pytest.mark.parametrize("case", [k for k in CASES if k.endswith("_prior") and "no_" not in k])
-def test_marginalize_second_new_qr_matches_jax(windows, case):
+def test_marginalize_second_new_qr_matches_jax(windows, jax_priors, case):
     """SECOND_NEW of the informative prior at the moved state (a non-zero
     prior residual), mono and two-camera: within 1e-8 of JAX's
     marginalize_second_new_qr."""
     w = windows[case]
-    jst, jprior = w["j"][0], w["j"][5]
     tst, tprior = w["t"][0], w["t"][5]
-    jp = jax.jit(jmarg.marginalize_second_new_qr, static_argnums=2)(jst, jprior, w["jcfg"])
+    jp = jax_priors[case]["new"]
     tp = tmarg.marginalize_second_new_qr(tst, tprior, w["tcfg"])
     assert bool(jp.valid) and bool(tp.valid)
     info_close(jp, tp, 1e-8)
@@ -204,12 +215,11 @@ def test_marginalize_second_new_qr_matches_jax(windows, case):
                                    rtol=0, atol=1e-12)
 
 
-def test_marginalize_second_new_qr_of_an_empty_prior(windows):
+def test_marginalize_second_new_qr_of_an_empty_prior(windows, jax_priors):
     """An invalid (empty) prior stays invalid and zero through SECOND_NEW,
     as in JAX's form."""
     w = windows["mono_no_prior"]
-    jp = jax.jit(jmarg.marginalize_second_new_qr, static_argnums=2)(w["j"][0], w["j"][5],
-                                                                     w["jcfg"])
+    jp = jax_priors["mono_no_prior"]["new"]
     tp = tmarg.marginalize_second_new_qr(w["t"][0], w["t"][5], w["tcfg"])
     assert not bool(jp.valid) and not bool(tp.valid)
     assert float(tp.J.abs().max()) == 0.0 and float(tp.r0.abs().max()) == 0.0
@@ -387,3 +397,167 @@ def test_marg_check_rejects_planted_faults(windows, case, dtype):
         for kernel, f in faults.items():
             assert set(f) == set(chip_smoke.MARG_FAULTS[kernel])
             assert all(v > bound for v in f.values()), (kernel, f)
+
+
+# ------------------------------------- the kernel's blocked order (plain form)
+# marg_cuda.qr_blocked_plain: marg_qr_kernel's leaves (the head by first
+# non-zero column), tiles, 16-column panels with their compact WY updates,
+# skipped reflections (τ = 0, T's column zero) and tree merges, in torch ops.
+# TILES: the kernel's tile and leaf rows, and small ones that make the
+# windows' stacks many tiles, leaves and merges.
+TILES = {"kernel_tiles": {}, "small_tiles": dict(tile_rows=16, leaf_rows=96)}
+
+
+def _blocked(**kw):
+    return lambda A, head=0: mc.qr_blocked_plain(A, head, **kw)
+
+
+def _rtr_and_kept(A, R, Rref, m, tol, singular=False):
+    """RᵀR within ``tol`` of AᵀA's scale, R upper triangular, and the
+    information of the rows below the first m (the prior's) within ``tol``
+    of Rref's. Where the kept information is singular (``singular``) the
+    residual's entry of it is left out: a kept column without information
+    has a rounding-level pivot, which each order of the arithmetic draws
+    otherwise, and a row taken by it splits the residual's rest with the
+    last row (as the card tests leave it out)."""
+    scale = float((A.abs().T @ A.abs()).max())
+    assert float((R.T @ R - A.T @ A).abs().max()) <= tol * scale
+    assert float(torch.tril(R, -1).abs().max()) == 0.0
+    kept = lambda M: M[m:-1, m:].T @ M[m:-1, m:]
+    d = kept(R) - kept(Rref)
+    if singular:
+        d[-1, -1] = 0.0
+    assert float(d.abs().max()) <= tol * float(kept(Rref).abs().max())
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_blocked_order_matches_jax(windows, jax_priors, monkeypatch, case):
+    """MARGIN_OLD with its R factor in the kernel's blocked order: JᵀJ and
+    Jᵀr within 1e-8 of JAX's marginalize_old_qr, and rᵀr too where there is
+    a prior (without one, JᵀJ is singular and rᵀr is not a function of JᵀJ
+    and Jᵀr: ``_rtr_and_kept``)."""
+    w = windows[case]
+    monkeypatch.setattr(tmarg, "marg_qr", _blocked())
+    tp = tmarg.marginalize_old_qr(*w["t"], w["tcfg"])
+    assert bool(tp.valid)
+    info_close(jax_priors[case]["old"], tp, 1e-8, with_rr="no_prior" not in case)
+
+
+@pytest.mark.parametrize("case", [k for k in CASES if k.endswith("_prior") and "no_" not in k])
+def test_blocked_order_second_new_matches_jax(windows, jax_priors, monkeypatch, case):
+    """SECOND_NEW (a stack that is all head: leaf 0 alone, sorted by first
+    column) in the kernel's blocked order: within 1e-8 of JAX's."""
+    w = windows[case]
+    monkeypatch.setattr(tmarg, "marg_qr", _blocked())
+    tp = tmarg.marginalize_second_new_qr(w["t"][0], w["t"][5], w["tcfg"])
+    assert bool(tp.valid)
+    info_close(jax_priors[case]["new"], tp, 1e-8)
+
+
+@pytest.mark.parametrize("tiles", list(TILES))
+@pytest.mark.parametrize("case", list(CASES))
+def test_blocked_order_matches_plain(windows, case, tiles):
+    """The blocked order on MARGIN_OLD's stack and (with a prior) SECOND_NEW's
+    against qr_plain's one reflection a column: RᵀR = AᵀA and the kept
+    information within 1e-12 (f64; without a prior, its residual entry
+    aside: ``_rtr_and_kept``)."""
+    w = windows[case]
+    stacks = [(tmarg.old_stack(*w["t"], w["tcfg"]), None, 15)]
+    if "no_" not in case:
+        stacks.append((tmarg.second_new_stack(w["t"][0], w["t"][5]), "all", 6))
+    for A, head, m in stacks:
+        head = A.shape[0] if head == "all" else tmarg.pose_dim(NFRAMES, 1 + ("two" in case)) + 15
+        R = mc.qr_blocked_plain(A, head, **TILES[tiles])
+        _rtr_and_kept(A, R, mc.qr_plain(A), m, 1e-12, singular="no_prior" in case)
+
+
+@pytest.mark.parametrize("tiles", list(TILES))
+def test_blocked_order_skips_empty_columns(tiles):
+    """test_qr_skips_empty_columns_without_losing_rows in the blocked order
+    (the two empty columns in mid-panel): their rows of R zero, RᵀR = AᵀA,
+    and the information below them the dense form's with unit rows."""
+    rng = np.random.default_rng(3)
+    A = rng.standard_normal((40, 8))
+    A[:, [1, 5]] = 0.0
+    A = torch.as_tensor(A)
+    R = mc.qr_blocked_plain(A, 7, **TILES[tiles])
+    assert float((R.T @ R - A.T @ A).abs().max()) <= 1e-13 * float((A.T @ A).abs().max())
+    assert float(R[1].abs().max()) == 0.0 and float(R[5].abs().max()) == 0.0
+    assert float(torch.tril(R, -1).abs().max()) == 0.0
+    for m in (2, 6):
+        ref = torch.linalg.qr(tmarg._with_unit_rows(A, m), mode="r")[1][m:, m:]
+        got = R[m:, m:]
+        assert float((got.T @ got - ref.T @ ref).abs().max()) <= 1e-12 * float((A.T @ A).abs().max())
+
+
+@pytest.mark.parametrize("C", [173, 323, 384])
+def test_blocked_order_whole_panels_that_skip(C):
+    """A stack whose head is block-diagonal over columns [16, 48) (two whole
+    panels where every reflection of the later tiles skips: their rows are
+    zero there, and so are R's rows above), an empty column in mid-panel
+    and C not a multiple of 16 (173, 323) or the widest (384): RᵀR = AᵀA,
+    the empty column's row zero, the information below 15 dropped columns
+    qr_plain's, within 1e-12 (f64); the same in f32 within 2e-5 of the
+    f64 answer's scale (RᵀR)."""
+    rng = np.random.default_rng(C)
+    head, M = 60, 1400
+    A = rng.standard_normal((M, C)) * np.exp(rng.uniform(-1, 1, (M, 1)))
+    A[rng.random(M) < 0.3] = 0.0
+    A[:, 16:48] = 0.0
+    A[:20, :] = 0.0
+    A[:20, 16:48] = rng.standard_normal((20, 32)) + 4 * np.eye(20, 32)
+    A[:, 100] = 0.0
+    A = torch.as_tensor(A)
+    R = mc.qr_blocked_plain(A, head)
+    assert float(R[100].abs().max()) == 0.0
+    _rtr_and_kept(A, R, mc.qr_plain(A), 15, 1e-12)
+    R32 = mc.qr_blocked_plain(A.float(), head).double()
+    assert chip_smoke.rtr_error(A, R32) <= chip_smoke.MARG_BOUNDS["float32"]
+
+
+@pytest.mark.parametrize("case", ["mono_prior", "two_cameras_no_prior"])
+def test_blocked_order_zero_padded_slots_and_shuffled_rows(windows, monkeypatch, case):
+    """In the blocked order: eight unused slots more leave the prior
+    unchanged within 1e-12; MARGIN_OLD's stack with its rows after the head
+    shuffled (other leaves, tiles and merges) has the same RᵀR and kept
+    information within 1e-12."""
+    w = windows[case]
+    monkeypatch.setattr(tmarg, "marg_qr", _blocked())
+    st, grid, *rest = w["t"]
+    pst, pgrid = _padded(st, grid, 8)
+    info_close(tmarg.marginalize_old_qr(st, grid, *rest, w["tcfg"]),
+               tmarg.marginalize_old_qr(pst, pgrid, *rest, w["tcfg"]), 1e-12)
+    A = tmarg.old_stack(*w["t"], w["tcfg"])
+    head = tmarg.pose_dim(NFRAMES, 1 + ("two" in case)) + 15
+    perm = torch.randperm(A.shape[0] - head, generator=torch.Generator().manual_seed(0))
+    As = torch.cat([A[:head], A[head:][perm]])
+    _rtr_and_kept(A, mc.qr_blocked_plain(As, head, **TILES["small_tiles"]),
+                  mc.qr_blocked_plain(A, head), 15, 1e-12, singular="no_prior" in case)
+
+
+@pytest.mark.parametrize("kind", ["old", "second_new"])
+def test_blocked_order_matches_the_dense_form_on_empty_columns(empty_cols, monkeypatch, kind):
+    """Where the dense form needs its unit rows, the blocked order gives
+    the same prior within 1e-10."""
+    args = empty_cols[kind]
+    monkeypatch.setattr(tmarg, "marg_qr", _blocked(**TILES["small_tiles"]))
+    if kind == "old":
+        ref, got = dense_old_qr(*args), tmarg.marginalize_old_qr(*args)
+    else:
+        ref, got = dense_second_new_qr(*args), tmarg.marginalize_second_new_qr(*args)
+    assert bool(ref.valid) and bool(got.valid)
+    info_close(ref, got, 1e-10)
+
+
+def test_marg_stamps_finds_its_anchors_in_this_source():
+    """marg_stamps.py stamps this tree's csrc/marg_qr.cu (the panel design):
+    every stamp's anchor is found once, and the stamped source reads the
+    clock and exports its counters."""
+    import pathlib
+
+    import marg_stamps
+
+    src = pathlib.Path(mc.__file__).parent.parent / "csrc" / "marg_qr.cu"
+    text, phases, per = marg_stamps.stamped(src.read_text())
+    assert per == "panel" and len(phases) == 7
+    assert text.count("stamp_after(") >= 5 and 'extern "C" int marg_stamps_read' in text

@@ -9,6 +9,7 @@ replay by up to 2.9 ms, so two versions are compared only inside one).
     python3 turns.py rows EARLIER_PROJ_FACTOR_CU
     python3 turns.py eig EARLIER_SYM_EIG_CU
     python3 turns.py relo EARLIER_PROJ_FACTOR_CU
+    python3 turns.py marg EARLIER_MARG_QR_CU
 
 ``tree``: OTHER_TREE is another checkout (for example ``git archive
 <commit>`` unpacked under ``_archive/``, which ``.gitignore`` lists). In the
@@ -78,6 +79,18 @@ camera or two with the extrinsics estimated), then times ``relo_normal``
 and ``relo_cost`` behind a full queue in turns earlier, this, this,
 earlier at each f32 input, beside each source's latency floor of the
 launch (its empty kernel with the launch's grid, block and shared memory).
+
+``marg``: an earlier ``csrc/marg_qr.cu`` (one with the same
+``marg_qr_launch`` and ``marg_qr_limits``) behind ``marg_cuda``'s wrapper
+class against this tree's ``marg_qr``: on ``chip_smoke.marg_stacks``' f32
+stacks ((a) and (b)'s MARGIN_OLD, (b)'s SECOND_NEW) both are held against
+the plain version (RᵀR against AᵀA within ``chip_smoke.MARG_BOUNDS``, the
+structure, the kept information against the plain version in f64 within
+``chip_smoke.MARG_KEPT_BOUNDS``, a repeat bit-identical), then timed behind
+a full queue in turns earlier, this, this, earlier, each beside its own
+latency floor (its empty kernel with the launch's grid, block and shared
+memory), the bound (``chip_smoke.marg_bound_ms``) and ``torch.linalg.qr``
+of the same stack.
 """
 
 from __future__ import annotations
@@ -548,13 +561,80 @@ def relo_main(argv):
     return 0
 
 
+def bind_marg_qr(so):
+    """A built ``csrc/marg_qr.cu``'s ``marg_qr_launch`` and
+    ``marg_qr_limits`` behind ``marg_cuda``'s wrapper class."""
+    from lfvio_tpu_torch.backend import marg_cuda as mc
+
+    kernel = mc.MargQrKernel()
+    kernel._fn, kernel._limits_fn = so.marg_qr_launch, so.marg_qr_limits
+    kernel._fn.argtypes, kernel._fn.restype = mc._QR_ARGTYPES, ctypes.c_int
+    kernel._limits_fn.argtypes, kernel._limits_fn.restype = mc._LIMITS_ARGTYPES, ctypes.c_int
+    return kernel
+
+
+def marg_main(argv):
+    """``marg EARLIER_MARG_QR_CU``: the earlier source's marg_qr against
+    this tree's in turns."""
+    import torch
+
+    import chip_smoke
+    from lfvio_tpu_torch.backend import marg_cuda as mc
+
+    dev = card_or_usage("marg", argv, "EARLIER_MARG_QR_CU")
+    if dev is None:
+        return 2
+    smi = chip_smoke.smi_line()
+    print(smi, flush=True)
+    earlier = bind_marg_qr(build_earlier_lib(Path(argv[0]), "marg_qr"))
+    sources = {"earlier": earlier, "this": mc.marg_qr}
+    stacks = chip_smoke.marg_stacks(dev)
+    for label, (A, head, m) in stacks.items():
+        exact = mc.qr_plain(A.double())
+        for who, kernel in sources.items():
+            R, again = kernel(A, head=head), kernel(A, head=head)
+            errs = {chip_smoke.MARG_RTR: chip_smoke.rtr_error(A, R),
+                    chip_smoke.MARG_STRUCTURE: chip_smoke.qr_structure(R),
+                    chip_smoke.MARG_KEPT: chip_smoke.kept_error(A, R, exact, m)}
+            identical = torch.equal(R, again)
+            print(f"{label} {tuple(A.shape)}: {who} " + ", ".join(
+                f"{n} {v:.2e}" for n, v in errs.items()) + f"; repeat bit-identical {identical}",
+                flush=True)
+            if not (identical and all(v <= chip_smoke.marg_bound(n, "float32")
+                                      for n, v in errs.items())):
+                raise AssertionError(f"{label}: {who} is not within the [14m] bounds, or a "
+                                     "repeat differs")
+    block = chip_smoke.make_blocker(dev)
+    out = {}
+    for label, (A, head, _) in stacks.items():
+        calls = {who: lambda k=k: k(A, head=head) for who, k in sources.items()}
+        out[label] = in_turns(label, "marg_qr", calls, block)
+        out[label]["floor"] = floor_ms(label, "marg_qr",
+                                       lambda: mc.latency_floor("marg_qr", A, head=head), block)
+        empty = lambda: mc._qr_launch(True, A, head, earlier._fn, earlier._limits_fn)
+        fl = dict(queued=chip_smoke.cuda_ms(empty, reps=10, blocker=block),
+                  alone=chip_smoke.cuda_ms(empty))
+        print(f"({label}) marg_qr, latency floor of the earlier source's launch: "
+              f"{fl['queued']:.4f} ms behind a full queue, {fl['alone']:.4f} ms alone", flush=True)
+        out[label]["earlier_floor"] = fl
+        bound, by, nbytes, flops = chip_smoke.marg_bound_ms(None, A, "marg_qr")
+        lib = chip_smoke.cuda_ms(lambda: torch.linalg.qr(A, mode="r"), n=5, blocker=block)
+        print(f"({label}) bound {bound:.6f} ms by {by} ({nbytes} B, {flops / 1e6:.3f} MFLOP); "
+              f"torch.linalg.qr of the same stack {lib:.4f} ms", flush=True)
+        out[label].update(bound_ms=bound, bound_by=by, library_ms=lib,
+                          shape=list(A.shape), head=head)
+    print(json.dumps({"card": smi, "times_ms": out}))
+    return 0
+
+
 def main(argv):
     modes = {"tree": tree_main, "proj": proj_main, "imu": imu_main, "rows": rows_main,
-             "eig": eig_main, "relo": relo_main}
+             "eig": eig_main, "relo": relo_main, "marg": marg_main}
     if not argv or argv[0] not in modes:
         print(f"usage: {sys.argv[0]} tree OTHER_TREE | proj EARLIER_PROJ_FACTOR_CU | "
               "imu EARLIER_IMU_FACTOR_CU | rows EARLIER_PROJ_FACTOR_CU | "
-              "eig EARLIER_SYM_EIG_CU | relo EARLIER_PROJ_FACTOR_CU", file=sys.stderr)
+              "eig EARLIER_SYM_EIG_CU | relo EARLIER_PROJ_FACTOR_CU | marg EARLIER_MARG_QR_CU",
+              file=sys.stderr)
         return 2
     return modes[argv[0]](argv[1:])
 
