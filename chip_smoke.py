@@ -117,7 +117,8 @@ lines; any failure ends the run with a non-zero exit code:
      device time split by solver function; a normal-equation launch a
      linearization and a cost launch a cost of the projection kernels and
      of the IMU kernels and no rows launch a solve replay, one rows launch
-     of each a MARGIN_OLD);
+     of each a MARGIN_OLD; the launches and card time of csrc/graph_cond.cu's
+     set_condition_kernel in one solve replay, and in 6r's relo replay);
      the projection kernels (csrc/proj_factor.cu: rows, normal equations,
      cost) against their plain versions at (a)'s and (b)'s solve inputs
      (f32) and on a dual-camera window (f64), a bit-identical repeat, each
@@ -1371,6 +1372,7 @@ def phase_relo_full_scale(rig, plain_calls):
     ms = {"relo": cuda_ms(lambda: prog(packed_r, prior), n=5, warmup=1),
           "solve": cuda_ms(lambda: solve(packed, prior, chain), n=5, warmup=1)}
     nodes = {"relo": graph_nodes(prog), "solve": graph_nodes(solve)}
+    log_condition_kernel("[6r]", "relo solve", lambda: prog(packed_r, prior))
     log(f"[6r] the first relo solve: {first['wall_ms']:.1f} ms of wall time around "
         f"its synchronized dispatch (pack, upload, a replay of the relo graph captured at the "
         f"first solve, the marginalization's replay, the fetch; bound {RELO_FIRST_WALL_MS} ms); "
@@ -3011,9 +3013,9 @@ LIBRARY_QR = ("geqr", "larf", "orgqr", "ormqr", "cusolver", "magma", "householde
 RANGES = ("solve::", "marg_old::", "marg_qr::", "proj_factor::", "imu_factor::", "relo_factor::")
 
 
-def graph_kernel_names(fn):
-    """{kernel name: launches} on the card while ``fn()`` runs once (a
-    replay's), from torch.profiler."""
+def graph_kernels(fn):
+    """{kernel name: (launches, µs on the card)} while ``fn()`` runs once
+    (a replay's, conditional bodies included), from torch.profiler."""
     import torch
     from torch.autograd import DeviceType
 
@@ -3021,11 +3023,29 @@ def graph_kernel_names(fn):
     with torch.profiler.profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
-    names = {}
+    out = {}
     for e in prof.events():
         if e.device_type != DeviceType.CPU and not e.name.startswith(RANGES):
-            names[e.name] = names.get(e.name, 0) + 1
-    return names
+            n, us = out.get(e.name, (0, 0.0))
+            out[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    return out
+
+
+# csrc/graph_cond.cu's one-thread kernel that sets an IF node's condition
+# from a device bool: launched once for each IF node a replay reaches.
+COND_KERNEL = "set_condition_kernel"
+
+
+def log_condition_kernel(tag, what, fn):
+    """Log the set_condition_kernel launches of one replay (``fn()``) and
+    their mean time on the card (torch.profiler) beside their bound, one
+    byte read at the card's memory rate."""
+    hits = [v for k, v in graph_kernels(fn).items() if COND_KERNEL in k]
+    n = sum(c for c, _ in hits)
+    mean = sum(us for _, us in hits) / max(n, 1)
+    log(f"{tag} {COND_KERNEL} (csrc/graph_cond.cu) in one {what} replay under torch.profiler: "
+        f"{n} launches, {mean:.3f} µs a launch on the card; bound {1e6 / PEAK_BYTES_S:.2e} µs "
+        f"(one byte read)")
 
 
 def program_census(est, label, trace=True):
@@ -3065,7 +3085,8 @@ def program_census(est, label, trace=True):
                   "solve_forced": launches_of(lambda: forced(packed, prior, chain))[0],
                   "marg_old": launches_of(lambda: marg_old(*marg_args))[0],
                   "marg_new": launches_of(lambda: marg_new(res["out"], prior))[0]}
-    qr_kernels = graph_kernel_names(lambda: marg_old(*marg_args))
+    qr_kernels = {n: c for n, (c, _) in graph_kernels(lambda: marg_old(*marg_args)).items()}
+    log_condition_kernel(f"[14] census {label}:", "solve", lambda: solve(packed, prior, chain))
     nodes = {k: graph_nodes(p) for k, p in
              (("solve", solve), ("marg_old", marg_old), ("marg_new", marg_new))}
     F, W1 = grid.valid.shape
@@ -4115,8 +4136,10 @@ def marg_cases(census, dev):
     """{label: (args, kind)}: MARGIN_OLD's arguments at (a) and (b) (the
     census' estimators' solve outputs, their priors) and SECOND_NEW's at
     (b) (the estimator's prior at the solve's state, the program's inputs),
-    in f32, and the f64 upcast of each; and ``marg_panel_stack``'s stacks
-    (kind "stack") at C = 173, 323 and 384 in f32 and f64."""
+    in f32, and the f64 upcast of each; ``marg_window``'s two-camera window
+    (64 slots, the extrinsics and td estimated) in f32 and f64; and
+    ``marg_panel_stack``'s stacks (kind "stack") at C = 173, 323 and 384 in
+    f32 and f64."""
     import torch
 
     a, b = census["a"]["marg_args"], census["b"]["marg_args"]
@@ -4127,6 +4150,9 @@ def marg_cases(census, dev):
              "(a) MARGIN_OLD, f64": (to_f64(a), "old"),
              "(b) MARGIN_OLD, f64": (to_f64(b), "old"),
              "(b) SECOND_NEW, f64": (to_f64(sn), "new")}
+    for dtype in (torch.float32, torch.float64):
+        cases[f"two cameras, extrinsics and td estimated, 64 slots, f{str(dtype)[-2:]}"] = (
+            marg_window(dev, dtype, 64, 2), "old")
     for dtype in (torch.float32, torch.float64):
         for C in (173, 323, 384):
             cases[f"panel stack, C = {C}, whole panels skipping, an empty column, "
@@ -4153,6 +4179,18 @@ def marg_stacks(dev):
     cases = {"(a) MARGIN_OLD": (a, "old"), "(b) MARGIN_OLD": (b, "old"),
              "(b) SECOND_NEW": ((b[0], b[5]), "new")}
     return {label: marg_stage_inputs(args, kind)[1:] for label, (args, kind) in cases.items()}
+
+
+def depth_inputs(dev):
+    """{label: (marg_depth's arguments, the MARGIN_OLD stack's view after
+    its head, as ``depth_out`` makes it)} at (a) and (b)'s MARGIN_OLD, f32
+    (``warm_estimator`` in bench.py's default and high-rate
+    configurations, ``marg_inputs``)."""
+    out = {}
+    for label, knobs in (("(a) MARGIN_OLD", {}), ("(b) MARGIN_OLD", BENCH_HIGH_RATE)):
+        depth_args, A, head, _ = marg_stage_inputs(marg_inputs(warm_estimator(dev, knobs)), "old")
+        out[label] = (depth_args, depth_out(depth_args, head * A.shape[1])[0])
+    return out
 
 
 def to_f64(x):
@@ -4203,6 +4241,90 @@ def depth_error(depth_args, out, ref):
     d = (out.reshape(F, R2, C) - ref.reshape(F, R2, C)).abs()
     return float(torch.where(scale > 0, d / torch.where(scale > 0, scale, 1.0),
                              torch.where(d > 0, np.inf, 0.0)).max())
+
+
+def marg_window(dev, dtype, n_slots=256, n_cams=1, seed=0):
+    """make_window_problem's window on ``dev`` (tracks of 5 frames, anchors
+    spread, td and the extrinsics estimated; with ``n_cams`` = 2 a second
+    extrinsic, a random camera an observation and an informative prior
+    over the wider layout) as MARGIN_OLD's arguments."""
+    import dataclasses
+
+    import torch
+    from lfvio_tpu_torch.imu import preintegrate, whiten_covariance
+    from lfvio_tpu_torch.runtime.profiling import make_window_problem
+
+    pb = make_window_problem(n_slots, dtype, n_obs_frames=5, seed=seed, device=dev)
+    st, grid, cfg, prior = pb["state"], pb["grid"], pb["cfg"], pb["prior"]
+    if n_cams == 2:
+        dual = dual_camera_inputs(dev)[0]
+        st = st.replace(tic=dual.tic.to(dtype), qic=dual.qic.to(dtype))
+        g = torch.Generator(device="cpu").manual_seed(seed)
+        grid = grid.replace(cam=torch.randint(0, 2, grid.valid.shape, generator=g).to(dev))
+        cfg = dataclasses.replace(cfg, n_cams=2)
+        D = prior.J.shape[0] + 6
+        R = torch.triu(0.5 * torch.randn(D, D, generator=g, dtype=torch.float64)) + 2 * torch.eye(D)
+        prior = type(prior).from_state(R.to(dev, dtype), torch.zeros(D, dtype=dtype, device=dev),
+                                       st, torch.ones((), dtype=torch.bool, device=dev))
+    imu = [torch.as_tensor(pb[k], dtype=dtype, device=dev)
+           for k in ("dts", "accs", "gyrs", "a0", "g0")]
+    pre = preintegrate(*imu, st.ba[:-1], st.bg[:-1], pb["noise"])
+    si, ok = whiten_covariance(pre.covariance, torch.as_tensor(pb["imu_valid"], device=dev))
+    return (st, grid, pre, si, ok, prior, pb["gravity"], cfg)
+
+
+def depth_out(depth_args, offset):
+    """(a contiguous view of marg_depth's output shape starting ``offset``
+    entries into a fresh buffer, the buffer): NaN everywhere, so that an
+    entry left unwritten shows and one written outside the view is seen."""
+    import torch
+    from lfvio_tpu_torch.backend.state import pose_dim
+
+    res, grid, nc = depth_args[0], depth_args[3], depth_args[5]
+    F, W1 = grid.valid.shape
+    n, C = F * 2 * (W1 - 1), pose_dim(W1, nc) + 1
+    buf = torch.full((offset + n * C + 8,), float("nan"), dtype=res.dtype, device=res.device)
+    return buf[offset:offset + n * C].view(n, C), buf
+
+
+def depth_view_check(depth_args, offset):
+    """marg_depth written into ``depth_out``'s view at ``offset``: (its
+    rows against depth_plain's over each slot's scale, whether it wrote
+    nothing outside the view, a repeat bit-identical, the view's start past
+    a 16-byte boundary in bytes)."""
+    import torch
+    from lfvio_tpu_torch.backend import marg_cuda as mc
+
+    view, buf = depth_out(depth_args, offset)
+    mc.marg_depth(*depth_args, out=view)
+    first = view.clone()
+    mc.marg_depth(*depth_args, out=view)
+    outside = torch.cat([buf[:offset], buf[offset + view.numel():]])
+    return (depth_error(depth_args, view, mc.depth_plain(*depth_args)),
+            bool(torch.isnan(outside).all()), torch.equal(first, view), view.data_ptr() % 16)
+
+
+def depth_nonfinite_check(depth_args):
+    """marg_depth and depth_plain with a NaN planted in the depth column of
+    one reflected slot and an inf in another's (their reflections are not
+    finite: every entry of the rows after the pivot is NaN, the speed-bias
+    columns' too): (whether the kernel's NaNs are exactly depth_plain's,
+    how many there are, the other entries' error over each slot's scale)."""
+    import torch
+    from lfvio_tpu_torch.backend import marg_cuda as mc
+
+    res, J26, w, grid, cfg, nc = depth_args
+    x = J26[:, 1:, :, 24] * w[:, 1:, None]
+    f = (x.abs().amax(dim=(1, 2)) > 0).nonzero()[:, 0]
+    J = J26.clone()
+    J[f[0], 1, 0, 24] = float("nan")
+    J[f[-1], -1, 1, 24] = float("inf")
+    args = (res, J, w, grid, cfg, nc)
+    k, p = mc.marg_depth(*args), mc.depth_plain(*args)
+    nan_k, nan_p = torch.isnan(k), torch.isnan(p)
+    fin = ~nan_p
+    err = depth_error(args, torch.where(fin, k, 0.0), torch.where(fin, p, 0.0))
+    return bool(torch.equal(nan_k, nan_p)), int(nan_p.sum()), err
 
 
 def qr_structure(R):
@@ -4442,14 +4564,20 @@ def marg_bound_ms(depth_args, A, name):
 def phase_marg_qr(dev, census):
     """The marginalizations' QR kernels against their plain versions at
     ``marg_cases`` within MARG_BOUNDS, repeats bit-identical, the planted
-    faults of MARG_FAULTS rejected; each launch's time behind a full queue
+    faults of MARG_FAULTS rejected; marg_depth also into views that start
+    0 to 3 entries into a buffer and at the MARGIN_OLD stack's rows after
+    its head (``depth_view_check``: nothing written outside), and with a
+    NaN and an inf depth planted (``depth_nonfinite_check``); each launch's
+    time (marg_depth's into the stack's view, and into a tensor of its
+    own) behind a full queue
     and alone beside its latency floor (marg_cuda.latency_floor), its plain
     version's, its bound and (marg_qr) torch.linalg.qr's of the same stack
     and of the dense stack the port factored before; MARGIN_OLD's eager
     device time by part (``marg_split``), the two stages' and the dense
     form's, at (a) and (b). ``marg_panel_stack``'s cases are checked, not
     timed. Returns the kernels line's numbers (times at (b); errors the
-    worst of the main path's f32 cases: absolute, marg_depth's rows and
+    worst of the f32 cases but the panel stacks, the main path's and the
+    two-camera window's: absolute, marg_depth's rows and
     marg_qr's RᵀR against the plain version's, and relative, the checks'
     values)."""
     import torch
@@ -4482,6 +4610,25 @@ def phase_marg_qr(dev, census):
                 + ", ".join(f"{n} {v:.2e}" for n, v in faults.items()) + f" (must exceed {bound})")
             if not all(v > bound for v in faults.values()):
                 raise AssertionError(f"the {kernel} check does not see a planted fault at {label}")
+        if depth_args is not None:  # the rows written into a view, as MARGIN_OLD's graph does
+            views = {f"{o} entries in": o for o in range(4)}
+            views[f"the stack's view after its {head} head rows"] = head * A.shape[1]
+            for where, offset in views.items():
+                err, alone, same, past = depth_view_check(depth_args, offset)
+                log(f"[14m] marg_depth at {label} into a view {where} ({past} bytes past a "
+                    f"16-byte boundary): {err:.2e} of each slot's scale from depth_plain (bound "
+                    f"{bound}); nothing written outside it {alone}; repeat bit-identical {same}")
+                if not (err <= bound and alone and same):
+                    raise AssertionError(f"marg_depth into a view {where} at {label} disagrees "
+                                         "with depth_plain, writes outside it or differs on a "
+                                         "repeat")
+            same_nan, n_nan, err = depth_nonfinite_check(depth_args)
+            log(f"[14m] marg_depth at {label} with a NaN and an inf depth planted in two slots: "
+                f"its {n_nan} NaNs where depth_plain's are {same_nan}; the other entries "
+                f"{err:.2e} of each slot's scale (bound {bound})")
+            if not (same_nan and n_nan and err <= bound):
+                raise AssertionError(f"marg_depth does not carry a non-finite depth as "
+                                     f"depth_plain does at {label}")
         if dtype == "float32" and kind != "stack":  # the main path's inputs
             for k in MARG_KERNELS:
                 worst[k] = max(worst[k], absolute.get(k, 0.0))
@@ -4492,13 +4639,17 @@ def phase_marg_qr(dev, census):
     block = make_blocker(dev)
     out = {}
     for label, (depth_args, A, head, m, args, kind) in timed.items():
-        runs = {"marg_qr": (lambda: mc.marg_qr(A, head=head), lambda: mc.qr_plain(A),
-                            lambda: mc.latency_floor("marg_qr", A, head=head))}
-        if depth_args is not None:
-            runs["marg_depth"] = (lambda: mc.marg_depth(*depth_args),
-                                  lambda: mc.depth_plain(*depth_args),
-                                  lambda: mc.latency_floor("marg_depth", *depth_args))
-        for name, (kern, plain, empty) in runs.items():
+        # {(kernel, where it writes): (launch, plain version, empty launch)}
+        runs = {("marg_qr", ""): (lambda: mc.marg_qr(A, head=head), lambda: mc.qr_plain(A),
+                                  lambda: mc.latency_floor("marg_qr", A, head=head))}
+        if depth_args is not None:  # into the stack's view after the head, as MARGIN_OLD does
+            view = depth_out(depth_args, head * A.shape[1])[0]
+            for where, o in (("", view), (", a tensor of its own", None)):
+                runs[("marg_depth", where)] = (
+                    lambda o=o: mc.marg_depth(*depth_args, out=o),
+                    lambda: mc.depth_plain(*depth_args),
+                    lambda o=o: mc.latency_floor("marg_depth", *depth_args, out=o))
+        for (name, where), (kern, plain, empty) in runs.items():
             ms, alone = cuda_ms(kern, reps=10, blocker=block), cuda_ms(kern)
             floor, floor_alone = cuda_ms(empty, reps=10, blocker=block), cuda_ms(empty)
             plain_ms = cuda_ms(plain, n=3, reps=1, blocker=block)
@@ -4514,12 +4665,14 @@ def phase_marg_qr(dev, census):
                                        blocker=block)
                     lib += (f", of the dense stack {tuple(dense.shape)} the port factored "
                             f"before {dense_ms:.4f} ms")
-            log(f"[14m] {name} {label}: {ms:.4f} ms behind a full queue, {alone:.4f} ms "
+            log(f"[14m] {name}{where} {label}: {ms:.4f} ms behind a full queue, {alone:.4f} ms "
                 f"launched alone; latency floor (the empty kernel, same grid, block and shared "
                 f"memory) {floor:.4f} ms behind a full queue, {floor_alone:.4f} ms alone; plain "
                 f"version {plain_ms:.4f} ms; bound {bound:.6f} ms by {by} ({nbytes} B, "
                 f"{flops / 1e6:.3f} MFLOP); at {100 * bound / ms:.2f}% of it{lib}")
-            if label.startswith("(b) MARGIN_OLD"):
+            if label.startswith("(b) MARGIN_OLD") and where:
+                out[name].update(ms_fresh=ms, ms_fresh_launched_alone=alone)
+            elif label.startswith("(b) MARGIN_OLD"):
                 out[name] = dict(max_abs_err=worst[name], max_rel_err=worst_rel[name],
                                  rel_bound=MARG_BOUNDS["float32"],
                                  **({"kept_rel_err": worst_kept,

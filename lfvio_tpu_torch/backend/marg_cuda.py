@@ -11,7 +11,10 @@ Two wrappers, each with its own ``launches`` count (registered with
     by ``w``, reflected so that its inverse-depth column lies in its first
     row alone; that row is dropped (its slot zero). A feature whose depth
     column is all zero keeps all its rows unreflected. MARGIN_OLD's stage 1;
-    every used feature of ``grid`` must be anchored at frame 0.
+    every used feature of ``grid`` must be anchored at frame 0. ``out`` may
+    be any contiguous view (MARGIN_OLD passes its stack's rows after the
+    head, which need not start on a 16-byte boundary); on the card C is at
+    most ``marg_qr``'s widest stack.
   * ``marg_qr(A, head=0)`` -> R [C, C], the upper-triangular R factor of
     A [M, C]: RᵀR = AᵀA. Its first ``head`` rows (dense ones, such as a
     prior's) form a leaf of their own that the others' tree merges into
@@ -33,7 +36,9 @@ without its tiles and tree). Neither reads anything back, so both sit in
 the MARGIN_OLD and SECOND_NEW graphs. ``qr_blocked_plain`` is
 ``marg_qr_kernel``'s order in torch ops (its leaves, tiles, 16-column
 panels with their compact WY updates and tree), the CPU tests' oracle of
-that order; it reads values back.
+that order, and ``depth_order_plain`` ``marg_depth_kernel``'s (its column
+table ``depth_columns``, the sums of vᵀA over the rows that carry each
+column, the entries by kind); both read values back.
 
 They stand where the JAX package calls ``jnp.linalg.qr`` (XLA, no Pallas
 kernel) in ``lfvio_tpu/backend/marginalize.py:260`` (marginalize_old_qr) and
@@ -101,6 +106,119 @@ def depth_plain(res, J26, w, grid, cfg, n_cams):
     out = A - (tau[:, None] * v)[:, :, None] * u[:, None, :]
     out[:, 0] = torch.where(refl[:, None], 0.0, A[:, 0])
     return torch.where(refl[:, None, None], out, A).reshape(F * R2, C)
+
+
+# The lanes of marg_depth_kernel (csrc/marg_qr.cu) that sum a column over
+# all of a slot's rows.
+DEPTH_GROUP = 8
+
+
+def depth_columns(n_frames, n_cams, ex, td):
+    """marg_depth_kernel's column table (``depth_code``): for each of the C
+    stack columns its compact column q (a slot's compact rows hold pose0
+    [0, 6), the observing frame's pose [6, 12), the extrinsic blocks
+    camera-major [12, 12 + 6 n_cams), td, r), the rows that carry it (g: 0
+    none, an empty column; 1 all; 2 + p rows 2 p and 2 p + 1 alone) and the
+    first column at or after it that is not empty (zrun); three int64
+    arrays."""
+    W1, nc = n_frames, n_cams
+    W, e0 = W1 - 1, 15 * W1
+    tdc = e0 + 6 * nc
+    C = tdc + 2
+    q, g, zrun = np.zeros(C, np.int64), np.zeros(C, np.int64), np.arange(C)
+    q[:6], g[:6] = np.arange(6), 1
+    pose = np.arange(15, 15 + 6 * W)
+    q[pose], g[pose] = 6 + (pose - 15) % 6, 2 + (pose - 15) // 6
+    q[e0:tdc], g[e0:tdc] = 12 + np.arange(6 * nc), int(ex)
+    q[tdc], g[tdc] = 12 + 6 * nc, int(td)
+    q[C - 1], g[C - 1] = 13 + 6 * nc, 1
+    for col in np.nonzero(g == 0)[0]:
+        zrun[col] = (15 if col < 15 else e0 if ex and col < e0 else tdc if td and col < tdc
+                     else C - 1)
+    return q, g, zrun
+
+
+def depth_order_plain(res, J26, w, grid, cfg, n_cams):
+    """``marg_depth_kernel``'s arithmetic in its order, in torch ops: the
+    slot's compact rows (weighted; the row's camera's extrinsic block, then
+    the anchor's, added), the reflection of its depth column (its norm
+    unscaled where the largest entry lies in ``UNSCALED``, else scaled by
+    it), u = A[0] + scal Σ_{r >= 1} x_r A[r] a column over the rows that
+    carry it (``depth_columns``: a frame's pose over its two rows; pose0,
+    the extrinsics, td and r over all rows in DEPTH_GROUP interleaved
+    partial sums added as the kernel's butterfly adds them; an empty column
+    scal Σ x_r 0), then each entry A[r, col] - τ v_r u_col (the pivot row
+    zero; A where the depth column is all zero). [F * 2 W, C]. The CPU
+    tests' oracle of the kernel's order, not a program's plain version
+    (``depth_plain``)."""
+    F, W1 = grid.valid.shape
+    W, nc = W1 - 1, n_cams
+    R2 = 2 * W
+    ex, td = bool(cfg.estimate_extrinsic), bool(cfg.estimate_td)
+    q, g, _ = depth_columns(W1, nc, ex, td)
+    C = len(q)
+    dt = res.dtype
+    Jw = (J26[:, 1:] * w[:, 1:, None, None]).reshape(F, R2, 26)
+    cam = (grid.cam if grid.cam is not None else
+           torch.zeros((F, W1), dtype=torch.int64, device=res.device))
+    cj = cam[:, 1:, None].expand(F, W, 2).reshape(F, R2)
+    ci = cam[:, :1].expand(F, R2)
+    zero = torch.zeros((), dtype=dt)
+    blocks = []
+    for c in range(nc):  # the row's camera's block, then the anchor's
+        if ex:
+            blocks.append(torch.where((cj == c)[..., None], Jw[..., 18:24], zero)
+                          + torch.where((ci == c)[..., None], Jw[..., 12:18], zero))
+        else:
+            blocks.append(torch.zeros_like(Jw[..., 12:18]))
+    tdcol = Jw[..., 25:26] if td else torch.zeros_like(Jw[..., 25:26])
+    cr = torch.cat([Jw[..., :12], *blocks, tdcol,
+                    (res[:, 1:].reshape(F, R2) * w[:, 1:, None].expand(F, W, 2).reshape(F, R2)
+                     )[..., None]], dim=-1)
+    x = Jw[..., 24]
+    lo, hi = UNSCALED[dt]
+    fi = torch.finfo(dt)
+    mx = torch.where(torch.isnan(x), 0.0, x.abs()).amax(dim=1)
+    bad = ~torch.isfinite(x).all(dim=1)
+    refl = bad | (mx >= fi.tiny)
+    x0 = x[:, 0]
+    b = -torch.copysign(torch.sqrt((x * x).sum(dim=1)), x0)
+    inv = 1.0 / mx
+    ah = x0 * inv
+    bh = -torch.copysign(torch.sqrt(((x * inv[:, None]) ** 2).sum(dim=1)), ah)
+    inside = (mx >= lo) & (mx <= hi)
+    scal = torch.where(inside, 1.0 / (x0 - b), inv / (ah - bh))
+    tau = torch.where(inside, (b - x0) / b, (bh - ah) / bh)
+    scal, tau = torch.where(refl, scal, 0.0), torch.where(refl, tau, 0.0)
+    finite = ~bad & torch.isfinite(scal) & torch.isfinite(tau)
+    zval = torch.where(refl & ~finite, float("nan"), 0.0).to(dt)
+    v = torch.cat([torch.ones_like(x[:, :1]), x[:, 1:] * scal[:, None]], dim=1)
+    tv = torch.where(refl[:, None], tau[:, None] * v, 0.0)
+    u = torch.zeros((F, C), dtype=dt)
+    for col in range(C):
+        if g[col] == 1:  # DEPTH_GROUP lanes, each over rows 1 + l, 1 + l + DEPTH_GROUP, ...
+            part = [(x[:, 1 + l::DEPTH_GROUP] * cr[:, 1 + l::DEPTH_GROUP, q[col]]).sum(dim=1)
+                    if 1 + l < R2 else torch.zeros(F, dtype=dt) for l in range(DEPTH_GROUP)]
+            o = DEPTH_GROUP // 2
+            while o:
+                part = [part[l] + part[l ^ o] for l in range(DEPTH_GROUP)]
+                o //= 2
+            u[:, col] = cr[:, 0, q[col]] + scal * part[0]
+        elif g[col] == 0:
+            u[:, col] = zval
+        else:
+            r0 = 2 * (g[col] - 2)
+            s = x[:, r0 + 1] * cr[:, r0 + 1, q[col]]
+            if r0:
+                s = x[:, r0] * cr[:, r0, q[col]] + s
+            u[:, col] = (0.0 if r0 else cr[:, 0, q[col]]) + scal * s
+    u = torch.where(refl[:, None], u, 0.0)
+    rows = torch.arange(R2)
+    on = (torch.as_tensor(g)[None, :] == 1) | (torch.as_tensor(g)[None, :] == rows[:, None] // 2 + 2)
+    A = torch.where(on[None], cr[:, :, torch.as_tensor(q)], zero)
+    out = A - tv[:, :, None] * u[:, None, :]
+    out[:, 0] = torch.where(refl[:, None], 0.0, out[:, 0])
+    return out.reshape(F * R2, C)
 
 
 def qr_plain(A):
@@ -296,6 +414,10 @@ def _depth_inputs(res, J26, w, grid, n_cams, out):
     if W1 < 2:
         raise ValueError(f"{name}: the grid has {W1} frames, no observation row")
     C = pose_dim(W1, n_cams) + 1
+    max_cols = limits(dtype)[0]
+    if C > max_cols:  # the widest stack marg_qr takes; the depth column fits a warp below it
+        raise ValueError(f"{name}: the stack would have {C} columns; the kernels take at most "
+                         f"{max_cols}")
     t = {"res": (res, None), "J26": (J26, None), "w": (w, None)}
     if grid.cam is not None:
         t["cam"] = (grid.cam, torch.int64)
@@ -310,9 +432,10 @@ def _depth_inputs(res, J26, w, grid, n_cams, out):
     return dtype, F, W1, C, out
 
 
-def _depth_launch(fn_name, res, J26, w, grid, cfg, n_cams, out):
+def _depth_launch(fn_name, res, J26, w, grid, cfg, n_cams, out, fn=None):
     """One call of ``fn_name`` (the kernel's launch, or with empty=1 the
-    empty kernel's) on ``out``; whether it launched (an empty grid launches
+    empty kernel's; this library's ``marg_depth_launch`` or ``fn``, another
+    build's) on ``out``; whether it launched (an empty grid launches
     nothing)."""
     dtype, F, W1, C, out = _depth_inputs(res, J26, w, grid, n_cams, out)
     if not F:
@@ -320,7 +443,7 @@ def _depth_launch(fn_name, res, J26, w, grid, cfg, n_cams, out):
     empty = int(fn_name == "empty")
     dev = res.device
     with torch.profiler.record_function("marg_qr::marg_depth"), torch.cuda.device(dev):
-        err = _fn("marg_depth_launch", _DEPTH_ARGTYPES)(
+        err = (fn or _fn("marg_depth_launch", _DEPTH_ARGTYPES))(
             res.data_ptr(), J26.data_ptr(), w.data_ptr(), _ptr(grid.cam), F, W1, n_cams,
             int(cfg.estimate_extrinsic), int(cfg.estimate_td), _DTYPES[dtype], empty,
             out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
@@ -329,10 +452,13 @@ def _depth_launch(fn_name, res, J26, w, grid, cfg, n_cams, out):
 
 
 class MargDepthKernel:
-    """``marg_depth``: one launch of ``marg_depth_kernel``, a block a slot."""
+    """``marg_depth``: one launch of ``marg_depth_kernel``, a block a slot.
+    On the card it takes a stack of at most ``limits(dtype)[0]`` columns
+    (marg_qr's widest) and raises ValueError above it."""
 
     def __init__(self):
         self.launches = 0
+        self._fn = None  # another build's launch
 
     def __call__(self, res, J26, w, grid, cfg, n_cams, out=None):
         if not res.is_cuda:
@@ -341,7 +467,7 @@ class MargDepthKernel:
                 return rows
             out.copy_(rows)
             return out
-        out, launched = _depth_launch("kernel", res, J26, w, grid, cfg, n_cams, out)
+        out, launched = _depth_launch("kernel", res, J26, w, grid, cfg, n_cams, out, self._fn)
         self.launches += launched
         return out
 

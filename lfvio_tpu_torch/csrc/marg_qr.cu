@@ -65,12 +65,24 @@
 // writes the stack (20 MB at that size) and is bound by those bytes.
 //
 // Design:
-//  * stage 1: a block of 128 threads a feature; its rows (the weighted
-//    26-column Jacobians and residuals, 2 W of them) staged in shared
-//    memory; warp 0 forms the reflection (scaled norm, the sign of β
-//    opposite x_0's so that x_0 - β does not cancel), all threads form
-//    u = vᵀ A over the C columns and write the stack's rows, a row at a time
-//    across the block (coalesced).
+//  * stage 1: a block of 256 threads a feature (DEP_THREADS), two
+//    block barriers. The block copies the slot's inputs into shared memory
+//    (16-byte cp.async, one round of loads in flight: a loop of loads that
+//    each wait before the next was the first cost found by clock64 stamps,
+//    marg_stamps.py) and builds a table of the C columns (each one's
+//    compact column, the rows that carry it, the end of its run of empty
+//    columns). Then every warp forms the reflection in registers from the
+//    staged depth column (two rows a lane; one butterfly for the largest
+//    entry and the sum of squares; the sign of β opposite x_0's so that
+//    x_0 - β does not cancel), so that no warp waits for another's;
+//    u = vᵀA is summed only where the rows are non-zero (a frame's pose
+//    over its two rows, pose0, the extrinsics, td and r over all), each
+//    kind of column in a loop of its own, and the compact rows (the 14 +
+//    6 nc columns a row can touch, weighted) are staged, every entry by
+//    the same arithmetic. The slot's 2 W C entries are one flat run
+//    written with 16-byte stores across the block from the first 16-byte
+//    boundary (out needs no alignment); the speed-bias columns, more than
+//    half of the stack's, are stores without arithmetic.
 //  * stage 2: a block of 256 threads a leaf, one block an SM (its tile takes
 //    most of the shared memory). A leaf first scans its rows (each row's
 //    first non-zero column, four rows a warp in flight), lists the non-zero
@@ -123,11 +135,15 @@ template <>
 struct Lim<float> {
   static __device__ __forceinline__ float eps() { return FLT_EPSILON; }
   static __device__ __forceinline__ float tiny() { return FLT_MIN; }
+  static __device__ __forceinline__ float nan() { return __int_as_float(0x7fc00000); }
 };
 template <>
 struct Lim<double> {
   static __device__ __forceinline__ double eps() { return DBL_EPSILON; }
   static __device__ __forceinline__ double tiny() { return DBL_MIN; }
+  static __device__ __forceinline__ double nan() {
+    return __longlong_as_double(0x7ff8000000000000LL);
+  }
 };
 
 constexpr unsigned FULL = 0xffffffffu;
@@ -145,8 +161,10 @@ __device__ __forceinline__ T warp_sum(T x) {
 }
 
 // ---------------------------------------------------------------- stage 1
-constexpr int DEP_THREADS = 128;
-constexpr int ROW = 27;  // a staged row: 26 Jacobian columns, then the residual
+constexpr int DEP_THREADS = 256;  // a slot's block
+constexpr int DEP_MAXR = 64;  // a slot's rows a warp holds to form the reflection, two a lane
+constexpr int DEP_GROUP = 8;  // lanes that sum one column over all of a slot's rows
+static_assert(DEP_THREADS % 32 == 0, "whole warps");
 
 template <typename T>
 struct DepthArgs {
@@ -158,101 +176,329 @@ struct DepthArgs {
   int F, W1, nc, ex, td;
 };
 
-// Entry `col` of staged row r (frame 1 + r / 2) in the stack's column
-// order: pose0 [0, 6), speed-bias0 [6, 15), poses 1..W [15, 15 + 6 W),
-// speed-biases 1..W up to 15 W1, the extrinsics (camera-major), td, r.
+// A column of the stack in a slot's table: vᵀA of the column (0 where the
+// slot takes no reflection) and its code, q | g << 10 | zrun << 17: q the
+// column of the slot's compact rows that holds its entries (pose0 [0, 6),
+// the observing frame's pose [6, 12), the extrinsic blocks camera-major
+// [12, 12 + 6 nc), td, r), g the rows that carry it (0 none: an empty
+// column; 1 all; 2 + p rows 2 p and 2 p + 1 alone, the observations of
+// frame p + 1), zrun the first column at or after it that is not empty.
 template <typename T>
-__device__ __forceinline__ T row_entry(const T* row, int r, int cj, int ci, int col, int W1,
-                                       int nc, int ex, int td) {
-  if (col < 6) return row[col];
-  if (col < 15) return T(0);
-  const int ex0 = 15 * W1;
-  if (col < ex0) {
-    const int c = col - 15;
-    if (c < 6 * (W1 - 1) && c / 6 == r / 2) return row[6 + c % 6];
-    return T(0);
+struct alignas(2 * sizeof(T) > 8 ? 16 : 8) DepCol {
+  T u;
+  int code;
+};
+
+template <typename T>
+struct Vec16;
+template <>
+struct Vec16<float> {
+  static __device__ __forceinline__ void store(float* p, const float* v) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
   }
-  const int tdc = ex0 + 6 * nc;
-  if (col < tdc) {
-    if (!ex) return T(0);
-    const int cam = (col - ex0) / 6, k = (col - ex0) % 6;
-    T v = T(0);
-    if (cam == cj) v += row[18 + k];
-    if (cam == ci) v += row[12 + k];
-    return v;
+};
+template <>
+struct Vec16<double> {
+  static __device__ __forceinline__ void store(double* p, const double* v) {
+    *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
   }
-  if (col == tdc) return td ? row[25] : T(0);
-  return row[26];
+};
+
+// The range of a depth column's largest entry in which its norm is summed
+// unscaled (the squares of 2 W entries neither overflow nor lose a digit to
+// underflow); outside it the entries are scaled by the largest, as
+// depth_plain does.
+template <typename T>
+struct DepRange;
+template <>
+struct DepRange<float> {
+  static constexpr float LO = 0x1p-40f, HI = 0x1p40f;
+};
+template <>
+struct DepRange<double> {
+  static constexpr double LO = 0x1p-400, HI = 0x1p400;
+};
+
+// Column `col`'s code in the stack's column order: pose0 [0, 6),
+// speed-bias0 [6, 15), poses 1..W [15, 15 + 6 W), speed-biases 1..W up to
+// 15 W1, the extrinsics (camera-major), td, r.
+__device__ __forceinline__ int depth_code(int col, int W1, int nc, int ex, int td) {
+  const int W = W1 - 1, e0 = 15 * W1, tdc = e0 + 6 * nc, C = tdc + 2;
+  int q = 0, g = 0;
+  if (col < 6) {
+    q = col, g = 1;
+  } else if (col >= 15 && col < 15 + 6 * W) {
+    q = 6 + (col - 15) % 6, g = 2 + (col - 15) / 6;
+  } else if (col >= e0 && col < tdc) {
+    q = 12 + col - e0, g = ex;
+  } else if (col == tdc) {
+    q = 12 + 6 * nc, g = td;
+  } else if (col == C - 1) {
+    q = 13 + 6 * nc, g = 1;
+  }
+  int zrun = col;
+  if (!g) zrun = col < 15 ? 15 : (ex && col < e0 ? e0 : (td && col < tdc ? tdc : C - 1));
+  return q | g << 10 | zrun << 17;
 }
 
+// Where column col sits in the table: VEC interleaved runs, so that the
+// lanes of a warp, VEC columns apart, read consecutive entries.
+template <int VEC>
+__device__ __forceinline__ int depth_slot(int col, int CV) {
+  return (col % VEC) * CV + col / VEC;
+}
+
+// One asynchronous copy of N bytes (4, 8 or 16) from global into shared
+// memory, and the wait for all of a thread's copies.
+template <int N>
+__device__ __forceinline__ void copy_async(void* dst_shared, const void* src_global) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst_shared);
+  if constexpr (N == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src_global) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src_global), "n"(N)
+                 : "memory");
+}
+__device__ __forceinline__ void copy_async_wait() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Where the compact column q of a row comes from (depth_source): s1 | s2 <<
+// 5 | c << 10, s1 and s2 entries of the row's raw Jacobian (26: its
+// residual; 31: none), s1 taken where the row's camera is c (255: any), s2
+// where the anchor's is; compact columns pose0 [0, 6), the observing
+// frame's pose [6, 12), the extrinsic blocks [12, 12 + 6 nc) (the row's
+// camera's block, then the anchor's, added), td, r.
+__device__ __forceinline__ int depth_source(int q, int nc, int ex, int td) {
+  constexpr int NONE = 31, ANY = 255;
+  if (q < 12) return q | NONE << 5 | ANY << 10;
+  if (q < 12 + 6 * nc) {
+    const int c = (q - 12) / 6, k = (q - 12) % 6;
+    return ex ? (18 + k) | (12 + k) << 5 | c << 10 : NONE | NONE << 5 | ANY << 10;
+  }
+  if (q == 12 + 6 * nc) return (td ? 25 : NONE) | NONE << 5 | ANY << 10;
+  return 26 | NONE << 5 | ANY << 10;
+}
+
+// A slot's inputs in shared memory: its rows' raw Jacobians and residuals
+// (unweighted, as proj_rows wrote them), the weights and cameras of its
+// observations, and each compact column's depth_source.
+template <typename T>
+struct DepthRows {
+  const T* J;          // [2 W][26]
+  const T* res;        // [2 W]
+  const T* w;          // [W] frames 1..W
+  const int64_t* cam;  // [W1] frames 0..W, or null (camera 0)
+  const int* src;      // [14 + 6 nc]
+
+  // Entry q of the compact row r (weighted), the same arithmetic for every
+  // column (no branch on its kind).
+  __device__ __forceinline__ T at(int r, int q) const {
+    const int k = src[q], s1 = k & 31, s2 = (k >> 5) & 31, c = k >> 10;
+    const T* row = J + r * 26;
+    const T wr = w[r >> 1];
+    const int cj = cam ? (int)cam[1 + (r >> 1)] : 0, ci = cam ? (int)cam[0] : 0;
+    T x = T(0);
+    if (s1 != 31 && (c == 255 || cj == c)) x = (s1 == 26 ? res[r] : row[s1]) * wr;
+    if (s2 != 31 && ci == c) x += row[s2] * wr;
+    return x;
+  }
+  // The depth column's entry of row r (weighted).
+  __device__ __forceinline__ T depth(int r) const { return J[r * 26 + 24] * w[r >> 1]; }
+};
+
+// The reflection of a slot's depth column x (R2 <= DEP_MAXR rows), formed
+// by every lane of a warp from the rows in shared memory, two a lane: one
+// butterfly for the largest magnitude and the sum of squares together,
+// the norm taken again scaled by the largest where it lies outside
+// DepRange (depth_plain's form). v_r = scal x_r (r >= 1), v_0 = 1, H = I -
+// τ v vᵀ; refl: a reflection is applied (the column is not all zero);
+// zval: what an empty column's u is, scal Σ x_r 0 (NaN where the
+// reflection is not finite). Each lane also keeps its own two x_r.
+template <typename T>
+struct DepthRefl {
+  T x[2], scal, tau, zval;
+  bool refl;
+
+  __device__ __forceinline__ DepthRefl(const DepthRows<T>& rows, int R2, int lane) {
+    T mx = T(0), ss = T(0);
+    bool bad = false;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = lane + 32 * h;
+      x[h] = r < R2 ? rows.depth(r) : T(0);
+      bad |= !isfinite(x[h]);
+      mx = fmax(mx, fabs(x[h]));
+      ss += x[h] * x[h];
+    }
+    for (int o = 16; o; o >>= 1) {
+      mx = fmax(mx, __shfl_xor_sync(FULL, mx, o));
+      ss += __shfl_xor_sync(FULL, ss, o);
+    }
+    bad = __any_sync(FULL, bad);
+    const T x0 = __shfl_sync(FULL, x[0], 0);
+    refl = bad || mx >= Lim<T>::tiny();
+    scal = tau = T(0);
+    if (refl) {
+      if (mx >= DepRange<T>::LO && mx <= DepRange<T>::HI) {
+        const T b = -copysign(sqrt(ss), x0);
+        scal = T(1) / (x0 - b);
+        tau = (b - x0) / b;
+      } else {
+        const T inv = T(1) / mx;
+        T sh = T(0);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const T y = x[h] * inv;
+          sh += y * y;
+        }
+        sh = warp_sum(sh);
+        const T ah = x0 * inv, bh = -copysign(sqrt(sh), ah);
+        scal = inv / (ah - bh);
+        tau = (bh - ah) / bh;
+      }
+    }
+    const bool finite = !bad && isfinite(scal) && isfinite(tau);
+    zval = refl && !finite ? Lim<T>::nan() : T(0);
+  }
+};
+
+// A block a slot. (1) All threads copy the slot's inputs into shared
+// memory (16-byte cp.async for its Jacobian rows), one round of loads in
+// flight, and build the column table. (2) Every warp forms the slot's
+// reflection in registers from the staged depth column (DepthRefl: no
+// warp waits for another's); u = vᵀA = A[0] + scal Σ_{r >= 1} x_r A[r] a
+// column, where v_r = scal x_r: pose0, the extrinsics, td and r over all
+// rows (eight lanes a column), a frame's pose over its two rows, an empty
+// column zval, each kind in a loop of its own (a warp's lanes take one
+// path); the compact rows [2 W][14 + 6 nc] staged beside the sums, every
+// entry by the same arithmetic from its column's depth_source.
+// (3) The slot's 2 W rows are one flat range of 2 W C entries, written from
+// the first 16-byte boundary on with 16-byte stores across the block (the
+// entries before it and after the last whole chunk one at a time); a chunk
+// of VEC empty columns of one row stores its value without arithmetic, any
+// other entry is A[r, col] - τ v_r u_col (the pivot row 0), or A[r, col]
+// where the slot takes no reflection (an all-zero depth column).
 template <typename T>
 __global__ void __launch_bounds__(DEP_THREADS) marg_depth_kernel(const DepthArgs<T> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int W = a.W1 - 1, R2 = 2 * W, C = 15 * a.W1 + 6 * a.nc + 2;
-  T* rows = reinterpret_cast<T*>(smem_raw);  // [R2][ROW]
-  T* v = rows + R2 * ROW;                     // [R2]
-  T* u = v + R2;                              // [C]
-  int* camj = reinterpret_cast<int*>(u + C);  // [R2]
-  __shared__ T s_tau;
-  __shared__ int s_refl;
+  constexpr int VEC = 16 / sizeof(T);
+  const int W1 = a.W1, W = W1 - 1, nc = a.nc, R2 = 2 * W, Q = 14 + 6 * nc;
+  const int C = 15 * W1 + 6 * nc + 2, CV = (C + VEC - 1) / VEC;
+  DepCol<T>* tab = reinterpret_cast<DepCol<T>*>(smem_raw);      // [VEC][CV]
+  T* J = reinterpret_cast<T*>(tab + VEC * CV);                    // [R2][26]
+  int64_t* cam = reinterpret_cast<int64_t*>(J + R2 * 26);        // [W1]
+  T* res = reinterpret_cast<T*>(cam + W1);                        // [R2]
+  T* wt = res + R2;                                               // [W]
+  T* cr = wt + W;                                                 // [R2][Q] the compact rows
+  T* tv = cr + R2 * Q;                                            // [R2] τ v_r
+  int* src = reinterpret_cast<int*>(tv + R2);                     // [Q] depth_source
   const int f = blockIdx.x, tid = threadIdx.x;
-  const size_t obs1 = (size_t)f * a.W1 + 1;  // observation (f, frame 1)
-  for (int i = tid; i < R2 * 26; i += DEP_THREADS) {
-    const int r = i / 26, k = i % 26;
-    rows[r * ROW + k] = a.J26[obs1 * 2 * 26 + i] * a.w[obs1 + r / 2];
+  const size_t obs1 = (size_t)f * W1 + 1;  // observation (f, frame 1)
+  const T* __restrict__ Jg = a.J26 + obs1 * 52;
+  if ((reinterpret_cast<uintptr_t>(Jg) & 15) == 0) {
+    for (int i = tid; i < R2 * 26 / VEC; i += DEP_THREADS) copy_async<16>(J + i * VEC, Jg + i * VEC);
+  } else {
+    for (int i = tid; i < R2 * 26; i += DEP_THREADS) copy_async<sizeof(T)>(J + i, Jg + i);
   }
-  for (int r = tid; r < R2; r += DEP_THREADS) {
-    rows[r * ROW + 26] = a.res[obs1 * 2 + r] * a.w[obs1 + r / 2];
-    camj[r] = a.cam ? (int)a.cam[obs1 + r / 2] : 0;
-  }
-  const int ci = a.cam ? (int)a.cam[(size_t)f * a.W1] : 0;
+  for (int i = tid; i < R2; i += DEP_THREADS) copy_async<sizeof(T)>(res + i, a.res + obs1 * 2 + i);
+  for (int i = tid; i < W; i += DEP_THREADS) copy_async<sizeof(T)>(wt + i, a.w + obs1 + i);
+  if (a.cam)
+    for (int i = tid; i < W1; i += DEP_THREADS) copy_async<8>(cam + i, a.cam + obs1 - 1 + i);
+  for (int col = tid; col < C; col += DEP_THREADS)
+    tab[depth_slot<VEC>(col, CV)].code = depth_code(col, W1, nc, a.ex, a.td);
+  for (int q = tid; q < Q; q += DEP_THREADS) src[q] = depth_source(q, nc, a.ex, a.td);
+  copy_async_wait();
   __syncthreads();
+  const DepthRows<T> rows{J, res, wt, a.cam ? cam : nullptr, src};
+  const DepthRefl<T> hh(rows, R2, tid & 31);
+  const bool refl = hh.refl;
+  const T scal = hh.scal, zval = hh.zval;
   if (tid < 32) {
-    T xmax = T(0);
-    bool bad = false;
-    for (int r = tid; r < R2; r += 32) {
-      const T x = rows[r * ROW + 24];
-      xmax = fmax(xmax, fabs(x));
-      bad |= x != x;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = tid + 32 * h;
+      if (r < R2) tv[r] = refl ? hh.tau * (r ? hh.x[h] * scal : T(1)) : T(0);
     }
-    xmax = warp_max(xmax);
-    bad = __any_sync(FULL, bad);
-    const bool refl = bad || xmax >= Lim<T>::tiny();
-    if (refl) {
-      const T inv = T(1) / xmax;
-      T ss = T(0);
-      for (int r = tid; r < R2; r += 32) {
-        const T x = rows[r * ROW + 24] * inv;
-        ss += x * x;
+  }
+  if (refl) {  // pose0, the extrinsics, td and r: DEP_GROUP lanes a column
+    const int nA = 7 + (a.ex ? 6 * nc : 0) + a.td;
+    for (int base = 0; base < nA * DEP_GROUP; base += DEP_THREADS) {
+      if (base + (tid & ~31) >= nA * DEP_GROUP) break;  // whole warps take part
+      const int g = (base + tid) / DEP_GROUP, l = tid % DEP_GROUP;
+      int q = 0, col = 0;
+      if (g < 6) {
+        q = col = g;
+      } else if (a.ex && g < 6 + 6 * nc) {
+        q = 12 + g - 6, col = 15 * W1 + g - 6;
+      } else {
+        const int k = g - 6 - (a.ex ? 6 * nc : 0) + (a.td ? 0 : 1);  // 0 td, 1 r
+        q = 12 + 6 * nc + k, col = 15 * W1 + 6 * nc + k;
       }
-      ss = warp_sum(ss);
-      const T ah = rows[24] * inv;
-      const T bh = -copysign(sqrt(ss), ah);
-      const T scal = inv / (ah - bh);
-      for (int r = tid; r < R2; r += 32) v[r] = r ? rows[r * ROW + 24] * scal : T(1);
-      if (tid == 0) s_tau = (bh - ah) / bh;
-    }
-    if (tid == 0) s_refl = refl;
-  }
-  __syncthreads();
-  const bool refl = s_refl;
-  if (refl) {
-    for (int col = tid; col < C; col += DEP_THREADS) {
       T s = T(0);
-      for (int r = 0; r < R2; ++r)
-        s += v[r] * row_entry(rows + r * ROW, r, camj[r], ci, col, a.W1, a.nc, a.ex, a.td);
-      u[col] = s;
+      if (g < nA)
+        for (int r = 1 + l; r < R2; r += DEP_GROUP) s += rows.depth(r) * rows.at(r, q);
+      for (int o = DEP_GROUP / 2; o; o >>= 1) s += __shfl_xor_sync(FULL, s, o);
+      if (g < nA && l == 0) tab[depth_slot<VEC>(col, CV)].u = rows.at(0, q) + scal * s;
     }
   }
-  __syncthreads();
-  const T tau = s_tau;
-  T* out = a.out + (size_t)f * R2 * C;
-  for (int r = 0; r < R2; ++r) {
-    const T tv = refl ? tau * v[r] : T(0);
-    for (int col = tid; col < C; col += DEP_THREADS) {
-      const T x = row_entry(rows + r * ROW, r, camj[r], ci, col, a.W1, a.nc, a.ex, a.td);
-      out[(size_t)r * C + col] = refl ? (r ? x - tv * u[col] : T(0)) : x;
+  if (refl) {  // the frames' poses: frame 1 + p over its rows 2 p, 2 p + 1
+    for (int i = tid; i < 6 * W; i += DEP_THREADS) {
+      const int p = i / 6, q = 6 + i % 6, r0 = 2 * p, r1 = r0 + 1;
+      const T s1 = rows.depth(r1) * rows.at(r1, q);
+      const T s = r0 ? rows.depth(r0) * rows.at(r0, q) + s1 : s1;
+      tab[depth_slot<VEC>(15 + i, CV)].u = (r0 ? T(0) : rows.at(0, q)) + scal * s;
     }
+  }
+  for (int col = tid; col < C; col += DEP_THREADS) {  // the empty columns; all without one
+    DepCol<T>& e = tab[depth_slot<VEC>(col, CV)];
+    if (!refl || !((e.code >> 10) & 127)) e.u = refl ? zval : T(0);
+  }
+  for (int i = tid; i < R2 * Q; i += DEP_THREADS) {
+    const int r = i / Q;
+    cr[i] = rows.at(r, i - r * Q);
+  }
+  __syncthreads();
+  const int E = R2 * C;
+  T* out = a.out + (size_t)f * E;
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(out);
+  const int h = min(E, addr % sizeof(T) ? E : (int)(((16 - (addr & 15)) & 15) / sizeof(T)));
+  const int nch = (E - h) / VEC, t0 = h + nch * VEC;
+  auto value = [&](int r, int col, const DepCol<T>& e) {
+    const int g = (e.code >> 10) & 127;
+    const bool on = g == 1 || g == (r >> 1) + 2;
+    const T x = on ? cr[r * Q + (e.code & 1023)] : T(0);
+    return refl && r == 0 ? T(0) : x - tv[r] * e.u;
+  };
+  for (int i = tid; i < h; i += DEP_THREADS) {  // before the first 16-byte boundary
+    const int r = i / C, col = i - r * C;
+    out[i] = value(r, col, tab[depth_slot<VEC>(col, CV)]);
+  }
+  for (int i = t0 + tid; i < E; i += DEP_THREADS) {  // after the last whole chunk
+    const int r = i / C, col = i - r * C;
+    out[i] = value(r, col, tab[depth_slot<VEC>(col, CV)]);
+  }
+  constexpr int STEP = DEP_THREADS * VEC;
+  const int dq = STEP / C, dm = STEP % C;
+  int rb = (h + tid * VEC) / C, cb = h + tid * VEC - rb * C;
+  for (int i = tid; i < nch; i += DEP_THREADS) {
+    T vals[VEC];
+    const DepCol<T> e0 = tab[depth_slot<VEC>(cb, CV)];
+    if ((e0.code >> 17) >= cb + VEC) {  // VEC empty columns of one row
+      const T z = refl && rb == 0 ? T(0) : zval;
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) vals[k] = z;
+    } else {
+      int r = rb, col = cb;
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) {
+        vals[k] = value(r, col, k ? tab[depth_slot<VEC>(col, CV)] : e0);
+        if (++col == C) col = 0, ++r;
+      }
+    }
+    Vec16<T>::store(out + h + (size_t)i * VEC, vals);
+    cb += dm, rb += dq;
+    if (cb >= C) cb -= C, ++rb;
   }
 }
 
@@ -261,8 +507,10 @@ __global__ void __launch_bounds__(DEP_THREADS) marg_depth_empty_kernel(const Dep
 
 template <typename T>
 size_t depth_smem(int W1, int nc) {
-  const int R2 = 2 * (W1 - 1), C = 15 * W1 + 6 * nc + 2;
-  return (size_t)(R2 * ROW + R2 + C) * sizeof(T) + (size_t)R2 * sizeof(int);
+  constexpr int VEC = 16 / sizeof(T);
+  const int W = W1 - 1, R2 = 2 * W, C = 15 * W1 + 6 * nc + 2, Q = 14 + 6 * nc;
+  return (size_t)VEC * ((C + VEC - 1) / VEC) * sizeof(DepCol<T>) + (size_t)W1 * sizeof(int64_t) +
+         (size_t)(R2 * 26 + R2 + W + R2 * Q + R2) * sizeof(T) + (size_t)Q * sizeof(int);
 }
 
 
@@ -1077,13 +1325,17 @@ int launch_qr(const void* A, int M, int C, int head, int NL, void* R,
 // Stage 1 at F slots over W1 frames and nc cameras: the compact rows of
 // proj_rows (res [F, W1, 2], J26 [F, W1, 2, 26], w [F, W1]; cam [F, W1]
 // int64 or null) of a grid whose used features are anchored at frame 0,
-// into out [F * 2 (W1 - 1), 15 W1 + 6 nc + 2]; ex, td: whether the
-// extrinsic and td columns are estimated. empty: marg_depth_empty_kernel
-// with the same grid, block and shared memory. dtype 0 float32, 1 float64.
+// into out [F * 2 (W1 - 1), C], C = 15 W1 + 6 nc + 2 <= QR_MAXC (the
+// widest stack marg_qr_launch takes; out needs no alignment beyond its
+// type's); ex, td: whether the extrinsic and td columns are estimated (0
+// or 1). empty: marg_depth_empty_kernel with the same grid, block and
+// shared memory. dtype 0 float32, 1 float64.
 extern "C" int marg_depth_launch(const void* res, const void* J26, const void* w,
                                  const void* cam, int F, int W1, int nc, int ex, int td,
                                  int dtype, int empty, void* out, void* stream) {
-  if (F < 1 || W1 < 2 || nc < 1 || (dtype != 0 && dtype != 1)) return -1;
+  if (F < 1 || W1 < 2 || nc < 1 || 15 * W1 + 6 * nc + 2 > QR_MAXC || 2 * (W1 - 1) > DEP_MAXR ||
+      (ex != 0 && ex != 1) || (td != 0 && td != 1) || (dtype != 0 && dtype != 1))
+    return -1;
   return dtype ? launch_depth<double>(res, J26, w, cam, F, W1, nc, ex, td, out, empty != 0,
                                       (cudaStream_t)stream)
                : launch_depth<float>(res, J26, w, cam, F, W1, nc, ex, td, out, empty != 0,

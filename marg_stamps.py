@@ -1,9 +1,11 @@
 """Where the time of one marg_qr launch goes, on one CUDA card: clock64
 stamps in the block of leaf 0 (the dense head's leaf) and in the block of
 the final merge (the tree's root absorbed into leaf 0's triangle, the end
-of the launch's chain).
+of the launch's chain). With ``depth``, where the time of one marg_depth
+launch goes.
 
     python3 marg_stamps.py [MARG_QR_CU]        (beside chip_smoke.py)
+    python3 marg_stamps.py depth [MARG_QR_CU]
 
 MARG_QR_CU defaults to this tree's ``lfvio_tpu_torch/csrc/marg_qr.cu``; an
 earlier one (for example ``git show affed1d:lfvio_tpu_torch/csrc/marg_qr.cu
@@ -21,6 +23,21 @@ earlier one (for example ``git show affed1d:lfvio_tpu_torch/csrc/marg_qr.cu
   barrier that ends an iteration and each tile's staging; and lane 0 of
   warp 0 the phases of each column step inside a panel (each stamp waits
   for a value the phase computes).
+
+``depth``: thread 0 of every block of ``marg_depth_kernel`` stamps its
+phases, summed over the blocks: in the first design (a 128-thread block
+a slot, three block barriers) the staging of the slot's rows, warp 0's
+reflection, u = vᵀA, the write; in this tree's design the copies (up to
+the first barrier), the reflection with u and the compact rows, the
+write; and, apart, the reflection in warp 0 after the first barrier, the
+landing of thread 32's copies from the block's start, thread 32's start
+after thread 0's (thread 0 stamps the phases), and the parts of the
+second phase in thread 0 (a warp that sums the all-row columns) and
+thread 64 (one that does not). A block barrier is added after the write so that its stamp waits
+for every thread. The launch's span is the earliest block start to the
+latest block end on the card's global timer (%globaltimer, ns). Run at (a)
+and (b)'s MARGIN_OLD inputs (f32), the rows written into the stack's view
+after the head, as the MARGIN_OLD program writes them.
 
 Builds the stamped copy with this tree's nvcc flags into a library of its
 own, binds it behind ``marg_cuda.MargQrKernel``, launches it behind
@@ -184,6 +201,100 @@ PANEL_KERNEL = [  # leaf 0's block and the final merge's (its start to its end, 
 ]
 
 
+GTIME = ('__device__ __forceinline__ unsigned long long gtime() {\n'
+         '  unsigned long long t;\n'
+         '  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t) :: "memory");\n'
+         '  return t;\n'
+         '}\n')
+DEPTH_READ = ('\nextern "C" int marg_stamps_read(unsigned long long* out) {\n'
+              '  return (int)cudaMemcpyFromSymbol(out, marg_stamps, sizeof(marg_stamps));\n}\n'
+              'extern "C" int marg_stamps_zero() {\n'
+              '  unsigned long long z[16] = {};\n'
+              '  z[8] = ~0ull;  // the earliest block start\n'
+              '  return (int)cudaMemcpyToSymbol(marg_stamps, z, sizeof(z));\n}\n')
+DEPTH_START = ("  const int f = blockIdx.x, tid = threadIdx.x;\n",
+               "  const int f = blockIdx.x, tid = threadIdx.x;\n"
+               "  const long long sd0 = stamp();\n"
+               "  if (tid == 0) atomicMin(&marg_stamps[8], gtime());\n")
+
+
+def depth_end(slots):
+    """The stamps after a block barrier at the kernel's end: each phase
+    (start stamp, end stamp) into its slot, a block counted, the latest
+    end."""
+    return ("  __syncthreads();\n  if (tid == 0) {\n    const long long sdn = stamp();\n    "
+            + " ".join(ACC.format(i, f"{b} - {a}") for i, (a, b) in enumerate(slots))
+            + " " + ACC.format(7, "1") + "\n    atomicMax(&marg_stamps[9], gtime());\n  }\n}\n")
+
+
+# The first design (a 128-thread block a slot, three barriers): staging,
+# warp 0's reflection, u, the write.
+DEPTH_FIRST = [
+    DEPTH_START,
+    ("  const int ci = a.cam ? (int)a.cam[(size_t)f * a.W1] : 0;\n  __syncthreads();\n",
+     "  const int ci = a.cam ? (int)a.cam[(size_t)f * a.W1] : 0;\n  __syncthreads();\n"
+     "  const long long sd1 = stamp();\n"),
+    ("    if (tid == 0) s_refl = refl;\n  }\n  __syncthreads();\n",
+     "    if (tid == 0) s_refl = refl;\n  }\n  __syncthreads();\n  const long long sd2 = stamp();\n"),
+    ("      u[col] = s;\n    }\n  }\n  __syncthreads();\n",
+     "      u[col] = s;\n    }\n  }\n  __syncthreads();\n  const long long sd3 = stamp();\n"),
+    ("      out[(size_t)r * C + col] = refl ? (r ? x - tv * u[col] : T(0)) : x;\n    }\n  }\n}\n",
+     "      out[(size_t)r * C + col] = refl ? (r ? x - tv * u[col] : T(0)) : x;\n    }\n  }\n"
+     + depth_end((("sd0", "sd1"), ("sd1", "sd2"), ("sd2", "sd3"), ("sd3", "sdn")))),
+]
+DEPTH_FIRST_PHASES = ("staging the slot's rows", "warp 0's reflection", "u = vᵀA", "the write")
+# This tree's design (two barriers): staging beside the reflection, u, the
+# write; and warp 0's reflection and thread 32's staging from the start.
+DEPTH_FLAT = [
+    (DEPTH_START[0], DEPTH_START[1] + "  if (tid == 0) st_t0 = sd0;\n"),
+    ("  copy_async_wait();\n  __syncthreads();\n",
+     "  copy_async_wait();\n  if (tid == 32) " + ACC.format(5, "stamp() - sd0") + "\n"
+     "  __syncthreads();\n  const long long sd1 = stamp();\n"
+     "  if (tid == 32) " + ACC.format(6, "sd0 - st_t0") + "\n"),
+    ("  const bool refl = hh.refl;\n",
+     "  if (tid == 0) " + ACC.format(4, "stamp_after(hh.scal) - sd1") + "\n"
+     "  const bool refl = hh.refl;\n"),
+    ("      if (g < nA && l == 0) tab[depth_slot<VEC>(col, CV)].u = rows.at(0, q) + scal * s;\n"
+     "    }\n  }\n",
+     "      if (g < nA && l == 0) tab[depth_slot<VEC>(col, CV)].u = rows.at(0, q) + scal * s;\n"
+     "    }\n  }\n  if (tid == 0) " + ACC.format(10, "stamp() - sd1") + "\n"),
+    ("    if (!refl || !((e.code >> 10) & 127)) e.u = refl ? zval : T(0);\n  }\n",
+     "    if (!refl || !((e.code >> 10) & 127)) e.u = refl ? zval : T(0);\n  }\n"
+     "  if (tid == 0) " + ACC.format(11, "stamp() - sd1") + "\n"
+     "  if (tid == 64) " + ACC.format(13, "stamp() - sd1") + "\n"),
+    ("    cr[i] = rows.at(r, i - r * Q);\n  }\n  __syncthreads();\n",
+     "    cr[i] = rows.at(r, i - r * Q);\n  }\n"
+     "  if (tid == 0) " + ACC.format(12, "stamp() - sd1") + "\n"
+     "  if (tid == 64) " + ACC.format(14, "stamp() - sd1") + "\n"
+     "  __syncthreads();\n  const long long sd2 = stamp();\n"),
+    ("    cb += dm, rb += dq;\n    if (cb >= C) cb -= C, ++rb;\n  }\n}\n",
+     "    cb += dm, rb += dq;\n    if (cb >= C) cb -= C, ++rb;\n  }\n"
+     + depth_end((("sd0", "sd1"), ("sd1", "sd2"), ("sd2", "sdn")))),
+]
+DEPTH_FLAT_PHASES = ("the copies and the column table (to the first barrier)",
+                     "the reflection, u = vᵀA and the compact rows", "the write", None,
+                     "the reflection in warp 0, after the first barrier",
+                     "thread 32's copies landed, from the start",
+                     "thread 32's start after thread 0's", None, None, None,
+                     "thread 0 (a summing warp) after its sums, from the first barrier",
+                     "thread 0 after the other columns' u", "thread 0 after its compact rows",
+                     "thread 64 after the other columns' u", "thread 64 after its compact rows")
+
+
+def depth_stamped(text):
+    """(the source with marg_depth_kernel's stamps, its phases by slot, the
+    design's name)."""
+    design = "flat" if "depth_code(" in text else "first"
+    edits, phases = ((DEPTH_FLAT, DEPTH_FLAT_PHASES) if design == "flat"
+                     else (DEPTH_FIRST, DEPTH_FIRST_PHASES))
+    text = text.replace("namespace {\n", STAMP_DEFS + GTIME + "\nnamespace {\n", 1)
+    for anchor, new in edits:
+        if text.count(anchor) != 1:
+            raise RuntimeError(f"marg_stamps.py: the {design} depth kernel no longer has {anchor!r}")
+        text = text.replace(anchor, new)
+    return text + DEPTH_READ, phases, design
+
+
 def stamped(text):
     """(the source with the stamps, its phases by stamp slot, the name of a
     stamped interval)."""
@@ -203,7 +314,8 @@ def stamped(text):
     return text + READ, phases, per
 
 
-def main(argv):
+def depth_main(argv):
+    """``depth [MARG_QR_CU]``: marg_depth_kernel's stamps at (a) and (b)."""
     import numpy as np
     import torch
 
@@ -213,7 +325,61 @@ def main(argv):
     from lfvio_tpu_torch.frontend import klt_cuda
 
     if len(argv) > 1:
-        print(f"usage: {sys.argv[0]} [MARG_QR_CU]", file=sys.stderr)
+        print(f"usage: {sys.argv[0]} depth [MARG_QR_CU]", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("marg_stamps.py: no CUDA device", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    print(chip_smoke.smi_line(), flush=True)
+    path = argv[0] if argv else mc.__file__.replace("backend/marg_cuda.py", "csrc/marg_qr.cu")
+    text, phases, design = depth_stamped(open(path).read())
+    src = klt_cuda.BUILD_DIR / "marg_depth_stamped.cu"
+    klt_cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src.write_text(text)
+    so = turns.build_earlier_lib(src, "marg_qr", "depth_stamped")
+    kernel = turns.bind_marg_depth(so)
+    so.marg_stamps_read.argtypes, so.marg_stamps_read.restype = [ctypes.c_void_p], ctypes.c_int
+    so.marg_stamps_zero.restype = ctypes.c_int
+    block = chip_smoke.make_blocker(dev)
+    for label, (depth_args, view) in chip_smoke.depth_inputs(dev).items():
+        runs = []
+        for _ in range(5):
+            block()
+            if so.marg_stamps_zero() != 0:
+                raise RuntimeError("marg_stamps.py: zeroing the stamps failed")
+            kernel(*depth_args, out=view)
+            torch.cuda.synchronize()
+            buf = (ctypes.c_ulonglong * 16)()
+            if so.marg_stamps_read(ctypes.addressof(buf)) != 0:
+                raise RuntimeError("marg_stamps.py: reading the stamps failed")
+            runs.append(np.asarray(list(buf), dtype=np.uint64).view(np.int64).astype(np.float64))
+        med = np.median(np.stack(runs), axis=0)
+        blocks = max(med[7], 1.0)
+        n = 4 if design == "first" else 3
+        total = sum(med[:n])
+        print(f"{label} {design} design: {blocks:.0f} blocks, the launch's span "
+              f"{(med[9] - med[8]) / 1e3:.3f} µs on the global timer (median of 5); SM cycles "
+              "a block: " + "; ".join(
+                  f"{name} {med[i] / blocks:.0f}" + (f" ({100 * med[i] / max(total, 1.0):.1f}%)"
+                                                     if i < n else "")
+                  for i, name in enumerate(phases) if name), flush=True)
+    return 0
+
+
+def main(argv):
+    import numpy as np
+    import torch
+
+    import chip_smoke
+    import turns
+    from lfvio_tpu_torch.backend import marg_cuda as mc
+    from lfvio_tpu_torch.frontend import klt_cuda
+
+    if argv and argv[0] == "depth":
+        return depth_main(argv[1:])
+    if len(argv) > 1:
+        print(f"usage: {sys.argv[0]} [MARG_QR_CU] | depth [MARG_QR_CU]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("marg_stamps.py: no CUDA device", file=sys.stderr)

@@ -1403,32 +1403,13 @@ def test_capture_raises_without_conditional_nodes(dev, monkeypatch):
 
 # ------------------------------------------------ csrc/marg_qr.cu: the marginalizations' QR
 def _marg_window(dev, dtype, n_slots=256, n_cams=1, seed=0):
-    """make_window_problem's window on the card (tracks of 5 frames, anchors
-    spread; with ``n_cams`` = 2 a second extrinsic and a random camera an
-    observation) as MARGIN_OLD's arguments."""
-    import dataclasses
+    """chip_smoke.marg_window: make_window_problem's window on the card
+    (tracks of 5 frames, anchors spread; with ``n_cams`` = 2 a second
+    extrinsic and a random camera an observation) as MARGIN_OLD's
+    arguments."""
+    import chip_smoke
 
-    from lfvio_tpu_torch.imu import preintegrate, whiten_covariance
-    from lfvio_tpu_torch.runtime.profiling import make_window_problem
-
-    pb = make_window_problem(n_slots, dtype, n_obs_frames=5, seed=seed, device=dev)
-    st, grid, cfg, prior = pb["state"], pb["grid"], pb["cfg"], pb["prior"]
-    if n_cams == 2:
-        import chip_smoke
-
-        dual = chip_smoke.dual_camera_inputs(dev)[0]
-        st = st.replace(tic=dual.tic.to(dtype), qic=dual.qic.to(dtype))
-        g = torch.Generator(device="cpu").manual_seed(seed)
-        grid = grid.replace(cam=torch.randint(0, 2, grid.valid.shape, generator=g).to(dev))
-        cfg = dataclasses.replace(cfg, n_cams=2)
-        D = prior.J.shape[0] + 6
-        R = torch.triu(0.5 * torch.randn(D, D, generator=g, dtype=torch.float64)) + 2 * torch.eye(D)
-        prior = type(prior).from_state(R.to(dev, dtype), torch.zeros(D, dtype=dtype, device=dev),
-                                       st, torch.ones((), dtype=torch.bool, device=dev))
-    imu = [torch.as_tensor(pb[k], dtype=dtype, device=dev) for k in ("dts", "accs", "gyrs", "a0", "g0")]
-    pre = preintegrate(*imu, st.ba[:-1], st.bg[:-1], pb["noise"])
-    si, ok = whiten_covariance(pre.covariance, torch.as_tensor(pb["imu_valid"], device=dev))
-    return (st, grid, pre, si, ok, prior, pb["gravity"], cfg)
+    return chip_smoke.marg_window(dev, dtype, n_slots, n_cams, seed)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -1499,6 +1480,46 @@ def test_marg_qr_without_information_in_some_columns(dev, dtype):
         info[-1, -1] = 0.0  # r0ᵀr0: split with the last row where a kept pivot is rounding
         infos.append(info)
     assert all(float((x - infos[0]).abs().max()) <= bound * S for x in infos[1:])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_marg_depth_into_views_and_at_the_widest_stack(dev, dtype):
+    """marg_depth against depth_plain within chip_smoke.MARG_BOUNDS of each
+    slot's scale, written into views that start 0, 1, 2 and 3 entries into
+    a buffer (chip_smoke.depth_view_check: nothing written outside the view,
+    a repeat bit-identical), on relo_layout's windows with 96% of the slots
+    anchored at frame 0: one camera at 11 frames and 256 slots, two cameras
+    with the extrinsics and td estimated, and one camera at 25 frames (C =
+    383, the widest stack marg_qr takes); at each a NaN and an inf depth
+    carried as depth_plain carries them (chip_smoke.depth_nonfinite_check);
+    at 26 frames (C = 398) marg_depth raises ValueError and counts no
+    launch."""
+    import dataclasses
+
+    import chip_smoke
+    from lfvio_tpu_torch.backend import marg_cuda as mc
+    from lfvio_tpu_torch.backend.proj_cuda import proj_rows
+
+    bound = chip_smoke.MARG_BOUNDS[str(dtype).split(".")[-1]]
+
+    def depth_args(W1, F, nc):
+        st, grid, cfg, _ = chip_smoke.relo_layout(dev, dtype, W1, F, nc, "front")
+        cfg = dataclasses.replace(cfg, estimate_extrinsic=nc > 1, estimate_td=nc > 1)
+        grid0 = grid.replace(used=grid.used & (grid.anchor == 0))
+        res, J26, w, _ = proj_rows(st, grid0, cfg)
+        return res, J26, w, grid0, cfg, nc
+
+    for args in (depth_args(11, 256, 1), depth_args(11, 96, 2), depth_args(25, 64, 1)):
+        for offset in range(4):
+            err, alone, same, _ = chip_smoke.depth_view_check(args, offset)
+            assert err <= bound and alone and same, (args[3].valid.shape, offset, err)
+        same_nan, n_nan, err = chip_smoke.depth_nonfinite_check(args)
+        assert same_nan and n_nan and err <= bound, (same_nan, n_nan, err)
+    wide = depth_args(26, 8, 1)
+    before = mc.marg_depth.launches
+    with pytest.raises(ValueError):
+        mc.marg_depth(*wide)
+    assert mc.marg_depth.launches == before
 
 
 def test_marg_wrappers_reject_what_the_kernels_do_not_take(dev):

@@ -561,3 +561,138 @@ def test_marg_stamps_finds_its_anchors_in_this_source():
     text, phases, per = marg_stamps.stamped(src.read_text())
     assert per == "panel" and len(phases) == 7
     assert text.count("stamp_after(") >= 5 and 'extern "C" int marg_stamps_read' in text
+
+
+# --------------------------------------- marg_depth_kernel's order (plain form)
+# marg_cuda.depth_order_plain: the kernel's column table (depth_columns),
+# compact rows, reflection, u = A[0] + scal Σ_{r >= 1} x_r A[r] summed only
+# over the rows that carry each column, and the entries by kind, in torch
+# ops. Besides the JAX windows (few features anchored at frame 0),
+# chip_smoke.relo_layout's windows, with 96% of the slots anchored there.
+def _depth_layout(W1, n_cams, on, dtype=F64, F=48):
+    """marg_depth's arguments on a relo_layout window ("front" anchors),
+    the extrinsics and td estimated (``on``) or not."""
+    st, grid, cfg, _ = chip_smoke.relo_layout(torch.device("cpu"), dtype, W1, F, n_cams, "front")
+    cfg = dataclasses.replace(cfg, estimate_extrinsic=on, estimate_td=on)
+    grid0 = grid.replace(used=grid.used & (grid.anchor == 0))
+    res, J26, w, _ = tsolver.proj_rows(st, grid0, cfg)
+    return res, J26, w, grid0, cfg, n_cams
+
+
+def _depth_window(w, on=None):
+    """marg_depth's arguments on a JAX comparison window (its config, or
+    the extrinsics and td estimated or not by ``on``)."""
+    st, grid = w["t"][:2]
+    cfg = w["tcfg"] if on is None else dataclasses.replace(w["tcfg"], estimate_extrinsic=on,
+                                                           estimate_td=on)
+    grid0 = grid.replace(used=grid.used & (grid.anchor == 0))
+    res, J26, wts, _ = tsolver.proj_rows(st, grid0, cfg)
+    return res, J26, wts, grid0, cfg, tmarg.n_cams_of(st)
+
+
+DEPTH_LAYOUTS = {f"{W1}_frames_{nc}_cam{'s' if nc > 1 else ''}_{'on' if on else 'off'}":
+                 (W1, nc, on) for W1 in (11, 21) for nc in (1, 2) for on in (True, False)}
+
+
+@pytest.mark.parametrize("layout", list(DEPTH_LAYOUTS))
+def test_depth_order_matches_depth_plain(layout):
+    """The kernel's order against depth_plain in f64, within 1e-13 of each
+    slot's scale (chip_smoke.depth_error), at 11 and 21 frames, one camera
+    and two, the extrinsics and td estimated and not."""
+    args = _depth_layout(*DEPTH_LAYOUTS[layout])
+    assert chip_smoke.depth_error(args, mc.depth_order_plain(*args), mc.depth_plain(*args)) <= 1e-13
+
+
+@pytest.mark.parametrize("case", ["mono_prior", "two_cameras_prior"])
+@pytest.mark.parametrize("on", [True, False])
+def test_depth_order_matches_depth_plain_on_the_jax_windows(windows, case, on):
+    """The same on the JAX comparison's windows, the extrinsics and td
+    estimated and not."""
+    args = _depth_window(windows[case], on)
+    assert chip_smoke.depth_error(args, mc.depth_order_plain(*args), mc.depth_plain(*args)) <= 1e-13
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_depth_order_matches_jax(windows, jax_priors, monkeypatch, case):
+    """MARGIN_OLD with its stage 1 in the kernel's order: within 1e-8 of
+    JAX's marginalize_old_qr (without a prior, rᵀr the minimum-norm one)."""
+    w = windows[case]
+
+    def depth(res, J26, wts, grid, cfg, n_cams, out=None):
+        out.copy_(mc.depth_order_plain(res, J26, wts, grid, cfg, n_cams))
+        return out
+
+    monkeypatch.setattr(tmarg, "marg_depth", depth)
+    tp = tmarg.marginalize_old_qr(*w["t"], w["tcfg"])
+    assert bool(tp.valid)
+    info_close(jax_priors[case]["old"], tp, 1e-8, singular="no_prior" in case)
+
+
+@pytest.mark.parametrize("layout", ["11_frames_2_cams_on", "11_frames_1_cam_off",
+                                    "21_frames_2_cams_off"])
+def test_depth_columns_describe_the_dense_rows(layout):
+    """depth_columns against the dense rows of every slot (marg_cuda's
+    _dense_obs_rows): an empty column (g 0) is zero in every row, a frame's
+    pose column (g 2 + p) outside rows 2 p and 2 p + 1, and the others hold
+    their compact column's entries; each empty column's run ends at zrun,
+    the first column that is not empty."""
+    args = _depth_layout(*DEPTH_LAYOUTS[layout])
+    A, _ = mc._dense_obs_rows(*args)
+    F, R2, C = A.shape
+    q, g, zrun = mc.depth_columns(args[3].valid.shape[1], args[5], args[4].estimate_extrinsic,
+                                  args[4].estimate_td)
+    assert len(q) == C
+    rows = np.arange(R2)
+    for col in range(C):
+        if g[col] == 0:
+            assert float(A[:, :, col].abs().max()) == 0.0
+            assert zrun[col] > col and (g[col:zrun[col]] == 0).all() and g[zrun[col]] != 0
+        else:
+            assert zrun[col] == col
+        if g[col] >= 2:
+            off = rows // 2 != g[col] - 2
+            assert float(A[:, off, col].abs().max()) == 0.0
+    assert (g != 0).any() and (g[6:15] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [F64, torch.float32])
+def test_depth_plain_speed_bias_zero_and_a_nan_slot(dtype):
+    """What marg_depth_kernel's stores without arithmetic rely on: on slots
+    whose inputs are finite, depth_plain's rows are exactly zero in every
+    empty column (depth_columns' g 0: the speed-bias columns; the
+    extrinsics and td where not estimated); on a slot with a NaN depth,
+    every entry of its rows after the pivot is NaN, the speed-bias columns'
+    too, and its pivot row zero, and the other slots are unchanged. The
+    kernel's order gives the same NaNs."""
+    args = _depth_layout(11, 1, False, dtype)
+    res, J26, w, grid, cfg, nc = args
+    q, g, _ = mc.depth_columns(11, 1, False, False)
+    F, R2, C = J26.shape[0], 20, len(q)
+    ref = mc.depth_plain(*args).reshape(F, R2, C)
+    assert torch.isfinite(ref).all()
+    assert float(ref[:, :, g == 0].abs().max()) == 0.0
+    f = int((J26[:, 1:, :, 24].abs().amax(dim=(1, 2)) > 0).nonzero()[0])
+    J = J26.clone()
+    J[f, 3, 1, 24] = float("nan")
+    bad = (res, J, w, grid, cfg, nc)
+    got = mc.depth_plain(*bad).reshape(F, R2, C)
+    assert torch.isnan(got[f, 1:]).all() and float(got[f, 0].abs().max()) == 0.0
+    others = torch.arange(F) != f
+    assert torch.equal(got[others], ref[others])
+    order = mc.depth_order_plain(*bad).reshape(F, R2, C)
+    assert torch.equal(torch.isnan(order), torch.isnan(got))
+
+
+def test_marg_stamps_finds_its_depth_anchors_in_this_source():
+    """marg_stamps.py's depth mode stamps this tree's marg_depth_kernel (the
+    flat design): every anchor is found once, and the stamped source reads
+    the clock and the global timer and exports its counters."""
+    import pathlib
+
+    import marg_stamps
+
+    src = pathlib.Path(mc.__file__).parent.parent / "csrc" / "marg_qr.cu"
+    text, phases, design = marg_stamps.depth_stamped(src.read_text())
+    assert design == "flat" and sum(p is not None for p in phases) == 11
+    assert "%%globaltimer" in text and 'extern "C" int marg_stamps_read' in text
+    assert text.count("atomicAdd(&marg_stamps[") >= 6

@@ -67,7 +67,9 @@ def test_relo_layout_plain_matches_jax(W1, n_slots, layout, n_cams):
     js, jg, jc, jrelo = as_jax(*args)
     rows, system = jax.jit(lambda *a: jax_relo(*a, jc))(js, jg, *map(jnp.asarray, jrelo),
                                                          tuple(map(jnp.asarray, base)))
-    t = lambda x: torch.as_tensor(x, dtype=F64)
+    # Copies: relo_normal adds in place, and jnp.asarray may share a 64-byte
+    # aligned numpy buffer with the JAX computation dispatched above.
+    t = lambda x: torch.tensor(x, dtype=F64)
     pad = torch.nn.functional.pad
     sums = (pad(t(base[0]), (0, 6, 0, 6)), pad(t(base[1]), (0, 0, 0, 6)), t(base[2]),
             pad(t(base[3]), (0, 6)), t(base[4]))

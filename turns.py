@@ -10,6 +10,7 @@ replay by up to 2.9 ms, so two versions are compared only inside one).
     python3 turns.py eig EARLIER_SYM_EIG_CU
     python3 turns.py relo EARLIER_PROJ_FACTOR_CU
     python3 turns.py marg EARLIER_MARG_QR_CU
+    python3 turns.py depth OTHER_MARG_QR_CU
 
 ``tree``: OTHER_TREE is another checkout (for example ``git archive
 <commit>`` unpacked under ``_archive/``, which ``.gitignore`` lists). In the
@@ -91,6 +92,20 @@ a full queue in turns earlier, this, this, earlier, each beside its own
 latency floor (its empty kernel with the launch's grid, block and shared
 memory), the bound (``chip_smoke.marg_bound_ms``) and ``torch.linalg.qr``
 of the same stack.
+
+``depth``: another ``csrc/marg_qr.cu``'s ``marg_depth_launch`` (the same
+arguments; an earlier source, or a variant of this one copied under
+``_archive/``) behind ``marg_cuda``'s wrapper class against this tree's
+``marg_depth``: at (a) and (b)'s MARGIN_OLD inputs (f32,
+``chip_smoke.depth_inputs``) both are held against ``depth_plain`` within
+``chip_smoke.MARG_BOUNDS`` with a repeat bit-identical (each also read
+against ``depth_plain`` in float64 on the inputs upcast, beside
+``depth_plain``'s own float32 reading), written into the
+MARGIN_OLD stack's view after its head (as the program writes it) and into
+a tensor of its own; then timed behind a full queue in turns (other, this,
+this, other; each labelled by its file name), on the view and on the
+tensor of its own, each launched alone too, beside each source's latency
+floor, the bound (``chip_smoke.marg_bound_ms``) and its share of it.
 """
 
 from __future__ import annotations
@@ -168,14 +183,14 @@ def tree_main(argv):
     return 0
 
 
-def build_earlier_lib(src, stem, tag="earlier", flags=()):
-    """The earlier source (or, with ``flags``, a variant of a source) built
-    with this tree's nvcc flags into a library of its own, loaded."""
+def build_earlier_lib(src, stem, tag="earlier"):
+    """The earlier source built with this tree's nvcc flags into a library
+    of its own, loaded."""
     from lfvio_tpu_torch.frontend import klt_cuda
 
     lib = klt_cuda.BUILD_DIR / f"lib{stem}_{tag}.so"
     klt_cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    subprocess.run([klt_cuda.nvcc_path(), *klt_cuda.NVCC_FLAGS, *flags, "-o", str(lib), str(src)],
+    subprocess.run([klt_cuda.nvcc_path(), *klt_cuda.NVCC_FLAGS, "-o", str(lib), str(src)],
                    check=True)
     return ctypes.CDLL(str(lib))
 
@@ -627,13 +642,97 @@ def marg_main(argv):
     return 0
 
 
+def bind_marg_depth(so):
+    """A built ``csrc/marg_qr.cu``'s ``marg_depth_launch`` behind
+    ``marg_cuda``'s wrapper class."""
+    from lfvio_tpu_torch.backend import marg_cuda as mc
+
+    kernel = mc.MargDepthKernel()
+    kernel._fn = so.marg_depth_launch
+    kernel._fn.argtypes, kernel._fn.restype = mc._DEPTH_ARGTYPES, ctypes.c_int
+    return kernel
+
+
+def depth_main(argv):
+    """``depth OTHER_MARG_QR_CU``: the other source's marg_depth and this
+    tree's in turns."""
+    import torch
+
+    import chip_smoke
+    from lfvio_tpu_torch.backend import marg_cuda as mc
+
+    dev = card_or_usage("depth", argv, "OTHER_MARG_QR_CU")
+    if dev is None:
+        return 2
+    smi = chip_smoke.smi_line()
+    print(smi, flush=True)
+    sources = {Path(argv[0]).name: bind_marg_depth(build_earlier_lib(Path(argv[0]), "marg_qr")),
+               "this": mc.marg_depth}
+    bound = chip_smoke.MARG_BOUNDS["float32"]
+    inputs = chip_smoke.depth_inputs(dev)
+
+    def targets(view):
+        return (("view", "the stack's view", view), ("own", "a tensor of its own", None))
+
+    for label, (depth_args, view) in inputs.items():
+        ref = mc.depth_plain(*depth_args)
+        ref64 = mc.depth_plain(*chip_smoke.to_f64(depth_args))
+        plain64 = chip_smoke.depth_error(depth_args, ref.double(), ref64)
+        for who, kernel in sources.items():
+            for _, where, out in targets(view):
+                got = kernel(*depth_args, out=out).clone()
+                again = kernel(*depth_args, out=out)
+                err = chip_smoke.depth_error(depth_args, got, ref)
+                err64 = chip_smoke.depth_error(depth_args, got.double(), ref64)
+                same = torch.equal(got, again)
+                print(f"{label} {who} into {where}: {err:.2e} of each slot's scale from "
+                      f"depth_plain, {err64:.2e} from depth_plain in f64 on the inputs upcast "
+                      f"(depth_plain in f32 {plain64:.2e}); repeat bit-identical {same}",
+                      flush=True)
+                if not (same and err <= bound):
+                    raise AssertionError(f"{label}: {who} is not within {bound} of "
+                                         "depth_plain, or a repeat differs")
+    block = chip_smoke.make_blocker(dev)
+    order = list(sources) + list(sources)[::-1]
+    out = {}
+    for label, (depth_args, view) in inputs.items():
+        nbound, by, nbytes, _ = chip_smoke.marg_bound_ms(depth_args, view, "marg_depth")
+        out[label] = dict(bound_ms=nbound, bound_by=by, bytes=nbytes,
+                          view_offset_bytes=view.data_ptr() % 16)
+        for key, where, o in targets(view):
+            turns = []
+            for who in order:
+                k = sources[who]
+                turns.append((who, chip_smoke.cuda_ms(lambda: k(*depth_args, out=o), reps=10,
+                                                      blocker=block)))
+                print(f"({label}) marg_depth into {where}, {who}: {turns[-1][1]:.4f} ms behind a full queue, at "
+                      f"{100 * nbound / turns[-1][1]:.1f}% of the bound {nbound:.6f} ms", flush=True)
+            alone = {who: chip_smoke.cuda_ms(lambda k=k: k(*depth_args, out=o))
+                     for who, k in sources.items()}
+            floors = {}
+            for who, k in sources.items():
+                fn = k._fn
+                empty = lambda: mc._depth_launch("empty", *depth_args, out=o, fn=fn)
+                floors[who] = dict(queued=chip_smoke.cuda_ms(empty, reps=10, blocker=block),
+                                   alone=chip_smoke.cuda_ms(empty))
+            print(f"({label}) marg_depth into {where}: launched alone " + ", ".join(
+                f"{w} {v:.4f} ms" for w, v in alone.items()) + "; latency floor (the empty "
+                "kernel) behind a full queue / alone " + ", ".join(
+                f"{w} {v['queued']:.4f} / {v['alone']:.4f} ms" for w, v in floors.items()),
+                flush=True)
+            out[label][key] = dict(turns=turns, alone=alone, floor=floors)
+    print(json.dumps({"card": smi, "times_ms": out}))
+    return 0
+
+
 def main(argv):
     modes = {"tree": tree_main, "proj": proj_main, "imu": imu_main, "rows": rows_main,
-             "eig": eig_main, "relo": relo_main, "marg": marg_main}
+             "eig": eig_main, "relo": relo_main, "marg": marg_main, "depth": depth_main}
     if not argv or argv[0] not in modes:
         print(f"usage: {sys.argv[0]} tree OTHER_TREE | proj EARLIER_PROJ_FACTOR_CU | "
               "imu EARLIER_IMU_FACTOR_CU | rows EARLIER_PROJ_FACTOR_CU | "
-              "eig EARLIER_SYM_EIG_CU | relo EARLIER_PROJ_FACTOR_CU | marg EARLIER_MARG_QR_CU",
+              "eig EARLIER_SYM_EIG_CU | relo EARLIER_PROJ_FACTOR_CU | marg EARLIER_MARG_QR_CU | "
+              "depth OTHER_MARG_QR_CU",
               file=sys.stderr)
         return 2
     return modes[argv[0]](argv[1:])
