@@ -2853,8 +2853,8 @@ KERNEL_PARTS = {"proj_rows_kernel<float, true>": "projection",
                 "imu_rows_kernel<double, true>": "imu and prior",
                 "imu_rows_kernel<float, false>": "cost", "imu_rows_kernel<double, false>": "cost",
                 "imu_normal_kernel": "imu and prior"}
-# The ranges the factor wrappers open around a launch (record_function).
-WRAPPER_RANGES = ("proj_factor::", "imu_factor::")
+# The ranges the factor wrappers open around a launch (tracing.region).
+WRAPPER_RANGES = ("proj_factor::", "imu_factor::", "relo_factor::")
 
 
 class annotated_solver:

@@ -45,6 +45,7 @@ import ctypes
 import torch
 
 from ..device import register_kernel
+from ..tracing import region
 from .factors import imu_jacobian, imu_residuals_window
 from .proj_cuda import _DTYPES, _check, _ptr, _shape
 from .state import n_cams_of, pose_dim
@@ -141,7 +142,7 @@ def _bind(name, argtypes):
 
 
 def _launch(fn, name, dev, *args):
-    with torch.profiler.record_function(f"imu_factor::{name}"), torch.cuda.device(dev):
+    with region(f"imu_factor::{name}"), torch.cuda.device(dev):
         err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")

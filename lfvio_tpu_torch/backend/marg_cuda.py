@@ -55,6 +55,7 @@ import numpy as np
 import torch
 
 from ..device import register_kernel
+from ..tracing import region
 from .proj_cuda import _DTYPES, _check, _ptr, _shape, full_rows
 from .state import pose_dim, pose_off, sb_off
 
@@ -442,7 +443,7 @@ def _depth_launch(fn_name, res, J26, w, grid, cfg, n_cams, out, fn=None):
         return out, False
     empty = int(fn_name == "empty")
     dev = res.device
-    with torch.profiler.record_function("marg_qr::marg_depth"), torch.cuda.device(dev):
+    with region("marg_qr::marg_depth"), torch.cuda.device(dev):
         err = (fn or _fn("marg_depth_launch", _DEPTH_ARGTYPES))(
             res.data_ptr(), J26.data_ptr(), w.data_ptr(), _ptr(grid.cam), F, W1, n_cams,
             int(cfg.estimate_extrinsic), int(cfg.estimate_td), _DTYPES[dtype], empty,
@@ -523,7 +524,7 @@ def _qr_launch(empty, A, head, fn=None, limits_fn=None):
     # zeroed sync words: this source's 1 + 2 (2 NL - 1) (a ticket, each node's flag and
     # progress); an earlier source's (turns.py) levels * NL + 1 merge counters
     count = torch.zeros((max(4 * NL - 1, levels * NL + 1),), dtype=torch.int32, device=dev)
-    with torch.profiler.record_function("marg_qr::marg_qr"), torch.cuda.device(dev):
+    with region("marg_qr::marg_qr"), torch.cuda.device(dev):
         err = (fn or _fn("marg_qr_launch", _QR_ARGTYPES))(
             A.data_ptr(), M, C, head, NL, _DTYPES[A.dtype], int(empty),
             R.data_ptr(), mask.data_ptr(), count.data_ptr(),

@@ -33,6 +33,7 @@ import functools
 import numpy as np
 import torch
 
+from ..tracing import region
 from .factors import prior_residual
 from .imu_cuda import imu_rows
 from .marg_cuda import _stack_order, marg_depth, marg_qr, stack_columns
@@ -197,13 +198,13 @@ def old_stack(state: WindowState, grid, pre0, sqrt_info_imu0, imu0_valid, prior:
     F, W1 = grid.valid.shape
     nc = n_cams_of(state)
     D = pose_dim(n_frames, nc)
-    with torch.profiler.record_function("marg_old::linearize"):
+    with region("marg_old::linearize"):
         grid0 = grid.replace(used=grid.used & (grid.anchor == 0))
         imu_valid = torch.zeros_like(imu0_valid)
         imu_valid[0] = imu0_valid[0]
         res, J26, w, _ = proj_rows(state, grid0, cfg)
         imu_res, J30 = imu_rows(state, pre0, sqrt_info_imu0, imu_valid, gravity)
-    with torch.profiler.record_function("marg_old::stack"):
+    with region("marg_old::stack"):
         stack = torch.empty((D + 15 + F * 2 * (W1 - 1), D + 1), dtype=state.p.dtype, device=dev)
         stack[:D] = _prior_rows(state, prior, stack_columns(n_frames, D, dev))
         imu = stack[D:D + 15]
@@ -219,15 +220,15 @@ def marginalize_old_qr(state: WindowState, grid, pre0, sqrt_info_imu0, imu0_vali
     """MARGIN_OLD: old prior + IMU(0,1) + projection factors anchored at
     frame 0; drops {pose0, speedbias0, anchored inverse depths}; returns the
     new PriorFactor re-indexed for the slid window: the rows of
-    ``marg_qr`` of ``old_stack`` below the 15 dropped ones. Its
-    record_function ranges ("marg_old::linearize", "::stack", "::qr",
-    "::scatter_slide") split a profile's time."""
+    ``marg_qr`` of ``old_stack`` below the 15 dropped ones. Its ranges
+    (``tracing.region``: "marg_old::linearize", "::stack", "::qr",
+    "::scatter_slide") split a recording profile's time."""
     n_frames = state.p.shape[0]
     D = pose_dim(n_frames, n_cams_of(state))
     stack = old_stack(state, grid, pre0, sqrt_info_imu0, imu0_valid, prior, gravity, cfg)
-    with torch.profiler.record_function("marg_old::qr"):
+    with region("marg_old::qr"):
         Rfac = marg_qr(stack, head=D + 15)
-    with torch.profiler.record_function("marg_old::scatter_slide"):
+    with region("marg_old::scatter_slide"):
         Jk, rk, ok = _kept_prior(Rfac, 15, D)
         J, r0 = _scatter_prior(Jk, rk, stack_columns(n_frames, D, stack.device)[15:], D)
         return _slid_old(J, r0, state, ok)

@@ -40,6 +40,7 @@ import torch
 
 from ..device import register_kernel
 from ..geom import tangent_basis
+from ..tracing import region
 from .factors import (
     anchor_values,
     cauchy_corrector,
@@ -245,7 +246,7 @@ def _rows_launch(fn, name, state, grid, cfg):
     out = cost if cost_only else (res, J26, w, cost)
     if not F:
         return out, False
-    with torch.profiler.record_function(f"proj_factor::{name}"), torch.cuda.device(dev):
+    with region(f"proj_factor::{name}"), torch.cuda.device(dev):
         err = fn(*ptrs, F, W1, C, float(cfg.proj_sqrt_info), float(cfg.cauchy_c),
                  0 if cost_only else 1, _DTYPES[dtype], _ptr(res), _ptr(J26), _ptr(w),
                  cost.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
@@ -297,7 +298,7 @@ class ProjNormalKernel:
         if self._fn is None:
             self._fn = _bind("proj_normal_launch", [_P] * 13 + [_I, _I, _I, _DBL, _DBL, _I, _I, _I]
                              + [_P] * 7)
-        with torch.profiler.record_function("proj_factor::proj_normal"), torch.cuda.device(dev):
+        with region("proj_factor::proj_normal"), torch.cuda.device(dev):
             err = self._fn(
                 *ptrs, F, W1, C, float(cfg.proj_sqrt_info), float(cfg.cauchy_c),
                 int(cfg.estimate_extrinsic), int(cfg.estimate_td), _DTYPES[dtype],

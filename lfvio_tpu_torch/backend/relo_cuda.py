@@ -52,6 +52,7 @@ import torch
 
 from ..device import register_kernel
 from ..geom import tangent_basis
+from ..tracing import region
 from .factors import anchor_values, cauchy_corrector, projection_jacobian, projection_residual
 from .proj_cuda import _DTYPES, _bind, _check, _cost_terms, _ptr, _shape, _state_inputs
 from .state import ex_2d, n_cams_of, pose_dim
@@ -210,7 +211,7 @@ def _launch(fn, name, mode, empty, state, grid, relo, cfg, sums=None):
         cost = torch.empty(F, dtype=dtype, device=dev)
     if not F:
         return (torch.zeros(0, dtype=dtype, device=dev) if cost is not None else None), False
-    with torch.profiler.record_function(f"proj_factor::{name}"), torch.cuda.device(dev):
+    with region(f"relo_factor::{name}"), torch.cuda.device(dev):
         err = fn(*ptrs[:13], F, W1, C, float(cfg.proj_sqrt_info), float(cfg.cauchy_c), *ptrs[13:],
                  int(cfg.estimate_extrinsic), mode, int(empty), _DTYPES[dtype], _ptr(H6), _ptr(b6),
                  _ptr(H_pl6), _ptr(H_ll), _ptr(b_l), _ptr(cost),

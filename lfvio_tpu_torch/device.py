@@ -14,6 +14,8 @@ import weakref
 
 import torch
 
+from .tracing import span
+
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point (``FrontEnd``, ``Estimator``,
@@ -329,7 +331,12 @@ class DeviceProgram:
     later call's does (each kernel launch of that call is counted once);
     the outputs are fresh tensors, not the static ones.
 
-    On the CPU the function is called as it is, op for op."""
+    On the CPU the function is called as it is, op for op.
+
+    Under a recording profile a call opens the spans
+    ``prog.<name>.capture`` (the first call's set-up), ``.copy_in`` (the
+    arguments into the static inputs), ``.replay`` (the launch and its
+    accounting) and, on the CPU, ``.eager``."""
 
     def __init__(self, fn, pool=None, name=None, warmup_result=False):
         self.fn = fn
@@ -345,23 +352,29 @@ class DeviceProgram:
         self._launches = []
         self._bodies = []  # each conditional body's [(wrapper, launches)]
         self._body_runs = None  # their runs on the card, a count a body
+        self._spans = {k: f"prog.{self.name}.{k}" for k in ("capture", "copy_in", "replay",
+                                                            "eager")}
 
     def __call__(self, *args):
         leaves = _leaves(args, [])
         if not leaves or not leaves[0].is_cuda:
-            return self.fn(*args)
+            with span(self._spans["eager"]):
+                return self.fn(*args)
         if self.graph is None:
-            out = self._capture(args)
+            with span(self._spans["capture"]):
+                out = self._capture(args)
             if self.warmup_result:
                 return out
         else:
-            for dst, src in zip(self._in_leaves, leaves):
-                if src.data_ptr() != dst.data_ptr():
-                    dst.copy_(src)
-        self.graph.replay()
-        self.replays += 1
-        for k, n in self._launches:
-            k.launches += n
+            with span(self._spans["copy_in"]):
+                for dst, src in zip(self._in_leaves, leaves):
+                    if src.data_ptr() != dst.data_ptr():
+                        dst.copy_(src)
+        with span(self._spans["replay"]):
+            self.graph.replay()
+            self.replays += 1
+            for k, n in self._launches:
+                k.launches += n
         return self.static_out
 
     def _capture(self, args):

@@ -42,6 +42,7 @@ from ..frontend import (
 )
 from ..frontend import klt_cuda
 from ..frontend.ransac import N_HYPOTHESES
+from ..tracing import span
 
 
 class IdCounter:
@@ -297,19 +298,27 @@ class FrontEnd:
         static tensors, which its next replay overwrites: the next call
         copies pyr, pos and valid into its static inputs first (the other
         program may share their memory too: nothing reads them after)."""
-        if self._dev_pos is None:
-            pyr, pos0, valid0, new_src = self._first_impl(self._upload(img))
+        with span("fe.dispatch", t):
+            if self._dev_pos is None:
+                with span("fe.upload"):
+                    dev_img = self._upload(img)
+                pyr, pos0, valid0, new_src = self._first_impl(dev_img)
+                self.prev_pyr = pyr
+                self._dev_pos, self._dev_valid = pos0, valid0
+                return ("first", Fetch([pos0, valid0]), t, publish)
+            draws = None
+            if publish:
+                with span("fe.draws"):
+                    draws = self.ransac_draws()
+            step = self._step(publish)
+            with span("fe.upload"):
+                dev_img = self._upload(img, step)
+            pyr, status, new_src, pos_next, bear_next, valid_next = step(
+                self.prev_pyr, dev_img, self._dev_pos, self._dev_valid, draws
+            )
             self.prev_pyr = pyr
-            self._dev_pos, self._dev_valid = pos0, valid0
-            return ("first", Fetch([pos0, valid0]), t, publish)
-        draws = self.ransac_draws() if publish else None
-        step = self._step(publish)
-        pyr, status, new_src, pos_next, bear_next, valid_next = step(
-            self.prev_pyr, self._upload(img, step), self._dev_pos, self._dev_valid, draws
-        )
-        self.prev_pyr = pyr
-        self._dev_pos, self._dev_valid = pos_next, valid_next
-        return ("step", Fetch([status, new_src, pos_next, bear_next]), t, publish)
+            self._dev_pos, self._dev_valid = pos_next, valid_next
+            return ("step", Fetch([status, new_src, pos_next, bear_next]), t, publish)
 
     def process_arrays(self, img, t: float, publish: bool = True):
         """Run one frame synchronously. Returns (ids [N], bearings [N,3],
@@ -322,58 +331,60 @@ class FrontEnd:
         """Complete a dispatched frame: wait for its copies and do the host
         id / track-count bookkeeping."""
         kind, fetch, t, publish = handle
-        outs = fetch.numpy()
-        if kind == "first":
-            pos0, valid0 = outs
-            slots = np.where(valid0)[0]
-            self.pos = pos0.astype(np.float64)
-            s0 = self._ids_src.take(len(slots))
-            self.ids[slots] = np.arange(s0, s0 + len(slots))
-            self.track_cnt[slots] = 1
+        with span("fe.finalize", t):
+            with span("fe.wait"):
+                outs = fetch.numpy()
+            if kind == "first":
+                pos0, valid0 = outs
+                slots = np.where(valid0)[0]
+                self.pos = pos0.astype(np.float64)
+                s0 = self._ids_src.take(len(slots))
+                self.ids[slots] = np.arange(s0, s0 + len(slots))
+                self.track_cnt[slots] = 1
+                self.prev_time = t
+                self.prev_bearing = np.zeros((self.N, 3))
+                self.prev_has_bearing = np.zeros(self.N, bool)
+                return None
+
+            status, new_src, pos_next, bear_next = outs
+            status = status & (self.ids >= 0)
+            pos_next = pos_next.astype(np.float64)
+            bear_next = bear_next.astype(np.float64)
+
+            # Free failed slots; advance survivors.
+            failed = (self.ids >= 0) & ~status
+            self.ids[failed] = -1
+            self.track_cnt[failed] = 0
+            self.prev_has_bearing[failed] = False
+            self.pos = pos_next
+            self.track_cnt[status] += 1
+
+            # Ids for refill slots; slots ascend with detection order.
+            new_slots = np.where(new_src >= 0)[0]
+            if publish and len(new_slots):
+                s0 = self._ids_src.take(len(new_slots))
+                self.ids[new_slots] = np.arange(s0, s0 + len(new_slots))
+                self.track_cnt[new_slots] = 1
+            valid = self.ids >= 0
+
+            cur_bearing = np.where(valid[:, None], bear_next, 0.0)
+            has_prev = self.prev_has_bearing & status
+            # 3-D bearing velocities (Δbearing/Δt for features tracked from the
+            # previous frame).
+            dt = t - self.prev_time if self.prev_time is not None else 0.0
+            vels = np.zeros((self.N, 3))
+            if dt > 0:
+                vels[has_prev] = (
+                    cur_bearing[has_prev] - self.prev_bearing[has_prev]
+                ) / dt
+
             self.prev_time = t
-            self.prev_bearing = np.zeros((self.N, 3))
-            self.prev_has_bearing = np.zeros(self.N, bool)
-            return None
-
-        status, new_src, pos_next, bear_next = outs
-        status = status & (self.ids >= 0)
-        pos_next = pos_next.astype(np.float64)
-        bear_next = bear_next.astype(np.float64)
-
-        # Free failed slots; advance survivors.
-        failed = (self.ids >= 0) & ~status
-        self.ids[failed] = -1
-        self.track_cnt[failed] = 0
-        self.prev_has_bearing[failed] = False
-        self.pos = pos_next
-        self.track_cnt[status] += 1
-
-        # Ids for refill slots; slots ascend with detection order.
-        new_slots = np.where(new_src >= 0)[0]
-        if publish and len(new_slots):
-            s0 = self._ids_src.take(len(new_slots))
-            self.ids[new_slots] = np.arange(s0, s0 + len(new_slots))
-            self.track_cnt[new_slots] = 1
-        valid = self.ids >= 0
-
-        cur_bearing = np.where(valid[:, None], bear_next, 0.0)
-        has_prev = self.prev_has_bearing & status
-        # 3-D bearing velocities (Δbearing/Δt for features tracked from the
-        # previous frame).
-        dt = t - self.prev_time if self.prev_time is not None else 0.0
-        vels = np.zeros((self.N, 3))
-        if dt > 0:
-            vels[has_prev] = (
-                cur_bearing[has_prev] - self.prev_bearing[has_prev]
-            ) / dt
-
-        self.prev_time = t
-        self.prev_bearing = cur_bearing
-        self.prev_has_bearing = valid.copy()
-        if not publish:
-            return None
-        pub_mask = valid & (self.track_cnt > 1)
-        return self.ids.copy(), cur_bearing, vels, self.pos[:, 1].copy(), pub_mask
+            self.prev_bearing = cur_bearing
+            self.prev_has_bearing = valid.copy()
+            if not publish:
+                return None
+            pub_mask = valid & (self.track_cnt > 1)
+            return self.ids.copy(), cur_bearing, vels, self.pos[:, 1].copy(), pub_mask
 
     def process(self, img, t: float, publish: bool = True):
         """Dict interface: id -> (bearing3, vel3, row) for published

@@ -1578,3 +1578,32 @@ def test_marg_programs_graph_matches_eager(dev):
                 2 * x for x in want]
             for x, y in zip(_leaves(out), _leaves(eager)):
                 assert torch.equal(x, y)
+
+
+def test_device_program_spans(dev):
+    """Under a recording profile a DeviceProgram's first call opens
+    ``vio::prog.<name>.capture`` and its replay ``.replay``; a later call
+    ``.copy_in`` then ``.replay``; the results are the function's. Without
+    a profile the calls open nothing and give the same results."""
+    from lfvio_tpu_torch.device import DeviceProgram
+    from torch.autograd import DeviceType
+
+    def affine(x):
+        return x * 2 + 1
+
+    x = torch.arange(8.0, device=dev)
+    prog = DeviceProgram(affine, name="affine")
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        a = prog(x).clone()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof2:
+        b = prog(x + 1).clone()
+        torch.cuda.synchronize()
+    c = prog(x + 2).clone()
+    names = [[e.name for e in sorted(p.events(), key=lambda e: e.time_range.start)
+              if e.device_type == DeviceType.CPU and e.name.startswith("vio::")]
+             for p in (prof, prof2)]
+    assert names == [["vio::prog.affine.capture", "vio::prog.affine.replay"],
+                     ["vio::prog.affine.copy_in", "vio::prog.affine.replay"]]
+    assert torch.equal(a, affine(x)) and torch.equal(b, affine(x + 1))
+    assert torch.equal(c, affine(x + 2)) and prog.replays == 3
